@@ -1,0 +1,19 @@
+"""pde_tpu_torch — the variational PDE vision engine in PyTorch and CUDA.
+
+The second implementation of the engine, beside the JAX package
+``pde_tpu``, which stays the reference it is tested against. Layout
+mirrors ``pde_tpu`` file for file (``pde_tpu_torch/core/resize.py``
+pairs with ``pde_tpu/core/resize.py``). Public functions keep the JAX
+signatures and layouts: ``(C, H, W)`` images, ``(H, W)`` float32 fields,
+the device taken from the input.
+
+Ported so far: the warping optical flow ``models.flow_nd`` and
+everything it calls, with the llin4 red-black SOR sweep as a
+hand-written CUDA kernel (``csrc/flow_llin4_sor.cu``). Importing the
+package builds and loads nothing; the kernel is compiled with ``nvcc``
+at its first launch on a CUDA tensor (``kernels/build.py``).
+"""
+
+__version__ = "0.1.0"
+
+from pde_tpu_torch import core, ops, solvers, kernels, models  # noqa: F401

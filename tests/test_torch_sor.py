@@ -1,0 +1,132 @@
+"""The plain llin4 SOR (``pde_tpu_torch/solvers/sor.py``), the CUDA
+kernel's reference, held against ``pde_tpu``'s XLA solver and both Pallas
+kernels run in interpret mode, as ``tests/test_kernels.py`` runs them; and
+the dispatch, wrapper and build rules that can be checked without a card.
+
+The kernel itself runs only on the card: ``chip_smoke.py`` compares it with
+the plain version there.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from pde_tpu.kernels import sweeps
+from pde_tpu.kernels.sor_pallas import pallas_sor_flow_llin4
+from pde_tpu.kernels.tiled import tiled_relax
+from pde_tpu.solvers import sor as jsor
+from pde_tpu_torch.kernels import build, dispatch, sor_cuda
+from pde_tpu_torch.solvers import sor
+
+torch.set_num_threads(1)
+
+ATOL = 1e-5
+NAMES = ("u", "v", "du", "dv", "m", "cu", "cv", "duc", "dvc", "ww", "wn", "we", "ws")
+
+
+def _fields(rng, h, w, nan_names=("cu", "duc")):
+    """Unit-scale llin4 fields as in tests/test_kernels.py, 5% NaN in
+    ``nan_names`` (the missing-data sentinel)."""
+    out = {}
+    for n in NAMES:
+        if n in ("duc", "dvc"):
+            x = rng.random((h, w)) + 1.0
+        elif n == "m":
+            x = rng.random((h, w)) * 0.01
+        elif n.startswith("w"):
+            x = rng.random((h, w)) + 0.1
+        else:
+            x = rng.random((h, w)) * 0.2
+        out[n] = x.astype(np.float32)
+    for n in nan_names:
+        out[n] = np.where(rng.random((h, w)) < 0.05, np.nan, out[n]).astype(np.float32)
+    return [out[n] for n in NAMES]
+
+
+def _plain(fields, iters, omega):
+    return sor.sor_flow_llin4(*(torch.from_numpy(f) for f in fields), iters, omega)
+
+
+def _assert_close(got, want):
+    for g, w_ in zip(got, want):
+        g, w_ = g.numpy(), np.asarray(w_)
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, w_, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("h,w", [(37, 53), (48, 65)])
+@pytest.mark.parametrize("nan_names", [("cu", "duc"), ("cu", "cv", "duc", "dvc")])
+def test_plain_matches_xla_solver(rng, h, w, nan_names):
+    fields = _fields(rng, h, w, nan_names)
+    want = jsor.sor_flow_llin4(*(jnp.asarray(f) for f in fields), 5, 1.9)
+    _assert_close(_plain(fields, 5, 1.9), want)
+
+
+@pytest.mark.parametrize("h,w", [(37, 53), (48, 65)])
+def test_plain_matches_resident_pallas_kernel(rng, h, w):
+    fields = _fields(rng, h, w)
+    want = pallas_sor_flow_llin4(*(jnp.asarray(f) for f in fields), 5, 1.9, interpret=True)
+    _assert_close(_plain(fields, 5, 1.9), want)
+
+
+@pytest.mark.parametrize("h,w", [(37, 53), (48, 65)])
+def test_plain_matches_stripe_pallas_kernel(rng, h, w):
+    """3- or 4-stripe plan with k=2 sweeps per pass, iters % k != 0."""
+    fields = _fields(rng, h, w)
+    u, v, du, dv, *const = (jnp.asarray(f) for f in fields)
+    prepare, sweep = sweeps.flow_llin4_sweep(1.9)
+    want = tiled_relax((du, dv, u, v, *const), sweep, 2, 5, prepare_fn=prepare,
+                       interpret=True, plan_override=(2, 16))
+    _assert_close(_plain(fields, 5, 1.9), want)
+
+
+def test_plain_zero_iters_returns_inputs(rng):
+    fields = _fields(rng, 9, 11)
+    got = _plain(fields, 0, 1.9)
+    np.testing.assert_array_equal(got[0].numpy(), fields[2])
+    np.testing.assert_array_equal(got[1].numpy(), fields[3])
+
+
+def test_dispatch_cpu_is_plain_and_launches_nothing(rng):
+    args = [torch.from_numpy(f) for f in _fields(rng, 21, 30)]
+    before = sor_cuda.LAUNCHES
+    want = sor.sor_flow_llin4(*args, 4, 1.9)
+    for got in (dispatch.sor_flow_llin4(*args, 4, 1.9), _plain_ctx(args)):
+        for g, w_ in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w_.numpy())
+    assert sor_cuda.LAUNCHES == before
+
+
+def _plain_ctx(args):
+    with dispatch.plain_solvers():
+        assert dispatch._FORCE_PLAIN.get()
+        out = dispatch.sor_flow_llin4(*args, 4, 1.9)
+    assert not dispatch._FORCE_PLAIN.get()
+    return out
+
+
+def test_cuda_wrapper_rejects_cpu_tensors_before_building(rng, monkeypatch):
+    def no_build(name):
+        raise AssertionError("the wrapper must check its inputs before it builds")
+
+    monkeypatch.setattr(build, "load", no_build)
+    args = [torch.from_numpy(f) for f in _fields(rng, 8, 9)]
+    before = sor_cuda.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        sor_cuda.flow_llin4_sor(*args, 4, 1.9)
+    assert sor_cuda.LAUNCHES == before
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.find_nvcc()
+
+
+def test_library_name_follows_source_hash():
+    path = build.library_path(sor_cuda.SOURCE)
+    assert path.parent == build.BUILD_DIR
+    assert path.name.startswith("lib" + sor_cuda.SOURCE + "_") and path.suffix == ".so"
+    assert (build.CSRC / f"{sor_cuda.SOURCE}.cu").is_file()
