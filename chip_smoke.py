@@ -8,22 +8,35 @@ Run from the repository root, on a machine with a CUDA card and ``nvcc``:
 Phases; any failure exits non-zero, and nothing falls back to the CPU:
 
 1. Require CUDA; print the card's name and power limit (``nvidia-smi``).
-2. Build every kernel of the main path from ``pde_tpu_torch/csrc`` (timed);
-   TF32 is switched off for matmuls and cuDNN.
+2. Build every CUDA source of the port from ``pde_tpu_torch/csrc``, one
+   ``nvcc`` per source, all started together (timed); TF32 is switched
+   off for matmuls and cuDNN.
 3. Each kernel against its plain PyTorch version on the card, at the
-   solver's shapes, with and without NaN data; both timed with CUDA events.
-4. The main path: ``flow_nd`` with default parameters on a 3-channel
-   480x640 pair whose second frame is the first shifted by a known
-   sub-pixel amount. The flow must be finite and recover the shift, the
-   kernel must have been launched exactly as often as the pyramid
-   implies, and the plain path on the card must agree. A small pair is
-   also held against the port's CPU path, which the CPU tests hold
-   against the JAX package.
+   solvers' shapes, with and without NaN data; both timed with CUDA events
+   in turns, beside the least time the card could take (the bound) and
+   the kernel's device time under ``torch.profiler``.
+4. ``flow_nd`` with default parameters on a 3-channel 480x640 pair whose
+   second frame is the first shifted by a known sub-pixel amount. The flow
+   must be finite and recover the shift, the kernel must have been
+   launched exactly as often as the pyramid implies, and the plain path on
+   the card must agree. A small pair is also held against the port's CPU
+   path, which the CPU tests hold against the JAX package.
 5. ``flow_nd_sequence`` on a 3-frame 240x320 clip against per-pair
    ``flow_nd``.
+6. ``disparity_nd``, default parameters, on a 3x480x640 stereo pair with a
+   known horizontal shift: as phase 4, with the interior-update kernel.
+7. ``disparity_sym``, default parameters, on the same kind of pair: both
+   fields recover the shift with opposite signs, each solve of the pair is
+   one kernel call with a batch of 2.
+8. ``tv_denoise4``, default parameters, on a noisy piecewise-flat
+   3x480x640 image: exact launches, kernel path against plain path, and
+   the noise in a flat patch must fall.
 
-The last lines are a JSON object of the kernels (launches, errors, times)
-and ``{"ok": true, "device": {...}}``.
+Every phase from 4 on sets every kernel's launch count to 0 just before it
+drives its entry point and reads all counts just after, and profiles one
+more warm frame for the card's busy time. The last lines are
+the card's name and power limit, a JSON object of the kernels (launches,
+errors, times, bounds) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from pathlib import Path
 
@@ -44,13 +58,42 @@ HERE = Path(__file__).resolve().parent
 SOR_TOL = 1e-5       # max-abs, kernel vs plain, unit-scale fields (FMA contraction moves ulps)
 FLOW_TOL = 1e-3      # px, mean |Δflow| between two paths of the whole model
 SHIFT_TOL = 0.3      # px, median interior flow vs the known shift
+DISP_SHIFT_TOL = 0.5  # px, median interior disparity vs the known shift
+TV_REL_TOL = 1e-4    # max |Δu| over the image's value range, kernel vs plain path
 MAIN_SHAPE = (3, 480, 640)
 MAIN_SHIFT = (0.4, 1.3)  # (dy, dx) in px: the second frame moves right and down
+DISP_SHIFT = (0.0, 2.6)  # the stereo pair's second frame moves right
 SEQ_SHAPE = (3, 240, 320)
+SMALL_SHAPE = (3, 36, 44)  # card vs the CPU path
 # the main path's finest level and odd neighbours, a coarse level, and
 # degenerate shapes where every pixel is an edge pixel
 SOR_SHAPES = [(1, 1), (1, 9), (9, 1), (37, 53), (480, 640), (481, 641), (1024, 1024)]
+# the interior-update kernels take H, W >= 2: 2xN and 3x3 have no or one
+# interior pixel, so their border fill is all there is
+INTERIOR_SHAPES = [(2, 5), (3, 3), (37, 53), (480, 640), (481, 641), (1024, 1024)]
 TIME_SHAPES = [(481, 641), (1024, 1024)]  # the first one is reported as the kernel's ms
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32 outside the
+# tensor cores; the bound of a call is the larger of its two times
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+# float operations per relaxed pixel and sweep (the kernels' arithmetic)
+FLOPS_PER_PX = {"flow_llin4_sor": 40, "disp_llin4_sor": 23, "pde4_sor": 16}
+# bytes per pixel that each TPU kernel row of PERF.md's table must move at
+# least (float32 inputs read once, outputs written once), as that row's
+# main-path caller hands them over
+ROW_BYTES_PER_PX = {
+    "1-2 llin4 (13 in, 2 out)": (13 + 2) * 4,
+    "3 elin4 (11 in, 2 out)": (11 + 2) * 4,
+    "4 llin8 (17 in, 2 out)": (17 + 2) * 4,
+    "5 disp llin4 B=1 (8 in, 1 out)": (8 + 1) * 4,
+    "6a pde4 C=3, shared weights (13 in, 3 out)": (3 * 3 + 4 + 3) * 4,
+    "6b pde8 C=3, shared weights (17 in, 3 out)": (3 * 3 + 8 + 3) * 4,
+    "8 tridiagonal solve (4 in, 1 out)": (4 + 1) * 4,
+}
+# the __global__ functions of pde_tpu_torch/csrc/*.cu
+OWN_KERNELS = {"prepare_kernel", "sweep_kernel", "disp_color_kernel", "pde4_color_kernel",
+               "border_kernel", "border_small_kernel"}
 
 
 def phase(name: str) -> None:
@@ -84,22 +127,102 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def in_turns(kern, plain, reps: int = 50):
+    """(kernel ms, plain ms, the four readings) timed plain, kernel, kernel,
+    plain on one card."""
+    p1, k1, k2, p2 = (cuda_ms(fn, reps) for fn in (plain, kern, kern, plain))
+    return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
+
+
+def device_profile(fn, calls: int = 1):
+    """What ``calls`` calls of ``fn`` keep the card busy with, from
+    ``torch.profiler``: (device ms per call, device operations per call,
+    device ms per call in the port's own kernels, [(name, device ms per
+    call)] of the five largest). Device time is the self time of every
+    kernel and copy, so gaps between them do not count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    # the device's own events; a host operator also carries the time of the
+    # kernels it launched
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / calls
+    n_ops = sum(e.count for e in events) / calls
+    own = [e for e in events if e.key.startswith("(anonymous namespace)::")
+           and e.key.split("::")[1].split("(")[0] in OWN_KERNELS]
+    own_ms = sum(e.self_device_time_total for e in own) / 1e3 / calls
+    top = [(e.key, e.self_device_time_total / 1e3 / calls) for e in events[:5]]
+    return busy_ms, n_ops, own_ms, top
+
+
+def print_profile(what: str, wall_s: float, prof) -> None:
+    busy_ms, n_ops, own_ms, top = prof
+    print(f"  {what} under torch.profiler: device busy {busy_ms:.3f} ms of a "
+          f"{wall_s * 1e3:.1f} ms warm frame ({100 * busy_ms / (wall_s * 1e3):.1f}%), "
+          f"{n_ops:.0f} device operations; the port's CUDA kernels {own_ms:.3f} ms",
+          flush=True)
+    for name, ms in top:
+        print(f"    {ms:9.3f} ms  {name[:90]}", flush=True)
+
+
+def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def unit_field(rng, name: str, shape) -> np.ndarray:
+    """Unit-scale solver coefficients, as the CPU tests make them."""
+    if name in ("duc", "dvc", "trace"):
+        return rng.random(shape) + 1.0
+    if name == "m":
+        return rng.random(shape) * 0.01
+    if name.startswith("w"):
+        return rng.random(shape) + 0.1
+    return rng.random(shape) * 0.2
+
+
+def to_dev(fields, nan_names, rng, dev):
+    out = []
+    for n, x in fields.items():
+        if n in nan_names:
+            x = np.where(rng.random(x.shape) < 0.05, np.nan, x)
+        out.append(torch.from_numpy(x.astype(np.float32)).to(dev))
+    return out
+
+
 def sor_fields(rng, h, w, nan: bool, dev):
-    """Unit-scale llin4 solver fields; 5% NaN in Cu and Du when ``nan``."""
-    f = {}
-    for n in ("u", "v", "du", "dv", "m", "cu", "cv", "duc", "dvc", "ww", "wn", "we", "ws"):
-        if n in ("duc", "dvc"):
-            x = rng.random((h, w)) + 1.0
-        elif n == "m":
-            x = rng.random((h, w)) * 0.01
-        elif n.startswith("w"):
-            x = rng.random((h, w)) + 0.1
-        else:
-            x = rng.random((h, w)) * 0.2
-        if nan and n in ("cu", "duc"):
-            x = np.where(rng.random((h, w)) < 0.05, np.nan, x)
-        f[n] = torch.from_numpy(x.astype(np.float32)).to(dev)
-    return list(f.values())
+    """llin4 solver fields; 5% NaN in Cu and Du when ``nan``."""
+    names = ("u", "v", "du", "dv", "m", "cu", "cv", "duc", "dvc", "ww", "wn", "we", "ws")
+    return to_dev({n: unit_field(rng, n, (h, w)) for n in names},
+                  ("cu", "duc") if nan else (), rng, dev)
+
+
+def disp_fields(rng, b, h, w, nan: bool, dev):
+    """disp llin4 fields, (H, W) for b == 1 else (b, H, W); 5% NaN in Cu
+    and Du when ``nan``."""
+    shape = (h, w) if b == 1 else (b, h, w)
+    names = ("u", "du", "cu", "duc", "ww", "wn", "we", "ws")
+    return to_dev({n: unit_field(rng, n, shape) for n in names},
+                  ("cu", "duc") if nan else (), rng, dev)
+
+
+def pde4_fields(rng, c, h, w, nan: bool, dev):
+    """pde4 fields as tv_denoise4 hands them over: X, TRACE, B of (H, W)
+    for c == 1 else (c, H, W), one shared (H, W) plane per weight, TRACE
+    above the weights' sum; 5% NaN in TRACE when ``nan``."""
+    shape = (h, w) if c == 1 else (c, h, w)
+    f = {n: unit_field(rng, n, shape) for n in ("x", "trace", "b")}
+    f.update({n: unit_field(rng, n, (h, w)) for n in ("ww", "wn", "we", "ws")})
+    f["trace"] = f["trace"] + f["ww"] + f["wn"] + f["we"] + f["ws"]
+    return to_dev(f, ("trace",) if nan else (), rng, dev)
 
 
 def shifted_frames(rng, shape, shifts):
@@ -115,8 +238,29 @@ def shifted_frames(rng, shape, shifts):
     return [f[:, pad:-pad, pad:-pad].astype(np.float32) for f in frames]
 
 
+def noisy_blocks(rng, shape):
+    """A piecewise-flat image (flat background and two blocks per channel,
+    in 0..1) plus N(0, 0.1) noise."""
+    c, h, w = shape
+    clean = np.zeros(shape, np.float32)
+    for k in range(c):
+        clean[k] = 0.2 + 0.2 * k
+        clean[k, h // 4:3 * h // 4, w // 4:w // 2] = 0.8 - 0.1 * k
+        clean[k, h // 8:h // 3, 5 * w // 8:7 * w // 8] = 0.5
+    return clean + 0.1 * rng.standard_normal(shape).astype(np.float32)
+
+
 def mean_flow_diff(a, b) -> float:
     return float(torch.hypot(a[0] - b[0], a[1] - b[1]).mean())
+
+
+def timed(fn):
+    """(fn's result, host seconds until the card is done)."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
 
 
 def main() -> None:
@@ -132,8 +276,11 @@ def main() -> None:
         fail(f"pde_tpu_torch not found beside {Path(__file__).name}: run it from the repository")
     sys.path.insert(0, str(HERE))
     from pde_tpu_torch.core.pyramid import pyramid_scales
-    from pde_tpu_torch.kernels import build, dispatch, sor_cuda
+    from pde_tpu_torch.kernels import build, dispatch, interior_cuda, sor_cuda
+    from pde_tpu_torch.models.disparity import DisparityParams, disparity_nd
+    from pde_tpu_torch.models.disparity_sym import DisparitySymParams, disparity_sym
     from pde_tpu_torch.models.flow_nd import FlowNDParams, flow_nd, flow_nd_sequence
+    from pde_tpu_torch.models.tv_denoise import TVDenoise4Params, tv_denoise4
     from pde_tpu_torch.solvers import sor as plain_sor
 
     dev = torch.device("cuda", 0)
@@ -143,45 +290,115 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
           f"count {torch.cuda.device_count()}", flush=True)
 
+    def reset_counts():
+        sor_cuda.LAUNCHES = 0
+        for k in interior_cuda.LAUNCHES:
+            interior_cuda.LAUNCHES[k] = 0
+
+    def counts():
+        return {"flow_llin4_sor": sor_cuda.LAUNCHES,
+                "disp_llin4_sor": interior_cuda.LAUNCHES["disp_llin4"],
+                "pde4_sor": interior_cuda.LAUNCHES["pde4"]}
+
+    def check_counts(what: str, expected: dict) -> None:
+        got = counts()
+        want = {k: expected.get(k, 0) for k in got}
+        print(f"  kernel launches {got} (expected {want})", flush=True)
+        if got != want:
+            fail(f"{what}: kernel launches {got}, expected {want}")
+
     phase("2 build")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
     t0 = time.time()
-    lib = build.build(sor_cuda.SOURCE, verbose=True)
+    sources = (sor_cuda.SOURCE, interior_cuda.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(partial(build.build, verbose=True), sources))
     sor_cuda._lib()
-    print(f"built {lib.relative_to(HERE)} in {time.time() - t0:.1f} s", flush=True)
+    interior_cuda._lib()
+    print(f"built {', '.join(str(p.relative_to(HERE)) for p in libs)} "
+          f"in {time.time() - t0:.1f} s", flush=True)
 
-    phase("3 kernel vs plain")
+    phase("3 kernels vs plain")
     rng = np.random.default_rng(args.seed)
-    omega = 1.9
-    max_err = 0.0
+    max_err = {}
+
+    def hold(name, got, want, label):
+        torch.cuda.synchronize()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for g, w_ in zip(got, want):
+            if not (torch.isfinite(g).all() and torch.isfinite(w_).all()):
+                fail(f"{name}: non-finite solver output at {label}")
+        err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
+        if err > SOR_TOL:
+            fail(f"{name} disagrees with plain at {label}: {err} > {SOR_TOL}")
+        max_err[name] = max(max_err.get(name, 0.0), err)
+        return err
+
     for h, w in SOR_SHAPES:
         for iters in (4, 5):
             for nan in (False, True):
                 fields = sor_fields(rng, h, w, nan, dev)
-                got = sor_cuda.flow_llin4_sor(*fields, iters, omega)
-                want = plain_sor.sor_flow_llin4(*fields, iters, omega)
-                torch.cuda.synchronize()
-                for g, w_ in zip(got, want):
-                    if not (torch.isfinite(g).all() and torch.isfinite(w_).all()):
-                        fail(f"non-finite solver output at {h}x{w} iters={iters} nan={nan}")
-                err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
-                print(f"  {h}x{w} iters={iters} nan={nan}: max_abs_err={err:.3g}", flush=True)
-                if err > SOR_TOL:
-                    fail(f"kernel disagrees with plain at {h}x{w} iters={iters}: {err} > {SOR_TOL}")
-                max_err = max(max_err, err)
-    times = {}
+                err = hold("flow_llin4_sor", sor_cuda.flow_llin4_sor(*fields, iters, 1.9),
+                           plain_sor.sor_flow_llin4(*fields, iters, 1.9),
+                           f"{h}x{w} iters={iters} nan={nan}")
+                print(f"  flow_llin4_sor {h}x{w} iters={iters} nan={nan}: "
+                      f"max_abs_err={err:.3g}", flush=True)
+    for h, w in INTERIOR_SHAPES:
+        for iters in (4, 5):
+            for nan in (False, True):
+                errs = []
+                for b in (1, 2):
+                    fields = disp_fields(rng, b, h, w, nan, dev)
+                    errs.append(hold("disp_llin4_sor",
+                                     interior_cuda.disp_llin4_sor(*fields, iters, 1.9),
+                                     plain_sor.sor_disp_llin4(*fields, iters, 1.9),
+                                     f"B={b} {h}x{w} iters={iters} nan={nan}"))
+                for c in (1, 3):
+                    fields = pde4_fields(rng, c, h, w, nan, dev)
+                    errs.append(hold("pde4_sor", interior_cuda.pde4_sor(*fields, iters, 1.75),
+                                     plain_sor.sor_pde4(*fields, iters, 1.75),
+                                     f"C={c} {h}x{w} iters={iters} nan={nan}"))
+                print(f"  {h}x{w} iters={iters} nan={nan}: max_abs_err disp B=1,2 "
+                      f"{errs[0]:.3g}, {errs[1]:.3g}; pde4 C=1,3 {errs[2]:.3g}, "
+                      f"{errs[3]:.3g}", flush=True)
+
+    times, bounds = {}, {}
     for h, w in TIME_SHAPES:
-        fields = sor_fields(rng, h, w, True, dev)
-        kern = partial(sor_cuda.flow_llin4_sor, *fields, 4, omega)
-        plain = partial(plain_sor.sor_flow_llin4, *fields, 4, omega)
-        # in turns, plain kernel kernel plain, on one card
-        p1, k1, k2, p2 = (cuda_ms(fn, 50) for fn in (plain, kern, kern, plain))
-        times[(h, w)] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"  time {h}x{w} iters=4 per call: kernel {k1:.4f} / {k2:.4f} ms, "
-              f"plain {p1:.4f} / {p2:.4f} ms", flush=True)
+        px = h * w
+        cases = {
+            # (kernel, plain, bytes each input read once and each output
+            # written once, relaxed pixels per sweep)
+            "flow_llin4_sor": (sor_cuda.flow_llin4_sor, plain_sor.sor_flow_llin4,
+                               sor_fields(rng, h, w, True, dev), 1.9, (13 + 2) * 4 * px, px),
+            # disparity_nd's call: B = 1
+            "disp_llin4_sor": (interior_cuda.disp_llin4_sor, plain_sor.sor_disp_llin4,
+                               disp_fields(rng, 1, h, w, True, dev), 1.9, (8 + 1) * 4 * px,
+                               (h - 2) * (w - 2)),
+            # tv_denoise4's call: C = 3 channels, shared weights
+            "pde4_sor": (interior_cuda.pde4_sor, plain_sor.sor_pde4,
+                         pde4_fields(rng, 3, h, w, True, dev), 1.75, (4 * 3 + 4) * 4 * px,
+                         3 * (h - 2) * (w - 2)),
+        }
+        for name, (kern, plain, fields, omega, nbytes, relaxed) in cases.items():
+            k_ms, p_ms, turns = in_turns(partial(kern, *fields, 4, omega),
+                                         partial(plain, *fields, 4, omega))
+            b_ms, b_by = bound(nbytes, 4 * relaxed * FLOPS_PER_PX[name])
+            dev_ms, dev_ops, _, _ = device_profile(partial(kern, *fields, 4, omega), 20)
+            times[(name, h, w)] = (k_ms, p_ms)
+            bounds[(name, h, w)] = (b_ms, b_by)
+            print(f"  time {name} {h}x{w} iters=4 per call: kernel {turns[1]:.4f} / "
+                  f"{turns[2]:.4f} ms (device busy {dev_ms:.4f} ms in {dev_ops:.0f} "
+                  f"operations), plain {turns[0]:.4f} / {turns[3]:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+
+    for label, bpp in ROW_BYTES_PER_PX.items():
+        print(f"  bound of row {label}: " + ", ".join(
+            f"{h}x{w} {bound(bpp * h * w, 0)[0]:.4f} ms" for h, w in TIME_SHAPES), flush=True)
+
+    main_launches = {}
 
     phase(f"4 main path: flow_nd {MAIN_SHAPE}, default parameters")
     p = FlowNDParams()
@@ -190,20 +407,16 @@ def main() -> None:
     n_levels = len(pyramid_scales(MAIN_SHAPE[1], MAIN_SHAPE[2], p.scl_factor, 20, p.scales))
     expected = n_levels * p.firstLoop * p.secondLoop * (1 + 2 * p.iter)
     frame_s = []
-    for run in range(3):
-        sor_cuda.LAUNCHES = 0
-        torch.cuda.synchronize()
-        t0 = time.time()
-        u, v = flow_nd(it0, it1, "grad", "gradmag")
-        torch.cuda.synchronize()
-        frame_s.append(time.time() - t0)
-        launches = sor_cuda.LAUNCHES
-        if launches != expected:
-            fail(f"kernel launched {launches} times on the main path, expected {expected} "
-                 f"= {n_levels} levels x {p.firstLoop} x {p.secondLoop} x (1 + 2*{p.iter})")
-    print(f"  kernel launches {launches} (expected {expected}, {n_levels} levels)", flush=True)
-    print(f"  frame time: cold {frame_s[0]:.3f} s, warm {frame_s[1]:.3f} / {frame_s[2]:.3f} s",
-          flush=True)
+    for _ in range(3):
+        reset_counts()
+        (u, v), sec = timed(lambda: flow_nd(it0, it1, "grad", "gradmag"))
+        frame_s.append(sec)
+        check_counts("flow_nd", {"flow_llin4_sor": expected})
+    main_launches["flow_llin4_sor"] = expected
+    print(f"  {n_levels} levels; frame time: cold {frame_s[0]:.3f} s, "
+          f"warm {frame_s[1]:.3f} / {frame_s[2]:.3f} s", flush=True)
+    print_profile("flow_nd", min(frame_s[1:]),
+                  device_profile(lambda: flow_nd(it0, it1, "grad", "gradmag")))
     if u.shape != MAIN_SHAPE[1:] or v.shape != MAIN_SHAPE[1:] or u.device != dev:
         fail(f"flow of shape {tuple(u.shape)} on {u.device}")
     if not (torch.isfinite(u).all() and torch.isfinite(v).all()):
@@ -214,60 +427,173 @@ def main() -> None:
           f"{MAIN_SHIFT[0]})", flush=True)
     if abs(mu - MAIN_SHIFT[1]) > SHIFT_TOL or abs(mv - MAIN_SHIFT[0]) > SHIFT_TOL:
         fail(f"flow ({mu}, {mv}) misses the shift {MAIN_SHIFT[::-1]} by more than {SHIFT_TOL} px")
-    sor_cuda.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.time()
+    reset_counts()
     with dispatch.plain_solvers():
-        up, vp = flow_nd(it0, it1, "grad", "gradmag")
-    torch.cuda.synchronize()
-    plain_frame_s = time.time() - t0
-    if sor_cuda.LAUNCHES != 0:
-        fail("the plain path launched the kernel")
+        (up, vp), plain_frame_s = timed(lambda: flow_nd(it0, it1, "grad", "gradmag"))
+    check_counts("the plain path", {})
     d_plain = mean_flow_diff((u, v), (up, vp))
     print(f"  plain path on the card: frame {plain_frame_s:.3f} s, "
           f"mean |dflow| vs kernel path {d_plain:.3g} px", flush=True)
     if not d_plain <= FLOW_TOL:
         fail(f"kernel path and plain path differ by {d_plain} px > {FLOW_TOL}")
-    small0, small1 = shifted_frames(rng, (3, 36, 44), [(0.0, 0.0), MAIN_SHIFT])
+    small0, small1 = shifted_frames(rng, SMALL_SHAPE, [(0.0, 0.0), MAIN_SHIFT])
     ug, vg = flow_nd(torch.from_numpy(small0).to(dev), torch.from_numpy(small1).to(dev))
-    uc, vc = flow_nd(small0, small1)
+    uc, vc = flow_nd(small0, small1, device="cpu")
     d_cpu = mean_flow_diff((ug.cpu(), vg.cpu()), (uc, vc))
-    print(f"  3x36x44 card vs CPU path: mean |dflow| {d_cpu:.3g} px", flush=True)
+    print(f"  {SMALL_SHAPE} card vs CPU path: mean |dflow| {d_cpu:.3g} px", flush=True)
     if not d_cpu <= FLOW_TOL:
         fail(f"card and CPU paths differ by {d_cpu} px > {FLOW_TOL}")
 
     phase(f"5 flow_nd_sequence, 3 frames of {SEQ_SHAPE}")
     clip = torch.from_numpy(np.stack(shifted_frames(
         rng, SEQ_SHAPE, [(0.0, 0.0), MAIN_SHIFT, (2 * MAIN_SHIFT[0], 2 * MAIN_SHIFT[1])]))).to(dev)
-    sor_cuda.LAUNCHES = 0
+    reset_counts()
     us, vs = flow_nd_sequence(clip, "grad", "gradmag")
     torch.cuda.synchronize()
     seq_levels = len(pyramid_scales(SEQ_SHAPE[1], SEQ_SHAPE[2], p.scl_factor, 20, p.scales))
-    seq_expected = 2 * seq_levels * p.firstLoop * p.secondLoop * (1 + 2 * p.iter)
-    if sor_cuda.LAUNCHES != seq_expected:
-        fail(f"sequence launched the kernel {sor_cuda.LAUNCHES} times, expected {seq_expected}")
+    check_counts("flow_nd_sequence", {
+        "flow_llin4_sor": 2 * seq_levels * p.firstLoop * p.secondLoop * (1 + 2 * p.iter)})
     if us.shape != (2,) + SEQ_SHAPE[1:]:
         fail(f"sequence flow of shape {tuple(us.shape)}")
     seq_err = 0.0
     for t in range(2):
         u_t, v_t = flow_nd(clip[t], clip[t + 1], "grad", "gradmag")
         seq_err = max(seq_err, float((us[t] - u_t).abs().max()), float((vs[t] - v_t).abs().max()))
-    print(f"  launches {seq_expected}; max |dflow| vs per-pair flow_nd {seq_err:.3g} px",
-          flush=True)
+    print(f"  max |dflow| vs per-pair flow_nd {seq_err:.3g} px", flush=True)
     if not seq_err <= FLOW_TOL:
         fail(f"flow_nd_sequence differs from per-pair flow_nd by {seq_err} px")
 
-    k_ms, plain_ms = times[TIME_SHAPES[0]]
+    phase(f"6 disparity_nd {MAIN_SHAPE}, default parameters")
+    dp = DisparityParams()
+    il, ir = (torch.from_numpy(f).to(dev)
+              for f in shifted_frames(rng, MAIN_SHAPE, [(0.0, 0.0), DISP_SHIFT]))
+    d_levels = len(pyramid_scales(MAIN_SHAPE[1], MAIN_SHAPE[2], dp.scl_factor, 10, dp.scales))
+    d_expected = d_levels * dp.firstLoop * dp.secondLoop * 3 * dp.iter
+    frame_s = []
+    for _ in range(3):
+        reset_counts()
+        ud, sec = timed(lambda: disparity_nd(il, ir, "grad", "gradmag"))
+        frame_s.append(sec)
+        check_counts("disparity_nd", {"disp_llin4_sor": d_expected})
+    main_launches["disp_llin4_sor"] = d_expected
+    print(f"  {d_levels} levels x {dp.firstLoop} x {dp.secondLoop} calls x 3*{dp.iter}; "
+          f"frame time: cold {frame_s[0]:.3f} s, warm {frame_s[1]:.3f} / {frame_s[2]:.3f} s",
+          flush=True)
+    print_profile("disparity_nd", min(frame_s[1:]),
+                  device_profile(lambda: disparity_nd(il, ir, "grad", "gradmag")))
+    if ud.shape != MAIN_SHAPE[1:] or ud.device != dev or not torch.isfinite(ud).all():
+        fail(f"disparity of shape {tuple(ud.shape)} on {ud.device}, or not finite")
+    md = float(ud[inner].median())
+    print(f"  median interior disparity {md:.4f} (shift {DISP_SHIFT[1]})", flush=True)
+    if abs(md - DISP_SHIFT[1]) > DISP_SHIFT_TOL:
+        fail(f"disparity {md} misses the shift {DISP_SHIFT[1]} by more than {DISP_SHIFT_TOL} px")
+    reset_counts()
+    with dispatch.plain_solvers():
+        udp, plain_frame_s = timed(lambda: disparity_nd(il, ir, "grad", "gradmag"))
+    check_counts("the plain path", {})
+    d_plain = float((ud - udp).abs().mean())
+    print(f"  plain path on the card: frame {plain_frame_s:.3f} s, "
+          f"mean |dU| vs kernel path {d_plain:.3g} px", flush=True)
+    if not d_plain <= FLOW_TOL:
+        fail(f"disparity kernel path and plain path differ by {d_plain} px > {FLOW_TOL}")
+    small0, small1 = shifted_frames(rng, SMALL_SHAPE, [(0.0, 0.0), DISP_SHIFT])
+    ug = disparity_nd(torch.from_numpy(small0).to(dev), torch.from_numpy(small1).to(dev))
+    uc = disparity_nd(small0, small1, device="cpu")
+    d_cpu = float((ug.cpu() - uc).abs().mean())
+    print(f"  {SMALL_SHAPE} card vs CPU path: mean |dU| {d_cpu:.3g} px", flush=True)
+    if not d_cpu <= FLOW_TOL:
+        fail(f"disparity card and CPU paths differ by {d_cpu} px > {FLOW_TOL}")
+
+    phase(f"7 disparity_sym {MAIN_SHAPE}, default parameters")
+    sp = DisparitySymParams()
+    s_levels = len(pyramid_scales(MAIN_SHAPE[1], MAIN_SHAPE[2], sp.scl_factor, 10, sp.scales))
+    # one call with B = 2 per solve of the pair: two calls would count twice
+    s_expected = s_levels * sp.firstLoop * sp.secondLoop * 3 * sp.iter
+    frame_s = []
+    for _ in range(2):
+        reset_counts()
+        us_, sec = timed(lambda: disparity_sym(il, ir))
+        frame_s.append(sec)
+        check_counts("disparity_sym", {"disp_llin4_sor": s_expected})
+    if us_.shape != (2,) + MAIN_SHAPE[1:] or not torch.isfinite(us_).all():
+        fail(f"symmetric disparity of shape {tuple(us_.shape)}, or not finite")
+    m0, m1 = float(us_[0][inner].median()), float(us_[1][inner].median())
+    print(f"  {s_levels} levels; frame time: cold {frame_s[0]:.3f} s, warm {frame_s[1]:.3f} s; "
+          f"median interior U0 {m0:.4f}, U1 {m1:.4f} (shift +-{DISP_SHIFT[1]})", flush=True)
+    print_profile("disparity_sym", frame_s[1], device_profile(lambda: disparity_sym(il, ir)))
+    if abs(m0 - DISP_SHIFT[1]) > DISP_SHIFT_TOL or abs(m1 + DISP_SHIFT[1]) > DISP_SHIFT_TOL:
+        fail(f"symmetric disparity ({m0}, {m1}) misses +-{DISP_SHIFT[1]} by more than "
+             f"{DISP_SHIFT_TOL} px")
+    reset_counts()
+    with dispatch.plain_solvers():
+        usp, plain_frame_s = timed(lambda: disparity_sym(il, ir))
+    check_counts("the plain path", {})
+    d_plain = float((us_ - usp).abs().mean())
+    print(f"  plain path on the card: frame {plain_frame_s:.3f} s, "
+          f"mean |dU| vs kernel path {d_plain:.3g} px", flush=True)
+    if not d_plain <= FLOW_TOL:
+        fail(f"disparity_sym kernel path and plain path differ by {d_plain} px > {FLOW_TOL}")
+
+    phase(f"8 tv_denoise4 {MAIN_SHAPE}, default parameters")
+    tp = TVDenoise4Params()
+    noisy = torch.from_numpy(noisy_blocks(rng, MAIN_SHAPE)).to(dev)
+    tv_levels, (h, w) = 1, MAIN_SHAPE[1:]
+    while True:  # the partial pyramid's stop rule (models/tv_denoise.py)
+        h, w = int(np.ceil(h * tp.scl_factor)), int(np.ceil(w * tp.scl_factor))
+        tv_levels += 1
+        if h <= np.ceil(MAIN_SHAPE[1] * tp.scl) or w <= np.ceil(MAIN_SHAPE[2] * tp.scl):
+            break
+    tv_expected = tv_levels * (tp.outer_iter + 1) * 3 * tp.inner_iter
+    frame_s = []
+    for _ in range(2):
+        reset_counts()
+        den, sec = timed(lambda: tv_denoise4(noisy))
+        frame_s.append(sec)
+        check_counts("tv_denoise4", {"pde4_sor": tv_expected})
+    main_launches["pde4_sor"] = tv_expected
+    print(f"  {tv_levels} levels x {tp.outer_iter + 1} calls x 3*{tp.inner_iter}; "
+          f"image time: cold {frame_s[0]:.3f} s, warm {frame_s[1]:.3f} s", flush=True)
+    print_profile("tv_denoise4", frame_s[1], device_profile(lambda: tv_denoise4(noisy)))
+    if den.shape != MAIN_SHAPE or not torch.isfinite(den).all():
+        fail(f"denoised image of shape {tuple(den.shape)}, or not finite")
+    reset_counts()
+    with dispatch.plain_solvers():
+        denp, plain_s = timed(lambda: tv_denoise4(noisy))
+    check_counts("the plain path", {})
+    scale = float(noisy.max() - noisy.min())
+    d_rel = float((den - denp).abs().max()) / scale
+    # a patch of the flat background; noise std per channel, averaged
+    flat = (slice(None), slice(3 * MAIN_SHAPE[1] // 4 + 8, -8), slice(8, MAIN_SHAPE[2] // 2))
+    sd_in = float(noisy[flat].std(dim=(1, 2)).mean())
+    sd_out = float(den[flat].std(dim=(1, 2)).mean())
+    print(f"  plain path on the card: {plain_s:.3f} s, max |du| / range vs kernel path "
+          f"{d_rel:.3g}; flat-patch noise std {sd_in:.4f} -> {sd_out:.4f}", flush=True)
+    if not d_rel <= TV_REL_TOL:
+        fail(f"tv_denoise4 kernel path and plain path differ by {d_rel} > {TV_REL_TOL} "
+             f"of the range")
+    if not sd_out < 0.5 * sd_in:
+        fail(f"flat-patch noise {sd_out} is not under half of the input's {sd_in}")
+
+    sources = {"flow_llin4_sor": ("pde_tpu_torch/csrc/flow_llin4_sor.cu",
+                                  "pde_tpu/kernels/sor_pallas.py:71"),
+               "disp_llin4_sor": ("pde_tpu_torch/csrc/interior_sor.cu",
+                                  "pde_tpu/kernels/sweeps.py:145"),
+               "pde4_sor": ("pde_tpu_torch/csrc/interior_sor.cu",
+                            "pde_tpu/kernels/sweeps.py:174")}
+    th, tw = TIME_SHAPES[0]
     report = {"kernels": [{
-        "name": "flow_llin4_sor",
+        "name": name,
         "route": "cuda",
-        "source": "pde_tpu_torch/csrc/flow_llin4_sor.cu",
-        "replaces": "pde_tpu/kernels/sor_pallas.py:71",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": plain_ms,
-    }]}
+        "source": src,
+        "replaces": replaces,
+        "launches": main_launches[name],
+        "max_abs_err": max_err[name],
+        "ms": times[(name, th, tw)][0],
+        "plain_ms": times[(name, th, tw)][1],
+        "bound_ms": bounds[(name, th, tw)][0],
+        "bound_by": bounds[(name, th, tw)][1],
+        "library_ms": None,  # no single PyTorch call computes a red-black SOR sweep
+    } for name, (src, replaces) in sources.items()]}
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps(report), flush=True)

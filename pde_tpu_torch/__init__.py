@@ -7,11 +7,15 @@ pairs with ``pde_tpu/core/resize.py``). Public functions keep the JAX
 signatures and layouts: ``(C, H, W)`` images, ``(H, W)`` float32 fields,
 the device taken from the input.
 
-Ported so far: the warping optical flow ``models.flow_nd`` and
-everything it calls, with the llin4 red-black SOR sweep as a
-hand-written CUDA kernel (``csrc/flow_llin4_sor.cu``). Importing the
-package builds and loads nothing; the kernel is compiled with ``nvcc``
-at its first launch on a CUDA tensor (``kernels/build.py``).
+Ported so far, with everything they call: the warping optical flow
+``models.flow_nd`` (its llin4 red-black SOR sweep a hand-written CUDA
+kernel, ``csrc/flow_llin4_sor.cu``), the stereo models
+``models.disparity`` and ``models.disparity_sym`` and the TV denoiser
+``models.tv_denoise.tv_denoise4`` (their interior-update sweeps a second
+CUDA source, ``csrc/interior_sor.cu``). Entry points run on the CUDA card
+unless the caller passes CPU tensors or ``device="cpu"``. Importing the
+package builds and loads nothing; a kernel is compiled with ``nvcc`` at
+its first launch on a CUDA tensor (``kernels/build.py``).
 """
 
 __version__ = "0.1.0"

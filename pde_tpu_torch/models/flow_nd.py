@@ -14,9 +14,10 @@ Per pyramid level (factor 0.75, stop <= 20 px):
     U <- medfilt3x3(U + dU)  (symmetric padding)
   upscale by 1/0.75 with the 'triangle' kernel, flow values scaled
 
-Runs eagerly on the device of its input tensors; the inner solve goes
-through ``kernels/dispatch.py`` (the CUDA kernel for CUDA tensors).
-``solver=2`` (line-implicit PCG) is not ported yet.
+Runs eagerly on the card unless the caller asks for the CPU
+(``models/_device.py``); the inner solve goes through
+``kernels/dispatch.py`` (the CUDA kernel for CUDA tensors). ``solver=2``
+(line-implicit PCG) is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ from __future__ import annotations
 import dataclasses
 from functools import partial
 
-import numpy as np
 import torch
 
 from pde_tpu_torch.config import with_overrides
@@ -35,6 +35,7 @@ from pde_tpu_torch.ops.derivatives import fst_derivatives5, snd_derivatives5, rg
 from pde_tpu_torch.ops.warp import warp_by_flow, warp_window
 from pde_tpu_torch.ops.weights import diffusion_weights_4
 from pde_tpu_torch.kernels.dispatch import sor_flow_llin4
+from pde_tpu_torch.models._device import as_tensor, input_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,11 +88,12 @@ def _snd_tensors(i_t0, i_t1w):
     )
 
 
-def _require_sor(p: FlowNDParams):
-    if p.solver != 1:
+def require_sor(name: str, solver: int):
+    """Raise for any solver but 1: the PCG solver (2) is not ported yet."""
+    if solver != 1:
         raise NotImplementedError(
-            f"flow_nd solver={p.solver}: only solver=1 (red-black SOR) is ported; "
-            "solver=2 (line-implicit PCG) arrives with port slice 2")
+            f"{name} solver={solver}: only solver=1 (red-black SOR) is ported; "
+            "solver=2 (line-implicit PCG) arrives with the tridiagonal (TDMA) kernel")
 
 
 def _nd_level(u, v, i1t0, i1t1, i2t0, i2t1, us_ap, vs_ap, as_diff, p: FlowNDParams,
@@ -163,30 +165,25 @@ def _nd_level(u, v, i1t0, i1t1, i2t0, i2t1, us_ap, vs_ap, as_diff, p: FlowNDPara
     return u, v
 
 
-def _as_tensor(x, device):
-    if torch.is_tensor(x):
-        return x.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
-
-
 def flow_nd(it0, it1, fst_term: str = "grad", snd_term: str = "gradmag",
             params: FlowNDParams | None = None, us=None, vs=None,
-            collect: list | None = None, **overrides):
+            collect: list | None = None, device=None, **overrides):
     """Warping flow. it0/it1: (C, H, W) or (H, W) uint8-range images, as
     numpy arrays or tensors.
 
     us/vs: optional spatial prior flow fields (H, W) (param.Us/Vs).
-    Returns (U, V) float32 (H, W) tensors on the device of ``it0`` (the
-    CPU for a numpy array). collect: optional list; per-level (U, V)
-    appended coarsest-first.
+    Returns (U, V) float32 (H, W) tensors on the device of ``it0`` if it
+    is a tensor, else on ``device``, else on the CUDA card (raises where
+    there is none). collect: optional list; per-level (U, V) appended
+    coarsest-first.
     """
     p = with_overrides(params or FlowNDParams(), **overrides)
-    _require_sor(p)
+    require_sor("flow_nd", p.solver)
     fst_term = fst_term.lower()
     snd_term = snd_term.lower()
-    device = it0.device if torch.is_tensor(it0) else torch.device("cpu")
-    a = _as_tensor(it0, device) / 255.0
-    b = _as_tensor(it1, device) / 255.0
+    device = input_device(it0, device)
+    a = as_tensor(it0, device) / 255.0
+    b = as_tensor(it1, device) / 255.0
     if a.ndim == 2:
         a, b = a[None], b[None]
 
@@ -202,7 +199,7 @@ def flow_nd(it0, it1, fst_term: str = "grad", snd_term: str = "gradmag",
     def prior_pyramid(prior):
         if prior is None:
             return [None] * n
-        cur = torch.nan_to_num(_as_tensor(prior, device))
+        cur = torch.nan_to_num(as_tensor(prior, device))
         out = [cur]
         for lvl in range(1, n):
             cur = imresize(cur * p.scl_factor, levels[lvl][0].shape[-2:], "bilinear")
@@ -233,18 +230,19 @@ def flow_nd(it0, it1, fst_term: str = "grad", snd_term: str = "gradmag",
 
 
 def flow_nd_fused(it0, it1, fst_term: str = "grad", snd_term: str = "gradmag",
-                  params: FlowNDParams | None = None):
+                  params: FlowNDParams | None = None, device=None):
     """Whole-frame entry point of ``pde_tpu`` (one jitted program there).
     Here it is the same eager path as ``flow_nd``; one CUDA-graph replay
     per frame is later work."""
-    return flow_nd(it0, it1, fst_term, snd_term, params)
+    return flow_nd(it0, it1, fst_term, snd_term, params, device=device)
 
 
 def flow_nd_sequence(frames, fst_term: str = "grad", snd_term: str = "gradmag",
-                     params: FlowNDParams | None = None):
+                     params: FlowNDParams | None = None, device=None):
     """Flow for a video clip. frames: (T, H, W) or (T, C, H, W)
-    uint8-range. Returns (U, V) of shape (T-1, H, W): the flow of each
-    consecutive pair, as ``flow_nd`` computes it."""
-    a = _as_tensor(frames, frames.device if torch.is_tensor(frames) else "cpu")
+    uint8-range, on the device rule of ``flow_nd``. Returns (U, V) of
+    shape (T-1, H, W): the flow of each consecutive pair, as ``flow_nd``
+    computes it."""
+    a = as_tensor(frames, input_device(frames, device))
     pairs = [flow_nd(a[t], a[t + 1], fst_term, snd_term, params) for t in range(a.shape[0] - 1)]
     return torch.stack([u for u, _ in pairs]), torch.stack([v for _, v in pairs])

@@ -1,0 +1,117 @@
+"""Total-variation denoising, 4-neighbour (TVdenoise4.m), ported from
+``pde_tpu/models/tv_denoise.py``.
+
+Lagged-diffusivity TV restoration with an L1 data term:
+
+    PsiData = 1/sqrt((u - f)^2 + eps)
+    TRACE   = PsiData + alpha * Σ w_k
+    B       = PsiData * f
+    u      <- SOR sweeps of  u+ = (B + Σ w_k u_k) / TRACE
+
+run coarse-to-fine over a partial pyramid (down to ``scl`` of the original
+size), with Brox weights, max over channels and zeroed borders. The
+channels are one batch of the solver (one kernel call on the card, the
+(H, W) weights shared). Runs eagerly on the card unless the caller asks
+for the CPU (``models/_device.py``). ``solver=2`` (PCG) and the
+8-neighbour ``tv_denoise8`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from pde_tpu_torch.config import with_overrides
+from pde_tpu_torch.core.conv import gaussian_kernel_2d, imfilter_replicate
+from pde_tpu_torch.core.resize import imresize, imresize_scale
+from pde_tpu_torch.kernels.dispatch import sor_pde4
+from pde_tpu_torch.models._device import as_tensor, input_device
+from pde_tpu_torch.models.flow_nd import require_sor
+from pde_tpu_torch.ops.weights import diffusion_weights_4
+
+_EPS_D = float(np.finfo(np.float64).eps)  # MATLAB `eps`, added to a float32 square
+
+
+@dataclasses.dataclass(frozen=True)
+class TVDenoise4Params:
+    """Defaults from TVdenoise4.m:36-44 (as ``pde_tpu``'s)."""
+
+    alpha: float = 5.0
+    omega: float = 1.75
+    outer_iter: int = 10
+    inner_iter: int = 5
+    # 1: red-black SOR (the CUDA kernel); 2: PCG (not ported)
+    solver: int = 1
+    scl: float = 0.5
+    scl_factor: float = 0.75
+
+
+def params_from_reference(obj) -> TVDenoise4Params:
+    """This package's ``TVDenoise4Params`` from any dataclass instance or
+    dict with its field names. Unknown names raise ``TypeError``."""
+    values = dataclasses.asdict(obj) if dataclasses.is_dataclass(obj) else dict(obj)
+    return with_overrides(TVDenoise4Params(), **values)
+
+
+def _partial_pyramid(img, scl, scl_factor, gsize, gsigma, smooth_last=True):
+    """Pyramid that stops once a level is <= ceil(orig * scl) in either dim.
+
+    Each retained level is smoothed after its child is created from the
+    unsmoothed parent; ``smooth_last=False`` keeps the coarsest level
+    unsmoothed (the TVdenoise8.m:72 quirk).
+    """
+    g = gaussian_kernel_2d(gsize, gsigma)
+    h, w = img.shape[-2:]
+    ds_h, ds_w = int(np.ceil(h * scl)), int(np.ceil(w * scl))
+    raw = [img]
+    while True:
+        nxt = imresize_scale(raw[-1], scl_factor, "bilinear")
+        raw.append(nxt)
+        if nxt.shape[-2] <= ds_h or nxt.shape[-1] <= ds_w:
+            break
+    out = [imfilter_replicate(x, g) for x in raw]
+    if not smooth_last:
+        out[-1] = raw[-1]
+    return out
+
+
+def _tv4_level(iout, f, alpha, omega, outer_iter, inner_iter):
+    """``outer_iter + 1`` lagged-diffusivity iterations at one level; iout
+    and f are (C, H, W)."""
+    u = iout
+    for _ in range(outer_iter + 1):
+        psi = 1.0 / torch.sqrt((u - f) ** 2 + _EPS_D)
+        ww, wn, we, ws = diffusion_weights_4(u, eps=1e-5, combine="max", zero_borders=True)
+        trace = psi + alpha * (ww + wn + we + ws)
+        b = psi * f
+        u = sor_pde4(u, trace, b, alpha * ww, alpha * wn, alpha * we, alpha * ws,
+                     inner_iter, omega)
+    return u
+
+
+def tv_denoise4(img, params: TVDenoise4Params | None = None, device=None, **overrides):
+    """TV denoise (4-neighbour). img: (C, H, W) or (H, W) float32, as a
+    numpy array or a tensor. Returns the same shape on the device of
+    ``img`` if it is a tensor, else on ``device``, else on the CUDA card
+    (raises where there is none)."""
+    p = with_overrides(params or TVDenoise4Params(), **overrides)
+    require_sor("tv_denoise4", p.solver)
+    x = as_tensor(img, input_device(img, device))
+    squeeze = x.ndim == 2
+    if squeeze:
+        x = x[None]
+    levels = _partial_pyramid(x, p.scl, p.scl_factor, 7, 2.0)
+    iout = levels[-1]
+    for lvl in range(len(levels) - 1, -1, -1):
+        iout = _tv4_level(iout, levels[lvl], p.alpha, p.omega, p.outer_iter, p.inner_iter)
+        if lvl > 0:
+            iout = imresize(iout, levels[lvl - 1].shape[-2:], "bilinear")
+    return iout[0] if squeeze else iout
+
+
+def tv_denoise4_fused(img, params: TVDenoise4Params | None = None, device=None):
+    """Whole-image entry point of ``pde_tpu`` (one jitted program there).
+    Here it is the same eager path as ``tv_denoise4``."""
+    return tv_denoise4(img, params, device=device)

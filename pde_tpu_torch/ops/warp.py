@@ -3,8 +3,9 @@
 1-based sample coordinates, corner fetches clamped to the image edge, and
 NaN exactly where the base cell ``floor(coord-1)`` falls outside
 ``[0, size-1]``: the missing-data sentinel every solver understands.
-``warp_window`` is the windowed shift-and-add form that ``flow_nd``
-exposes as its ``warp_window`` parameter, ported as plain ops.
+``warp_window`` and ``warp_x_window`` are the windowed shift-and-add
+forms that ``flow_nd`` and ``disparity_nd`` expose as their
+``warp_window`` parameter, ported as plain ops.
 """
 
 from __future__ import annotations
@@ -61,6 +62,29 @@ def warp_by_flow(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.T
     h, w = img.shape[-2:]
     x, y = identity_grid(h, w, device=img.device)
     return bilinear_warp(img, x + u, y + v)
+
+
+def warp_x_window(img: torch.Tensor, u: torch.Tensor, r: int) -> torch.Tensor:
+    """x-only windowed warp (disparity): sample (..., H, W) ``img`` at
+    (X+u, Y). Equals ``bilinear_warp(img, X+u, Y)`` where
+    ``floor(u) in [-r, r-1]``; NaN outside the window or the image."""
+    w = img.shape[-1]
+    ui = torch.floor(u)
+    uf = u - ui
+    x0 = torch.arange(w, dtype=torch.float32, device=img.device)[None, :] + ui
+    valid = (x0 >= 0) & (x0 <= w - 1)
+    win = (ui >= -r) & (ui <= r - 1)
+    # edge pad by r and r+1 columns: it reproduces the clamped corner
+    # fetch x1 = min(x0+1, w-1)
+    cols = torch.arange(-r, w + r + 1, device=img.device).clamp(0, w - 1)
+    p = img[..., cols]
+    acc = torch.zeros(torch.broadcast_shapes(img.shape, u.shape), dtype=img.dtype,
+                      device=img.device)
+    for k in range(-r, r):
+        s0 = p[..., :, k + r:k + r + w]
+        s1 = p[..., :, k + r + 1:k + r + 1 + w]
+        acc = torch.where(ui == k, (1.0 - uf) * s0 + uf * s1, acc)
+    return torch.where(valid & win, acc, torch.full_like(acc, float("nan")))
 
 
 def warp_window(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor, r: int) -> torch.Tensor:

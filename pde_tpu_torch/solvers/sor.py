@@ -1,8 +1,9 @@
-"""Red-black SOR for the late-linearised coupled flow pair: the plain
-PyTorch version of the CUDA kernel ``csrc/flow_llin4_sor.cu``.
+"""Red-black SOR solvers: the plain PyTorch versions of the CUDA kernels
+in ``csrc/``. Each is the path for CPU tensors and its kernel's reference
+on the card.
 
-Written from ``_flow_sor`` (``pde_tpu/solvers/sor.py``, late=True). It is
-the path for CPU tensors and the kernel's reference on the card.
+Coupled flow pair, ``sor_flow_llin4`` (kernel ``csrc/flow_llin4_sor.cu``),
+written from ``_flow_sor`` (``pde_tpu/solvers/sor.py``, late=True):
 
 * Border-solving convention: the out-facing weights are zeroed and every
   pixel, border included, is relaxed with its one-sided stencil.
@@ -10,13 +11,31 @@ the path for CPU tensors and the kernel's reference on the card.
   divisor.
 * Within each colour, u updates first and v then uses the refreshed u.
 * Diffusion term ``Σ w_k (dU_k + U_k − U_c)``, summed W, E, N, S.
+
+Interior-update family, ``sor_disp_llin4``, ``sor_disp_llin_sym4`` and
+``sor_pde4`` (kernel ``csrc/interior_sor.cu``), written from
+``_scalar_llin_sor`` and ``_pde_sor``:
+
+* Only interior pixels are relaxed, colour 0 then colour 1, and the 1-px
+  border is replicated after every sweep (``core/grid.replicate_border``).
+* disparity: NaN in Cu means pure diffusion, NaN in Du drops it from the
+  divisor. pde4: NaN in TRACE means pure diffusion (``1/Σw``, no B).
+* Leading dimensions broadcast (a batch of independent systems).
 """
 
 from __future__ import annotations
 
 import torch
 
-from pde_tpu_torch.core.grid import shift_w, shift_e, shift_n, shift_s, checkerboard
+from pde_tpu_torch.core.grid import (
+    checkerboard,
+    interior_mask,
+    replicate_border,
+    shift_e,
+    shift_n,
+    shift_s,
+    shift_w,
+)
 
 
 def _edge_zeroed(ww, wn, we, ws):
@@ -65,3 +84,65 @@ def sor_flow_llin4(u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws,
         du, dv = half(du, dv, mask0)
         du, dv = half(du, dv, mask1)
     return du, dv
+
+
+def _interior_color_masks(h: int, w: int, device=None):
+    inter = interior_mask(h, w, device=device)
+    return (checkerboard(h, w, 0, device=device) & inter,
+            checkerboard(h, w, 1, device=device) & inter)
+
+
+def sor_disp_llin4(u, du, cu, duc, ww, wn, we, ws, iters: int, omega: float):
+    """Scalar late-linearisation disparity SOR (cf. disparitySolvers.c
+    GS_SOR_llin4_2d): ``iters`` red-black sweeps for the increment dU
+    against the frozen U, interior only, border replicated after each
+    sweep. (..., H, W) float32 tensors on one device; returns new dU."""
+    h, w = u.shape[-2:]
+    mask0, mask1 = _interior_color_masks(h, w, device=u.device)
+    wsum = ww + wn + we + ws
+    cu_nan, cu0, inv = _fold_data_nan(cu, duc, wsum)
+
+    def half(df, mask):
+        s = _nbr_sum4(df + u, ww, wn, we, ws) - u * wsum
+        num = torch.where(cu_nan, s, s + cu0)
+        return torch.where(mask, (1.0 - omega) * df + omega * num * inv, df)
+
+    for _ in range(iters):
+        du = half(du, mask0)
+        du = half(du, mask1)
+        du = replicate_border(du)
+    return du
+
+
+def sor_disp_llin_sym4(u0, du0, cu0, duc0, ww0, wn0, we0, ws0,
+                       u1, du1, cu1, duc1, ww1, wn1, we1, ws1,
+                       iters: int, omega: float):
+    """Coupled left/right disparity pair (cf. GS_SOR_llinsym4_2d). The two
+    relaxations are independent within a solve (the coupling enters
+    through Cu/Du), so they run as one batch of 2. Returns (dU0, dU1)."""
+    pairs = ((u0, u1), (du0, du1), (cu0, cu1), (duc0, duc1),
+             (ww0, ww1), (wn0, wn1), (we0, we1), (ws0, ws1))
+    out = sor_disp_llin4(*(torch.stack(p) for p in pairs), iters, omega)
+    return out[0], out[1]
+
+
+def sor_pde4(x, trace, b, ww, wn, we, ws, iters: int, omega: float):
+    """Diagonal-form 4-neighbour SOR ``X+ = (B + Σ w X)/TRACE`` (cf.
+    GS_SOR_4_2d), interior only, border replicated after each sweep.
+    Leading channel dims broadcast: weights may be (H, W) and shared."""
+    h, w = x.shape[-2:]
+    mask0, mask1 = _interior_color_masks(h, w, device=x.device)
+    wsum = ww + wn + we + ws
+    tr_nan = torch.isnan(trace)
+    inv = torch.where(tr_nan, 1.0 / wsum, 1.0 / torch.nan_to_num(trace, nan=1.0))
+    b_eff = torch.where(tr_nan, 0.0, b)
+
+    def half(xc, mask):
+        new = (b_eff + _nbr_sum4(xc, ww, wn, we, ws)) * inv
+        return torch.where(mask, (1.0 - omega) * xc + omega * new, xc)
+
+    for _ in range(iters):
+        x = half(x, mask0)
+        x = half(x, mask1)
+        x = replicate_border(x)
+    return x

@@ -24,6 +24,7 @@ torch.set_num_threads(1)
 
 MEAN_TOL = 1e-3  # px, mean |Δflow| per level
 LOOPS = dict(firstLoop=2, secondLoop=2)
+CPU = dict(device="cpu")  # numpy inputs run on the card unless asked otherwise
 
 
 def _shifted_pair(rng, h=36, w=44, dx=1.0, channels=None):
@@ -53,7 +54,7 @@ def test_flow_nd_levels_match_reference(rng, fst, snd, channels):
     it0, it1 = _shifted_pair(rng, channels=channels)
     want, got = [], []
     jflow.flow_nd(it0, it1, fst, snd, collect=want, **LOOPS)
-    u, v = tflow.flow_nd(it0, it1, fst, snd, collect=got, **LOOPS)
+    u, v = tflow.flow_nd(it0, it1, fst, snd, collect=got, **CPU, **LOOPS)
     _levels_agree(want, got)
     assert u is got[-1][0] and v is got[-1][1]
 
@@ -65,7 +66,7 @@ def test_flow_nd_prior_levels_match_reference(rng):
     us[3, 4] = np.nan  # NaN in a prior is read as 0
     want, got = [], []
     jflow.flow_nd(it0, it1, "grad", "none", us=us, vs=vs, collect=want, **LOOPS)
-    tflow.flow_nd(it0, it1, "grad", "none", us=us, vs=vs, collect=got, **LOOPS)
+    tflow.flow_nd(it0, it1, "grad", "none", us=us, vs=vs, collect=got, **CPU, **LOOPS)
     _levels_agree(want, got)
 
 
@@ -84,13 +85,13 @@ def test_flow_nd_sequence_and_fused_match_pairs(rng):
     f0 = (rng.random((24, 28)) * 255).astype(np.float32)
     frames = np.stack([f0, np.roll(f0, 1, axis=1), np.roll(f0, 2, axis=1)])
     p = tflow.FlowNDParams(**LOOPS)
-    us, vs = tflow.flow_nd_sequence(frames, "grad", "none", p)
+    us, vs = tflow.flow_nd_sequence(frames, "grad", "none", p, **CPU)
     assert us.shape == vs.shape == (2, 24, 28)
     for t in range(2):
-        u, v = tflow.flow_nd(frames[t], frames[t + 1], "grad", "none", p)
+        u, v = tflow.flow_nd(frames[t], frames[t + 1], "grad", "none", p, **CPU)
         np.testing.assert_allclose(us[t].numpy(), u.numpy(), atol=1e-6)
         np.testing.assert_allclose(vs[t].numpy(), v.numpy(), atol=1e-6)
-    uf, vf = tflow.flow_nd_fused(frames[0], frames[1], "grad", "none", p)
+    uf, vf = tflow.flow_nd_fused(frames[0], frames[1], "grad", "none", p, **CPU)
     np.testing.assert_allclose(uf.numpy(), us[0].numpy(), atol=1e-6)
     np.testing.assert_allclose(vf.numpy(), vs[0].numpy(), atol=1e-6)
 
@@ -98,8 +99,8 @@ def test_flow_nd_sequence_and_fused_match_pairs(rng):
 def test_warp_window_param_matches_gather_path(rng):
     """The true shift is 1 px, far inside r=6."""
     it0, it1 = _shifted_pair(rng, 24, 28)
-    u1, v1 = tflow.flow_nd(it0, it1, "grad", "none", **LOOPS)
-    u2, v2 = tflow.flow_nd(it0, it1, "grad", "none", warp_window=6, **LOOPS)
+    u1, v1 = tflow.flow_nd(it0, it1, "grad", "none", **CPU, **LOOPS)
+    u2, v2 = tflow.flow_nd(it0, it1, "grad", "none", warp_window=6, **CPU, **LOOPS)
     np.testing.assert_allclose(u1.numpy(), u2.numpy(), atol=1e-3)
     np.testing.assert_allclose(v1.numpy(), v2.numpy(), atol=1e-3)
 
@@ -118,6 +119,17 @@ def test_params_round_trip_with_reference():
 def test_unknown_override_and_unported_solver_raise(rng):
     it0, it1 = _shifted_pair(rng, 24, 28)
     with pytest.raises(TypeError, match="bogus"):
-        tflow.flow_nd(it0, it1, bogus=1)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tflow.flow_nd(it0, it1, solver=2)
+        tflow.flow_nd(it0, it1, bogus=1, **CPU)
+    with pytest.raises(NotImplementedError, match="solver=2.*TDMA"):
+        tflow.flow_nd(it0, it1, solver=2, **CPU)
+
+
+@pytest.mark.parametrize("entry", ["flow_nd", "flow_nd_fused", "flow_nd_sequence"])
+def test_numpy_input_without_device_needs_cuda(rng, monkeypatch, entry):
+    """A numpy input runs on the card unless device= says otherwise; with
+    no card that raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    it0, it1 = _shifted_pair(rng, 24, 28)
+    args = (np.stack([it0, it1]),) if entry == "flow_nd_sequence" else (it0, it1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(tflow, entry)(*args)

@@ -16,7 +16,7 @@ from pde_tpu.kernels import sweeps
 from pde_tpu.kernels.sor_pallas import pallas_sor_flow_llin4
 from pde_tpu.kernels.tiled import tiled_relax
 from pde_tpu.solvers import sor as jsor
-from pde_tpu_torch.kernels import build, dispatch, sor_cuda
+from pde_tpu_torch.kernels import build, dispatch, interior_cuda, sor_cuda
 from pde_tpu_torch.solvers import sor
 
 torch.set_num_threads(1)
@@ -125,8 +125,9 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         build.find_nvcc()
 
 
-def test_library_name_follows_source_hash():
-    path = build.library_path(sor_cuda.SOURCE)
+@pytest.mark.parametrize("source", [sor_cuda.SOURCE, interior_cuda.SOURCE])
+def test_library_name_follows_source_hash(source):
+    path = build.library_path(source)
     assert path.parent == build.BUILD_DIR
-    assert path.name.startswith("lib" + sor_cuda.SOURCE + "_") and path.suffix == ".so"
-    assert (build.CSRC / f"{sor_cuda.SOURCE}.cu").is_file()
+    assert path.name.startswith("lib" + source + "_") and path.suffix == ".so"
+    assert (build.CSRC / f"{source}.cu").is_file()
