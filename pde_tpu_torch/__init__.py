@@ -12,7 +12,11 @@ Ported so far, with everything they call: the warping optical flow
 kernel, ``csrc/flow_llin4_sor.cu``), the stereo models
 ``models.disparity`` and ``models.disparity_sym`` and the TV denoiser
 ``models.tv_denoise.tv_denoise4`` (their interior-update sweeps a second
-CUDA source, ``csrc/interior_sor.cu``). Entry points run on the CUDA card
+CUDA source, ``csrc/interior_sor.cu``), Horn & Schunck flow
+``models.flow_hs`` (its elin4 sweep a variant of the first source) and the
+semi-implicit diffusion ``models.diffusion``. Every model's ``solver=2``,
+the line-implicit PCG (``solvers/krylov.py``), and diffusion solve their
+tridiagonal lines with a third, ``csrc/tridiag.cu``. Entry points run on the CUDA card
 unless the caller passes CPU tensors or ``device="cpu"``. Importing the
 package builds and loads nothing; a kernel is compiled with ``nvcc`` at
 its first launch on a CUDA tensor (``kernels/build.py``).

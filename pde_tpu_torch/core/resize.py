@@ -1,8 +1,8 @@
 """MATLAB-compatible ``imresize`` as two dense float32 matrix products.
 
 ``resize_matrix`` is the NumPy construction of ``pde_tpu/core/resize.py``
-(output mapping ``u = x/scale + 0.5*(1 - 1/scale)``, triangle kernel,
-antialiasing on downscale, mirror-folded edge taps). The JAX package
+(output mapping ``u = x/scale + 0.5*(1 - 1/scale)``, triangle or cubic
+kernel, antialiasing on downscale, mirror-folded edge taps). The JAX package
 contracts at ``Precision.HIGHEST``; here the products stay in full
 float32 as long as ``torch.backends.cuda.matmul.allow_tf32`` is False,
 its default, which callers must not change.
@@ -67,15 +67,15 @@ def resize_matrix(
 def imresize(x: torch.Tensor, out_size: tuple[int, int], method: str = "bilinear") -> torch.Tensor:
     """Resize (..., H, W) to (..., out_h, out_w) with MATLAB imresize semantics.
 
-    method: 'bilinear' or 'triangle' (the same triangle kernel; antialias
-    iff downscaling). 'bicubic' is not ported yet.
+    method: 'bilinear'/'triangle' (the same triangle kernel; antialias
+    iff downscaling) or 'bicubic' (MATLAB's Keys cubic, likewise); any
+    other name takes the triangle kernel, as in ``pde_tpu``.
     """
-    if method not in ("bilinear", "triangle"):
-        raise NotImplementedError(f"imresize method {method!r} is not ported yet")
     out_h, out_w = out_size
     h, w = x.shape[-2:]
-    r = torch.from_numpy(resize_matrix(h, out_h)).to(x.device)
-    c = torch.from_numpy(resize_matrix(w, out_w)).to(x.device)
+    kernel = "cubic" if method == "bicubic" else "triangle"
+    r = torch.from_numpy(resize_matrix(h, out_h, True, kernel)).to(x.device)
+    c = torch.from_numpy(resize_matrix(w, out_w, True, kernel)).to(x.device)
     y = torch.matmul(r, x.to(torch.float32))
     return torch.matmul(y, c.T)
 

@@ -1,15 +1,22 @@
-// Red-black SOR sweeps of the late-linearised coupled flow pair (dU, dV),
-// 4-neighbour Brox weights: the llin4 solve of every inner iteration of
-// the warping flow (models/flow_nd.py).
+// Red-black SOR sweeps of the coupled flow pair, 4-neighbour weights, in two
+// linearisations:
+//   * late (llin4): the increments (dU, dV) against the frozen flow (U, V),
+//     the solve of every inner iteration of the warping flow
+//     (models/flow_nd.py);
+//   * early (elin4): (U, V) themselves, the solve of every pyramid level of
+//     Horn-Schunck flow with solver=1 (models/flow_hs.py). It drops the
+//     frozen-flow loads and the - U_c Σw term; all else is shared.
 //
-// Replaces two TPU kernels that compute the same function:
+// Replaces the TPU kernels that compute these functions:
 //   * pde_tpu/kernels/sor_pallas.py::_kernel (pallas_sor_flow_llin4), the
-//     VMEM-resident kernel for levels that fit in VMEM;
+//     VMEM-resident llin4 kernel for levels that fit in VMEM;
 //   * pde_tpu/kernels/tiled.py::_stripe_kernel driving
 //     pde_tpu/kernels/sweeps.py::flow_llin4_sweep, the row-stripe engine
-//     for larger levels.
+//     for larger levels, and driving sweeps.py::flow_elin4_sweep, the elin4
+//     sweep (through kernels/dispatch.py::sor_flow_elin4).
 // The card has no VMEM budget to split on, so one kernel takes every level.
-// Its plain PyTorch version is pde_tpu_torch/solvers/sor.py::sor_flow_llin4.
+// Its plain PyTorch versions are pde_tpu_torch/solvers/sor.py::
+// sor_flow_llin4 and sor_flow_elin4.
 //
 // Design (simple and exact first):
 //   * one prepare launch per call writes the edge-zeroed weights, their sum,
@@ -84,6 +91,9 @@ __global__ void prepare_kernel(const float* __restrict__ du_in, const float* __r
   dv[p] = dv_in[p];
 }
 
+// kLate: llin4 (u, v are the frozen flow); else elin4 (u, v unused, du, dv
+// are the flow itself).
+template <bool kLate>
 __global__ void sweep_kernel(const float* __restrict__ u, const float* __restrict__ v,
                              float* du, float* dv, const float* __restrict__ scratch,
                              const uint8_t* __restrict__ flags, int h, int w, int color,
@@ -104,15 +114,19 @@ __global__ void sweep_kernel(const float* __restrict__ u, const float* __restric
   const float b = scratch[kWN * n + p];
   const float c = scratch[kWE * n + p];
   const float d = scratch[kWS * n + p];
-  const float wsum = scratch[kWSUM * n + p];
-  const float uc = u[p];
-  const float vc = v[p];
 
-  // Σ w_k (f_k + U_k) - U_c Σw, in the order W, E, N, S
-  const float su = ((((du[pw] + u[pw]) * a + (du[pe] + u[pe]) * c) + (du[pn] + u[pn]) * b) +
-                    (du[ps] + u[ps]) * d) - uc * wsum;
-  const float sv = ((((dv[pw] + v[pw]) * a + (dv[pe] + v[pe]) * c) + (dv[pn] + v[pn]) * b) +
-                    (dv[ps] + v[ps]) * d) - vc * wsum;
+  // late: Σ w_k (f_k + U_k) - U_c Σw; early: Σ w_k f_k; in the order W, E, N, S
+  float su, sv;
+  if (kLate) {
+    const float wsum = scratch[kWSUM * n + p];
+    su = ((((du[pw] + u[pw]) * a + (du[pe] + u[pe]) * c) + (du[pn] + u[pn]) * b) +
+          (du[ps] + u[ps]) * d) - u[p] * wsum;
+    sv = ((((dv[pw] + v[pw]) * a + (dv[pe] + v[pe]) * c) + (dv[pn] + v[pn]) * b) +
+          (dv[ps] + v[ps]) * d) - v[p] * wsum;
+  } else {
+    su = ((du[pw] * a + du[pe] * c) + du[pn] * b) + du[ps] * d;
+    sv = ((dv[pw] * a + dv[pe] * c) + dv[pn] * b) + dv[ps] * d;
+  }
 
   const uint8_t f = flags[p];
   const float m0 = scratch[kM0 * n + p];
@@ -126,21 +140,14 @@ __global__ void sweep_kernel(const float* __restrict__ u, const float* __restric
   dv[p] = nv;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Number of float32 (H, W) planes the caller allocates as `scratch`.
-int flow_llin4_sor_scratch_planes() { return kNumScratch; }
-
-// All pointers are contiguous (H, W) arrays on the current device: float32,
-// except `flags`, uint8. du_out/dv_out receive du/dv after `iters` sweeps.
-// Launches 1 + 2 * iters kernels on `stream`.
-int flow_llin4_sor(const void* u, const void* v, const void* du, const void* dv, const void* m,
-                   const void* cu, const void* cv, const void* duc, const void* dvc,
-                   const void* ww, const void* wn, const void* we, const void* ws,
-                   void* du_out, void* dv_out, void* scratch, void* flags, int h, int w,
-                   int iters, float omega, float one_minus_omega, void* stream) {
+// The prepare launch and 2 * iters colour launches on `stream`; u, v are
+// read by the late form only.
+template <bool kLate>
+int run_sor(const void* u, const void* v, const void* du, const void* dv, const void* m,
+            const void* cu, const void* cv, const void* duc, const void* dvc, const void* ww,
+            const void* wn, const void* we, const void* ws, void* du_out, void* dv_out,
+            void* scratch, void* flags, int h, int w, int iters, float omega,
+            float one_minus_omega, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid_all((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
@@ -159,13 +166,43 @@ int flow_llin4_sor(const void* u, const void* v, const void* du, const void* dv,
   if (err != cudaSuccess) return static_cast<int>(err);
   for (int it = 0; it < iters; ++it) {
     for (int color = 0; color < 2; ++color) {
-      sweep_kernel<<<grid_half, block, 0, s>>>(f(u), f(v), dU, dV, sc, fl, h, w, color, omega,
-                                               one_minus_omega);
+      sweep_kernel<kLate><<<grid_half, block, 0, s>>>(f(u), f(v), dU, dV, sc, fl, h, w, color,
+                                                      omega, one_minus_omega);
       err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
     }
   }
   return static_cast<int>(cudaSuccess);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Number of float32 (H, W) planes the caller allocates as `scratch`.
+int flow_llin4_sor_scratch_planes() { return kNumScratch; }
+
+// All pointers are contiguous (H, W) arrays on the current device: float32,
+// except `flags`, uint8. du_out/dv_out receive du/dv after `iters` sweeps.
+// Launches 1 + 2 * iters kernels on `stream`.
+int flow_llin4_sor(const void* u, const void* v, const void* du, const void* dv, const void* m,
+                   const void* cu, const void* cv, const void* duc, const void* dvc,
+                   const void* ww, const void* wn, const void* we, const void* ws,
+                   void* du_out, void* dv_out, void* scratch, void* flags, int h, int w,
+                   int iters, float omega, float one_minus_omega, void* stream) {
+  return run_sor<true>(u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws, du_out, dv_out,
+                       scratch, flags, h, w, iters, omega, one_minus_omega, stream);
+}
+
+// The early form: u, v are the flow, relaxed into u_out/v_out. The same
+// pointers and launches as flow_llin4_sor, without the frozen flow.
+int flow_elin4_sor(const void* u, const void* v, const void* m, const void* cu, const void* cv,
+                   const void* duc, const void* dvc, const void* ww, const void* wn,
+                   const void* we, const void* ws, void* u_out, void* v_out, void* scratch,
+                   void* flags, int h, int w, int iters, float omega, float one_minus_omega,
+                   void* stream) {
+  return run_sor<false>(nullptr, nullptr, u, v, m, cu, cv, duc, dvc, ww, wn, we, ws, u_out,
+                        v_out, scratch, flags, h, w, iters, omega, one_minus_omega, stream);
 }
 
 const char* flow_llin4_sor_error_string(int code) {

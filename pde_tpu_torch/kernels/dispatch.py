@@ -1,10 +1,17 @@
 """Solver dispatch: the hand-written kernel for CUDA tensors, the plain
 PyTorch version for CPU tensors.
 
-A CUDA tensor goes to the kernel or raises; it never falls back.
-``plain_solvers()`` runs the plain version on any device, so that a check
-can hold the kernel against it on the card; the package itself never
-enters it.
+A CUDA tensor goes to the kernel or raises; it never falls back, whatever
+its size. ``plain_solvers()`` runs the plain version on any device, so
+that a check can hold the kernel against it on the card; the package
+itself never enters it.
+
+Every tridiagonal line solve of the package comes through here
+(``thomas_solve``, ``tridiag_factor``/``tridiag_solve`` and the zebra
+helpers ``line_factors``/``line_solve``). On the card, one factor of the
+full field serves both zebra parities (the kernel's per-line arithmetic is
+the same); in the plain version each parity's lines have their own, as in
+``pde_tpu``.
 """
 
 from __future__ import annotations
@@ -14,8 +21,9 @@ import contextvars
 
 import torch
 
-from pde_tpu_torch.kernels import interior_cuda, sor_cuda
+from pde_tpu_torch.kernels import interior_cuda, sor_cuda, tdma_cuda
 from pde_tpu_torch.solvers import sor as _sor
+from pde_tpu_torch.solvers import tdma as _tdma
 
 _FORCE_PLAIN = contextvars.ContextVar("pde_tpu_torch_force_plain", default=False)
 
@@ -43,6 +51,13 @@ def sor_flow_llin4(u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws,
     return sor_cuda.flow_llin4_sor(*args)
 
 
+def sor_flow_elin4(u, v, m, cu, cv, duc, dvc, ww, wn, we, ws, iters: int, omega: float):
+    args = (u, v, m, cu, cv, duc, dvc, ww, wn, we, ws, iters, omega)
+    if _plain(u):
+        return _sor.sor_flow_elin4(*args)
+    return sor_cuda.flow_elin4_sor(*args)
+
+
 def sor_disp_llin4(u, du, cu, duc, ww, wn, we, ws, iters: int, omega: float):
     args = (u, du, cu, duc, ww, wn, we, ws, iters, omega)
     if _plain(u):
@@ -68,3 +83,41 @@ def sor_pde4(x, trace, b, ww, wn, we, ws, iters: int, omega: float):
     if _plain(x):
         return _sor.sor_pde4(*args)
     return interior_cuda.pde4_sor(*args)
+
+
+def thomas_solve(a, b, c, d, axis: int = -2):
+    """Tridiagonal systems along ``axis`` (a[0] and c[-1] ignored)."""
+    if _plain(d):
+        return _tdma.thomas_solve(a, b, c, d, axis)
+    return tdma_cuda.thomas_solve(a, b, c, d, axis)
+
+
+def tridiag_factor(a, b, c, axis: int = -2):
+    """The elimination of the systems along ``axis``, for ``tridiag_solve``."""
+    if _plain(b):
+        return _tdma.tridiag_factor(a, b, c, axis)
+    return tdma_cuda.tridiag_factor(a, b, c, axis)
+
+
+def tridiag_solve(fac, d, axis: int = -2):
+    """Solve with a factor of ``tridiag_factor`` for a new RHS."""
+    if _plain(d):
+        return _tdma.tridiag_solve(fac, d, axis)
+    return tdma_cuda.tridiag_solve(fac, d)
+
+
+def line_factors(a, b, c, vertical: bool):
+    """Factors for the zebra line solves of ``line_solve``: columns
+    (``vertical``) or rows."""
+    if _plain(b):
+        return _tdma.line_factors(a, b, c, vertical)
+    fac = tdma_cuda.tridiag_factor(a, b, c, -2 if vertical else -1)
+    return fac, fac
+
+
+def line_solve(facs, d_full, parity: int, vertical: bool):
+    """The lines ``parity::2`` (columns if ``vertical``, else rows) of the
+    solve with RHS ``d_full``, compactly."""
+    if _plain(d_full):
+        return _tdma.line_solve(facs, d_full, parity, vertical)
+    return tdma_cuda.tridiag_solve(facs[parity], d_full, parity)

@@ -20,3 +20,5 @@ from pde_tpu_torch.models.tv_denoise import (
     tv_denoise4,
     tv_denoise4_fused,
 )
+from pde_tpu_torch.models.flow_hs import FlowHSParams, flow_hs
+from pde_tpu_torch.models.diffusion import Diffusion4Params, diffusion4

@@ -10,9 +10,10 @@ diffusion weights come from the disparity field itself with zeroed
 borders.
 
 Runs eagerly on the card unless the caller asks for the CPU
-(``models/_device.py``); the solve goes through ``kernels/dispatch.py``
-(the interior-update CUDA kernel for CUDA tensors). ``solver=2``
-(line-implicit PCG) is not ported yet.
+(``models/_device.py``). The solve is red-black SOR through
+``kernels/dispatch.py`` (``solver=1``, the interior-update CUDA kernel for
+CUDA tensors) or the line-implicit PCG of ``solvers/krylov.py``
+(``solver=2``, its line solves the CUDA tridiagonal kernel).
 """
 
 from __future__ import annotations
@@ -28,10 +29,11 @@ from pde_tpu_torch.core.pyramid import build_pyramid
 from pde_tpu_torch.core.resize import imresize
 from pde_tpu_torch.kernels.dispatch import sor_disp_llin4
 from pde_tpu_torch.models._device import as_tensor, input_device
-from pde_tpu_torch.models.flow_nd import require_sor
+from pde_tpu_torch.models.flow_nd import check_solver
 from pde_tpu_torch.ops.derivatives import fst_derivatives5, snd_derivatives5, rgb2grad
 from pde_tpu_torch.ops.warp import bilinear_warp, identity_grid, warp_x_window
 from pde_tpu_torch.ops.weights import diffusion_weights_4
+from pde_tpu_torch.solvers.krylov import pcg_disp_llin4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +50,8 @@ class DisparityParams:
     b2: float = 0.29
     scales: int = 10**9
     scl_factor: float = 0.75
-    # 1: red-black SOR (the CUDA kernel); 2: line-implicit PCG (not ported)
+    # 1: red-black SOR (the CUDA interior-update kernel); 2: line-implicit
+    # PCG (the CUDA tridiagonal kernel)
     solver: int = 1
     # windowed shift-add warp radius (ops/warp.warp_x_window); 0 = exact
     # gather warp. With radius r the warp is exact for |disparity| < r;
@@ -124,7 +127,8 @@ def _disp_first_iter(u, i1t0, i1t1, i2t0, i2t1, us_ap, as_diff,
 
         ww, wn, we, ws = diffusion_weights_4(u + du_f, eps=1e-5, combine="max",
                                              zero_borders=True)
-        du_f = sor_disp_llin4(u, du_f, cu_gd, du_gd, ww, wn, we, ws, p.iter, p.omega)
+        solve = pcg_disp_llin4 if p.solver == 2 else sor_disp_llin4
+        du_f = solve(u, du_f, cu_gd, du_gd, ww, wn, we, ws, p.iter, p.omega)
     return medfilt2_3x3(u + du_f)
 
 
@@ -149,7 +153,7 @@ def disparity_nd(il, ir, fst_term: str = "grad", snd_term: str = "gradmag",
     list; the per-level U field (coarsest first, before upscaling) is
     appended."""
     p = with_overrides(params or DisparityParams(), **overrides)
-    require_sor("disparity_nd", p.solver)
+    check_solver("disparity_nd", p.solver)
     fst_term = fst_term.lower()
     snd_term = snd_term.lower()
     device = input_device(il, device)

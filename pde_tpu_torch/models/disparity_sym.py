@@ -11,12 +11,13 @@ symmetry term
 
 whose contributions subtract from Cu and add to Du, then relaxes the pair.
 The two fields decouple inside the solve, so they go to the solver as one
-batch of 2 (one kernel call on the card).
+batch of 2: one red-black kernel call on the card (``solver=1``), or one
+line-implicit PCG whose CG scalars are per field, as ``pde_tpu``'s
+``vmap`` of it (``solver=2``, its line solves the CUDA tridiagonal kernel).
 
 Works on the raw 0-255 image domain (no /255) with a 3x3 σ=1 Gaussian
 pyramid, as the reference. Runs eagerly on the card unless the caller
-asks for the CPU (``models/_device.py``). ``solver=2`` (line-implicit
-PCG) is not ported yet.
+asks for the CPU (``models/_device.py``).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from pde_tpu_torch.core.resize import imresize
 from pde_tpu_torch.kernels.dispatch import sor_disp_llin_sym4
 from pde_tpu_torch.models._device import as_tensor, input_device
 from pde_tpu_torch.models.disparity import warp_x
-from pde_tpu_torch.models.flow_nd import require_sor
+from pde_tpu_torch.models.flow_nd import check_solver
 from pde_tpu_torch.ops.derivatives import (
     FST_DERIVATOR5,
     SMOOTHER5,
@@ -41,6 +42,7 @@ from pde_tpu_torch.ops.derivatives import (
     snd_derivatives5,
 )
 from pde_tpu_torch.ops.weights import diffusion_weights_4
+from pde_tpu_torch.solvers.krylov import pcg_disp_llin4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +59,8 @@ class DisparitySymParams:
     b2: float = 0.72
     scales: int = 10**9
     scl_factor: float = 0.75
-    # 1: red-black SOR (the CUDA kernel); 2: line-implicit PCG (not ported)
+    # 1: red-black SOR (the CUDA interior-update kernel); 2: line-implicit
+    # PCG (the CUDA tridiagonal kernel)
     solver: int = 1
 
 
@@ -130,8 +133,13 @@ def _sym_level(u0, u1, it0, it1, sr_diff, p: DisparitySymParams):
 
             w0 = diffusion_weights_4(u0 + du0, eps=1e-5, combine="max", zero_borders=True)
             w1 = diffusion_weights_4(u1 + du1, eps=1e-5, combine="max", zero_borders=True)
-            du0, du1 = sor_disp_llin_sym4(u0, du0, cug0, dug0, *w0,
-                                          u1, du1, cug1, dug1, *w1, p.iter, p.omega)
+            if p.solver == 2:
+                pairs = ((u0, u1), (du0, du1), (cug0, cug1), (dug0, dug1), *zip(w0, w1))
+                du0, du1 = pcg_disp_llin4(*(torch.stack(pair) for pair in pairs),
+                                          p.iter, p.omega)
+            else:
+                du0, du1 = sor_disp_llin_sym4(u0, du0, cug0, dug0, *w0,
+                                              u1, du1, cug1, dug1, *w1, p.iter, p.omega)
 
         u0 = medfilt2_3x3(u0 + du0)
         u1 = medfilt2_3x3(u1 + du1)
@@ -147,7 +155,7 @@ def disparity_sym(il, ir, params: DisparitySymParams | None = None,
     collect: optional list of per-level (U0, U1), coarsest first.
     """
     p = with_overrides(params or DisparitySymParams(), **overrides)
-    require_sor("disparity_sym", p.solver)
+    check_solver("disparity_sym", p.solver)
     device = input_device(il, device)
     a = as_tensor(il, device)
     b = as_tensor(ir, device)

@@ -15,9 +15,10 @@ Per pyramid level (factor 0.75, stop <= 20 px):
   upscale by 1/0.75 with the 'triangle' kernel, flow values scaled
 
 Runs eagerly on the card unless the caller asks for the CPU
-(``models/_device.py``); the inner solve goes through
-``kernels/dispatch.py`` (the CUDA kernel for CUDA tensors). ``solver=2``
-(line-implicit PCG) is not ported yet.
+(``models/_device.py``). The inner solve is red-black SOR through
+``kernels/dispatch.py`` (``solver=1``, the CUDA llin4 kernel for CUDA
+tensors) or the line-implicit PCG of ``solvers/krylov.py`` (``solver=2``,
+its line solves the CUDA tridiagonal kernel).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from pde_tpu_torch.ops.warp import warp_by_flow, warp_window
 from pde_tpu_torch.ops.weights import diffusion_weights_4
 from pde_tpu_torch.kernels.dispatch import sor_flow_llin4
 from pde_tpu_torch.models._device import as_tensor, input_device
+from pde_tpu_torch.solvers.krylov import pcg_flow_llin4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +53,8 @@ class FlowNDParams:
     b1: float = 1.4843
     b2: float = 0.2915
     scl_factor: float = 0.75
-    # 1: red-black SOR (the CUDA kernel); 2: line-implicit PCG (not ported)
+    # 1: red-black SOR (the CUDA llin4 kernel); 2: line-implicit PCG (the
+    # CUDA tridiagonal kernel)
     solver: int = 1
     scales: int = 10**9
     # windowed shift-add warp radius (ops/warp.warp_window); 0 = exact
@@ -88,12 +91,12 @@ def _snd_tensors(i_t0, i_t1w):
     )
 
 
-def require_sor(name: str, solver: int):
-    """Raise for any solver but 1: the PCG solver (2) is not ported yet."""
-    if solver != 1:
-        raise NotImplementedError(
-            f"{name} solver={solver}: only solver=1 (red-black SOR) is ported; "
-            "solver=2 (line-implicit PCG) arrives with the tridiagonal (TDMA) kernel")
+def check_solver(name: str, solver: int):
+    """Raise for a solver other than 1 (red-black SOR) or 2 (line-implicit
+    PCG), the two every model has."""
+    if solver not in (1, 2):
+        raise ValueError(f"{name} solver={solver}: the solvers are 1 (red-black SOR) "
+                         "and 2 (line-implicit PCG)")
 
 
 def _nd_level(u, v, i1t0, i1t1, i2t0, i2t1, us_ap, vs_ap, as_diff, p: FlowNDParams,
@@ -157,8 +160,9 @@ def _nd_level(u, v, i1t0, i1t1, i2t0, i2t1, us_ap, vs_ap, as_diff, p: FlowNDPara
             ww, wn, we, ws = diffusion_weights_4(
                 torch.stack([u + du, v + dv]), eps=1e-5, combine="sum"
             )
-            du, dv = sor_flow_llin4(u, v, du, dv, m_gd, cu_gd, cv_gd, du_gd, dv_gd,
-                                    ww, wn, we, ws, p.iter, p.omega)
+            solve = pcg_flow_llin4 if p.solver == 2 else sor_flow_llin4
+            du, dv = solve(u, v, du, dv, m_gd, cu_gd, cv_gd, du_gd, dv_gd,
+                           ww, wn, we, ws, p.iter, p.omega)
 
         u = medfilt2_3x3(u + du)
         v = medfilt2_3x3(v + dv)
@@ -178,7 +182,7 @@ def flow_nd(it0, it1, fst_term: str = "grad", snd_term: str = "gradmag",
     coarsest-first.
     """
     p = with_overrides(params or FlowNDParams(), **overrides)
-    require_sor("flow_nd", p.solver)
+    check_solver("flow_nd", p.solver)
     fst_term = fst_term.lower()
     snd_term = snd_term.lower()
     device = input_device(it0, device)

@@ -10,10 +10,12 @@ Lagged-diffusivity TV restoration with an L1 data term:
 
 run coarse-to-fine over a partial pyramid (down to ``scl`` of the original
 size), with Brox weights, max over channels and zeroed borders. The
-channels are one batch of the solver (one kernel call on the card, the
-(H, W) weights shared). Runs eagerly on the card unless the caller asks
-for the CPU (``models/_device.py``). ``solver=2`` (PCG) and the
-8-neighbour ``tv_denoise8`` are not ported yet.
+channels are one batch of the solver, the (H, W) weights shared: one
+red-black kernel call on the card (``solver=1``), or one line-implicit PCG
+over all channels jointly (``solver=2``, its line solves the CUDA
+tridiagonal kernel). Runs eagerly on the card unless the caller asks for
+the CPU (``models/_device.py``). The 8-neighbour ``tv_denoise8`` is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ from pde_tpu_torch.core.conv import gaussian_kernel_2d, imfilter_replicate
 from pde_tpu_torch.core.resize import imresize, imresize_scale
 from pde_tpu_torch.kernels.dispatch import sor_pde4
 from pde_tpu_torch.models._device import as_tensor, input_device
-from pde_tpu_torch.models.flow_nd import require_sor
+from pde_tpu_torch.models.flow_nd import check_solver
 from pde_tpu_torch.ops.weights import diffusion_weights_4
+from pde_tpu_torch.solvers.krylov import pcg_pde4
 
 _EPS_D = float(np.finfo(np.float64).eps)  # MATLAB `eps`, added to a float32 square
 
@@ -42,7 +45,8 @@ class TVDenoise4Params:
     omega: float = 1.75
     outer_iter: int = 10
     inner_iter: int = 5
-    # 1: red-black SOR (the CUDA kernel); 2: PCG (not ported)
+    # 1: red-black SOR (the CUDA interior-update kernel); 2: line-implicit
+    # PCG (the CUDA tridiagonal kernel)
     solver: int = 1
     scl: float = 0.5
     scl_factor: float = 0.75
@@ -77,7 +81,7 @@ def _partial_pyramid(img, scl, scl_factor, gsize, gsigma, smooth_last=True):
     return out
 
 
-def _tv4_level(iout, f, alpha, omega, outer_iter, inner_iter):
+def _tv4_level(iout, f, alpha, omega, outer_iter, inner_iter, solver=1):
     """``outer_iter + 1`` lagged-diffusivity iterations at one level; iout
     and f are (C, H, W)."""
     u = iout
@@ -86,8 +90,9 @@ def _tv4_level(iout, f, alpha, omega, outer_iter, inner_iter):
         ww, wn, we, ws = diffusion_weights_4(u, eps=1e-5, combine="max", zero_borders=True)
         trace = psi + alpha * (ww + wn + we + ws)
         b = psi * f
-        u = sor_pde4(u, trace, b, alpha * ww, alpha * wn, alpha * we, alpha * ws,
-                     inner_iter, omega)
+        solve = pcg_pde4 if solver == 2 else sor_pde4
+        u = solve(u, trace, b, alpha * ww, alpha * wn, alpha * we, alpha * ws,
+                  inner_iter, omega)
     return u
 
 
@@ -97,7 +102,7 @@ def tv_denoise4(img, params: TVDenoise4Params | None = None, device=None, **over
     ``img`` if it is a tensor, else on ``device``, else on the CUDA card
     (raises where there is none)."""
     p = with_overrides(params or TVDenoise4Params(), **overrides)
-    require_sor("tv_denoise4", p.solver)
+    check_solver("tv_denoise4", p.solver)
     x = as_tensor(img, input_device(img, device))
     squeeze = x.ndim == 2
     if squeeze:
@@ -105,7 +110,8 @@ def tv_denoise4(img, params: TVDenoise4Params | None = None, device=None, **over
     levels = _partial_pyramid(x, p.scl, p.scl_factor, 7, 2.0)
     iout = levels[-1]
     for lvl in range(len(levels) - 1, -1, -1):
-        iout = _tv4_level(iout, levels[lvl], p.alpha, p.omega, p.outer_iter, p.inner_iter)
+        iout = _tv4_level(iout, levels[lvl], p.alpha, p.omega, p.outer_iter, p.inner_iter,
+                          p.solver)
         if lvl > 0:
             iout = imresize(iout, levels[lvl - 1].shape[-2:], "bilinear")
     return iout[0] if squeeze else iout

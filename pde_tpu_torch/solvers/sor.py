@@ -2,15 +2,18 @@
 in ``csrc/``. Each is the path for CPU tensors and its kernel's reference
 on the card.
 
-Coupled flow pair, ``sor_flow_llin4`` (kernel ``csrc/flow_llin4_sor.cu``),
-written from ``_flow_sor`` (``pde_tpu/solvers/sor.py``, late=True):
+Coupled flow pair, ``sor_flow_llin4`` and ``sor_flow_elin4`` (kernel
+``csrc/flow_llin4_sor.cu``), written from ``_flow_sor``
+(``pde_tpu/solvers/sor.py``, late=True and late=False):
 
 * Border-solving convention: the out-facing weights are zeroed and every
   pixel, border included, is relaxed with its one-sided stencil.
 * NaN in Cu/Cv drops the data term; NaN in Du/Dv drops it from the
   divisor.
 * Within each colour, u updates first and v then uses the refreshed u.
-* Diffusion term ``Σ w_k (dU_k + U_k − U_c)``, summed W, E, N, S.
+* Diffusion term ``Σ w_k (dU_k + U_k − U_c)`` (late: the increments
+  against the frozen flow) or ``Σ w_k U_k`` (early: the flow itself),
+  summed W, E, N, S.
 
 Interior-update family, ``sor_disp_llin4``, ``sor_disp_llin_sym4`` and
 ``sor_pde4`` (kernel ``csrc/interior_sor.cu``), written from
@@ -56,12 +59,9 @@ def _fold_data_nan(c, dc, wsum):
     return torch.isnan(c), torch.nan_to_num(c), 1.0 / (wsum + torch.nan_to_num(dc))
 
 
-def sor_flow_llin4(u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws,
-                   iters: int, omega: float):
-    """Late-linearisation 4-neighbour flow SOR (cf. GS_SOR_llin4_2d):
-    ``iters`` red-black sweeps for the increments (dU, dV) against the
-    frozen (U, V). All arguments are (H, W) float32 tensors on one device;
-    returns new (dU, dV)."""
+def _flow_sor(u, v, fu, fv, m, cu, cv, duc, dvc, ww, wn, we, ws, iters: int, omega: float):
+    """Shared core: relaxes (fu, fv); late linearisation when the frozen
+    flow (u, v) is given, early (fu, fv are the flow) when it is None."""
     h, w = m.shape[-2:]
     mask0 = checkerboard(h, w, 0, device=m.device)
     mask1 = checkerboard(h, w, 1, device=m.device)
@@ -71,9 +71,14 @@ def sor_flow_llin4(u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws,
     cv_nan, cv0, inv_v = _fold_data_nan(cv, dvc, wsum)
     m0 = torch.nan_to_num(m)
 
+    def diff_term(df, f):
+        if f is None:
+            return _nbr_sum4(df, *weights)
+        return _nbr_sum4(df + f, *weights) - f * wsum
+
     def half(fu, fv, mask):
-        su = _nbr_sum4(fu + u, *weights) - u * wsum
-        sv = _nbr_sum4(fv + v, *weights) - v * wsum
+        su = diff_term(fu, u)
+        sv = diff_term(fv, v)
         num_u = torch.where(cu_nan, su, su + cu0 - m0 * fv)
         new_u = torch.where(mask, (1.0 - omega) * fu + omega * num_u * inv_u, fu)
         num_v = torch.where(cv_nan, sv, sv + cv0 - m0 * new_u)
@@ -81,9 +86,25 @@ def sor_flow_llin4(u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws,
         return new_u, new_v
 
     for _ in range(iters):
-        du, dv = half(du, dv, mask0)
-        du, dv = half(du, dv, mask1)
-    return du, dv
+        fu, fv = half(fu, fv, mask0)
+        fu, fv = half(fu, fv, mask1)
+    return fu, fv
+
+
+def sor_flow_llin4(u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws,
+                   iters: int, omega: float):
+    """Late-linearisation 4-neighbour flow SOR (cf. GS_SOR_llin4_2d):
+    ``iters`` red-black sweeps for the increments (dU, dV) against the
+    frozen (U, V). All arguments are (H, W) float32 tensors on one device;
+    returns new (dU, dV)."""
+    return _flow_sor(u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws, iters, omega)
+
+
+def sor_flow_elin4(u, v, m, cu, cv, duc, dvc, ww, wn, we, ws, iters: int, omega: float):
+    """Early-linearisation 4-neighbour flow SOR (cf. GS_SOR_elin4_2d):
+    ``iters`` red-black sweeps for (U, V) themselves. (H, W) float32
+    tensors on one device; returns new (U, V)."""
+    return _flow_sor(None, None, u, v, m, cu, cv, duc, dvc, ww, wn, we, ws, iters, omega)
 
 
 def _interior_color_masks(h: int, w: int, device=None):

@@ -123,8 +123,16 @@ def test_imresize_scale_and_matrix_match(rng):
 
 
 def test_imresize_rejects_unported_method(rng):
-    with pytest.raises(NotImplementedError):
-        resize.imresize(_t(rng.random((8, 8))), (4, 4), "bicubic")
+    """Every method of pde_tpu is ported: 'bicubic' (flow_hs's upscale,
+    antialiased on downscale) matches it, and any other name takes the
+    triangle kernel there and here alike."""
+    for shape, out in (((3, 21, 24), (28, 32)), ((28, 32), (21, 17))):
+        x = rng.random(shape).astype(np.float32)
+        _close(resize.imresize(_t(x), out, "bicubic"),
+               jresize.imresize(jnp.asarray(x), out, "bicubic"))
+    x = rng.random((8, 8)).astype(np.float32)
+    _close(resize.imresize(_t(x), (4, 4), "nearest"),
+           jresize.imresize(jnp.asarray(x), (4, 4), "nearest"))
 
 
 def test_pyramid_matches(rng):
@@ -171,7 +179,8 @@ def test_import_pulls_no_jax_and_builds_nothing():
     before = sorted(os.listdir(build_dir)) if build_dir.exists() else None
     code = ("import sys, pde_tpu_torch, pde_tpu_torch.kernels.build, "
             "pde_tpu_torch.kernels.sor_cuda, pde_tpu_torch.kernels.dispatch, "
-            "pde_tpu_torch.models.flow_nd; "
+            "pde_tpu_torch.kernels.tdma_cuda, pde_tpu_torch.models.flow_nd, "
+            "pde_tpu_torch.models.flow_hs, pde_tpu_torch.models.diffusion; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'pde_tpu.'))"
             " or m == 'pde_tpu']; "
             "assert not bad, bad; print('ok')")

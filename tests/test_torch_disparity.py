@@ -70,6 +70,30 @@ def test_disparity_nd_levels_match_reference(rng, snd, channels, prior):
     assert u is got[-1]
 
 
+def test_disparity_pcg_levels_match_reference(rng):
+    """solver=2: disparity_nd's 2-D PCG (pde_tpu with its secondLoop as a
+    fori_loop, which computes the same) and disparity_sym's pair, one PCG
+    whose CG scalars are per field (pde_tpu vmaps it), on the two finest
+    levels."""
+    il, ir = _shifted_pair(rng, channels=3)
+    want, got = [], []
+    jdisp.disparity_nd(il, ir, "grad", "gradmag", collect=want, solver=2, scales=2,
+                       fori=True, **LOOPS)
+    tdisp.disparity_nd(il, ir, "grad", "gradmag", collect=got, solver=2, scales=2, **CPU,
+                       **LOOPS)
+    assert len(want) == len(got) == 2
+    for uj, ut in zip(want, got):
+        assert _mean_diff(uj, ut) <= MEAN_TOL
+    loops = dict(firstLoop=1, secondLoop=1, iter=3, solver=2, scales=2)
+    want, got = [], []
+    jsym.disparity_sym(il, ir, collect=want, **loops)
+    tsym.disparity_sym(il, ir, collect=got, **CPU, **loops)
+    assert len(want) == len(got) == 2
+    for (u0j, u1j), (u0t, u1t) in zip(want, got):
+        assert _mean_diff(u0j, u0t) <= MEAN_TOL
+        assert _mean_diff(u1j, u1t) <= MEAN_TOL
+
+
 def test_disparity_sym_levels_match_reference(rng):
     il, ir = _shifted_pair(rng, channels=3)
     want, got = [], []
@@ -131,10 +155,11 @@ def test_unknown_override_and_unported_solver_raise(rng):
     il, ir = _shifted_pair(rng, 24, 28)
     with pytest.raises(TypeError, match="bogus"):
         tdisp.disparity_nd(il, ir, bogus=1, **CPU)
-    with pytest.raises(NotImplementedError, match="solver=2"):
-        tdisp.disparity_nd(il, ir, solver=2, **CPU)
-    with pytest.raises(NotImplementedError, match="solver=2"):
-        tsym.disparity_sym(il, ir, solver=2, **CPU)
+    # solver 1 and 2 are ported; any other raises
+    with pytest.raises(ValueError, match="solver=3"):
+        tdisp.disparity_nd(il, ir, solver=3, **CPU)
+    with pytest.raises(ValueError, match="solver=0"):
+        tsym.disparity_sym(il, ir, solver=0, **CPU)
 
 
 def test_numpy_input_without_device_needs_cuda(rng, monkeypatch):

@@ -13,7 +13,7 @@ import pytest
 import scipy.ndimage as ndi
 import torch
 
-from pde_tpu_torch.kernels import sor_cuda
+from pde_tpu_torch.kernels import sor_cuda, tdma_cuda
 
 # the packages' models/__init__ export the function flow_nd under the
 # module's name, so fetch the modules themselves
@@ -35,8 +35,8 @@ def _shifted_pair(rng, h=36, w=44, dx=1.0, channels=None):
     return base, np.roll(base, int(dx), axis=-1)
 
 
-def _levels_agree(want, got):
-    assert len(want) == len(got) >= 3
+def _levels_agree(want, got, min_levels=3):
+    assert len(want) == len(got) >= min_levels
     for (uj, vj), (ut, vt) in zip(want, got):
         uj, vj, ut, vt = np.asarray(uj), np.asarray(vj), ut.numpy(), vt.numpy()
         assert ut.shape == uj.shape and np.isfinite(ut).all() and np.isfinite(vt).all()
@@ -59,6 +59,20 @@ def test_flow_nd_levels_match_reference(rng, fst, snd, channels):
     assert u is got[-1][0] and v is got[-1][1]
 
 
+def test_flow_nd_pcg_levels_match_reference(rng):
+    """solver=2, the line-implicit PCG, at one warp and one reweighting per
+    level on the two finest levels (each level is a JAX compilation)."""
+    it0, it1 = _shifted_pair(rng)
+    loops = dict(firstLoop=1, secondLoop=1, solver=2, scales=2)
+    want, got = [], []
+    jflow.flow_nd(it0, it1, "grad", "none", collect=want, **loops)
+    before = dict(tdma_cuda.LAUNCHES)
+    tflow.flow_nd(it0, it1, "grad", "none", collect=got, **CPU, **loops)
+    assert tdma_cuda.LAUNCHES == before
+    assert len(want) == len(got) == 2
+    _levels_agree(want, got, min_levels=2)
+
+
 def test_flow_nd_prior_levels_match_reference(rng):
     it0, it1 = _shifted_pair(rng)
     us = np.full((36, 44), 0.8, np.float32)
@@ -73,7 +87,7 @@ def test_flow_nd_prior_levels_match_reference(rng):
 def test_flow_nd_recovers_shift_on_cpu_without_kernel(rng):
     """Default loop counts: the reduced ones stop well short of the shift."""
     it0, it1 = _shifted_pair(rng)
-    before = sor_cuda.LAUNCHES
+    before = dict(sor_cuda.LAUNCHES)
     u, v = tflow.flow_nd(torch.from_numpy(it0), torch.from_numpy(it1), "grad", "none")
     assert u.device.type == "cpu" and u.dtype == torch.float32 and u.shape == (36, 44)
     assert abs(float(u[8:-8, 8:-8].median()) - 1.0) < 0.3
@@ -120,8 +134,9 @@ def test_unknown_override_and_unported_solver_raise(rng):
     it0, it1 = _shifted_pair(rng, 24, 28)
     with pytest.raises(TypeError, match="bogus"):
         tflow.flow_nd(it0, it1, bogus=1, **CPU)
-    with pytest.raises(NotImplementedError, match="solver=2.*TDMA"):
-        tflow.flow_nd(it0, it1, solver=2, **CPU)
+    # solver 1 and 2 are ported; any other raises
+    with pytest.raises(ValueError, match="solver=3"):
+        tflow.flow_nd(it0, it1, solver=3, **CPU)
 
 
 @pytest.mark.parametrize("entry", ["flow_nd", "flow_nd_fused", "flow_nd_sequence"])

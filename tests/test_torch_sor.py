@@ -1,7 +1,8 @@
-"""The plain llin4 SOR (``pde_tpu_torch/solvers/sor.py``), the CUDA
-kernel's reference, held against ``pde_tpu``'s XLA solver and both Pallas
-kernels run in interpret mode, as ``tests/test_kernels.py`` runs them; and
-the dispatch, wrapper and build rules that can be checked without a card.
+"""The plain llin4 and elin4 SOR (``pde_tpu_torch/solvers/sor.py``), the
+CUDA kernel's reference, held against ``pde_tpu``'s XLA solvers and the
+Pallas kernels run in interpret mode, as ``tests/test_kernels.py`` runs
+them; and the dispatch, wrapper and build rules that can be checked
+without a card.
 
 The kernel itself runs only on the card: ``chip_smoke.py`` compares it with
 the plain version there.
@@ -16,7 +17,7 @@ from pde_tpu.kernels import sweeps
 from pde_tpu.kernels.sor_pallas import pallas_sor_flow_llin4
 from pde_tpu.kernels.tiled import tiled_relax
 from pde_tpu.solvers import sor as jsor
-from pde_tpu_torch.kernels import build, dispatch, interior_cuda, sor_cuda
+from pde_tpu_torch.kernels import build, dispatch, interior_cuda, sor_cuda, tdma_cuda
 from pde_tpu_torch.solvers import sor
 
 torch.set_num_threads(1)
@@ -81,6 +82,28 @@ def test_plain_matches_stripe_pallas_kernel(rng, h, w):
     _assert_close(_plain(fields, 5, 1.9), want)
 
 
+ELIN = ("u", "v", "m", "cu", "cv", "duc", "dvc", "ww", "wn", "we", "ws")
+
+
+def _elin_fields(rng, h, w):
+    f = dict(zip(NAMES, _fields(rng, h, w, ("cu", "cv", "duc"))))
+    return [f[n] for n in ELIN]
+
+
+@pytest.mark.parametrize("h,w", [(37, 53), (48, 65)])
+def test_plain_elin4_matches_xla_solver_and_stripe_kernel(rng, h, w):
+    """elin4 against the XLA solver and the stripe engine with
+    sweeps.flow_elin4_sweep (3- or 4-stripe plan, k=2, iters % k != 0)."""
+    fields = _elin_fields(rng, h, w)
+    got = sor.sor_flow_elin4(*(torch.from_numpy(f) for f in fields), 5, 1.9)
+    jf = [jnp.asarray(f) for f in fields]
+    _assert_close(got, jsor.sor_flow_elin4(*jf, 5, 1.9))
+    prepare, sweep = sweeps.flow_elin4_sweep(1.9)
+    want = tiled_relax(tuple(jf), sweep, 2, 5, prepare_fn=prepare, interpret=True,
+                       plan_override=(2, 16))
+    _assert_close(got, want)
+
+
 def test_plain_zero_iters_returns_inputs(rng):
     fields = _fields(rng, 9, 11)
     got = _plain(fields, 0, 1.9)
@@ -90,11 +113,14 @@ def test_plain_zero_iters_returns_inputs(rng):
 
 def test_dispatch_cpu_is_plain_and_launches_nothing(rng):
     args = [torch.from_numpy(f) for f in _fields(rng, 21, 30)]
-    before = sor_cuda.LAUNCHES
+    before = dict(sor_cuda.LAUNCHES)
     want = sor.sor_flow_llin4(*args, 4, 1.9)
     for got in (dispatch.sor_flow_llin4(*args, 4, 1.9), _plain_ctx(args)):
         for g, w_ in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), w_.numpy())
+    elin = [args[NAMES.index(n)] for n in ELIN]
+    for g, w_ in zip(dispatch.sor_flow_elin4(*elin, 4, 1.9), sor.sor_flow_elin4(*elin, 4, 1.9)):
+        np.testing.assert_array_equal(g.numpy(), w_.numpy())
     assert sor_cuda.LAUNCHES == before
 
 
@@ -112,9 +138,11 @@ def test_cuda_wrapper_rejects_cpu_tensors_before_building(rng, monkeypatch):
 
     monkeypatch.setattr(build, "load", no_build)
     args = [torch.from_numpy(f) for f in _fields(rng, 8, 9)]
-    before = sor_cuda.LAUNCHES
+    before = dict(sor_cuda.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
         sor_cuda.flow_llin4_sor(*args, 4, 1.9)
+    with pytest.raises(ValueError, match="CUDA"):
+        sor_cuda.flow_elin4_sor(*(args[NAMES.index(n)] for n in ELIN), 4, 1.9)
     assert sor_cuda.LAUNCHES == before
 
 
@@ -125,7 +153,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         build.find_nvcc()
 
 
-@pytest.mark.parametrize("source", [sor_cuda.SOURCE, interior_cuda.SOURCE])
+@pytest.mark.parametrize("source", [sor_cuda.SOURCE, interior_cuda.SOURCE, tdma_cuda.SOURCE])
 def test_library_name_follows_source_hash(source):
     path = build.library_path(source)
     assert path.parent == build.BUILD_DIR

@@ -71,6 +71,29 @@ def test_tv_denoise4_levels_match_reference(rng, channels):
     assert _rel_err(want, out, scale) <= REL_TOL
 
 
+def test_tv_denoise4_pcg_matches_reference(rng):
+    """solver=2: pcg_pde4 over the three channels jointly, each level from
+    the reference's input to it and the whole result; scl=0.75 keeps two
+    levels (each a JAX compilation)."""
+    img = _noisy(rng, 3)
+    scale = float(img.max() - img.min())
+    kw = dict(ITERS, solver=2, scl=0.75)
+    p = ttv.TVDenoise4Params(**kw)
+    jlevels = jtv._partial_pyramid(jnp.asarray(img), p.scl, p.scl_factor, 7, 2.0)
+    assert len(jlevels) == 2
+    iout = jlevels[-1]
+    for lvl in (1, 0):
+        want = jtv._tv4_level(iout, jlevels[lvl], p.alpha, p.omega, p.outer_iter,
+                              p.inner_iter, p.solver)
+        got = ttv._tv4_level(torch.from_numpy(np.array(iout)),
+                             torch.from_numpy(np.array(jlevels[lvl])),
+                             p.alpha, p.omega, p.outer_iter, p.inner_iter, p.solver)
+        assert _rel_err(want, got, scale) <= REL_TOL
+        iout = jimresize(want, jlevels[0].shape[-2:], "bilinear")
+    want = np.asarray(jtv.tv_denoise4(img, **kw))
+    assert _rel_err(want, ttv.tv_denoise4(img, **CPU, **kw), scale) <= REL_TOL
+
+
 def test_tv_denoise4_suppresses_flat_noise_on_cpu_without_kernel(rng):
     """Default parameters, a CPU tensor in: noise in a flat region falls to
     under a fifth, as pde_tpu's own test asks at reduced counts."""
@@ -96,8 +119,9 @@ def test_params_round_trip_with_reference():
 
 def test_unported_solver_and_numpy_without_device_raise(rng, monkeypatch):
     img = _noisy(rng)
-    with pytest.raises(NotImplementedError, match="solver=2"):
-        ttv.tv_denoise4(img, solver=2, **CPU)
+    # solver 1 and 2 are ported; any other raises
+    with pytest.raises(ValueError, match="solver=3"):
+        ttv.tv_denoise4(img, solver=3, **CPU)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttv.tv_denoise4(img)
