@@ -12,11 +12,12 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    ``nvcc`` per source, all started together (timed); TF32 is switched
    off for matmuls and cuDNN.
 3. Each kernel against its plain PyTorch version on the card, at the
-   solvers' shapes, with and without NaN data (the tridiagonal solve at
-   line lengths 1 to 1024 along both axes, whole and by zebra parity, with
-   batched and shared coefficients); both timed with CUDA events in turns,
-   beside the least time the card could take (the bound) and the kernel's
-   device time under ``torch.profiler``.
+   solvers' shapes, with and without NaN data (the 8-neighbour sweeps with
+   diagonal weights of both signs; the tridiagonal solve at line lengths 1
+   to 1024 along both axes, whole and by zebra parity, with batched and
+   shared coefficients); both timed with CUDA events in turns, beside the
+   least time the card could take (the bound) and the kernel's device time
+   under ``torch.profiler``.
 4. ``flow_nd`` with default parameters on a 3-channel 480x640 pair whose
    second frame is the first shifted by a known sub-pixel amount. The flow
    must be finite and recover the shift, the kernel must have been
@@ -42,10 +43,14 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
     sweeps on a 48x56 pair.
 11. ``diffusion4``, default parameters, on a noisy 3x480x640 image: exact
     launches, kernel path against plain path, the noise must fall.
-12. ``solver=2`` in ``flow_nd``, ``disparity_nd``, ``disparity_sym`` and
-    ``tv_denoise4`` at 3x480x640: exact launches, the shift recovered or
-    the noise reduced, the kernel path against the plain path at a
-    reduced size.
+12. ``flow_ad`` (anisotropic tensor flow, the llin8 kernel) with default
+    parameters on the pair of phase 4: as phase 4.
+13. ``tv_denoise8`` (the pde8 kernel), default parameters, on the noisy
+    image of phase 8: as phase 8.
+14. ``solver=2`` in ``flow_nd``, ``disparity_nd``, ``disparity_sym``,
+    ``tv_denoise4``, ``flow_ad`` and ``tv_denoise8`` at 3x480x640: exact
+    launches, the shift recovered or the noise reduced, the kernel path
+    against the plain path at a reduced size.
 
 Every phase from 4 on sets every kernel's launch count to 0 just before it
 drives its entry point and reads all counts just after, and profiles one
@@ -72,7 +77,7 @@ import torch
 HERE = Path(__file__).resolve().parent
 
 SOR_TOL = 1e-5       # max-abs, kernel vs plain, unit-scale fields (FMA contraction moves ulps)
-TRIDIAG_TOL = 1e-6   # max-abs, kernel vs plain: every float op rounded alone in the plain order (0 expected)
+EXACT_TOL = 1e-6     # max-abs, kernel vs plain: every float op rounded alone in the plain order (0 expected)
 FLOW_TOL = 1e-3      # px, mean |Δflow| between two paths of the whole model
 SHIFT_TOL = 0.3      # px, median interior flow vs the known shift
 DISP_SHIFT_TOL = 0.5  # px, median interior disparity vs the known shift
@@ -103,7 +108,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 # float operations per relaxed pixel and sweep (the kernels' arithmetic)
 FLOPS_PER_PX = {"flow_llin4_sor": 40, "flow_elin4_sor": 30, "disp_llin4_sor": 23,
-                "pde4_sor": 16}
+                "pde4_sor": 16, "flow_llin8_sor": 64, "pde8_sor": 28}
+# the kernels whose every float operation is rounded alone in the plain
+# version's order, held to EXACT_TOL; the others contract to FMA (SOR_TOL)
+EXACT = ("tridiag", "pde8_sor")
 # float operations per line element of one whole tridiagonal solve
 TRIDIAG_FLOPS_PER_PX = 8
 # bytes per pixel that each TPU kernel row of PERF.md's table must move at
@@ -119,9 +127,10 @@ ROW_BYTES_PER_PX = {
     "8 tridiagonal solve (4 in, 1 out)": (4 + 1) * 4,
 }
 # the __global__ functions of pde_tpu_torch/csrc/*.cu
-OWN_KERNELS = {"prepare_kernel", "sweep_kernel", "disp_color_kernel", "pde4_color_kernel",
-               "border_kernel", "border_small_kernel", "thomas_kernel", "factor_kernel",
-               "solve_kernel"}
+OWN_KERNELS = {"prepare_kernel", "sweep_kernel", "prepare8_kernel", "sweep8_kernel",
+               "disp_color_kernel", "pde4_color_kernel", "pde8_color_kernel", "border_kernel",
+               "border_small_kernel", "thomas_kernel", "factor_kernel", "solve_kernel"}
+W8 = ("ww", "wnw", "wn", "wne", "we", "wse", "ws", "wsw")
 
 
 def phase(name: str) -> None:
@@ -214,11 +223,14 @@ def card_device() -> torch.device:
 
 
 def unit_field(rng, name: str, shape) -> np.ndarray:
-    """Unit-scale solver coefficients, as the CPU tests make them."""
+    """Unit-scale solver coefficients, as the CPU tests make them; the
+    diagonal weights of the 8-neighbour stencil take both signs."""
     if name in ("duc", "dvc", "trace"):
         return rng.random(shape) + 1.0
     if name == "m":
         return rng.random(shape) * 0.01
+    if name in ("wnw", "wne", "wse", "wsw"):
+        return rng.random(shape) * 0.3 - 0.15
     if name.startswith("w"):
         return rng.random(shape) + 0.1
     return rng.random(shape) * 0.2
@@ -245,6 +257,24 @@ def elin_fields(rng, h, w, nan: bool, dev):
     names = ("u", "v", "m", "cu", "cv", "duc", "dvc", "ww", "wn", "we", "ws")
     return to_dev({n: unit_field(rng, n, (h, w)) for n in names},
                   ("cu", "duc") if nan else (), rng, dev)
+
+
+def llin8_fields(rng, h, w, nan: bool, dev):
+    """llin8 solver fields; 5% NaN in Cu and Du when ``nan``."""
+    names = ("u", "v", "du", "dv", "m", "cu", "cv", "duc", "dvc") + W8
+    return to_dev({n: unit_field(rng, n, (h, w)) for n in names},
+                  ("cu", "duc") if nan else (), rng, dev)
+
+
+def pde8_fields(rng, c, h, w, nan: bool, dev):
+    """pde8 fields as tv_denoise8 hands them over: X, TRACE, B of (H, W)
+    for c == 1 else (c, H, W), one shared (H, W) plane per weight, TRACE
+    above the weights' absolute sum; 5% NaN in TRACE when ``nan``."""
+    shape = (h, w) if c == 1 else (c, h, w)
+    f = {n: unit_field(rng, n, shape) for n in ("x", "trace", "b")}
+    f.update({n: unit_field(rng, n, (h, w)) for n in W8})
+    f["trace"] = f["trace"] + sum(np.abs(f[n]) for n in W8)
+    return to_dev(f, ("trace",) if nan else (), rng, dev)
 
 
 def tridiag_fields(rng, shape, dev, shared=False):
@@ -306,6 +336,17 @@ def noisy_blocks(rng, shape):
     return clean + 0.1 * rng.standard_normal(shape).astype(np.float32)
 
 
+def partial_pyramid_levels(shape, scl: float, scl_factor: float) -> int:
+    """Levels of tv_denoise's partial pyramid (models/tv_denoise.py's stop
+    rule) for an image of ``shape``."""
+    levels, (h, w) = 1, shape[-2:]
+    while True:
+        h, w = int(np.ceil(h * scl_factor)), int(np.ceil(w * scl_factor))
+        levels += 1
+        if h <= np.ceil(shape[-2] * scl) or w <= np.ceil(shape[-1] * scl):
+            return levels
+
+
 def mean_flow_diff(a, b) -> float:
     return float(torch.hypot(a[0] - b[0], a[1] - b[1]).mean())
 
@@ -336,9 +377,11 @@ def main() -> None:
     from pde_tpu_torch.models.disparity import DisparityParams, disparity_nd
     from pde_tpu_torch.models.disparity_sym import DisparitySymParams, disparity_sym
     from pde_tpu_torch.models.diffusion import Diffusion4Params, diffusion4
+    from pde_tpu_torch.models.flow_ad import FlowADParams, flow_ad
     from pde_tpu_torch.models.flow_hs import FlowHSParams, flow_hs
     from pde_tpu_torch.models.flow_nd import FlowNDParams, flow_nd, flow_nd_sequence
-    from pde_tpu_torch.models.tv_denoise import TVDenoise4Params, tv_denoise4
+    from pde_tpu_torch.models.tv_denoise import (TVDenoise4Params, TVDenoise8Params,
+                                                 tv_denoise4, tv_denoise8)
     from pde_tpu_torch.solvers import sor as plain_sor
     from pde_tpu_torch.solvers import tdma as plain_tdma
 
@@ -357,16 +400,19 @@ def main() -> None:
     def counts():
         return {"flow_llin4_sor": sor_cuda.LAUNCHES["flow_llin4"],
                 "flow_elin4_sor": sor_cuda.LAUNCHES["flow_elin4"],
+                "flow_llin8_sor": sor_cuda.LAUNCHES["flow_llin8"],
                 "disp_llin4_sor": interior_cuda.LAUNCHES["disp_llin4"],
                 "pde4_sor": interior_cuda.LAUNCHES["pde4"],
+                "pde8_sor": interior_cuda.LAUNCHES["pde8"],
                 **{f"tridiag_{k}": n for k, n in tdma_cuda.LAUNCHES.items()}}
 
     def check_counts(what: str, expected: dict) -> None:
         got = counts()
         want = {k: expected.get(k, 0) for k in got}
-        print(f"  kernel launches {got} (expected {want})", flush=True)
         if got != want:
             fail(f"{what}: kernel launches {got}, expected {want}")
+        launched = {k: n for k, n in got.items() if n} or "none"
+        print(f"  kernel launches {launched}, as expected; every other kernel 0", flush=True)
 
     phase("2 build")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -398,7 +444,7 @@ def main() -> None:
                      f"version's at {label}")
         err = max(float(torch.where(torch.isfinite(w_), g - w_, 0.0).abs().max())
                   for g, w_ in zip(got, want))
-        tol = TRIDIAG_TOL if name == "tridiag" else SOR_TOL
+        tol = EXACT_TOL if name in EXACT else SOR_TOL
         if err > tol:
             fail(f"{name} disagrees with plain at {label}: {err} > {tol}")
         max_err[name] = max(max_err.get(name, 0.0), err)
@@ -431,6 +477,27 @@ def main() -> None:
                 print(f"  {h}x{w} iters={iters} nan={nan}: max_abs_err disp B=1,2 "
                       f"{errs[0]:.3g}, {errs[1]:.3g}; pde4 C=1,3 {errs[2]:.3g}, "
                       f"{errs[3]:.3g}", flush=True)
+
+    for h, w in SOR_SHAPES:
+        for iters in (4, 5):
+            for nan in (False, True):
+                fields = llin8_fields(rng, h, w, nan, dev)
+                err = hold("flow_llin8_sor", sor_cuda.flow_llin8_sor(*fields, iters, 1.9),
+                           plain_sor.sor_flow_llin8(*fields, iters, 1.9),
+                           f"{h}x{w} iters={iters} nan={nan}")
+                print(f"  flow_llin8_sor {h}x{w} iters={iters} nan={nan}: "
+                      f"max_abs_err={err:.3g}", flush=True)
+    for h, w in INTERIOR_SHAPES:
+        for iters in (4, 5):
+            for nan in (False, True):
+                errs = []
+                for c in (1, 3):
+                    fields = pde8_fields(rng, c, h, w, nan, dev)
+                    errs.append(hold("pde8_sor", interior_cuda.pde8_sor(*fields, iters, 1.75),
+                                     plain_sor.sor_pde8(*fields, iters, 1.75),
+                                     f"C={c} {h}x{w} iters={iters} nan={nan}"))
+                print(f"  pde8_sor {h}x{w} iters={iters} nan={nan}: max_abs_err C=1,3 "
+                      f"{errs[0]:.3g}, {errs[1]:.3g}", flush=True)
 
     for h, w in SOR_SHAPES:
         for iters in (4, 5):
@@ -498,6 +565,13 @@ def main() -> None:
             # flow_hs's call with solver=1: every pixel relaxed
             "flow_elin4_sor": (sor_cuda.flow_elin4_sor, plain_sor.sor_flow_elin4,
                                elin_fields(rng, h, w, True, dev), 1.9, (11 + 2) * 4 * px, px),
+            # flow_ad's call: every pixel relaxed
+            "flow_llin8_sor": (sor_cuda.flow_llin8_sor, plain_sor.sor_flow_llin8,
+                               llin8_fields(rng, h, w, True, dev), 1.9, (17 + 2) * 4 * px, px),
+            # tv_denoise8's call: C = 3 channels, shared weights
+            "pde8_sor": (interior_cuda.pde8_sor, plain_sor.sor_pde8,
+                         pde8_fields(rng, 3, h, w, True, dev), 1.75, (4 * 3 + 8) * 4 * px,
+                         3 * (h - 2) * (w - 2)),
         }
         for name, (kern, plain, fields, omega, nbytes, relaxed) in cases.items():
             k_ms, p_ms, turns = in_turns(partial(kern, *fields, 4, omega),
@@ -682,12 +756,7 @@ def main() -> None:
     phase(f"8 tv_denoise4 {MAIN_SHAPE}, default parameters")
     tp = TVDenoise4Params()
     noisy = torch.from_numpy(noisy_blocks(rng, MAIN_SHAPE)).to(dev)
-    tv_levels, (h, w) = 1, MAIN_SHAPE[1:]
-    while True:  # the partial pyramid's stop rule (models/tv_denoise.py)
-        h, w = int(np.ceil(h * tp.scl_factor)), int(np.ceil(w * tp.scl_factor))
-        tv_levels += 1
-        if h <= np.ceil(MAIN_SHAPE[1] * tp.scl) or w <= np.ceil(MAIN_SHAPE[2] * tp.scl):
-            break
+    tv_levels = partial_pyramid_levels(MAIN_SHAPE, tp.scl, tp.scl_factor)
     tv_expected = tv_levels * (tp.outer_iter + 1) * 3 * tp.inner_iter
     frame_s = []
     for _ in range(2):
@@ -709,15 +778,15 @@ def main() -> None:
     d_rel = float((den - denp).abs().max()) / scale
     # a patch of the flat background; noise std per channel, averaged
     flat = (slice(None), slice(3 * MAIN_SHAPE[1] // 4 + 8, -8), slice(8, MAIN_SHAPE[2] // 2))
-    sd_in = float(noisy[flat].std(dim=(1, 2)).mean())
+    sd_in_tv = float(noisy[flat].std(dim=(1, 2)).mean())
     sd_out = float(den[flat].std(dim=(1, 2)).mean())
     print(f"  plain path on the card: {plain_s:.3f} s, max |du| / range vs kernel path "
-          f"{d_rel:.3g}; flat-patch noise std {sd_in:.4f} -> {sd_out:.4f}", flush=True)
+          f"{d_rel:.3g}; flat-patch noise std {sd_in_tv:.4f} -> {sd_out:.4f}", flush=True)
     if not d_rel <= TV_REL_TOL:
         fail(f"tv_denoise4 kernel path and plain path differ by {d_rel} > {TV_REL_TOL} "
              f"of the range")
-    if not sd_out < 0.5 * sd_in:
-        fail(f"flat-patch noise {sd_out} is not under half of the input's {sd_in}")
+    if not sd_out < 0.5 * sd_in_tv:
+        fail(f"flat-patch noise {sd_out} is not under half of the input's {sd_in_tv}")
 
     def pcg_launches(calls: int, fields: int, iters: int) -> dict:
         """Line-solve launches of ``calls`` PCG solves of ``fields`` coupled
@@ -826,8 +895,81 @@ def main() -> None:
     if not sd_out < 0.5 * sd_in:
         fail(f"diffusion4: flat-patch noise {sd_out} is not under half of the input's {sd_in}")
 
-    phase(f"12 solver=2 (PCG) in flow_nd, disparity_nd, disparity_sym, tv_denoise4 "
-          f"{MAIN_SHAPE}")
+    phase(f"12 flow_ad {MAIN_SHAPE}, default parameters (anisotropic tensor, llin8)")
+    ap_ = FlowADParams()
+    ad_levels = len(pyramid_scales(MAIN_SHAPE[1], MAIN_SHAPE[2], ap_.scl_factor, 20,
+                                   ap_.scales))
+    ad_expected = ad_levels * ap_.firstLoop * ap_.secondLoop * (1 + 2 * ap_.iter)
+    frame_s = []
+    for _ in range(3):
+        reset_counts()
+        (ua, va), sec = timed(lambda: flow_ad(it0, it1, "grad", "gradmag"))
+        frame_s.append(sec)
+        check_counts("flow_ad", {"flow_llin8_sor": ad_expected})
+    main_launches["flow_llin8_sor"] = ad_expected
+    print(f"  {ad_levels} levels x {ap_.firstLoop} x {ap_.secondLoop} calls x "
+          f"(1 + 2*{ap_.iter}); frame time: cold {frame_s[0]:.3f} s, warm {frame_s[1]:.3f} / "
+          f"{frame_s[2]:.3f} s", flush=True)
+    print_profile("flow_ad", min(frame_s[1:]),
+                  device_profile(lambda: flow_ad(it0, it1, "grad", "gradmag")))
+    if ua.shape != MAIN_SHAPE[1:] or ua.device != dev or not (
+            torch.isfinite(ua).all() and torch.isfinite(va).all()):
+        fail(f"flow_ad flow of shape {tuple(ua.shape)} on {ua.device}, or not finite")
+    mu, mv = float(ua[inner].median()), float(va[inner].median())
+    print(f"  median interior flow U={mu:.4f} V={mv:.4f} (shift {MAIN_SHIFT[1]}, "
+          f"{MAIN_SHIFT[0]})", flush=True)
+    if abs(mu - MAIN_SHIFT[1]) > SHIFT_TOL or abs(mv - MAIN_SHIFT[0]) > SHIFT_TOL:
+        fail(f"flow_ad ({mu}, {mv}) misses the shift {MAIN_SHIFT[::-1]} by more than "
+             f"{SHIFT_TOL} px")
+    reset_counts()
+    with dispatch.plain_solvers():
+        (uap, vap), plain_frame_s = timed(lambda: flow_ad(it0, it1, "grad", "gradmag"))
+    check_counts("the plain path", {})
+    d_plain = mean_flow_diff((ua, va), (uap, vap))
+    print(f"  plain path on the card: frame {plain_frame_s:.3f} s, "
+          f"mean |dflow| vs kernel path {d_plain:.3g} px", flush=True)
+    if not d_plain <= FLOW_TOL:
+        fail(f"flow_ad kernel path and plain path differ by {d_plain} px > {FLOW_TOL}")
+    s0, s1 = shifted_frames(rng, SMALL_SHAPE, [(0.0, 0.0), MAIN_SHIFT])
+    ug, vg = flow_ad(torch.from_numpy(s0).to(dev), torch.from_numpy(s1).to(dev))
+    d_cpu = mean_flow_diff((ug.cpu(), vg.cpu()), flow_ad(s0, s1, device="cpu"))
+    print(f"  {SMALL_SHAPE} card vs CPU path: mean |dflow| {d_cpu:.3g} px", flush=True)
+    if not d_cpu <= FLOW_TOL:
+        fail(f"flow_ad card and CPU paths differ by {d_cpu} px > {FLOW_TOL}")
+
+    phase(f"13 tv_denoise8 {MAIN_SHAPE}, default parameters (anisotropic tensor, pde8)")
+    tp8 = TVDenoise8Params()
+    tv8_levels = partial_pyramid_levels(MAIN_SHAPE, tp8.scl, tp8.scl_factor)
+    tv8_expected = tv8_levels * (tp8.outer_iter + 1) * 3 * tp8.inner_iter
+    frame_s = []
+    for _ in range(2):
+        reset_counts()
+        den8, sec = timed(lambda: tv_denoise8(noisy))
+        frame_s.append(sec)
+        check_counts("tv_denoise8", {"pde8_sor": tv8_expected})
+    main_launches["pde8_sor"] = tv8_expected
+    print(f"  {tv8_levels} levels x {tp8.outer_iter + 1} calls x 3*{tp8.inner_iter}; "
+          f"image time: cold {frame_s[0]:.3f} s, warm {frame_s[1]:.3f} s", flush=True)
+    print_profile("tv_denoise8", frame_s[1], device_profile(lambda: tv_denoise8(noisy)))
+    if den8.shape != MAIN_SHAPE or not torch.isfinite(den8).all():
+        fail(f"tv_denoise8 image of shape {tuple(den8.shape)}, or not finite")
+    reset_counts()
+    with dispatch.plain_solvers():
+        den8p, plain_s = timed(lambda: tv_denoise8(noisy))
+    check_counts("the plain path", {})
+    d_rel = float((den8 - den8p).abs().max()) / scale
+    sd_out = float(den8[flat].std(dim=(1, 2)).mean())
+    print(f"  plain path on the card: {plain_s:.3f} s, max |du| / range vs kernel path "
+          f"{d_rel:.3g}; flat-patch noise std {sd_in_tv:.4f} -> {sd_out:.4f}", flush=True)
+    if not d_rel <= TV_REL_TOL:
+        fail(f"tv_denoise8 kernel path and plain path differ by {d_rel} > {TV_REL_TOL} "
+             f"of the range")
+    if not sd_out < 0.5 * sd_in_tv:
+        fail(f"tv_denoise8: flat-patch noise {sd_out} is not under half of the input's "
+             f"{sd_in_tv}")
+
+    phase(f"14 solver=2 (PCG) in flow_nd, disparity_nd, disparity_sym, tv_denoise4, "
+          f"flow_ad, tv_denoise8 {MAIN_SHAPE}")
     loops = dict(firstLoop=2, secondLoop=2)  # the plain comparisons' loop counts
     # (name, run at full size, expected launches, check of the result, run
     # at PLAIN_SHAPE, difference of two results, tolerance)
@@ -862,6 +1004,21 @@ def main() -> None:
          lambda a, b: float((a - b).abs().max()) / float((small0 / 255.0).max()
                                                        - (small0 / 255.0).min()),
          TV_REL_TOL),
+        ("flow_ad", lambda: flow_ad(it0, it1, "grad", "gradmag", solver=2),
+         pcg_launches(ad_levels * ap_.firstLoop * ap_.secondLoop, 2, ap_.iter),
+         lambda f: ((float(f[0][inner].median()), float(f[1][inner].median())),
+                    abs(float(f[0][inner].median()) - MAIN_SHIFT[1]) <= SHIFT_TOL
+                    and abs(float(f[1][inner].median()) - MAIN_SHIFT[0]) <= SHIFT_TOL),
+         lambda: flow_ad(small0, small1, "grad", "gradmag", solver=2, **loops),
+         mean_flow_diff, FLOW_TOL),
+        ("tv_denoise8", lambda: tv_denoise8(noisy, solver=2),
+         pcg_launches(tv8_levels * (tp8.outer_iter + 1), 1, tp8.inner_iter),
+         lambda u: ((sd_in_tv, float(u[flat].std(dim=(1, 2)).mean())),
+                    float(u[flat].std(dim=(1, 2)).mean()) < 0.5 * sd_in_tv),
+         lambda: tv_denoise8(small0 / 255.0, solver=2, outer_iter=2),
+         lambda a, b: float((a - b).abs().max()) / float((small0 / 255.0).max()
+                                                       - (small0 / 255.0).min()),
+         TV_REL_TOL),
     ]
     for name, run, expected, check, run_small, diff, tol in cases:
         frame_s = []
@@ -888,6 +1045,10 @@ def main() -> None:
                             "pde_tpu/kernels/sweeps.py:174"),
                "flow_elin4_sor": ("pde_tpu_torch/csrc/flow_llin4_sor.cu",
                                   "pde_tpu/kernels/sweeps.py:234"),
+               "flow_llin8_sor": ("pde_tpu_torch/csrc/flow_llin4_sor.cu",
+                                  "pde_tpu/kernels/sweeps.py:106"),
+               "pde8_sor": ("pde_tpu_torch/csrc/interior_sor.cu",
+                            "pde_tpu/kernels/sweeps.py:203"),
                "tridiag": ("pde_tpu_torch/csrc/tridiag.cu",
                            "pde_tpu/kernels/tdma_pallas.py:82")}
     th, tw = TIME_SHAPES[0]

@@ -13,8 +13,10 @@ kernel, ``csrc/flow_llin4_sor.cu``), the stereo models
 ``models.disparity`` and ``models.disparity_sym`` and the TV denoiser
 ``models.tv_denoise.tv_denoise4`` (their interior-update sweeps a second
 CUDA source, ``csrc/interior_sor.cu``), Horn & Schunck flow
-``models.flow_hs`` (its elin4 sweep a variant of the first source) and the
-semi-implicit diffusion ``models.diffusion``. Every model's ``solver=2``,
+``models.flow_hs`` (its elin4 sweep a variant of the first source), the
+anisotropic flow ``models.flow_ad`` and TV denoiser
+``models.tv_denoise.tv_denoise8`` (their 8-neighbour sweeps in the first
+and second source) and the semi-implicit diffusion ``models.diffusion``. Every model's ``solver=2``,
 the line-implicit PCG (``solvers/krylov.py``), and diffusion solve their
 tridiagonal lines with a third, ``csrc/tridiag.cu``. Entry points run on the CUDA card
 unless the caller passes CPU tensors or ``device="cpu"``. Importing the

@@ -1,6 +1,6 @@
 // Red-black SOR sweeps of the interior-update family: only interior pixels
 // are relaxed, colour 0 then colour 1, and the 1-px border is replicated
-// after every sweep. Two systems share the source:
+// after every sweep. Three systems share the source:
 //   * disp llin4: the scalar late-linearised disparity increment dU
 //     against the frozen U (models/disparity.py, and the symmetric pair of
 //     models/disparity_sym.py as one batch of 2);
@@ -8,20 +8,25 @@
 //     NaN in Cu drops Cu (pure diffusion); NaN in Du drops it from the divisor.
 //   * pde4: the diagonal form X+ = (1-w) X + w (B + sum_k w_k X_k) / TRACE
 //     over a batch of channels (models/tv_denoise.py); where TRACE is NaN
-//     the pixel diffuses purely, 1/TRACE -> 1/sum w and B -> 0.
+//     the pixel diffuses purely, 1/TRACE -> 1/sum w and B -> 0;
+//   * pde8: the same diagonal form with the 8-neighbour anisotropic tensor
+//     stencil W, NW, N, NE, E, SE, S, SW (tv_denoise8); the diagonal
+//     weights are negative where the image gradient is oblique.
 //
 // Replaces the TPU kernel pde_tpu/kernels/tiled.py::_stripe_kernel
-// (tiled.py:113) driving pde_tpu/kernels/sweeps.py::disp_llin4_sweep and
-// ::pde4_sweep. Plain PyTorch versions: pde_tpu_torch/solvers/sor.py
-// ::sor_disp_llin4, ::sor_disp_llin_sym4 and ::sor_pde4.
+// (tiled.py:113) driving pde_tpu/kernels/sweeps.py::disp_llin4_sweep,
+// ::pde4_sweep and ::pde8_sweep. Plain PyTorch versions:
+// pde_tpu_torch/solvers/sor.py ::sor_disp_llin4, ::sor_disp_llin_sym4,
+// ::sor_pde4 and ::sor_pde8.
 //
 // Design (simple and exact first):
 //   * the wrapper copies the unknown into the output (cudaMemcpyAsync);
 //   * each sweep is three launches on the caller's stream, in Gauss-Seidel
-//     order: colour 0, colour 1, border fill. One thread takes one interior
-//     pixel of the colour and sums its neighbours in the order of the plain
-//     version, W, E, N, S. A pixel's neighbours are all of the other colour
-//     or on the border, so the in-place update has no race. The border
+//     order: colour 0, colour 1, border fill. In disp and pde4 one thread
+//     takes one interior pixel of the colour and sums its neighbours in the
+//     order of the plain version, W, E, N, S. A pixel's four neighbours are
+//     all of the other colour or on the border, so the in-place update has
+//     no race (pde8, whose diagonal neighbours share the colour, below). The border
 //     fill has its own launch: in the colour-1 launch it would race with
 //     the writes to rows and columns 1 and H-2 / W-2 that it copies.
 //   * no prepare launch and no scratch: sum w, 1/(sum w + Du) and the NaN
@@ -36,12 +41,24 @@
 //     whole batch (tv_denoise4's (H, W) weights).
 // What bounds it: bytes. A disp sweep reads 8 float32 planes (U, dU, Cu,
 // Du, four weights) and writes dU, about 36 B/px, for ~25 flops; pde4
-// reads X, TRACE, B and the weights. Each colour launch reads every other
+// reads X, TRACE, B and the weights, pde8 eight weights and writes every
+// pixel of a colour launch. Each 4-neighbour colour launch reads every other
 // float of a row, so it moves whole sectors for half their use. Later
 // work: temporal blocking, k sweeps per pass over a tile and its halo in
 // shared memory; and dropping the border launch after the first sweep,
 // since a filled border neighbour of an interior pixel holds that pixel's
 // own value.
+//
+// pde8: a diagonal neighbour (i±1, j±1) has the pixel's own colour, and
+// the plain version computes a whole colour from the state before that
+// half-sweep (Jacobi within a colour), so an in-place update would race.
+// Each colour launch reads one buffer and writes every pixel of the other:
+// interior pixels of its colour updated, all others copied. Colour 0 goes
+// out -> tmp, colour 1 tmp -> out, and the border fill runs on out, so the
+// launches stay 3 per sweep and the state is back in the output after
+// each; the caller gives the tmp buffer. The weights' sum is taken in the
+// plain order W, NW, N, NE, E, SE, S, SW, the neighbours W, E, N, S, NW,
+// NE, SW, SE.
 //
 // The kernels allocate nothing. The C entry points return
 // cudaGetLastError() after the copy and each launch.
@@ -144,6 +161,51 @@ __global__ void pde4_color_kernel(float* x, const float* __restrict__ trace,
   x[bz * plane + q] = add_rn(mul_rn(one_minus_omega, xb[q]), mul_rn(omega, nx));
 }
 
+struct Weights8 {
+  const float *ww, *wnw, *wn, *wne, *we, *wse, *ws, *wsw;
+};
+
+// One colour of one pde8 sweep: reads xa, writes every pixel of xb.
+__global__ void pde8_color_kernel(const float* __restrict__ xa, float* __restrict__ xb,
+                                  const float* __restrict__ trace,
+                                  const float* __restrict__ bb, Weights8 wt,
+                                  int64_t trace_stride, int64_t b_stride, int64_t w_stride,
+                                  int h, int w, int color, float omega, float one_minus_omega) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= h || j >= w) return;
+  const size_t plane = static_cast<size_t>(h) * w;
+  const size_t q = static_cast<size_t>(i) * w + j;  // offset inside a plane
+  const size_t bz = blockIdx.z;
+  const float* xs = xa + bz * plane;
+  const float xc = xs[q];
+  if (i < 1 || i > h - 2 || j < 1 || j > w - 2 || ((i + j) & 1) != color) {
+    xb[bz * plane + q] = xc;
+    return;
+  }
+  const size_t pw_ = bz * w_stride + q;
+  // weights in the plain sum order W, NW, N, NE, E, SE, S, SW
+  const float a = wt.ww[pw_], anw = wt.wnw[pw_], b = wt.wn[pw_], ane = wt.wne[pw_];
+  const float c = wt.we[pw_], ase = wt.wse[pw_], d = wt.ws[pw_], asw = wt.wsw[pw_];
+  float wsum = add_rn(add_rn(add_rn(a, anw), b), ane);
+  wsum = add_rn(add_rn(add_rn(add_rn(wsum, c), ase), d), asw);
+  const float t = trace[bz * trace_stride + q];
+  const bool t_nan = isnan(t);
+  const float inv = div_rn(1.0f, t_nan ? wsum : nan_to_num(t));
+  const float b_eff = t_nan ? 0.0f : bb[bz * b_stride + q];
+  // sum_k w_k X_k in the order W, E, N, S, NW, NE, SW, SE
+  float nbr = mul_rn(xs[q - 1], a);
+  nbr = add_rn(nbr, mul_rn(xs[q + 1], c));
+  nbr = add_rn(nbr, mul_rn(xs[q - w], b));
+  nbr = add_rn(nbr, mul_rn(xs[q + w], d));
+  nbr = add_rn(nbr, mul_rn(xs[q - w - 1], anw));
+  nbr = add_rn(nbr, mul_rn(xs[q - w + 1], ane));
+  nbr = add_rn(nbr, mul_rn(xs[q + w - 1], asw));
+  nbr = add_rn(nbr, mul_rn(xs[q + w + 1], ase));
+  const float nx = mul_rn(add_rn(b_eff, nbr), inv);
+  xb[bz * plane + q] = add_rn(mul_rn(one_minus_omega, xc), mul_rn(omega, nx));
+}
+
 // Border fill for H, W >= 3: pixel (i, j) of the border takes the value at
 // (clamp(i, 1, H-2), clamp(j, 1, W-2)), which is what the rows-then-columns
 // fill of the plain version leaves there (the corners come from the column
@@ -191,7 +253,7 @@ __global__ void border_small_kernel(float* x, int h, int w) {
 }
 
 struct Launch {
-  dim3 block, grid_color, grid_border;
+  dim3 block, grid_color, grid_full, grid_border;
   int border_threads;
   bool small;
 };
@@ -201,6 +263,7 @@ Launch plan(int batch, int h, int w) {
   l.block = dim3(kBlockX, kBlockY);
   const int half_w = (w + 1) / 2;
   l.grid_color = dim3((half_w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY, batch);
+  l.grid_full = dim3((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY, batch);
   l.small = h < 3 || w < 3;
   const int n_border = l.small ? 1 : 2 * w + 2 * (h - 2);
   l.grid_border = dim3(l.small ? 1 : (n_border + kBorderThreads - 1) / kBorderThreads, batch);
@@ -273,6 +336,42 @@ int interior_pde4(const void* x, const void* trace, const void* b, const void* w
       err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
     }
+    err = fill_border(l, out, h, w, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+// As interior_pde4 with the eight weights W, NW, N, NE, E, SE, S, SW (all
+// shared or all per batch entry, w_stride) and `tmp`, a contiguous
+// (B, H, W) float32 buffer the colour launches alternate with. Launches
+// 3 * iters kernels on `stream`, after one copy.
+int interior_pde8(const void* x, const void* trace, const void* b, const void* ww,
+                  const void* wnw, const void* wn, const void* wne, const void* we,
+                  const void* wse, const void* ws, const void* wsw, void* x_out, void* tmp,
+                  int64_t trace_stride, int64_t b_stride, int64_t w_stride, int batch, int h,
+                  int w, int iters, float omega, float one_minus_omega, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto f = [](const void* ptr) { return static_cast<const float*>(ptr); };
+  float* out = static_cast<float*>(x_out);
+  float* other = static_cast<float*>(tmp);
+  const Weights8 wt{f(ww), f(wnw), f(wn), f(wne), f(we), f(wse), f(ws), f(wsw)};
+  const size_t bytes = static_cast<size_t>(batch) * h * w * sizeof(float);
+  cudaError_t err = cudaMemcpyAsync(out, x, bytes, cudaMemcpyDeviceToDevice, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Launch l = plan(batch, h, w);
+  for (int it = 0; it < iters; ++it) {
+    // colour 0: out -> tmp; colour 1: tmp -> out
+    pde8_color_kernel<<<l.grid_full, l.block, 0, s>>>(out, other, f(trace), f(b), wt,
+                                                      trace_stride, b_stride, w_stride, h, w,
+                                                      0, omega, one_minus_omega);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    pde8_color_kernel<<<l.grid_full, l.block, 0, s>>>(other, out, f(trace), f(b), wt,
+                                                      trace_stride, b_stride, w_stride, h, w,
+                                                      1, omega, one_minus_omega);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
     err = fill_border(l, out, h, w, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }

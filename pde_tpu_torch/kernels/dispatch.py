@@ -58,6 +58,15 @@ def sor_flow_elin4(u, v, m, cu, cv, duc, dvc, ww, wn, we, ws, iters: int, omega:
     return sor_cuda.flow_elin4_sor(*args)
 
 
+def sor_flow_llin8(u, v, du, dv, m, cu, cv, duc, dvc,
+                   ww, wnw, wn, wne, we, wse, ws, wsw, iters: int, omega: float):
+    args = (u, v, du, dv, m, cu, cv, duc, dvc, ww, wnw, wn, wne, we, wse, ws, wsw,
+            iters, omega)
+    if _plain(u):
+        return _sor.sor_flow_llin8(*args)
+    return sor_cuda.flow_llin8_sor(*args)
+
+
 def sor_disp_llin4(u, du, cu, duc, ww, wn, we, ws, iters: int, omega: float):
     args = (u, du, cu, duc, ww, wn, we, ws, iters, omega)
     if _plain(u):
@@ -83,6 +92,14 @@ def sor_pde4(x, trace, b, ww, wn, we, ws, iters: int, omega: float):
     if _plain(x):
         return _sor.sor_pde4(*args)
     return interior_cuda.pde4_sor(*args)
+
+
+def sor_pde8(x, trace, b, ww, wnw, wn, wne, we, wse, ws, wsw, iters: int, omega: float):
+    """(H, W) or (C, H, W) unknowns alike: on the card both run the kernel."""
+    args = (x, trace, b, ww, wnw, wn, wne, we, wse, ws, wsw, iters, omega)
+    if _plain(x):
+        return _sor.sor_pde8(*args)
+    return interior_cuda.pde8_sor(*args)
 
 
 def thomas_solve(a, b, c, d, axis: int = -2):

@@ -17,8 +17,12 @@ from pde_tpu_torch.models.disparity_sym import (
 )
 from pde_tpu_torch.models.tv_denoise import (
     TVDenoise4Params,
+    TVDenoise8Params,
     tv_denoise4,
     tv_denoise4_fused,
+    tv_denoise8,
+    tv_denoise8_fused,
 )
+from pde_tpu_torch.models.flow_ad import FlowADParams, flow_ad, flow_ad_fused
 from pde_tpu_torch.models.flow_hs import FlowHSParams, flow_hs
 from pde_tpu_torch.models.diffusion import Diffusion4Params, diffusion4

@@ -99,19 +99,61 @@ def check_solver(name: str, solver: int):
                          "and 2 (line-implicit PCG)")
 
 
-def _nd_level(u, v, i1t0, i1t1, i2t0, i2t1, us_ap, vs_ap, as_diff, p: FlowNDParams,
+def _robust_terms(t1, t2, u, v, du, dv, us_ap, vs_ap, as_diff, p, snd_is_gradmag: bool):
+    """The channel-summed (M, Cu, Cv, Du, Dv) of one reweighting of the
+    warping flows (flow_nd, flow_ad): each constancy term's tensors under
+    its robust weight gD = b/(alpha*sqrt(residual^2 + 1e-5)) at the
+    current increments, plus the spatial priors' terms. t2, us_ap and vs_ap
+    may be None."""
+    op1 = (t1["dt"] - t1["dx"] * du - t1["dy"] * dv) ** 2
+    gd1 = p.b1 / (p.alpha * torch.sqrt(op1 + 1e-5))
+    parts_m = [t1["m"] * gd1]
+    parts_cu = [t1["cu"] * gd1]
+    parts_cv = [t1["cv"] * gd1]
+    parts_du = [t1["du"] * gd1]
+    parts_dv = [t1["dv"] * gd1]
+    if t2 is not None:
+        if snd_is_gradmag:
+            op2 = (t2["dxt"] - t2["dxx"] * du - t2["dxy"] * dv) ** 2 + (
+                t2["dyt"] - t2["dxy"] * du - t2["dyy"] * dv
+            ) ** 2
+        else:
+            op2 = (t2["dt"] - t2["dx"] * du - t2["dy"] * dv) ** 2
+        gd2 = p.b2 / (p.alpha * torch.sqrt(op2 + 1e-5))
+        parts_m.append(t2["m"] * gd2)
+        parts_cu.append(t2["cu"] * gd2)
+        parts_cv.append(t2["cv"] * gd2)
+        parts_du.append(t2["du"] * gd2)
+        parts_dv.append(t2["dv"] * gd2)
+    if us_ap is not None:
+        ap_norm = (us_ap - u - du) ** 2
+        gsu = p.gammaS / (p.alpha * (1.0 + ap_norm / as_diff**2))
+        parts_cu.append(((us_ap - u) * gsu)[None])
+        parts_du.append(gsu[None])
+    if vs_ap is not None:
+        ap_norm = (vs_ap - v - dv) ** 2
+        gsv = p.gammaS / (p.alpha * (1.0 + ap_norm / as_diff**2))
+        parts_cv.append(((vs_ap - v) * gsv)[None])
+        parts_dv.append(gsv[None])
+
+    def nsum(parts):
+        return sum(torch.nansum(x, dim=0) for x in parts)
+
+    return tuple(nsum(parts) for parts in (parts_m, parts_cu, parts_cv, parts_du, parts_dv))
+
+
+def _nd_level(u, v, it0, i1t0, i1t1, i2t0, i2t1, us_ap, vs_ap, as_diff, p: FlowNDParams,
               snd_is_gradmag: bool):
-    """One pyramid level of the warping flow. i2* may be None ('none' term);
-    us_ap/vs_ap may be None (no spatial prior)."""
-    has_snd = i2t1 is not None
-    has_us = us_ap is not None
-    has_vs = vs_ap is not None
+    """One pyramid level of the warping flow. it0 (the level's image) is
+    unused here (flow_ad's tensor reads it); i2* may be None ('none'
+    term); us_ap/vs_ap may be None (no spatial prior)."""
     warp = partial(warp_window, r=p.warp_window) if p.warp_window > 0 else warp_by_flow
 
     for _first in range(p.firstLoop):
         i1t1w = warp(i1t1, u, v)
         t1 = _fst_tensors(i1t0, i1t1w)
-        if has_snd:
+        t2 = None
+        if i2t1 is not None:
             i2t1w = warp(i2t1, u, v)
             t2 = _snd_tensors(i2t0, i2t1w) if snd_is_gradmag else _fst_tensors(i2t0, i2t1w)
 
@@ -119,44 +161,8 @@ def _nd_level(u, v, i1t0, i1t1, i2t0, i2t1, us_ap, vs_ap, as_diff, p: FlowNDPara
         dv = torch.zeros_like(v)
 
         for _second in range(p.secondLoop):
-            op1 = (t1["dt"] - t1["dx"] * du - t1["dy"] * dv) ** 2
-            gd1 = p.b1 / (p.alpha * torch.sqrt(op1 + 1e-5))
-            parts_m = [t1["m"] * gd1]
-            parts_cu = [t1["cu"] * gd1]
-            parts_cv = [t1["cv"] * gd1]
-            parts_du = [t1["du"] * gd1]
-            parts_dv = [t1["dv"] * gd1]
-            if has_snd:
-                if snd_is_gradmag:
-                    op2 = (t2["dxt"] - t2["dxx"] * du - t2["dxy"] * dv) ** 2 + (
-                        t2["dyt"] - t2["dxy"] * du - t2["dyy"] * dv
-                    ) ** 2
-                else:
-                    op2 = (t2["dt"] - t2["dx"] * du - t2["dy"] * dv) ** 2
-                gd2 = p.b2 / (p.alpha * torch.sqrt(op2 + 1e-5))
-                parts_m.append(t2["m"] * gd2)
-                parts_cu.append(t2["cu"] * gd2)
-                parts_cv.append(t2["cv"] * gd2)
-                parts_du.append(t2["du"] * gd2)
-                parts_dv.append(t2["dv"] * gd2)
-            if has_us:
-                ap_norm = (us_ap - u - du) ** 2
-                gsu = p.gammaS / (p.alpha * (1.0 + ap_norm / as_diff**2))
-                parts_cu.append(((us_ap - u) * gsu)[None])
-                parts_du.append(gsu[None])
-            if has_vs:
-                ap_norm = (vs_ap - v - dv) ** 2
-                gsv = p.gammaS / (p.alpha * (1.0 + ap_norm / as_diff**2))
-                parts_cv.append(((vs_ap - v) * gsv)[None])
-                parts_dv.append(gsv[None])
-
-            def nsum(parts):
-                return sum(torch.nansum(x, dim=0) for x in parts)
-
-            m_gd, cu_gd, cv_gd, du_gd, dv_gd = (
-                nsum(parts) for parts in (parts_m, parts_cu, parts_cv, parts_du, parts_dv)
-            )
-
+            m_gd, cu_gd, cv_gd, du_gd, dv_gd = _robust_terms(
+                t1, t2, u, v, du, dv, us_ap, vs_ap, as_diff, p, snd_is_gradmag)
             ww, wn, we, ws = diffusion_weights_4(
                 torch.stack([u + du, v + dv]), eps=1e-5, combine="sum"
             )
@@ -169,20 +175,13 @@ def _nd_level(u, v, i1t0, i1t1, i2t0, i2t1, us_ap, vs_ap, as_diff, p: FlowNDPara
     return u, v
 
 
-def flow_nd(it0, it1, fst_term: str = "grad", snd_term: str = "gradmag",
-            params: FlowNDParams | None = None, us=None, vs=None,
-            collect: list | None = None, device=None, **overrides):
-    """Warping flow. it0/it1: (C, H, W) or (H, W) uint8-range images, as
-    numpy arrays or tensors.
-
-    us/vs: optional spatial prior flow fields (H, W) (param.Us/Vs).
-    Returns (U, V) float32 (H, W) tensors on the device of ``it0`` if it
-    is a tensor, else on ``device``, else on the CUDA card (raises where
-    there is none). collect: optional list; per-level (U, V) appended
-    coarsest-first.
-    """
-    p = with_overrides(params or FlowNDParams(), **overrides)
-    check_solver("flow_nd", p.solver)
+def _coarse_to_fine(it0, it1, fst_term: str, snd_term: str, p, us, vs, collect, device,
+                    level_fn):
+    """The coarse-to-fine loop of the warping flows (flow_nd, flow_ad): images
+    to [0, 1] on the device rule, a pyramid (factor scl_factor, stop <= 20
+    px), the priors' pyramids, then ``level_fn(u, v, l0, i1t0, i1t1, i2t0,
+    i2t1, us_ap, vs_ap, as_diff, p, snd_is_gradmag)`` coarse to fine with
+    the flow upscaled between levels. Returns (U, V)."""
     fst_term = fst_term.lower()
     snd_term = snd_term.lower()
     device = input_device(it0, device)
@@ -222,8 +221,8 @@ def flow_nd(it0, it1, fst_term: str = "grad", snd_term: str = "gradmag",
             u = us_lv[lvl] if us_lv[lvl] is not None else torch.zeros((h, w), device=device)
             v = vs_lv[lvl] if vs_lv[lvl] is not None else torch.zeros((h, w), device=device)
         as_diff = 2.0 * (1.0 / p.scl_factor) ** (-(lvl))  # ASdiff at this level (:197)
-        u, v = _nd_level(u, v, fst_img(l0), fst_img(l1), snd_img(l0), snd_img(l1),
-                         us_lv[lvl], vs_lv[lvl], as_diff, p, snd_term == "gradmag")
+        u, v = level_fn(u, v, l0, fst_img(l0), fst_img(l1), snd_img(l0), snd_img(l1),
+                        us_lv[lvl], vs_lv[lvl], as_diff, p, snd_term == "gradmag")
         if collect is not None:
             collect.append((u, v))
         if lvl > 0:
@@ -231,6 +230,24 @@ def flow_nd(it0, it1, fst_term: str = "grad", snd_term: str = "gradmag",
             u = imresize(u / p.scl_factor, (nh, nw), "triangle")
             v = imresize(v / p.scl_factor, (nh, nw), "triangle")
     return u, v
+
+
+def flow_nd(it0, it1, fst_term: str = "grad", snd_term: str = "gradmag",
+            params: FlowNDParams | None = None, us=None, vs=None,
+            collect: list | None = None, device=None, **overrides):
+    """Warping flow. it0/it1: (C, H, W) or (H, W) uint8-range images, as
+    numpy arrays or tensors.
+
+    us/vs: optional spatial prior flow fields (H, W) (param.Us/Vs).
+    Returns (U, V) float32 (H, W) tensors on the device of ``it0`` if it
+    is a tensor, else on ``device``, else on the CUDA card (raises where
+    there is none). collect: optional list; per-level (U, V) appended
+    coarsest-first.
+    """
+    p = with_overrides(params or FlowNDParams(), **overrides)
+    check_solver("flow_nd", p.solver)
+    return _coarse_to_fine(it0, it1, fst_term, snd_term, p, us, vs, collect, device,
+                           _nd_level)
 
 
 def flow_nd_fused(it0, it1, fst_term: str = "grad", snd_term: str = "gradmag",

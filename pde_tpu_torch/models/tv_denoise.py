@@ -1,5 +1,5 @@
-"""Total-variation denoising, 4-neighbour (TVdenoise4.m), ported from
-``pde_tpu/models/tv_denoise.py``.
+"""Total-variation denoising, 4- and 8-neighbour (TVdenoise4.m,
+TVdenoise8.m), ported from ``pde_tpu/models/tv_denoise.py``.
 
 Lagged-diffusivity TV restoration with an L1 data term:
 
@@ -9,13 +9,16 @@ Lagged-diffusivity TV restoration with an L1 data term:
     u      <- SOR sweeps of  u+ = (B + Σ w_k u_k) / TRACE
 
 run coarse-to-fine over a partial pyramid (down to ``scl`` of the original
-size), with Brox weights, max over channels and zeroed borders. The
-channels are one batch of the solver, the (H, W) weights shared: one
-red-black kernel call on the card (``solver=1``), or one line-implicit PCG
-over all channels jointly (``solver=2``, its line solves the CUDA
-tridiagonal kernel). Runs eagerly on the card unless the caller asks for
-the CPU (``models/_device.py``). The 8-neighbour ``tv_denoise8`` is not
-ported yet.
+size). ``tv_denoise4`` uses Brox weights, max over channels and zeroed
+borders; ``tv_denoise8`` the anisotropic diffusion tensor stencil of the
+current estimate (``ops/weights.tensor_diffusion_weights_8``, zeroed
+borders) and a coarsest level left unsmoothed (the TVdenoise8.m:72
+quirk). The channels are one batch of the solver, the (H, W) weights
+shared: one red-black kernel call on the card (``solver=1``: pde4 or pde8
+of ``csrc/interior_sor.cu``), or one line-implicit PCG over all channels
+jointly (``solver=2``, its line solves the CUDA tridiagonal kernel). Runs
+eagerly on the card unless the caller asks for the CPU
+(``models/_device.py``).
 """
 
 from __future__ import annotations
@@ -28,11 +31,11 @@ import torch
 from pde_tpu_torch.config import with_overrides
 from pde_tpu_torch.core.conv import gaussian_kernel_2d, imfilter_replicate
 from pde_tpu_torch.core.resize import imresize, imresize_scale
-from pde_tpu_torch.kernels.dispatch import sor_pde4
+from pde_tpu_torch.kernels.dispatch import sor_pde4, sor_pde8
 from pde_tpu_torch.models._device import as_tensor, input_device
 from pde_tpu_torch.models.flow_nd import check_solver
-from pde_tpu_torch.ops.weights import diffusion_weights_4
-from pde_tpu_torch.solvers.krylov import pcg_pde4
+from pde_tpu_torch.ops.weights import diffusion_weights_4, tensor_diffusion_weights_8
+from pde_tpu_torch.solvers.krylov import pcg_pde4, pcg_pde8
 
 _EPS_D = float(np.finfo(np.float64).eps)  # MATLAB `eps`, added to a float32 square
 
@@ -52,11 +55,39 @@ class TVDenoise4Params:
     scl_factor: float = 0.75
 
 
+@dataclasses.dataclass(frozen=True)
+class TVDenoise8Params:
+    """Defaults from TVdenoise8.m:36-44 (as ``pde_tpu``'s)."""
+
+    alpha: float = 500.0
+    omega: float = 1.75
+    outer_iter: int = 20
+    inner_iter: int = 4
+    # 1: red-black SOR (the CUDA interior-update kernel, pde8); 2:
+    # line-implicit PCG (the CUDA tridiagonal kernel)
+    solver: int = 1
+    scl: float = 0.75
+    scl_factor: float = 0.75
+    quantile: float = 0.5  # ADdiffWeights default (TVdenoise8.m:147)
+    operator: str = "alvarez"
+
+
+def _params_from(default, obj):
+    values = dataclasses.asdict(obj) if dataclasses.is_dataclass(obj) else dict(obj)
+    return with_overrides(default, **values)
+
+
 def params_from_reference(obj) -> TVDenoise4Params:
     """This package's ``TVDenoise4Params`` from any dataclass instance or
     dict with its field names. Unknown names raise ``TypeError``."""
-    values = dataclasses.asdict(obj) if dataclasses.is_dataclass(obj) else dict(obj)
-    return with_overrides(TVDenoise4Params(), **values)
+    return _params_from(TVDenoise4Params(), obj)
+
+
+def params8_from_reference(obj) -> TVDenoise8Params:
+    """This package's ``TVDenoise8Params`` from any dataclass instance or
+    dict with its field names (such as a ``pde_tpu`` ``TVDenoise8Params``).
+    Unknown names raise ``TypeError``."""
+    return _params_from(TVDenoise8Params(), obj)
 
 
 def _partial_pyramid(img, scl, scl_factor, gsize, gsigma, smooth_last=True):
@@ -121,3 +152,45 @@ def tv_denoise4_fused(img, params: TVDenoise4Params | None = None, device=None):
     """Whole-image entry point of ``pde_tpu`` (one jitted program there).
     Here it is the same eager path as ``tv_denoise4``."""
     return tv_denoise4(img, params, device=device)
+
+
+def _tv8_level(iout, f, alpha, omega, quantile, outer_iter, inner_iter, solver=1,
+               operator="alvarez"):
+    """``outer_iter + 1`` lagged-diffusivity iterations of the 8-neighbour
+    form at one level; iout and f are (C, H, W)."""
+    u = iout
+    for _ in range(outer_iter + 1):
+        w8 = tensor_diffusion_weights_8(u, quantile=quantile, operator=operator,
+                                        zero_borders=True)
+        psi = 1.0 / torch.sqrt((u - f) ** 2 + _EPS_D)
+        trace = psi + alpha * (w8[0] + w8[1] + w8[2] + w8[3] + w8[4] + w8[5] + w8[6] + w8[7])
+        b = psi * f
+        solve = pcg_pde8 if solver == 2 else sor_pde8
+        u = solve(u, trace, b, *(alpha * wt for wt in w8), inner_iter, omega)
+    return u
+
+
+def tv_denoise8(img, params: TVDenoise8Params | None = None, device=None, **overrides):
+    """TV denoise (8-neighbour anisotropic). img: (C, H, W) or (H, W)
+    float32, as a numpy array or a tensor; the device rule of
+    ``tv_denoise4``. Returns the same shape."""
+    p = with_overrides(params or TVDenoise8Params(), **overrides)
+    check_solver("tv_denoise8", p.solver)
+    x = as_tensor(img, input_device(img, device))
+    squeeze = x.ndim == 2
+    if squeeze:
+        x = x[None]
+    levels = _partial_pyramid(x, p.scl, p.scl_factor, 5, 1.25, smooth_last=False)
+    iout = levels[-1]
+    for lvl in range(len(levels) - 1, -1, -1):
+        iout = _tv8_level(iout, levels[lvl], p.alpha, p.omega, p.quantile, p.outer_iter,
+                          p.inner_iter, p.solver, p.operator)
+        if lvl > 0:
+            iout = imresize(iout, levels[lvl - 1].shape[-2:], "bilinear")
+    return iout[0] if squeeze else iout
+
+
+def tv_denoise8_fused(img, params: TVDenoise8Params | None = None, device=None):
+    """Whole-image entry point of ``pde_tpu`` (one jitted program there).
+    Here it is the same eager path as ``tv_denoise8``."""
+    return tv_denoise8(img, params, device=device)

@@ -18,7 +18,10 @@ tensors to the kernel.
   parity).
 * ``alr_*``: the zebra ALR solvers (cf. GS_ALR_SOR_*_2d): whole rows or
   columns of one parity solved at once, SOR-blended with the previous
-  iterate, their line solves through ``kernels/dispatch.py``.
+  iterate, their line solves through ``kernels/dispatch.py``. The
+  8-neighbour ones (``alr_flow_llin8``, ``alr_pde8``) keep the line's two
+  neighbours on the tridiagonal and couple the other two and the four
+  diagonals through the RHS with their current values.
 
 Systems: ``a[k] x[k-1] + b[k] x[k] + c[k] x[k+1] = d[k]`` along ``axis``,
 independent over every other axis; ``a[0]`` and ``c[-1]`` are ignored.
@@ -275,12 +278,14 @@ class _LlinPlan:
 
     __slots__ = ("w4", "base", "mu", "fv", "fh", "omega")
 
-    def __init__(self, f, cuf, ducf, m0, w4_edge, wsum, omega):
+    def __init__(self, f, cuf, ducf, m0, w4_edge, wsum, omega, extra_b=None):
         ww_l, wn_l, we_l, ws_l = w4_edge
         self.w4 = w4_edge
         self.omega = omega
         valid = ~torch.isnan(cuf)
         b = wsum + torch.where(valid, torch.nan_to_num(ducf), 0.0)
+        if extra_b is not None:  # the diagonal weights' sum (8 neighbours)
+            b = b + extra_b
         flux = (ww_l * (shift_w(f) - f) + wn_l * (shift_n(f) - f)
                 + we_l * (shift_e(f) - f) + ws_l * (shift_s(f) - f))
         self.base = flux + torch.where(valid, torch.nan_to_num(cuf), 0.0)
@@ -294,8 +299,10 @@ class _LlinPlan:
             return ww_l * shift_w(df) + we_l * shift_e(df)
         return wn_l * shift_n(df) + ws_l * shift_s(df)
 
-    def sweep(self, df, other, parity: int, vertical: bool):
+    def sweep(self, df, other, parity: int, vertical: bool, extra=None):
         d = self.base + self.rhs_lag(df, vertical)
+        if extra is not None:
+            d = d + extra
         if self.mu is not None:
             d = d - self.mu * other
         x = dispatch.line_solve(self.fv if vertical else self.fh, d, parity, vertical)
@@ -303,18 +310,24 @@ class _LlinPlan:
         return scatter_lines(df, blended, parity, vertical)
 
 
-def _alr_pair(pu, pv, fu, fv, iters: int):
+def _alr_pair(pu, pv, fu, fv, iters: int, dflux=None):
     """Sweep order of the reference (opticalflowSolvers.c:238-257): U
-    columns, V columns, V rows, U rows, each parity 0 then 1."""
+    columns, V columns, V rows, U rows, each parity 0 then 1. ``dflux``
+    (8 neighbours) adds the diagonal coupling of the current iterate to
+    each half-pass's RHS."""
+
+    def sweep(plan, f, other, par, vertical):
+        return plan.sweep(f, other, par, vertical, None if dflux is None else dflux(f))
+
     for _ in range(iters):
         for par in (0, 1):
-            fu = pu.sweep(fu, fv, par, True)
+            fu = sweep(pu, fu, fv, par, True)
         for par in (0, 1):
-            fv = pv.sweep(fv, fu, par, True)
+            fv = sweep(pv, fv, fu, par, True)
         for par in (0, 1):
-            fv = pv.sweep(fv, fu, par, False)
+            fv = sweep(pv, fv, fu, par, False)
         for par in (0, 1):
-            fu = pu.sweep(fu, fv, par, False)
+            fu = sweep(pu, fu, fv, par, False)
     return fu, fv
 
 
@@ -326,6 +339,44 @@ def alr_flow_llin4(u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws, iters: int
     pu = _LlinPlan(u, cu, duc, m0, w4, wsum, omega)
     pv = _LlinPlan(v, cv, dvc, m0, w4, wsum, omega)
     return _alr_pair(pu, pv, du, dv, iters)
+
+
+def _zero_diag_borders(wnw, wne, wse, wsw):
+    """Diagonal weights vanish wherever the diagonal neighbour is off the
+    image."""
+    wnw = _edge_zero(_edge_zero(wnw, -2, "first"), -1, "first")
+    wne = _edge_zero(_edge_zero(wne, -2, "first"), -1, "last")
+    wse = _edge_zero(_edge_zero(wse, -2, "last"), -1, "last")
+    wsw = _edge_zero(_edge_zero(wsw, -2, "last"), -1, "first")
+    return wnw, wne, wse, wsw
+
+
+def _diag_flux_fn(wnw_l, wne_l, wse_l, wsw_l):
+    """x -> Σ over the four diagonals of w_d x_d."""
+    def dflux(x):
+        return (wnw_l * shift_n(shift_w(x)) + wne_l * shift_n(shift_e(x))
+                + wse_l * shift_s(shift_e(x)) + wsw_l * shift_s(shift_w(x)))
+
+    return dflux
+
+
+def alr_flow_llin8(u, v, du, dv, m, cu, cv, duc, dvc,
+                   ww, wnw, wn, wne, we, wse, ws, wsw, iters: int, omega: float):
+    """Zebra ALR for the 8-neighbour (anisotropic) flow pair (cf.
+    GS_ALR_SOR_llin8_2d), the sweep order of the 4-neighbour one: column
+    solves keep N/S on the tridiagonal, W/E and the four diagonals couple
+    through the RHS with their current values. Returns new (dU, dV)."""
+    m0 = torch.nan_to_num(m)
+    w4, wsum4 = _edge_zeroed_w4(ww, wn, we, ws)
+    wnw_l, wne_l, wse_l, wsw_l = _zero_diag_borders(wnw, wne, wse, wsw)
+    dsum = wnw_l + wne_l + wse_l + wsw_l
+    dflux = _diag_flux_fn(wnw_l, wne_l, wse_l, wsw_l)
+    pu = _LlinPlan(u, cu, duc, m0, w4, wsum4, omega, extra_b=dsum)
+    pv = _LlinPlan(v, cv, dvc, m0, w4, wsum4, omega, extra_b=dsum)
+    # the frozen flow's part of the diagonal coupling: Σ w_d (f_d − f)
+    pu.base = pu.base + (dflux(u) - dsum * u)
+    pv.base = pv.base + (dflux(v) - dsum * v)
+    return _alr_pair(pu, pv, du, dv, iters, dflux)
 
 
 def alr_flow_elin4(u, v, m, cu, cv, duc, dvc, ww, wn, we, ws, iters: int, omega: float):
@@ -352,13 +403,16 @@ def alr_disp_llin4(u, du, cu, duc, ww, wn, we, ws, iters: int, omega: float):
     return du
 
 
-def alr_pde4(x, trace, b, ww, wn, we, ws, iters: int, omega: float):
-    """Zebra ALR for the diagonal form (cf. GS_ALR_SOR_4_2d): lines with
-    diagonal TRACE and off-diagonals -wN/-wS (or -wW/-wE), RHS B plus the
-    perpendicular flux; NaN TRACE means pure diffusion (diagonal Σw, B
-    dropped). Leading channel dims broadcast against (H, W) weights."""
+def _alr_diag_form(x, trace, b, w4, w_diag, iters: int, omega: float):
+    """Zebra ALR for the diagonal form with 4 weights, or 8 when
+    ``w_diag`` holds the four diagonal ones (coupled through the RHS)."""
     tr_nan = torch.isnan(trace)
-    (ww_l, wn_l, we_l, ws_l), wsum = _edge_zeroed_w4(ww, wn, we, ws)
+    (ww_l, wn_l, we_l, ws_l), wsum = _edge_zeroed_w4(*w4)
+    dflux = None
+    if w_diag is not None:
+        wnw_l, wne_l, wse_l, wsw_l = _zero_diag_borders(*w_diag)
+        wsum = wsum + wnw_l + wne_l + wse_l + wsw_l
+        dflux = _diag_flux_fn(wnw_l, wne_l, wse_l, wsw_l)
     diag = torch.where(tr_nan, wsum, torch.nan_to_num(trace, nan=1.0))
     b_eff = torch.where(tr_nan, 0.0, b)
     fv = dispatch.line_factors(-wn_l, diag, -ws_l, True)
@@ -369,6 +423,8 @@ def alr_pde4(x, trace, b, ww, wn, we, ws, iters: int, omega: float):
             d = b_eff + ww_l * shift_w(xc) + we_l * shift_e(xc)
         else:
             d = b_eff + wn_l * shift_n(xc) + ws_l * shift_s(xc)
+        if dflux is not None:
+            d = d + dflux(xc)
         sol = dispatch.line_solve(fv if vertical else fh, d, parity, vertical)
         blended = omega * sol + (1.0 - omega) * slice_lines(xc, parity, vertical)
         return scatter_lines(xc, blended, parity, vertical)
@@ -378,3 +434,18 @@ def alr_pde4(x, trace, b, ww, wn, we, ws, iters: int, omega: float):
             for par in (0, 1):
                 x = half(x, par, vertical)
     return x
+
+
+def alr_pde4(x, trace, b, ww, wn, we, ws, iters: int, omega: float):
+    """Zebra ALR for the diagonal form (cf. GS_ALR_SOR_4_2d): lines with
+    diagonal TRACE and off-diagonals -wN/-wS (or -wW/-wE), RHS B plus the
+    perpendicular flux; NaN TRACE means pure diffusion (diagonal Σw, B
+    dropped). Leading channel dims broadcast against (H, W) weights."""
+    return _alr_diag_form(x, trace, b, (ww, wn, we, ws), None, iters, omega)
+
+
+def alr_pde8(x, trace, b, ww, wnw, wn, wne, we, wse, ws, wsw, iters: int, omega: float):
+    """Zebra ALR for the 8-neighbour diagonal form (cf. GS_ALR_SOR_8_2d):
+    lines keep N/S (or W/E) on the tridiagonal, all other neighbours
+    couple through the RHS."""
+    return _alr_diag_form(x, trace, b, (ww, wn, we, ws), (wnw, wne, wse, wsw), iters, omega)

@@ -1,8 +1,9 @@
 """The port's line-implicit PCG solvers (``pde_tpu_torch/solvers/krylov.py``)
 held against ``pde_tpu``'s on seeded 24x30 fields with NaN data, including
 both reduction scopes: the symmetric pair's per-member CG (``pde_tpu``
-vmaps ``pcg_disp_llin4``) and ``pcg_pde4``'s joint CG over channels that
-share their weights.
+vmaps ``pcg_disp_llin4``) and ``pcg_pde4``'s and ``pcg_pde8``'s joint CG
+over channels that share their weights. The 8-neighbour systems get
+diagonal weights of both signs, as the tensor stencil's.
 
 Bound: 1e-4 per solver call (ROADMAP tolerances) on unit-scale fields. The
 CG dot products are reduced in another order by XLA and by torch, so the
@@ -26,6 +27,8 @@ TOL = 1e-4
 ITERS = 5
 SHAPE = (24, 30)
 W4 = ("ww", "wn", "we", "ws")
+W8 = ("ww", "wnw", "wn", "wne", "we", "wse", "ws", "wsw")
+DIAG = ("wnw", "wne", "wse", "wsw")
 FLOW = ("m", "cu", "cv", "duc", "dvc") + W4
 
 
@@ -41,6 +44,8 @@ def _fields(rng, names, shape=SHAPE, shared=()):
             out[n] = rng.random(s) + 1.0
         elif n == "m":
             out[n] = rng.random(s) * 0.01
+        elif n in DIAG:
+            out[n] = rng.random(s) * 0.3 - 0.15
         elif n.startswith("w"):
             out[n] = rng.random(s) + 0.1
         else:
@@ -71,6 +76,7 @@ def _run(fn_name, fields):
 @pytest.mark.parametrize("name,fields", [
     ("pcg_flow_elin4", ("u", "v") + FLOW),
     ("pcg_flow_llin4", ("u", "v", "du", "dv") + FLOW),
+    ("pcg_flow_llin8", ("u", "v", "du", "dv", "m", "cu", "cv", "duc", "dvc") + W8),
 ])
 def test_flow_pcg_matches_reference(rng, name, fields):
     got, want = _run(name, _fields(rng, fields))
@@ -97,6 +103,16 @@ def test_pde4_pcg_solves_channels_jointly(rng):
     f = _fields(rng, ("x", "trace", "b") + W4, (3,) + SHAPE, shared=W4)
     f[1] = f[1] + sum(f[3:])  # TRACE above the weights' sum, as PsiData + Σw
     got, want = _run("pcg_pde4", f)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("shape,shared", [((3,) + SHAPE, W8), (SHAPE, ())])
+def test_pde8_pcg_matches_reference(rng, shape, shared):
+    """tv_denoise8's call, (3, H, W) with shared (H, W) weights, and a
+    single (H, W) system."""
+    f = _fields(rng, ("x", "trace", "b") + W8, shape, shared=shared)
+    f[1] = f[1] + sum(np.abs(x) for x in f[3:])  # TRACE above the weights' absolute sum
+    got, want = _run("pcg_pde8", f)
     _close(got, want)
 
 

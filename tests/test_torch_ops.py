@@ -111,3 +111,61 @@ def test_diffusion_weights_4_matches(rng, combine, zero_borders):
                                         zero_borders=zero_borders)
     for g, w_ in zip(got, want):
         _close(g, w_, atol=ATOL, rtol=1e-5)
+
+
+def _textured(rng, shape):
+    """A smooth random texture with oblique edges (so the tensor's
+    diagonal weights take both signs) and a flat patch (zero gradient)."""
+    x = rng.random(shape).astype(np.float32)
+    x = x + np.roll(x, 1, axis=-1) + np.roll(x, 1, axis=-2)
+    x[..., 2:6, 3:8] = 0.5
+    return x
+
+
+@pytest.mark.parametrize("shape", [(14, 17), (3, 14, 17)])
+@pytest.mark.parametrize("operator", ["alvarez", "sobel"])
+@pytest.mark.parametrize("zero_borders", [False, True])
+def test_tensor_diffusion_weights_8_matches(rng, shape, operator, zero_borders):
+    f = _textured(rng, shape)
+    got = weights.tensor_diffusion_weights_8(_t(f), quantile=0.9, operator=operator,
+                                             zero_borders=zero_borders)
+    want = jweights.tensor_diffusion_weights_8(jnp.asarray(f), quantile=0.9,
+                                               operator=operator, zero_borders=zero_borders)
+    assert len(got) == len(want) == 8
+    for g, w_ in zip(got, want):
+        _close(g, w_)
+    assert float(torch.stack(got).min()) < 0.0  # oblique gradients: negative diagonals
+
+
+def test_tensor_weights_channel_ties_take_the_first(rng):
+    """Two channels with equal gradient norms of opposite sign: the first
+    channel's gradient drives the tensor, as jnp.argmax's first maximum."""
+    f = _textured(rng, (12, 13))
+    pair = np.stack([f, -f])
+    got = weights.tensor_diffusion_weights_8(_t(pair))
+    want = jweights.tensor_diffusion_weights_8(jnp.asarray(pair))
+    first = weights.tensor_diffusion_weights_8(_t(f))
+    for g, w_, g1 in zip(got, want, first):
+        _close(g, w_)
+        np.testing.assert_array_equal(g.numpy(), g1.numpy())
+
+
+def _quantile_cases():
+    rng = np.random.default_rng(7)
+    x = rng.random((37, 53)).astype(np.float32) ** 2
+    sparse = x.copy()
+    sparse[rng.random(x.shape) < 0.3] = 0.0
+    ties = np.repeat(np.arange(1, 6, dtype=np.float32), 7)  # 35 entries, repeated values
+    half = np.concatenate([np.zeros(3, np.float32), np.arange(1, 6, dtype=np.float32)])
+    return [(x, 0.9), (sparse, 0.5), (ties, 0.9), (ties, 0.3),
+            (half, 0.5),  # nz*q = 2.5 rounds half to even, to 2
+            (half, 0.7),  # nz*q = 3.5 rounds to 4
+            (np.zeros((6, 7), np.float32), 0.9)]  # nothing non-zero: 1.0
+
+
+@pytest.mark.parametrize("x,q", _quantile_cases())
+def test_quantile_nonzero_matches_exactly(x, q):
+    got = weights._quantile_nonzero(_t(x), q)
+    want = jweights._quantile_nonzero(jnp.asarray(x), q)
+    assert got.ndim == 0 and got.dtype == torch.float32
+    assert float(got) == float(want)

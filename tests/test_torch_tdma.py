@@ -150,6 +150,8 @@ def _fields(rng, names, shape=(24, 30)):
             out[n] = rng.random(shape) + 1.0
         elif n == "m":
             out[n] = rng.random(shape) * 0.01
+        elif n in ("wnw", "wne", "wse", "wsw"):  # the tensor stencil's: both signs
+            out[n] = rng.random(shape) * 0.3 - 0.15
         elif n.startswith("w"):
             out[n] = rng.random(shape) + 0.1
         else:
@@ -164,11 +166,14 @@ def _fields(rng, names, shape=(24, 30)):
 
 
 W4 = ("ww", "wn", "we", "ws")
+W8 = ("ww", "wnw", "wn", "wne", "we", "wse", "ws", "wsw")
 ALR_CASES = {
     "alr_flow_llin4": ("u", "v", "du", "dv", "m", "cu", "cv", "duc", "dvc") + W4,
     "alr_flow_elin4": ("u", "v", "m", "cu", "cv", "duc", "dvc") + W4,
     "alr_disp_llin4": ("u", "du", "cu", "duc") + W4,
     "alr_pde4": ("x", "trace", "b") + W4,
+    "alr_flow_llin8": ("u", "v", "du", "dv", "m", "cu", "cv", "duc", "dvc") + W8,
+    "alr_pde8": ("x", "trace", "b") + W8,
 }
 
 

@@ -1,7 +1,9 @@
-"""The port's ``tv_denoise4`` held against ``pde_tpu``'s on a noisy
-32x32 image, 2-D and 3-channel, at reduced iteration counts: the partial
-pyramid, each level's lagged-diffusivity solve from the same input, and
-the whole result.
+"""The port's ``tv_denoise4`` and ``tv_denoise8`` held against
+``pde_tpu``'s on a noisy 32x32 image, 2-D and 3-channel, at reduced
+iteration counts: the partial pyramid, each level's lagged-diffusivity
+solve from the same input, and the whole result; and ``tv_denoise8`` at
+reference defaults against the oracle golden ``tests/golden/tv8_ctour.npz``
+with the bounds of ``tests/test_golden.py``.
 
 The bound is relative: where u == f the data weight PsiData is
 1/sqrt(eps) ~ 6.7e7 (eps is float64's, added to a float32 square), so
@@ -11,7 +13,9 @@ relative to the image's values.
 
 import dataclasses
 import importlib
+from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -125,3 +129,95 @@ def test_unported_solver_and_numpy_without_device_raise(rng, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttv.tv_denoise4(img)
+
+
+ITERS8 = dict(outer_iter=2, inner_iter=3)
+# the whole result, one outer iteration per level: the two pyramids'
+# coarsest levels differ by an ulp (the resize products sum in another
+# order), and the data weight's amplification grows that to 2e-6 of the
+# range after one outer iteration, 3e-5 to 1.04e-4 after two and ~7e-3
+# after three, as far apart as pde_tpu's own jitted and op-by-op runs are
+# there (~1e-2)
+WHOLE8 = dict(outer_iter=0, inner_iter=3)
+
+
+@pytest.mark.parametrize("channels", [None, 3])
+@pytest.mark.parametrize("solver", [1, 2])
+def test_tv_denoise8_levels_match_reference(rng, channels, solver):
+    """Both levels of the default partial pyramid (scl = 0.75), each from
+    the reference's input to it, and the whole result (at WHOLE8), with the reference
+    run op by op (``jax.disable_jit()``): its jitted level differs from its
+    own op-by-op one by ~1e-3 of the range after two outer iterations
+    (XLA's fused kernels round the 8-term stencil sums otherwise, and
+    where u == f PsiData ~6.7e7 turns an ulp of u - f into a 1% change of
+    the next data weight), while the port, each op rounded alone, agrees
+    with the op-by-op reference to ~1e-7."""
+    img = _noisy(rng, channels)
+    scale = float(img.max() - img.min())
+    kw = dict(ITERS8, solver=solver)
+    p = ttv.TVDenoise8Params(**kw)
+    x = img[None] if channels is None else img
+    jlevels = jtv._partial_pyramid(jnp.asarray(x), p.scl, p.scl_factor, 5, 1.25,
+                                   smooth_last=False)
+    tlevels = ttv._partial_pyramid(torch.from_numpy(x), p.scl, p.scl_factor, 5, 1.25,
+                                   smooth_last=False)
+    assert len(jlevels) == len(tlevels) == 2
+    for lj, lt in zip(jlevels, tlevels):
+        assert _rel_err(lj, lt, scale) <= REL_TOL
+    iout = jlevels[-1]
+    for lvl in (1, 0):
+        with jax.disable_jit():
+            want = jtv._tv8_level(iout, jlevels[lvl], p.alpha, p.omega, p.quantile,
+                                  p.outer_iter, p.inner_iter, p.solver, p.operator)
+        got = ttv._tv8_level(torch.from_numpy(np.array(iout)),
+                             torch.from_numpy(np.array(jlevels[lvl])), p.alpha, p.omega,
+                             p.quantile, p.outer_iter, p.inner_iter, p.solver, p.operator)
+        assert _rel_err(want, got, scale) <= REL_TOL
+        iout = jimresize(want, jlevels[0].shape[-2:], "bilinear")
+    kw = dict(WHOLE8, solver=solver)
+    with jax.disable_jit():
+        want = np.asarray(jtv.tv_denoise8(img, **kw))
+    before = dict(interior_cuda.LAUNCHES)
+    out = ttv.tv_denoise8(img, **CPU, **kw)
+    assert interior_cuda.LAUNCHES == before
+    assert out.shape == img.shape and out.device.type == "cpu"
+    assert _rel_err(want, out, scale) <= REL_TOL
+
+
+def test_tv_denoise8_matches_oracle_golden():
+    """Reference defaults on the gray 96x128 crop of the denoising demo
+    input, against the literal oracle (TVdenoise8.m), within the bounds
+    tests/test_golden.py holds pde_tpu to; a CPU tensor in, so no card."""
+    g = np.load(Path(__file__).parent / "golden" / "tv8_ctour.npz")
+    out = ttv.tv_denoise8(torch.from_numpy(g["img"])).numpy()
+    ref = g["out"]
+    span = ref.max() - ref.min()
+    assert out.shape == ref.shape and np.isfinite(out).all()
+    assert np.abs(out - ref).max() < 0.10 * span
+    assert np.sqrt(np.mean((out - ref) ** 2)) < 0.02 * span
+    np.testing.assert_array_equal(ttv.tv_denoise8_fused(g["img"], **CPU).numpy(), out)
+
+
+def test_tv8_params_round_trip_with_reference():
+    ref = jtv.TVDenoise8Params(alpha=300.0, quantile=0.6, operator="sobel")
+    port = ttv.params8_from_reference(ref)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert jtv.TVDenoise8Params(**dataclasses.asdict(port)) == ref
+    assert dataclasses.asdict(ttv.TVDenoise8Params()) == dataclasses.asdict(jtv.TVDenoise8Params())
+    # each converter keeps its own defaults
+    assert ttv.params_from_reference({}) == ttv.TVDenoise4Params()
+    assert ttv.params8_from_reference({}) == ttv.TVDenoise8Params()
+    with pytest.raises(TypeError, match="quantile"):
+        ttv.params_from_reference({"quantile": 0.5})
+    with pytest.raises(TypeError, match="bogus"):
+        ttv.params8_from_reference({"alpha": 0.1, "bogus": 2})
+
+
+def test_tv_denoise8_other_solver_and_numpy_without_device_raise(rng, monkeypatch):
+    img = _noisy(rng)
+    with pytest.raises(ValueError, match="solver=3"):
+        ttv.tv_denoise8(img, solver=3, **CPU)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for entry in (ttv.tv_denoise8, ttv.tv_denoise8_fused):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry(img)
