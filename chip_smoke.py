@@ -17,7 +17,10 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    to 1024 along both axes, whole and by zebra parity, with batched and
    shared coefficients); both timed with CUDA events in turns, beside the
    least time the card could take (the bound) and the kernel's device time
-   under ``torch.profiler``.
+   under ``torch.profiler``. The tile kernel (``csrc/tiled_sor.cu``),
+   serial and double-buffered, llin4 and elin4, against the plain tile
+   schedule, bit for bit between its two variants, and beside the global
+   kernels.
 4. ``flow_nd`` with default parameters on a 3-channel 480x640 pair whose
    second frame is the first shifted by a known sub-pixel amount. The flow
    must be finite and recover the shift, the kernel must have been
@@ -51,6 +54,12 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
     ``tv_denoise4``, ``flow_ad`` and ``tv_denoise8`` at 3x480x640: exact
     launches, the shift recovered or the noise reduced, the kernel path
     against the plain path at a reduced size.
+15. The tile engine, ``bench.py``'s headline at 1024x1024: the sustained
+    llin4 (and elin4) sweep rate of the global kernel and of the serial and
+    double-buffered tile kernels by chained differencing, with each one's
+    bytes per pixel-iteration and the bandwidth that implies; exact
+    launches; a 1024-sweep result of each tile kernel against the global
+    one.
 
 Every phase from 4 on sets every kernel's launch count to 0 just before it
 drives its entry point and reads all counts just after, and profiles one
@@ -94,6 +103,7 @@ SOR_SHAPES = [(1, 1), (1, 9), (9, 1), (37, 53), (480, 640), (481, 641), (1024, 1
 # interior pixel, so their border fill is all there is
 INTERIOR_SHAPES = [(2, 5), (3, 3), (37, 53), (480, 640), (481, 641), (1024, 1024)]
 TIME_SHAPES = [(481, 641), (1024, 1024)]  # the first one is reported as the kernel's ms
+TILED_KS = (1, 2, 4)  # the tile kernel's k_max in phase 3
 # tridiagonal systems, solved along both axes: line lengths 1, 2, 3, 7, 33,
 # 480, 481, 640, 641 and 1024 in each direction
 TRIDIAG_SHAPES = [(1, 7), (7, 1), (2, 3), (3, 2), (7, 33), (33, 7), (480, 640), (481, 641),
@@ -108,7 +118,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 # float operations per relaxed pixel and sweep (the kernels' arithmetic)
 FLOPS_PER_PX = {"flow_llin4_sor": 40, "flow_elin4_sor": 30, "disp_llin4_sor": 23,
-                "pde4_sor": 16, "flow_llin8_sor": 64, "pde8_sor": 28}
+                "pde4_sor": 16, "flow_llin8_sor": 64, "pde8_sor": 28,
+                "tiled_flow_llin4": 40, "tiled_flow_llin4_db": 40,
+                "tiled_flow_elin4": 30, "tiled_flow_elin4_db": 30}
 # the kernels whose every float operation is rounded alone in the plain
 # version's order, held to EXACT_TOL; the others contract to FMA (SOR_TOL)
 EXACT = ("tridiag", "pde8_sor")
@@ -126,10 +138,23 @@ ROW_BYTES_PER_PX = {
     "6b pde8 C=3, shared weights (17 in, 3 out)": (3 * 3 + 8 + 3) * 4,
     "8 tridiagonal solve (4 in, 1 out)": (4 + 1) * 4,
 }
+# device-memory bytes per pixel and sweep of the global flow kernels: two
+# colour launches, each touching every 32-byte sector of the coefficient
+# planes and the flags (10 planes llin4, 9 elin4, the colours interleave),
+# of the fields read at the neighbours (dU, dV, U, V; elin4 U, V) and of
+# the two written
+GLOBAL_BYTES_PER_PX_SWEEP = {"flow_llin4_sor": 2 * ((10 * 4 + 1) + 4 * 4 + 2 * 4),
+                             "flow_elin4_sor": 2 * ((9 * 4 + 1) + 2 * 4 + 2 * 4)}
 # the __global__ functions of pde_tpu_torch/csrc/*.cu
 OWN_KERNELS = {"prepare_kernel", "sweep_kernel", "prepare8_kernel", "sweep8_kernel",
                "disp_color_kernel", "pde4_color_kernel", "pde8_color_kernel", "border_kernel",
-               "border_small_kernel", "thomas_kernel", "factor_kernel", "solve_kernel"}
+               "border_small_kernel", "thomas_kernel", "factor_kernel", "solve_kernel",
+               "tiled_sweep_kernel"}
+# the tile kernel's entries: (family, double-buffered)
+TILED = {"tiled_flow_llin4": ("flow_llin4", False), "tiled_flow_llin4_db": ("flow_llin4", True),
+         "tiled_flow_elin4": ("flow_elin4", False), "tiled_flow_elin4_db": ("flow_elin4", True)}
+HEADLINE_SHAPE = (1024, 1024)  # bench.py's headline: the llin4 sweep rate
+HEADLINE_ITERS = (128, 1024)   # chained differencing between these sweep counts
 W8 = ("ww", "wnw", "wn", "wne", "we", "wse", "ws", "wsw")
 
 
@@ -347,6 +372,17 @@ def partial_pyramid_levels(shape, scl: float, scl_factor: float) -> int:
             return levels
 
 
+def bit_equal(got, want) -> bool:
+    """The same bits in every element of each pair (NaN payloads included)."""
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want))
+
+
+def tile_order(family: str, fields):
+    """``sor_fields``/``elin_fields`` in the tile engine's order, the two
+    relaxed fields first (llin4: dU, dV, U, V, ...)."""
+    return fields[2:4] + fields[:2] + fields[4:] if family == "flow_llin4" else fields
+
+
 def mean_flow_diff(a, b) -> float:
     return float(torch.hypot(a[0] - b[0], a[1] - b[1]).mean())
 
@@ -373,7 +409,8 @@ def main() -> None:
         fail(f"pde_tpu_torch not found beside {Path(__file__).name}: run it from the repository")
     sys.path.insert(0, str(HERE))
     from pde_tpu_torch.core.pyramid import pyramid_scales
-    from pde_tpu_torch.kernels import build, dispatch, interior_cuda, sor_cuda, tdma_cuda
+    from pde_tpu_torch.kernels import (build, dispatch, interior_cuda, sor_cuda, sweeps,
+                                       tdma_cuda, tiled, tiled_cuda)
     from pde_tpu_torch.models.disparity import DisparityParams, disparity_nd
     from pde_tpu_torch.models.disparity_sym import DisparitySymParams, disparity_sym
     from pde_tpu_torch.models.diffusion import Diffusion4Params, diffusion4
@@ -393,7 +430,8 @@ def main() -> None:
           f"count {torch.cuda.device_count()}", flush=True)
 
     def reset_counts():
-        for launches in (sor_cuda.LAUNCHES, interior_cuda.LAUNCHES, tdma_cuda.LAUNCHES):
+        for launches in (sor_cuda.LAUNCHES, interior_cuda.LAUNCHES, tdma_cuda.LAUNCHES,
+                         tiled_cuda.LAUNCHES):
             for k in launches:
                 launches[k] = 0
 
@@ -404,7 +442,8 @@ def main() -> None:
                 "disp_llin4_sor": interior_cuda.LAUNCHES["disp_llin4"],
                 "pde4_sor": interior_cuda.LAUNCHES["pde4"],
                 "pde8_sor": interior_cuda.LAUNCHES["pde8"],
-                **{f"tridiag_{k}": n for k, n in tdma_cuda.LAUNCHES.items()}}
+                **{f"tridiag_{k}": n for k, n in tdma_cuda.LAUNCHES.items()},
+                **tiled_cuda.LAUNCHES}
 
     def check_counts(what: str, expected: dict) -> None:
         got = counts()
@@ -420,12 +459,13 @@ def main() -> None:
     print(f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
     t0 = time.time()
-    sources = (sor_cuda.SOURCE, interior_cuda.SOURCE, tdma_cuda.SOURCE)
+    sources = (sor_cuda.SOURCE, interior_cuda.SOURCE, tdma_cuda.SOURCE, tiled_cuda.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(partial(build.build, verbose=True), sources))
     sor_cuda._lib()
     interior_cuda._lib()
     tdma_cuda._lib()
+    tiled_lib = tiled_cuda._lib()
     print(f"built {', '.join(str(p.relative_to(HERE)) for p in libs)} "
           f"in {time.time() - t0:.1f} s", flush=True)
 
@@ -509,6 +549,64 @@ def main() -> None:
                 print(f"  flow_elin4_sor {h}x{w} iters={iters} nan={nan}: "
                       f"max_abs_err={err:.3g}", flush=True)
 
+    # the tile kernel: the plan and the kernel agree on a slot's bytes, for
+    # the plans and for odd tiles a plan_override may ask for
+    for n_fields in (13, 11):
+        for db in (False, True):
+            plan = tiled.plan_tiles(*TIME_SHAPES[-1], n_fields, 4, 4, double_buffer=db)
+            slot = tiled_lib.tiled_sor_slot_bytes(n_fields, plan.k, plan.tile_h, plan.tile_w)
+            if (2 if db else 1) * slot != plan.smem_bytes:
+                fail(f"tile plan {plan} and the kernel's slot of {slot} bytes disagree")
+            print(f"  tile plan {n_fields} fields double_buffer={db}: {plan}", flush=True)
+    for args in ((13, 3, 7, 9), (11, 1, 1, 1), (13, 2, 16, 5)):
+        if tiled_lib.tiled_sor_slot_bytes(*args) != tiled.slot_bytes(*args):
+            fail(f"slot bytes of {args}: kernel {tiled_lib.tiled_sor_slot_bytes(*args)}, "
+                 f"plan {tiled.slot_bytes(*args)}")
+
+    def tiled_run(name, fields, iters, k_max, plain=False):
+        family, db = TILED[name]
+        prep, sw = getattr(sweeps, f"{family}_sweep")(1.9)
+        if not plain:
+            return tiled.tiled_relax(fields, sw, 2, iters, k_max=k_max, prepare_fn=prep,
+                                     double_buffer=db)
+        with dispatch.plain_solvers():
+            return tiled.tiled_relax(fields, sw, 2, iters, k_max=k_max, prepare_fn=prep)
+
+    tiled_vs_global = {}
+    for h, w in SOR_SHAPES:
+        for iters in (4, 5):
+            for k in TILED_KS:
+                for nan in (False, True):
+                    line = []
+                    for family, make, glob in (("flow_llin4", sor_fields, sor_cuda.flow_llin4_sor),
+                                               ("flow_elin4", elin_fields,
+                                                sor_cuda.flow_elin4_sor)):
+                        fields = make(rng, h, w, nan, dev)
+                        tf = tile_order(family, fields)
+                        # the plain schedule is exact whatever its tiles
+                        # (tests/test_torch_tiled.py): here one tile, k sweeps a chunk
+                        prep, sw = getattr(sweeps, f"{family}_sweep")(1.9)
+                        with dispatch.plain_solvers():
+                            want = tiled.tiled_relax(tf, sw, 2, iters, prepare_fn=prep,
+                                                     plan_override=(k, (h, w)))
+                        label = f"{h}x{w} iters={iters} k_max={k} nan={nan}"
+                        serial, db = (tiled_run(f"tiled_{family}{sfx}", tf, iters, k)
+                                      for sfx in ("", "_db"))
+                        errs = [hold(f"tiled_{family}", serial, want, label),
+                                hold(f"tiled_{family}_db", db, want, label)]
+                        if not bit_equal(serial, db):
+                            fail(f"tiled_{family}: serial and double-buffered differ at {label}")
+                        g = glob(*fields, iters, 1.9)
+                        torch.cuda.synchronize()
+                        d_glob = max(float(torch.where(torch.isfinite(b), a - b, 0.0).abs().max())
+                                     for a, b in zip(serial, g))
+                        tiled_vs_global[family] = max(tiled_vs_global.get(family, 0.0), d_glob)
+                        line.append(f"{family} {errs[0]:.3g} (serial == double-buffered; "
+                                    f"vs global kernel {d_glob:.3g})")
+                    print(f"  tiled {label}: max_abs_err " + ", ".join(line), flush=True)
+    print(f"  tile kernels vs the global kernels, max-abs over every case: {tiled_vs_global}",
+          flush=True)
+
     def hold_tridiag(a, b, c, d, label):
         """Whole solves and zebra parity solves along both axes, kernel
         against plain on the same inputs."""
@@ -584,6 +682,29 @@ def main() -> None:
                   f"{turns[2]:.4f} ms (device busy {dev_ms:.4f} ms in {dev_ops:.0f} "
                   f"operations), plain {turns[0]:.4f} / {turns[3]:.4f} ms, "
                   f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+
+    # the tile kernels, iters = 4; their plain version is the tile schedule
+    # at the kernel's own plan, timed once before and once after
+    for h, w in TIME_SHAPES:
+        px = h * w
+        for family, make in (("flow_llin4", sor_fields), ("flow_elin4", elin_fields)):
+            tf = tile_order(family, make(rng, h, w, True, dev))
+            plain = partial(tiled_run, f"tiled_{family}", tf, 4, 4, plain=True)
+            p1 = timed(plain)[1] * 1e3
+            kern_ms = {}
+            for name in (f"tiled_{family}", f"tiled_{family}_db"):
+                kern = partial(tiled_run, name, tf, 4, 4)
+                kern_ms[name] = (cuda_ms(kern, 50), cuda_ms(kern, 50),
+                                 device_profile(kern, 20)[:2])
+            p2 = timed(plain)[1] * 1e3
+            for name, (k1, k2, (dev_ms, dev_ops)) in kern_ms.items():
+                b_ms, b_by = bound(len(tf) * 4 * px + 2 * 4 * px, 4 * px * FLOPS_PER_PX[name])
+                times[(name, h, w)] = ((k1 + k2) / 2, (p1 + p2) / 2)
+                bounds[(name, h, w)] = (b_ms, b_by)
+                print(f"  time {name} {h}x{w} iters=4 per call: kernel {k1:.4f} / {k2:.4f} ms "
+                      f"(device busy {dev_ms:.4f} ms in {dev_ops:.0f} operations), plain tile "
+                      f"schedule {p1:.1f} / {p2:.1f} ms, bound {b_ms:.4f} ms ({b_by})",
+                      flush=True)
 
     # one whole tridiagonal solve (diffusion4's call) along each axis, and
     # one zebra parity solve with a factor (the PCG preconditioner's call)
@@ -1037,6 +1158,107 @@ def main() -> None:
             fail(f"{name} solver=2: result check failed ({value})")
         kernel_vs_plain(f"{name} solver=2", run_small, diff, tol)
 
+    hh, hw = HEADLINE_SHAPE
+    phase(f"15 tiled engine, bench.py's headline: llin4 and elin4 sweeps at {hh}x{hw}")
+    hpx = hh * hw
+
+    def bench_field(scale=1.0):
+        return torch.from_numpy((rng.random(HEADLINE_SHAPE) * scale).astype(np.float32)).to(dev)
+
+    # bench.py's inputs
+    bu, bv, bdu, bdv = bench_field(0.1), bench_field(0.1), bench_field(0.0), bench_field(0.0)
+    bm, bcu, bcv = bench_field(0.01), bench_field(), bench_field()
+    bduc, bdvc = bench_field() + 1.0, bench_field() + 1.0
+    bw = torch.full(HEADLINE_SHAPE, 0.25, device=dev)
+    coef = (bm, bcu, bcv, bduc, bdvc, bw, bw, bw, bw)
+    llin_prep, llin_sw = sweeps.flow_llin4_sweep(1.9)
+    elin_prep, elin_sw = sweeps.flow_elin4_sweep(1.9)
+    # name: (family, one call from the relaxed pair a, b)
+    variants = {
+        "flow_llin4_sor": ("flow_llin4", lambda a, b, it: sor_cuda.flow_llin4_sor(
+            bu, bv, a, b, *coef, it, 1.9)),
+        "tiled_flow_llin4": ("flow_llin4", lambda a, b, it: tiled.tiled_relax(
+            (a, b, bu, bv) + coef, llin_sw, 2, it, k_max=4, prepare_fn=llin_prep)),
+        "tiled_flow_llin4_db": ("flow_llin4", lambda a, b, it: tiled.tiled_relax(
+            (a, b, bu, bv) + coef, llin_sw, 2, it, k_max=4, prepare_fn=llin_prep,
+            double_buffer=True)),
+        "flow_elin4_sor": ("flow_elin4", lambda a, b, it: sor_cuda.flow_elin4_sor(
+            a, b, *coef, it, 1.9)),
+        "tiled_flow_elin4": ("flow_elin4", lambda a, b, it: tiled.tiled_relax(
+            (a, b) + coef, elin_sw, 2, it, k_max=4, prepare_fn=elin_prep)),
+        "tiled_flow_elin4_db": ("flow_elin4", lambda a, b, it: tiled.tiled_relax(
+            (a, b) + coef, elin_sw, 2, it, k_max=4, prepare_fn=elin_prep, double_buffer=True)),
+    }
+    start = {"flow_llin4": (bdu, bdv), "flow_elin4": (bu, bv)}
+    n_fields = {"flow_llin4": 13, "flow_elin4": 11}
+    plans = {name: tiled.plan_tiles(hh, hw, n_fields[fam], HEADLINE_ITERS[1], 4, double_buffer=db)
+             for name, (fam, db) in TILED.items()}
+    expected = {}
+
+    def call(name, a, b, iters):
+        """One call of ``name``, tallying the launches it must make."""
+        expected[name] = expected.get(name, 0) + (
+            -(-iters // plans[name].k) if name in TILED else 1 + 2 * iters)
+        return variants[name][1](a, b, iters)
+
+    def chained_ms(name, iters, reps=3):
+        """Best of ``reps`` of two chained calls (the output fed back in),
+        ms a call, CUDA events."""
+        def two():
+            a, b = start[variants[name][0]]
+            for _ in range(2):
+                a, b = call(name, a, b, iters)
+        two()
+        best = float("inf")
+        for _ in range(reps):
+            t0_ev, t1_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0_ev.record()
+            two()
+            t1_ev.record()
+            t1_ev.synchronize()
+            best = min(best, t0_ev.elapsed_time(t1_ev) / 2)
+        return best
+
+    reset_counts()
+    rates = {}
+    for name, (family, _) in variants.items():
+        t_lo, t_hi = (chained_ms(name, it) for it in HEADLINE_ITERS)
+        ms_sweep = (t_hi - t_lo) / (HEADLINE_ITERS[1] - HEADLINE_ITERS[0])
+        rate = hpx / (ms_sweep * 1e-3) / 1e6
+        rates[name] = rate
+        if name in TILED:
+            plan = plans[name]
+            bpp = tiled.bytes_per_pixel_iter(plan, n_fields[family], 2)
+            how = f"plan k={plan.k}, {plan.tile_h}x{plan.tile_w} tiles"
+        else:
+            bpp = GLOBAL_BYTES_PER_PX_SWEEP[name]
+            how = "two colour launches a sweep"
+        gbps = rate * 1e6 * bpp / 1e9
+        print(f"  {name}: {rate:.0f} Mpix-iters/s sustained ({t_lo:.4f} ms a call of "
+              f"{HEADLINE_ITERS[0]} sweeps, {t_hi:.4f} ms of {HEADLINE_ITERS[1]}); "
+              f"{bpp:.1f} B a pixel-iteration ({how}) -> {gbps:.0f} GB/s, "
+              f"{100 * gbps / (HBM_BYTES_PER_S / 1e9):.1f}% of 3.35 TB/s", flush=True)
+    for family in ("flow_llin4", "flow_elin4"):
+        ref = call(f"{family}_sor", *start[family], HEADLINE_ITERS[1])
+        outs = {name: call(name, *start[family], HEADLINE_ITERS[1])
+                for name in (f"tiled_{family}", f"tiled_{family}_db")}
+        torch.cuda.synchronize()
+        for name, out in outs.items():
+            if not all(torch.isfinite(o).all() for o in out):
+                fail(f"{name}: non-finite result after {HEADLINE_ITERS[1]} sweeps")
+            d = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+            print(f"  {name} after {HEADLINE_ITERS[1]} sweeps: max |d| vs {family}_sor {d:.3g}; "
+                  f"{rates[name] / rates[family + '_sor']:.2f}x its sustained rate", flush=True)
+            if not d <= SOR_TOL:
+                fail(f"{name} differs from {family}_sor by {d} > {SOR_TOL} after "
+                     f"{HEADLINE_ITERS[1]} sweeps")
+        if not bit_equal(*outs.values()):
+            fail(f"tiled_{family}: serial and double-buffered differ after "
+                 f"{HEADLINE_ITERS[1]} sweeps")
+    check_counts("phase 15", expected)
+    for name in TILED:
+        main_launches[name] = expected[name]
+
     sources = {"flow_llin4_sor": ("pde_tpu_torch/csrc/flow_llin4_sor.cu",
                                   "pde_tpu/kernels/sor_pallas.py:71"),
                "disp_llin4_sor": ("pde_tpu_torch/csrc/interior_sor.cu",
@@ -1050,7 +1272,10 @@ def main() -> None:
                "pde8_sor": ("pde_tpu_torch/csrc/interior_sor.cu",
                             "pde_tpu/kernels/sweeps.py:203"),
                "tridiag": ("pde_tpu_torch/csrc/tridiag.cu",
-                           "pde_tpu/kernels/tdma_pallas.py:82")}
+                           "pde_tpu/kernels/tdma_pallas.py:82"),
+               **{name: ("pde_tpu_torch/csrc/tiled_sor.cu",
+                         "pde_tpu/kernels/tiled.py:" + ("172" if db else "113"))
+                  for name, (_, db) in TILED.items()}}
     th, tw = TIME_SHAPES[0]
     # the tridiagonal solve is reported whole, along axis -2
     key = {name: ((name, -2, th, tw) if name == "tridiag" else (name, th, tw))

@@ -18,7 +18,10 @@ anisotropic flow ``models.flow_ad`` and TV denoiser
 ``models.tv_denoise.tv_denoise8`` (their 8-neighbour sweeps in the first
 and second source) and the semi-implicit diffusion ``models.diffusion``. Every model's ``solver=2``,
 the line-implicit PCG (``solvers/krylov.py``), and diffusion solve their
-tridiagonal lines with a third, ``csrc/tridiag.cu``. Entry points run on the CUDA card
+tridiagonal lines with a third, ``csrc/tridiag.cu``. The temporally blocked
+tile engine ``kernels.tiled.tiled_relax`` runs the llin4 and elin4 sweeps k
+at a time over tiles in shared memory, a fourth source,
+``csrc/tiled_sor.cu``; no model routes through it yet. Entry points run on the CUDA card
 unless the caller passes CPU tensors or ``device="cpu"``. Importing the
 package builds and loads nothing; a kernel is compiled with ``nvcc`` at
 its first launch on a CUDA tensor (``kernels/build.py``).

@@ -52,18 +52,21 @@
 // per colour launch (the increments and frozen flow at nine points, mostly
 // from cache, 14 coefficient planes and the flags) for ~64 flops a relaxed
 // pixel and writes every pixel: bytes again, about twice llin4's per sweep.
-// Later work: temporal blocking, k sweeps per pass over a tile and its 2k
-// halo held in shared memory (the tiled.py scheme), which reads the
-// coefficients once per k sweeps.
+// Temporal blocking, k sweeps per pass over a tile and its 2k halo held in
+// shared memory, is csrc/tiled_sor.cu, which shares this file's llin4 and
+// elin4 arithmetic (flow_update.cuh).
 //
 // The kernels run on the caller's stream and allocate nothing. The C entry
 // points return cudaGetLastError() of the launches.
 
-#include <cfloat>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "flow_update.cuh"
+
 namespace {
+
+using flow_sor::nan_to_num;
 
 enum Scratch { kWW, kWN, kWE, kWS, kWSUM, kINVU, kINVV, kM0, kCU0, kCV0, kNumScratch };
 // llin8: the coefficient planes, then the two planes of the (dU, dV) buffer
@@ -75,12 +78,6 @@ enum Scratch8 {
 
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
-
-__device__ __forceinline__ float nan_to_num(float x) {
-  if (isnan(x)) return 0.0f;
-  if (isinf(x)) return x > 0.0f ? FLT_MAX : -FLT_MAX;
-  return x;
-}
 
 __global__ void prepare_kernel(const float* __restrict__ du_in, const float* __restrict__ dv_in,
                                const float* __restrict__ m, const float* __restrict__ cu,
@@ -96,26 +93,19 @@ __global__ void prepare_kernel(const float* __restrict__ du_in, const float* __r
   const size_t n = static_cast<size_t>(h) * w;
   const size_t p = static_cast<size_t>(i) * w + j;
 
-  // border-solving convention: out-facing weights zeroed at the image edge
-  const float a = (j == 0) ? 0.0f : ww[p];
-  const float b = (i == 0) ? 0.0f : wn[p];
-  const float c = (j == w - 1) ? 0.0f : we[p];
-  const float d = (i == h - 1) ? 0.0f : ws[p];
-  const float wsum = ((a + b) + c) + d;
-  const float cu_p = cu[p];
-  const float cv_p = cv[p];
-
-  scratch[kWW * n + p] = a;
-  scratch[kWN * n + p] = b;
-  scratch[kWE * n + p] = c;
-  scratch[kWS * n + p] = d;
-  scratch[kWSUM * n + p] = wsum;
-  scratch[kINVU * n + p] = 1.0f / (wsum + nan_to_num(duc[p]));
-  scratch[kINVV * n + p] = 1.0f / (wsum + nan_to_num(dvc[p]));
-  scratch[kM0 * n + p] = nan_to_num(m[p]);
-  scratch[kCU0 * n + p] = nan_to_num(cu_p);
-  scratch[kCV0 * n + p] = nan_to_num(cv_p);
-  flags[p] = static_cast<uint8_t>((isnan(cu_p) ? 1 : 0) | (isnan(cv_p) ? 2 : 0));
+  const flow_sor::Coef k = flow_sor::prepare(i, j, h, w, ww[p], wn[p], we[p], ws[p], m[p], cu[p],
+                                             cv[p], duc[p], dvc[p]);
+  scratch[kWW * n + p] = k.a;
+  scratch[kWN * n + p] = k.b;
+  scratch[kWE * n + p] = k.c;
+  scratch[kWS * n + p] = k.d;
+  scratch[kWSUM * n + p] = k.wsum;
+  scratch[kINVU * n + p] = k.inv_u;
+  scratch[kINVV * n + p] = k.inv_v;
+  scratch[kM0 * n + p] = k.m0;
+  scratch[kCU0 * n + p] = k.cu0;
+  scratch[kCV0 * n + p] = k.cv0;
+  flags[p] = k.flags;
   du[p] = du_in[p];
   dv[p] = dv_in[p];
 }
@@ -144,29 +134,23 @@ __global__ void sweep_kernel(const float* __restrict__ u, const float* __restric
   const float c = scratch[kWE * n + p];
   const float d = scratch[kWS * n + p];
 
-  // late: Σ w_k (f_k + U_k) - U_c Σw; early: Σ w_k f_k; in the order W, E, N, S
+  const flow_sor::Nbr fu_n{du[pw], du[pe], du[pn], du[ps]};
+  const flow_sor::Nbr fv_n{dv[pw], dv[pe], dv[pn], dv[ps]};
   float su, sv;
   if (kLate) {
     const float wsum = scratch[kWSUM * n + p];
-    su = ((((du[pw] + u[pw]) * a + (du[pe] + u[pe]) * c) + (du[pn] + u[pn]) * b) +
-          (du[ps] + u[ps]) * d) - u[p] * wsum;
-    sv = ((((dv[pw] + v[pw]) * a + (dv[pe] + v[pe]) * c) + (dv[pn] + v[pn]) * b) +
-          (dv[ps] + v[ps]) * d) - v[p] * wsum;
+    su = flow_sor::diffusion<true>(fu_n, {u[pw], u[pe], u[pn], u[ps]}, u[p], a, b, c, d, wsum);
+    sv = flow_sor::diffusion<true>(fv_n, {v[pw], v[pe], v[pn], v[ps]}, v[p], a, b, c, d, wsum);
   } else {
-    su = ((du[pw] * a + du[pe] * c) + du[pn] * b) + du[ps] * d;
-    sv = ((dv[pw] * a + dv[pe] * c) + dv[pn] * b) + dv[ps] * d;
+    su = flow_sor::diffusion<false>(fu_n, fu_n, 0.0f, a, b, c, d, 0.0f);
+    sv = flow_sor::diffusion<false>(fv_n, fv_n, 0.0f, a, b, c, d, 0.0f);
   }
-
-  const uint8_t f = flags[p];
-  const float m0 = scratch[kM0 * n + p];
-  const float fu = du[p];
-  const float fv = dv[p];
-  const float num_u = (f & 1) ? su : (su + scratch[kCU0 * n + p]) - m0 * fv;
-  const float nu = one_minus_omega * fu + omega * num_u * scratch[kINVU * n + p];
-  const float num_v = (f & 2) ? sv : (sv + scratch[kCV0 * n + p]) - m0 * nu;
-  const float nv = one_minus_omega * fv + omega * num_v * scratch[kINVV * n + p];
-  du[p] = nu;
-  dv[p] = nv;
+  const float2 r = flow_sor::update(du[p], dv[p], su, sv, flags[p], scratch[kM0 * n + p],
+                                    scratch[kCU0 * n + p], scratch[kCV0 * n + p],
+                                    scratch[kINVU * n + p], scratch[kINVV * n + p], omega,
+                                    one_minus_omega);
+  du[p] = r.x;
+  dv[p] = r.y;
 }
 
 // The prepare launch and 2 * iters colour launches on `stream`; u, v are

@@ -2,8 +2,10 @@
 
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface, for ``sm_90a`` (Hopper), into ``pde_tpu_torch/_build/``. The
-library's name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded. The library is
+library's name carries a hash of the source, of every header it includes
+with quotes (``#include "x.cuh"``, found beside the file that includes it)
+and of the flags, so an edited source or header is rebuilt and a stale
+library is never loaded. The library is
 loaded with ``ctypes``. Nothing here runs at import time; a missing
 ``nvcc`` raises.
 """
@@ -14,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -39,9 +42,27 @@ def find_nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
+_QUOTED_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def _with_headers(path: Path) -> list[Path]:
+    """``path`` and the headers it includes with quotes, recursively, each
+    once, in the order they are first included."""
+    files, todo = [], [path]
+    while todo:
+        f = todo.pop(0)
+        if f in files:
+            continue
+        files.append(f)
+        todo += [f.parent / inc.decode() for inc in _QUOTED_INCLUDE.findall(f.read_bytes())]
+    return files
+
+
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest = hashlib.sha256()
+    for f in _with_headers(CSRC / f"{name}.cu"):
+        digest.update(f.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 

@@ -1,0 +1,100 @@
+"""ctypes wrapper of the temporally blocked tile kernel
+(``csrc/tiled_sor.cu``): llin4 and elin4, serial or double-buffered.
+
+Takes CUDA tensors only and raises on anything else: the choice of the
+plain tile schedule for CPU tensors is ``kernels/tiled.py``'s. The library
+is built and loaded at the first call, never at import.
+
+``LAUNCHES`` counts the kernel launches this wrapper has made, per family
+and variant (``"tiled_flow_llin4"``, ``"tiled_flow_llin4_db"``,
+``"tiled_flow_elin4"``, ``"tiled_flow_elin4_db"``): ``ceil(iters / k)`` per
+call, one a chunk (the prepare runs inside each chunk), none for
+``iters <= 0``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from pde_tpu_torch.kernels import build
+
+SOURCE = "tiled_sor"
+LAUNCHES = {"tiled_flow_llin4": 0, "tiled_flow_llin4_db": 0,
+            "tiled_flow_elin4": 0, "tiled_flow_elin4_db": 0}
+# the fields of each family in tiled_relax's order: the two relaxed first
+FIELD_NAMES = {
+    "flow_llin4": ("du", "dv", "u", "v", "m", "cu", "cv", "duc", "dvc", "ww", "wn", "we", "ws"),
+    "flow_elin4": ("u", "v", "m", "cu", "cv", "duc", "dvc", "ww", "wn", "we", "ws"),
+}
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load(SOURCE)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for family, names in FIELD_NAMES.items():
+        fn = getattr(lib, f"tiled_{family}")
+        fn.argtypes = [p] * (len(names) + 4) + [i] * 7 + [f, f, p]
+        fn.restype = i
+    lib.tiled_sor_slot_bytes.argtypes = [i, i, i, i]
+    lib.tiled_sor_slot_bytes.restype = i
+    lib.tiled_sor_error_string.argtypes = [i]
+    lib.tiled_sor_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(family: str, fields) -> tuple[int, int]:
+    names = FIELD_NAMES[family]
+    if len(fields) != len(names):
+        raise ValueError(f"tiled_{family} takes {len(names)} fields {names}, got {len(fields)}")
+    shape, device = fields[0].shape, fields[0].device
+    if len(shape) != 2 or shape[0] < 1 or shape[1] < 1:
+        raise ValueError(f"tiled_{family} takes non-empty (H, W) fields, got {tuple(shape)}")
+    for name, x in zip(names, fields):
+        if x.device != device or x.dtype != torch.float32 or x.shape != shape \
+                or not x.is_contiguous():
+            raise ValueError(
+                f"tiled_{family}: {name} must be a contiguous float32 {tuple(shape)} "
+                f"tensor on {device}, got {x.dtype} {tuple(x.shape)} on {x.device} "
+                f"(contiguous={x.is_contiguous()})")
+    if device.type != "cuda":
+        raise ValueError(f"tiled_{family} takes CUDA tensors, got {device}")
+    return shape[0], shape[1]
+
+
+def tiled_flow_sor(family: str, fields, iters: int, omega: float, k: int, tile_h: int,
+                   tile_w: int, double_buffer: bool = False):
+    """``iters`` red-black sweeps of ``family`` (``"flow_llin4"`` or
+    ``"flow_elin4"``) on the card, in chunks of ``k`` over tiles of
+    ``tile_h`` x ``tile_w``; the same function as ``solvers/sor.py``'s
+    ``sor_<family>``. ``fields`` in the order of ``FIELD_NAMES[family]``.
+    Returns the two relaxed fields."""
+    if family not in FIELD_NAMES:
+        raise ValueError(f"no tile kernel for {family!r}; it has {sorted(FIELD_NAMES)}")
+    h, w = _check(family, fields)
+    if k < 1 or tile_h < 1 or tile_w < 1:
+        raise ValueError(f"tile plan k={k}, tile {tile_h}x{tile_w}: each must be >= 1")
+    iters = max(int(iters), 0)  # as the plain loop: no sweep for iters <= 0
+    if iters == 0:
+        return fields[0].clone(), fields[1].clone()
+    lib = _lib()
+    out_a, out_b = (torch.empty_like(x) for x in fields[:2])
+    n_chunks = -(-iters // k)
+    # the chunks ping-pong between out and tmp, ending in out
+    tmp = [torch.empty_like(x) for x in fields[:2]] if n_chunks > 1 else [None, None]
+    device = fields[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, f"tiled_{family}")(
+            *(x.data_ptr() for x in fields), out_a.data_ptr(), out_b.data_ptr(),
+            *(0 if t is None else t.data_ptr() for t in tmp),
+            h, w, iters, k, tile_h, tile_w, int(bool(double_buffer)),
+            float(omega), 1.0 - float(omega), stream)
+    if err != 0:
+        raise RuntimeError(f"tiled_{family} launch failed: cudaError {err} "
+                           f"({lib.tiled_sor_error_string(err).decode()})")
+    LAUNCHES[f"tiled_{family}" + ("_db" if double_buffer else "")] += n_chunks
+    return out_a, out_b

@@ -34,6 +34,8 @@ from ``_scalar_llin_sor`` and ``_pde_sor``:
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from pde_tpu_torch.core.grid import (
@@ -94,6 +96,51 @@ def _fold_data_nan(c, dc, wsum):
     return torch.isnan(c), torch.nan_to_num(c), 1.0 / (wsum + torch.nan_to_num(dc))
 
 
+class FlowCoefficients(NamedTuple):
+    """What a coupled-flow sweep reads besides the fields it relaxes: the
+    edge-zeroed weights, their sum and the NaN-folded data terms."""
+
+    weights: tuple
+    wsum: torch.Tensor
+    cu_nan: torch.Tensor
+    cu0: torch.Tensor
+    inv_u: torch.Tensor
+    cv_nan: torch.Tensor
+    cv0: torch.Tensor
+    inv_v: torch.Tensor
+    m0: torch.Tensor
+
+
+def flow_coefficients(m, cu, cv, duc, dvc, weights) -> FlowCoefficients:
+    """The coefficients of a flow sweep from its 4 or 8 ``weights``, already
+    zeroed where they face off the image."""
+    wsum = _weight_sum(weights)
+    cu_nan, cu0, inv_u = _fold_data_nan(cu, duc, wsum)
+    cv_nan, cv0, inv_v = _fold_data_nan(cv, dvc, wsum)
+    return FlowCoefficients(tuple(weights), wsum, cu_nan, cu0, inv_u, cv_nan, cv0, inv_v,
+                            torch.nan_to_num(m))
+
+
+def flow_half_sweep(fu, fv, u, v, mask, co: FlowCoefficients, omega: float):
+    """One colour (``mask``) of a coupled-flow sweep: u first, then v from
+    the refreshed u. Late linearisation when the frozen flow (u, v) is
+    given, early (fu, fv are the flow) when it is None."""
+    nbr = _nbr_sum(co.weights)
+
+    def diff_term(df, f):
+        if f is None:
+            return nbr(df, *co.weights)
+        return nbr(df + f, *co.weights) - f * co.wsum
+
+    su = diff_term(fu, u)
+    sv = diff_term(fv, v)
+    num_u = torch.where(co.cu_nan, su, su + co.cu0 - co.m0 * fv)
+    new_u = torch.where(mask, (1.0 - omega) * fu + omega * num_u * co.inv_u, fu)
+    num_v = torch.where(co.cv_nan, sv, sv + co.cv0 - co.m0 * new_u)
+    new_v = torch.where(mask, (1.0 - omega) * fv + omega * num_v * co.inv_v, fv)
+    return new_u, new_v
+
+
 def _flow_sor(u, v, fu, fv, m, cu, cv, duc, dvc, weights, iters: int, omega: float):
     """Shared core: relaxes (fu, fv) with the 4 or 8 ``weights``; late
     linearisation when the frozen flow (u, v) is given, early (fu, fv are
@@ -101,30 +148,11 @@ def _flow_sor(u, v, fu, fv, m, cu, cv, duc, dvc, weights, iters: int, omega: flo
     h, w = m.shape[-2:]
     mask0 = checkerboard(h, w, 0, device=m.device)
     mask1 = checkerboard(h, w, 1, device=m.device)
-    nbr = _nbr_sum(weights)
     weights = _edge_zeroed8(*weights) if len(weights) == 8 else _edge_zeroed(*weights)
-    wsum = _weight_sum(weights)
-    cu_nan, cu0, inv_u = _fold_data_nan(cu, duc, wsum)
-    cv_nan, cv0, inv_v = _fold_data_nan(cv, dvc, wsum)
-    m0 = torch.nan_to_num(m)
-
-    def diff_term(df, f):
-        if f is None:
-            return nbr(df, *weights)
-        return nbr(df + f, *weights) - f * wsum
-
-    def half(fu, fv, mask):
-        su = diff_term(fu, u)
-        sv = diff_term(fv, v)
-        num_u = torch.where(cu_nan, su, su + cu0 - m0 * fv)
-        new_u = torch.where(mask, (1.0 - omega) * fu + omega * num_u * inv_u, fu)
-        num_v = torch.where(cv_nan, sv, sv + cv0 - m0 * new_u)
-        new_v = torch.where(mask, (1.0 - omega) * fv + omega * num_v * inv_v, fv)
-        return new_u, new_v
-
+    co = flow_coefficients(m, cu, cv, duc, dvc, weights)
     for _ in range(iters):
-        fu, fv = half(fu, fv, mask0)
-        fu, fv = half(fu, fv, mask1)
+        fu, fv = flow_half_sweep(fu, fv, u, v, mask0, co, omega)
+        fu, fv = flow_half_sweep(fu, fv, u, v, mask1, co, omega)
     return fu, fv
 
 
