@@ -14,10 +14,12 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
 3. Each kernel against its plain PyTorch version on the card, at the
    solvers' shapes, with and without NaN data (the 8-neighbour sweeps with
    diagonal weights of both signs; the tridiagonal solve at line lengths 1
-   to 1024 along both axes, whole and by zebra parity, with batched and
-   shared coefficients); both timed with CUDA events in turns, beside the
-   least time the card could take (the bound) and the kernel's device time
-   under ``torch.profiler``. The tile kernel (``csrc/tiled_sor.cu``),
+   to 1024 along both axes, whole, by zebra parity and as the fused zebra
+   pass in its scalar, coupled and 8-neighbour forms, with batched and
+   shared coefficients, bit for bit); both timed with CUDA events in turns,
+   beside the least time the card could take (the bound; for the line
+   solves also the chain's floor) and the kernel's device time under
+   ``torch.profiler``. The tile kernel (``csrc/tiled_sor.cu``),
    serial and double-buffered, llin4 and elin4, against the plain tile
    schedule, bit for bit between its two variants, and beside the global
    kernels.
@@ -52,8 +54,10 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
     image of phase 8: as phase 8.
 14. ``solver=2`` in ``flow_nd``, ``disparity_nd``, ``disparity_sym``,
     ``tv_denoise4``, ``flow_ad`` and ``tv_denoise8`` at 3x480x640: exact
-    launches, the shift recovered or the noise reduced, the kernel path
-    against the plain path at a reduced size.
+    launches (two factors per field and solver call, one fused zebra pass
+    per field and preconditioner step), the shift recovered or the noise
+    reduced, a profiled warm frame, the kernel path against the plain path
+    at a reduced size.
 15. The tile engine, ``bench.py``'s headline at 1024x1024: the sustained
     llin4 (and elin4) sweep rate of the global kernel and of the serial and
     double-buffered tile kernels by chained differencing, with each one's
@@ -123,9 +127,14 @@ FLOPS_PER_PX = {"flow_llin4_sor": 40, "flow_elin4_sor": 30, "disp_llin4_sor": 23
                 "tiled_flow_elin4": 30, "tiled_flow_elin4_db": 30}
 # the kernels whose every float operation is rounded alone in the plain
 # version's order, held to EXACT_TOL; the others contract to FMA (SOR_TOL)
-EXACT = ("tridiag", "pde8_sor")
+EXACT = ("tridiag", "tridiag_zebra_pass", "pde8_sor")
 # float operations per line element of one whole tridiagonal solve
 TRIDIAG_FLOPS_PER_PX = 8
+# dependent rounded operations a line element adds to a solve's chain (3
+# forward, 2 back) and the cycles each takes (the float pipe's latency):
+# a launch takes at least L times their product at the card's SM clock
+CHAIN_OPS_PER_ELEMENT = 5
+CYCLES_PER_OP = 4
 # bytes per pixel that each TPU kernel row of PERF.md's table must move at
 # least (float32 inputs read once, outputs written once), as that row's
 # main-path caller hands them over
@@ -137,6 +146,10 @@ ROW_BYTES_PER_PX = {
     "6a pde4 C=3, shared weights (13 in, 3 out)": (3 * 3 + 4 + 3) * 4,
     "6b pde8 C=3, shared weights (17 in, 3 out)": (3 * 3 + 8 + 3) * 4,
     "8 tridiagonal solve (4 in, 1 out)": (4 + 1) * 4,
+    # per pixel of the plane: a, cp, denom, rhs, the two weights, m and z_o
+    # read on the parity lines (half the plane), z read on the other half
+    # and written on the parity lines
+    "8z fused zebra pass, coupled (flow_hs)": (8 + 1 + 1) * 4 / 2,
 }
 # device-memory bytes per pixel and sweep of the global flow kernels: two
 # colour launches, each touching every 32-byte sector of the coefficient
@@ -148,8 +161,7 @@ GLOBAL_BYTES_PER_PX_SWEEP = {"flow_llin4_sor": 2 * ((10 * 4 + 1) + 4 * 4 + 2 * 4
 # the __global__ functions of pde_tpu_torch/csrc/*.cu
 OWN_KERNELS = {"prepare_kernel", "sweep_kernel", "prepare8_kernel", "sweep8_kernel",
                "disp_color_kernel", "pde4_color_kernel", "pde8_color_kernel", "border_kernel",
-               "border_small_kernel", "thomas_kernel", "factor_kernel", "solve_kernel",
-               "tiled_sweep_kernel"}
+               "border_small_kernel", "lines_kernel", "tiled_sweep_kernel"}
 # the tile kernel's entries: (family, double-buffered)
 TILED = {"tiled_flow_llin4": ("flow_llin4", False), "tiled_flow_llin4_db": ("flow_llin4", True),
          "tiled_flow_elin4": ("flow_elin4", False), "tiled_flow_elin4_db": ("flow_elin4", True)}
@@ -165,6 +177,14 @@ def phase(name: str) -> None:
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock in MHz (``nvidia-smi``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def nvidia_smi_line() -> str:
@@ -198,24 +218,30 @@ def in_turns(kern, plain, reps: int = 50, plain_reps: int | None = None):
     return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
 
 
-def device_profile(fn, calls: int = 1):
+def device_profile(fn, calls: int = 1, tries: int = 3):
     """What ``calls`` calls of ``fn`` keep the card busy with, from
     ``torch.profiler``: (device ms per call, device operations per call,
     device ms per call in the port's own kernels, [(name, device ms per
     call)] of the five largest). Device time is the self time of every
-    kernel and copy, so gaps between them do not count."""
+    kernel and copy, so gaps between them do not count. A window in which
+    the profiler recorded no device activity at all is taken again, up to
+    ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    # the device's own events; a host operator also carries the time of the
-    # kernels it launched
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        # the device's activity alone: a frame of the line-implicit paths has
+        # ~10^5 device operations, and host events would multiply the
+        # profiler's own work
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if events:
+            break
     events.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / calls
     n_ops = sum(e.count for e in events) / calls
@@ -314,6 +340,17 @@ def tridiag_fields(rng, shape, dev, shared=False):
         a, c = a[0], c[0]
     return [torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dev)
             for x in (a, b, c, d)]
+
+
+def zebra_fields(rng, shape, dev, shared=False):
+    """The fields of a zebra pass on ``shape``: z, rhs, z_o and m, the two
+    line weights and four diagonal ones (both signs); with ``shared``, the
+    weights and m are one (H, W) plane for the leading dims."""
+    plane = shape[-2:] if shared else shape
+    f = [rng.random(shape) - 0.5, rng.random(shape) - 0.5, rng.random(shape) - 0.5,
+         rng.random(plane) * 0.01, rng.random(plane) + 0.1, rng.random(plane) + 0.1]
+    f += [rng.random(plane) * 0.3 - 0.15 for _ in range(4)]
+    return [torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dev) for x in f]
 
 
 def disp_fields(rng, b, h, w, nan: bool, dev):
@@ -608,9 +645,9 @@ def main() -> None:
           flush=True)
 
     def hold_tridiag(a, b, c, d, label):
-        """Whole solves and zebra parity solves along both axes, kernel
-        against plain on the same inputs."""
-        errs = []
+        """Whole solves, zebra parity solves and fused zebra passes along
+        both axes, kernel against plain on the same inputs."""
+        errs, zebra_errs = [], []
         for axis in (-2, -1):
             vertical = axis == -2
             with dispatch.plain_solvers():
@@ -630,9 +667,42 @@ def main() -> None:
                 if got.numel():
                     errs.append(hold("tridiag", got, want_par[par],
                                      f"{label} axis={axis} parity={par}"))
+                # the fused pass: scalar, coupled, 8 neighbours and both, one
+                # form for each (axis, parity), so that each shape has all four
+                z, rhs, z_o, m, w_lo, w_hi, *w_d = zebra_fields(rng, tuple(d.shape), dev,
+                                                                 shared=a.ndim < d.ndim)
+                forms = (("scalar", {}), ("coupled", dict(z_o=z_o, m=m)),
+                         ("8 neighbours", dict(w_diag=tuple(w_d))),
+                         ("coupled, 8 neighbours", dict(z_o=z_o, m=m, w_diag=tuple(w_d))))
+                for form, extra in (forms[2 * (axis == -1) + par],):
+                    with dispatch.plain_solvers():
+                        want_z = dispatch.zebra_pass(facs, z, rhs, w_lo, w_hi, par, vertical,
+                                                     **extra)
+                    got_z = tdma_cuda.zebra_pass(fac, z.clone(), rhs, w_lo, w_hi, par, **extra)
+                    zebra_errs.append(hold("tridiag_zebra_pass", got_z, want_z,
+                                           f"{label} axis={axis} parity={par} {form}"))
+                    if not bit_equal((got_z,), (want_z,)):
+                        fail(f"tridiag_zebra_pass at {label} axis={axis} parity={par} {form}: "
+                             f"not the plain version's bits")
         print(f"  tridiag {label}: max_abs_err {max(errs):.3g} over {len(errs)} solves "
-              f"(whole, factor/replay, parity 0 and 1, both axes)", flush=True)
+              f"(whole, factor/replay, parity 0 and 1, both axes); fused zebra pass "
+              f"{max(zebra_errs):.3g} over {len(zebra_errs)} (scalar, coupled, 8 neighbours, "
+              f"both, one an axis and parity; bit for bit)", flush=True)
 
+    # the line plan and the kernel agree on a block's shared memory
+    tdma_lib = tdma_cuda._lib()
+    for mode_i, mode in enumerate(tdma_cuda.MODES):
+        for coupled, diag in ((False, False), (True, False), (True, True)):
+            for length in (1, 480, 641, 1024):
+                pl = tdma_cuda.plan_lines(1, length, 7, True, None if mode != "zebra" else 0, mode,
+                                          coupled, diag)
+                got = tdma_lib.tridiag_smem_bytes(mode_i, int(coupled), int(diag), length, pl.g,
+                                                  pl.r, pl.stages)
+                if got != pl.smem_bytes:
+                    fail(f"line plan {pl} ({mode}, coupled={coupled}, diag={diag}, L={length}): "
+                         f"the kernel counts {got} bytes")
+    print(f"  line plans: {tdma_cuda.plan_lines(1, 481, 641, True, 0, 'zebra', True)} "
+          f"(481x641 fused pass, coupled) and the kernel agree on shared memory", flush=True)
     for shape in TRIDIAG_SHAPES:
         hold_tridiag(*tridiag_fields(rng, shape, dev), f"{shape[0]}x{shape[1]}")
     # pcg_pde4's coefficients: (H, W) off-diagonals shared by a (3, H, W)
@@ -706,22 +776,41 @@ def main() -> None:
                       f"schedule {p1:.1f} / {p2:.1f} ms, bound {b_ms:.4f} ms ({b_by})",
                       flush=True)
 
-    # one whole tridiagonal solve (diffusion4's call) along each axis, and
-    # one zebra parity solve with a factor (the PCG preconditioner's call)
+    # one whole tridiagonal solve (diffusion4's call) along each axis, one
+    # zebra parity solve with a factor, and one fused zebra pass (flow_hs's
+    # coupled call, and the scalar one); each beside its byte bound and the
+    # chain's floor (a line's 5 L dependent rounded operations)
+    clock_hz = sm_clock_mhz() * 1e6
     for h, w in TIME_SHAPES:
         a, b, c, d = tridiag_fields(rng, (h, w), dev)
+        z, rhs, z_o, m, w_lo, w_hi, *_ = zebra_fields(rng, (h, w), dev)
         b_ms, b_by = bound((4 + 1) * 4 * h * w, TRIDIAG_FLOPS_PER_PX * h * w)
         for axis in (-2, -1):
+            vertical = axis == -2
+            length = h if vertical else w
+            floor_ms = length * CHAIN_OPS_PER_ELEMENT * CYCLES_PER_OP / clock_hz * 1e3
             fac = tdma_cuda.tridiag_factor(a, b, c, axis)
+            pfacs = plain_tdma.line_factors(a, b, c, vertical)
+            zk = z.clone()
             cases = {
                 "whole": (partial(tdma_cuda.thomas_solve, a, b, c, d, axis),
                           partial(plain_tdma.thomas_solve, a, b, c, d, axis), b_ms),
                 "parity 0": (partial(tdma_cuda.tridiag_solve, fac, d, 0),
-                             partial(plain_tdma.line_solve,
-                                     plain_tdma.line_factors(a, b, c, axis == -2), d, 0,
-                                     axis == -2),
+                             partial(plain_tdma.line_solve, pfacs, d, 0, vertical),
                              # half the lines: a, denom, cp and d of them read, x written
                              bound((4 + 1) * 4 * h * w / 2, 0)[0]),
+                # the kernel writes into its own buffer zk, the plain version
+                # returns a new field; the timing does not depend on z's values
+                "zebra pass coupled": (
+                    partial(tdma_cuda.zebra_pass, fac, zk, rhs, w_lo, w_hi, 0, z_o, m),
+                    partial(plain_tdma.zebra_pass, pfacs, z, rhs, w_lo, w_hi, 0, vertical, z_o,
+                            m),
+                    bound(ROW_BYTES_PER_PX["8z fused zebra pass, coupled (flow_hs)"] * h * w,
+                          0)[0]),
+                "zebra pass scalar": (
+                    partial(tdma_cuda.zebra_pass, fac, zk, rhs, w_lo, w_hi, 0),
+                    partial(plain_tdma.zebra_pass, pfacs, z, rhs, w_lo, w_hi, 0, vertical),
+                    bound((6 + 1 + 1) * 4 * h * w / 2, 0)[0]),
             }
             for what, (kern, plain, case_bound) in cases.items():
                 k_ms, p_ms, turns = in_turns(kern, plain, reps=20, plain_reps=2)
@@ -729,10 +818,15 @@ def main() -> None:
                 if what == "whole":
                     times[("tridiag", axis, h, w)] = (k_ms, p_ms)
                     bounds[("tridiag", axis, h, w)] = (b_ms, b_by)
+                if what == "zebra pass coupled":
+                    times[("tridiag_zebra_pass", axis, h, w)] = (k_ms, p_ms)
+                    bounds[("tridiag_zebra_pass", axis, h, w)] = (case_bound, "bytes")
                 print(f"  time tridiag {what} axis={axis} {h}x{w} per call: kernel "
                       f"{turns[1]:.4f} / {turns[2]:.4f} ms (device busy {dev_ms:.4f} ms in "
                       f"{dev_ops:.0f} operations), plain {turns[0]:.4f} / {turns[3]:.4f} ms, "
-                      f"bound {case_bound:.4f} ms", flush=True)
+                      f"bound {case_bound:.4f} ms, chain floor {floor_ms:.4f} ms "
+                      f"(L = {length}, {CHAIN_OPS_PER_ELEMENT} x {CYCLES_PER_OP} cycles at "
+                      f"{clock_hz / 1e6:.0f} MHz)", flush=True)
 
     for label, bpp in ROW_BYTES_PER_PX.items():
         print(f"  bound of row {label}: " + ", ".join(
@@ -912,9 +1006,10 @@ def main() -> None:
     def pcg_launches(calls: int, fields: int, iters: int) -> dict:
         """Line-solve launches of ``calls`` PCG solves of ``fields`` coupled
         fields: per call one factor per field and direction, and per
-        preconditioner pass (``iters + 1``) 8 parity solves per field."""
+        preconditioner pass (``iters + 1``) 8 fused zebra passes per field;
+        no separate parity solve."""
         return {"tridiag_factor": calls * 2 * fields,
-                "tridiag_solve": calls * (iters + 1) * 8 * fields}
+                "tridiag_zebra_pass": calls * (iters + 1) * 8 * fields}
 
     def kernel_vs_plain(what, run, diff, tol):
         """``run()`` on the kernel path and on the plain path at
@@ -943,9 +1038,10 @@ def main() -> None:
         (uh, vh), sec = timed(lambda: flow_hs(it0, it1))
         frame_s.append(sec)
         check_counts("flow_hs", hs_expected)
-    main_launches["tridiag"] = sum(hs_expected.values())
+    main_launches["tridiag"] = hs_expected["tridiag_factor"]
+    main_launches["tridiag_zebra_pass"] = hs_expected["tridiag_zebra_pass"]
     print(f"  {hs_levels} levels x (4 factors + {hp.iter + 1} preconditioner passes x 16 "
-          f"parity solves); frame time: cold {frame_s[0]:.3f} s, warm {frame_s[1]:.3f} / "
+          f"fused zebra passes); frame time: cold {frame_s[0]:.3f} s, warm {frame_s[1]:.3f} / "
           f"{frame_s[2]:.3f} s", flush=True)
     print_profile("flow_hs", min(frame_s[1:]), device_profile(lambda: flow_hs(it0, it1)))
     if uh.shape != MAIN_SHAPE[1:] or not (torch.isfinite(uh).all() and torch.isfinite(vh).all()):
@@ -1156,6 +1252,7 @@ def main() -> None:
               f"{frame_s[0]:.3f} s, warm {frame_s[1]:.3f} s; result check {value}", flush=True)
         if not ok:
             fail(f"{name} solver=2: result check failed ({value})")
+        print_profile(f"{name} solver=2", frame_s[1], device_profile(run))
         kernel_vs_plain(f"{name} solver=2", run_small, diff, tol)
 
     hh, hw = HEADLINE_SHAPE
@@ -1273,12 +1370,16 @@ def main() -> None:
                             "pde_tpu/kernels/sweeps.py:203"),
                "tridiag": ("pde_tpu_torch/csrc/tridiag.cu",
                            "pde_tpu/kernels/tdma_pallas.py:82"),
+               # the preconditioner's pass around the same Pallas solve
+               "tridiag_zebra_pass": ("pde_tpu_torch/csrc/tridiag.cu",
+                                      "pde_tpu/kernels/tdma_pallas.py:82"),
                **{name: ("pde_tpu_torch/csrc/tiled_sor.cu",
                          "pde_tpu/kernels/tiled.py:" + ("172" if db else "113"))
                   for name, (_, db) in TILED.items()}}
     th, tw = TIME_SHAPES[0]
-    # the tridiagonal solve is reported whole, along axis -2
-    key = {name: ((name, -2, th, tw) if name == "tridiag" else (name, th, tw))
+    # the tridiagonal solve is reported whole, the fused pass coupled, along
+    # axis -2
+    key = {name: ((name, -2, th, tw) if name.startswith("tridiag") else (name, th, tw))
            for name in sources}
     report = {"kernels": [{
         "name": name,

@@ -8,7 +8,8 @@ itself never enters it.
 
 Every tridiagonal line solve of the package comes through here
 (``thomas_solve``, ``tridiag_factor``/``tridiag_solve`` and the zebra
-helpers ``line_factors``/``line_solve``). On the card, one factor of the
+helpers ``line_factors``/``line_solve``, and the preconditioner's fused
+``zebra_pass``). On the card, one factor of the
 full field serves both zebra parities (the kernel's per-line arithmetic is
 the same); in the plain version each parity's lines have their own, as in
 ``pde_tpu``.
@@ -40,7 +41,7 @@ def plain_solvers():
 
 
 def _plain(x) -> bool:
-    return x.device.type == "cpu" or _FORCE_PLAIN.get()
+    return x.is_cpu or _FORCE_PLAIN.get()
 
 
 def sor_flow_llin4(u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws,
@@ -138,3 +139,15 @@ def line_solve(facs, d_full, parity: int, vertical: bool):
     if _plain(d_full):
         return _tdma.line_solve(facs, d_full, parity, vertical)
     return tdma_cuda.tridiag_solve(facs[parity], d_full, parity)
+
+
+def zebra_pass(facs, z, rhs, w_lo, w_hi, parity: int, vertical: bool, z_o=None, m=None,
+               w_diag=None):
+    """One zebra-ADI pass on the lines ``parity::2`` of ``z`` (see
+    ``solvers/tdma.py::zebra_pass``), ``facs`` from ``line_factors``.
+    Returns the new ``z``: a new tensor on the plain path; on the card the
+    kernel writes into ``z``, the solver's own buffer, and returns it."""
+    args = (z, rhs, w_lo, w_hi, parity)
+    if _plain(z):
+        return _tdma.zebra_pass(facs, *args, vertical, z_o, m, w_diag)
+    return tdma_cuda.zebra_pass(facs[parity], *args, z_o, m, w_diag)

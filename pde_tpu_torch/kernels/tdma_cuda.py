@@ -9,9 +9,12 @@ independently over every other axis. A coefficient may be one ``(H, W)``
 plane shared by the leading dimensions (read with batch stride 0), as
 ``pcg_pde4``'s weights are against its ``(C, H, W)`` diagonal.
 
+Every launch takes a plan from :func:`plan_lines`: G lines a block, R
+elements of each line a staged chunk, S stages in the ring of chunks.
+
 ``LAUNCHES`` counts the launches per entry point (``"thomas"``,
-``"factor"``, ``"solve"``; one per call that has a line to solve), so a
-run can show that it went through the kernel.
+``"factor"``, ``"solve"``, ``"zebra_pass"``; one per call that has a line
+to solve), so a run can show that it went through the kernel.
 """
 
 from __future__ import annotations
@@ -26,19 +29,90 @@ import torch
 from pde_tpu_torch.kernels import build
 
 SOURCE = "tridiag"
-LAUNCHES = {"thomas": 0, "factor": 0, "solve": 0}
+LAUNCHES = {"thomas": 0, "factor": 0, "solve": 0, "zebra_pass": 0}
+
+# the kernel's modes (tridiag.cu's Mode)
+MODES = ("thomas", "factor", "solve", "zebra")
+MAX_SMEM = 232448   # bytes of shared memory a block may use on the H100
+# the plan measured fastest by scripts/tridiag_plan_sweep.py at 481x641 and
+# 1024x1024, both axes, on an H100 (PERF.md, row 8): G lines a block per
+# mode, R elements a chunk, S stages
+GROUP = {"thomas": 4, "factor": 4, "solve": 2, "zebra": 2}
+CHUNK = 64
+STAGES = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class LinePlan:
+    """G lines a block, R elements a chunk, S stages; the shared memory a
+    block takes and the blocks of the launch."""
+
+    g: int
+    r: int
+    stages: int
+    smem_bytes: int
+    blocks: int
+
+
+def n_tiles(mode: str, coupled: bool = False, diag: bool = False) -> int:
+    """Fields staged a chunk: thomas a, b, c, d; factor a, b, c; solve a,
+    denom, d; zebra a, denom, rhs, w_lo, w_hi, (m, z_o), (4 diagonal
+    weights)."""
+    return {"thomas": 4, "factor": 3, "solve": 3}.get(mode, 5 + 2 * coupled + 4 * diag)
+
+
+def smem_bytes(mode: str, length: int, g: int, r: int, stages: int, coupled: bool = False,
+               diag: bool = False) -> int:
+    """A block's shared memory, as ``tridiag.cu::smem_bytes_of`` counts it:
+    the resident forward results (2 G rows of L, the pitch rounded up to 4
+    mod 8 floats) and S stages of tiles (G rows of R + 4 floats each) plus,
+    for the zebra pass, the window of z (2 G + 1 rows of R + 4)."""
+    stage = n_tiles(mode, coupled, diag) * g * (r + 4)
+    if mode == "zebra":
+        stage += (2 * g + 1) * (r + 4)
+    return 4 * (2 * g * (length + (4 - length) % 8) + stages * stage)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_lines(batch: int, h: int, w: int, vertical: bool, parity: int | None, mode: str,
+               coupled: bool = False, diag: bool = False, override=None) -> LinePlan:
+    """The launch plan of ``mode`` over the lines ``parity::2`` (None: every
+    line): ``GROUP[mode]`` lines a block, halved while the block does not
+    fit in shared memory, R = ``CHUNK``, S = ``STAGES``. ``override`` =
+    (g, r, stages) replaces the choice (the plan sweep's). Raises if the
+    kernel does not take the plan, as for a line longer than a block's
+    shared memory holds at G = 1."""
+    if mode not in MODES:
+        raise ValueError(f"plan_lines: mode must be one of {MODES}, got {mode!r}")
+    length, n_all = (h, w) if vertical else (w, h)
+    n_lines = n_all if parity is None else len(range(parity, n_all, 2))
+    g, r, stages = override or (GROUP[mode], CHUNK, STAGES)
+    if override is None:
+        while g > 1 and smem_bytes(mode, length, g, r, stages, coupled, diag) > MAX_SMEM:
+            g //= 2
+    plan = LinePlan(g, r, stages, smem_bytes(mode, length, g, r, stages, coupled, diag),
+                    batch * -(-n_lines // g))
+    if g not in (1, 2, 4, 8, 16, 32) or r not in (32, 64) or not 2 <= stages <= 4 \
+            or plan.smem_bytes > MAX_SMEM:
+        raise ValueError(f"plan_lines: the kernel does not take the plan {plan} for lines "
+                         f"of {length} elements ({MAX_SMEM} bytes of shared memory a block)")
+    return plan
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.tridiag_thomas.argtypes = [p] * 6 + [q, q, q, i, i, i, i, p]
+    lib.tridiag_thomas.argtypes = [p] * 5 + [q, q, q] + [i] * 7 + [p]
     lib.tridiag_thomas.restype = i
-    lib.tridiag_factor.argtypes = [p] * 5 + [q, q, q, i, i, i, i, p]
+    lib.tridiag_factor.argtypes = [p] * 5 + [q, q, q] + [i] * 7 + [p]
     lib.tridiag_factor.restype = i
-    lib.tridiag_solve.argtypes = [p] * 5 + [q, q, i, i, i, i, i, p]
+    lib.tridiag_solve.argtypes = [p] * 5 + [q, q] + [i] * 8 + [p]
     lib.tridiag_solve.restype = i
+    lib.tridiag_zebra_pass.argtypes = [p] * 13 + [q] * 4 + [i] * 10 + [p]
+    lib.tridiag_zebra_pass.restype = i
+    lib.tridiag_smem_bytes.argtypes = [i] * 7
+    lib.tridiag_smem_bytes.restype = q
     lib.tridiag_error_string.argtypes = [i]
     lib.tridiag_error_string.restype = ctypes.c_char_p
     return lib
@@ -65,23 +139,31 @@ def _vertical(axis: int, ndim: int) -> bool:
     raise ValueError(f"the tridiagonal kernel solves along axis -2 or -1, got axis={axis}")
 
 
-def _full_shape(fn: str, tensors) -> tuple:
+def _full_shape(fn: str, tensors, cuda: bool = True) -> tuple:
     """The broadcast shape of (H, W) planes and full (..., H, W) fields;
-    checks device, dtype and contiguity."""
-    full = max((tuple(t.shape) for t in tensors), key=len)
+    checks shape, dtype, contiguity and one device, then (``cuda``) that
+    the device is a CUDA one. Kept lean: the PCG calls it a few thousand
+    times a frame."""
+    full = max((t.shape for t in tensors), key=len)
     if len(full) < 2 or min(full) < 1:
-        raise ValueError(f"{fn} takes non-empty (..., H, W) fields, got {full}")
-    device = tensors[0].device
-    if device.type != "cuda":
-        raise ValueError(f"{fn} takes CUDA tensors, got {device}")
+        raise ValueError(f"{fn} takes non-empty (..., H, W) fields, got {tuple(full)}")
+    plane = full[-2:]
+    device, index = tensors[0].device, tensors[0].get_device()
     for t in tensors:
-        if tuple(t.shape) not in (full, full[-2:]) or t.device != device \
-                or t.dtype != torch.float32 or not t.is_contiguous():
+        if (t.shape != full and t.shape != plane) or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.get_device() != index:
             raise ValueError(
                 f"{fn}: every field must be a contiguous float32 tensor on {device} of "
-                f"shape {full} or {full[-2:]}, got {t.dtype} {tuple(t.shape)} on {t.device} "
-                f"(contiguous={t.is_contiguous()})")
-    return full
+                f"shape {tuple(full)} or {tuple(plane)}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device} (contiguous={t.is_contiguous()})")
+    if cuda:
+        _require_cuda(fn, device)
+    return tuple(full)
+
+
+def _require_cuda(fn: str, device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"{fn} takes CUDA tensors, got {device}")
 
 
 def _batch_stride(t: torch.Tensor, full: tuple) -> int:
@@ -94,50 +176,66 @@ def _raise_on(lib, fn: str, err: int) -> None:
                            f"({lib.tridiag_error_string(err).decode()})")
 
 
-def thomas_solve(a, b, c, d, axis: int = -2):
+def _launch(device, launch) -> int:
+    """``launch(stream)`` with ``device`` current and its current stream's
+    handle (switching the device only when another one is current)."""
+    if device.index == torch.cuda.current_device():
+        return launch(torch._C._cuda_getCurrentRawStream(device.index))
+    with torch.cuda.device(device):
+        return launch(torch._C._cuda_getCurrentRawStream(device.index))
+
+
+def thomas_solve(a, b, c, d, axis: int = -2, plan=None):
     """Solve the tridiagonal systems along ``axis`` in one launch; the same
-    function as ``solvers/tdma.py::thomas_solve``. Returns x of d's shape."""
+    function as ``solvers/tdma.py::thomas_solve``. Returns x of d's shape.
+    ``plan``: a (g, r, stages) override of :func:`plan_lines`."""
     full = _full_shape("thomas_solve", (a, b, c, d))
     if tuple(d.shape) != full:
         raise ValueError(f"thomas_solve: d must have the full shape {full}, got {tuple(d.shape)}")
     vertical = _vertical(axis, len(full))
+    batch, (h, w) = math.prod(full[:-2]), full[-2:]
+    pl = plan_lines(batch, h, w, vertical, None, "thomas", override=plan)
     lib = _lib()
-    h, w = full[-2:]
     x = torch.empty(full, dtype=torch.float32, device=d.device)
-    cp = torch.empty_like(x)
-    with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream(d.device).cuda_stream
-        err = lib.tridiag_thomas(a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),
-                                 cp.data_ptr(), x.data_ptr(), _batch_stride(a, full),
-                                 _batch_stride(b, full), _batch_stride(c, full),
-                                 math.prod(full[:-2]), h, w, int(vertical), stream)
+    err = _launch(d.device, lambda stream: lib.tridiag_thomas(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(), x.data_ptr(),
+        _batch_stride(a, full), _batch_stride(b, full), _batch_stride(c, full), batch, h, w,
+        int(vertical), pl.g, pl.r, pl.stages, stream))
     _raise_on(lib, "tridiag_thomas", err)
     LAUNCHES["thomas"] += 1
     return x
 
 
-def tridiag_factor(a, b, c, axis: int = -2) -> LineFactor:
+def tridiag_factor(a, b, c, axis: int = -2, plan=None) -> LineFactor:
     """The elimination of every line along ``axis``, once; the same
     arithmetic as ``solvers/tdma.py::tridiag_factor`` (a[0] and c[-1]
     ignored)."""
     full = _full_shape("tridiag_factor", (a, b, c))
     vertical = _vertical(axis, len(full))
+    batch, (h, w) = math.prod(full[:-2]), full[-2:]
+    pl = plan_lines(batch, h, w, vertical, None, "factor", override=plan)
     lib = _lib()
-    h, w = full[-2:]
     cp = torch.empty(full, dtype=torch.float32, device=b.device)
     denom = torch.empty_like(cp)
-    with torch.cuda.device(b.device):
-        stream = torch.cuda.current_stream(b.device).cuda_stream
-        err = lib.tridiag_factor(a.data_ptr(), b.data_ptr(), c.data_ptr(), cp.data_ptr(),
-                                 denom.data_ptr(), _batch_stride(a, full),
-                                 _batch_stride(b, full), _batch_stride(c, full),
-                                 math.prod(full[:-2]), h, w, int(vertical), stream)
+    err = _launch(b.device, lambda stream: lib.tridiag_factor(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), cp.data_ptr(), denom.data_ptr(),
+        _batch_stride(a, full), _batch_stride(b, full), _batch_stride(c, full), batch, h, w,
+        int(vertical), pl.g, pl.r, pl.stages, stream))
     _raise_on(lib, "tridiag_factor", err)
     LAUNCHES["factor"] += 1
     return LineFactor(a, cp, denom, full, vertical)
 
 
-def tridiag_solve(fac: LineFactor, d, parity: int | None = None):
+def _check_factor(fn: str, fac, full: tuple, device) -> None:
+    if not isinstance(fac, LineFactor):
+        raise ValueError(f"{fn} takes a factor of the kernel, got {type(fac).__name__}")
+    if full[-2:] != fac.shape[-2:] or (len(fac.shape) > 2 and full != fac.shape):
+        raise ValueError(f"{fn}: fields of shape {full} do not fit a factor of shape {fac.shape}")
+    if device != fac.cp.device:
+        raise ValueError(f"{fn}: fields on {device}, factor on {fac.cp.device}")
+
+
+def tridiag_solve(fac: LineFactor, d, parity: int | None = None, plan=None):
     """The RHS pass of ``fac`` for a new ``d`` of the factor's (H, W),
     leading dimensions either the factor's or, for a factor of one plane,
     any. ``parity`` None solves every line and returns d's shape; 0 or 1
@@ -147,12 +245,8 @@ def tridiag_solve(fac: LineFactor, d, parity: int | None = None):
     if not isinstance(fac, LineFactor):
         raise ValueError(f"tridiag_solve takes a factor of the kernel, got {type(fac).__name__}")
     full = _full_shape("tridiag_solve", (d,))
-    if full[-2:] != fac.shape[-2:] or (len(fac.shape) > 2 and full != fac.shape):
-        raise ValueError(f"tridiag_solve: d of shape {full} does not fit a factor of "
-                         f"shape {fac.shape}")
-    if d.device != fac.cp.device:
-        raise ValueError(f"tridiag_solve: d on {d.device}, factor on {fac.cp.device}")
-    h, w = full[-2:]
+    _check_factor("tridiag_solve", fac, full, d.device)
+    batch, (h, w) = math.prod(full[:-2]), full[-2:]
     if parity is None:
         out_shape, par = full, -1
     elif parity in (0, 1):
@@ -161,16 +255,71 @@ def tridiag_solve(fac: LineFactor, d, parity: int | None = None):
         par = parity
     else:
         raise ValueError(f"tridiag_solve: parity must be None, 0 or 1, got {parity}")
+    pl = plan_lines(batch, h, w, fac.vertical, parity, "solve", override=plan)
     x = torch.empty(out_shape, dtype=torch.float32, device=d.device)
     if x.numel() == 0:
         return x
     lib = _lib()
-    with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream(d.device).cuda_stream
-        err = lib.tridiag_solve(fac.a.data_ptr(), fac.cp.data_ptr(), fac.denom.data_ptr(),
-                                d.data_ptr(), x.data_ptr(), _batch_stride(fac.a, full),
-                                _batch_stride(fac.cp, full), math.prod(full[:-2]), h, w,
-                                int(fac.vertical), par, stream)
+    err = _launch(d.device, lambda stream: lib.tridiag_solve(
+        fac.a.data_ptr(), fac.cp.data_ptr(), fac.denom.data_ptr(), d.data_ptr(), x.data_ptr(),
+        _batch_stride(fac.a, full), _batch_stride(fac.cp, full), batch, h, w, int(fac.vertical),
+        par, pl.g, pl.r, pl.stages, stream))
     _raise_on(lib, "tridiag_solve", err)
     LAUNCHES["solve"] += 1
     return x
+
+
+def zebra_pass(fac: LineFactor, z, rhs, w_lo, w_hi, parity: int, z_o=None, m=None,
+               w_diag=None, plan=None):
+    """One zebra-ADI pass in one launch: on the lines ``parity::2`` of
+    ``z`` (columns of a vertical factor, rows of a horizontal one),
+    ``d = ((rhs [- m z_o]) + w_lo z[lo]) + w_hi z[hi]`` (lo, hi: the W and
+    E neighbours of a column, N and S of a row, replicated at the edge),
+    plus the diagonal flux of ``w_diag`` = (wnw, wne, wse, wsw) when given,
+    then the solve with ``fac``; the same floats as
+    ``solvers/tdma.py::zebra_pass``.
+
+    ``z`` is the solver's own correction buffer (``solvers/krylov.py``
+    allocates it): the kernel writes the solved lines into it in place and
+    returns it. It writes into no other tensor, and ``z`` may not share
+    memory with any other argument."""
+    if not isinstance(fac, LineFactor):
+        raise ValueError(f"zebra_pass takes a factor of the kernel, got {type(fac).__name__}")
+    coupled, diag = z_o is not None, w_diag is not None
+    if coupled != (m is not None):
+        raise ValueError("zebra_pass: z_o and m come together (the coupled pair) or not at all")
+    if diag and len(w_diag) != 4:
+        raise ValueError(f"zebra_pass: w_diag holds 4 diagonal weights, got {len(w_diag)}")
+    if parity not in (0, 1):
+        raise ValueError(f"zebra_pass: parity must be 0 or 1, got {parity}")
+    weights = (w_lo, w_hi) + (tuple(w_diag) if diag else ())
+    fields = (z, rhs) + weights + ((z_o, m) if coupled else ())
+    full = _full_shape("zebra_pass", fields, cuda=False)
+    for name, t in (("z", z), ("rhs", rhs)) + ((("z_o", z_o),) if coupled else ()):
+        if t.shape != full:
+            raise ValueError(f"zebra_pass: {name} must have the full shape {full}, "
+                             f"got {tuple(t.shape)}")
+    if any(t.shape != w_lo.shape for t in weights):
+        raise ValueError("zebra_pass: the weights must share one shape, got "
+                         f"{[tuple(t.shape) for t in weights]}")
+    _require_cuda("zebra_pass", z.device)
+    _check_factor("zebra_pass", fac, full, z.device)
+    ptrs = [t.data_ptr() for t in fields]
+    if ptrs[0] in ptrs[1:] + [fac.a.data_ptr(), fac.cp.data_ptr(), fac.denom.data_ptr()]:
+        raise ValueError("zebra_pass: z shares memory with another argument")
+    batch, (h, w) = math.prod(full[:-2]), full[-2:]
+    pl = plan_lines(batch, h, w, fac.vertical, parity, "zebra", coupled, diag, override=plan)
+    if len(range(parity, w if fac.vertical else h, 2)) == 0:
+        return z
+    lib = _lib()
+    # fields: z, rhs, w_lo, w_hi, (the four diagonal weights), (z_o, m)
+    wd = ptrs[4:8] if diag else [0] * 4
+    zo_p, m_p = ptrs[-2:] if coupled else (0, 0)
+    err = _launch(z.device, lambda stream: lib.tridiag_zebra_pass(
+        fac.a.data_ptr(), fac.cp.data_ptr(), fac.denom.data_ptr(), ptrs[1], ptrs[2], ptrs[3],
+        m_p, zo_p, *wd, ptrs[0], _batch_stride(fac.a, full), _batch_stride(fac.cp, full),
+        _batch_stride(w_lo, full), _batch_stride(m, full) if coupled else 0, batch, h, w,
+        int(fac.vertical), parity, int(coupled), int(diag), pl.g, pl.r, pl.stages, stream))
+    _raise_on(lib, "tridiag_zebra_pass", err)
+    LAUNCHES["zebra_pass"] += 1
+    return z

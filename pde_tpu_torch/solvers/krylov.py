@@ -4,10 +4,12 @@
 Conjugate gradients on the symmetric positive (semi-)definite systems of
 the flow, disparity and diagonal-form solvers, preconditioned by one
 symmetrised zebra-ADI pass: every line of one parity solved at once
-(columns, then rows, then the same in reverse), each a tridiagonal solve
-through ``kernels/dispatch.py`` (the CUDA kernel ``csrc/tridiag.cu`` for
-CUDA tensors). The line systems are fixed for a whole solve, so they are
-factored once per call and each preconditioner pass replays only the RHS.
+(columns, then rows, then the same in reverse). Each such step (its RHS,
+the parity line solve and the write into the correction) is one
+``kernels/dispatch.py::zebra_pass``: one launch of the CUDA kernel
+``csrc/tridiag.cu`` for CUDA tensors. The line systems are fixed for a
+whole solve, so they are factored once per call and each step replays
+only the RHS.
 
 NaN protocol: pixels with NaN data terms drop Du/Cu/M and relax by pure
 diffusion, folded into the coefficient fields, so the CG operator itself
@@ -37,7 +39,7 @@ import torch
 
 from pde_tpu_torch.core.grid import shift_e, shift_n, shift_s, shift_w
 from pde_tpu_torch.kernels import dispatch
-from pde_tpu_torch.solvers.tdma import _edge_zero, _zero_diag_borders, scatter_lines
+from pde_tpu_torch.solvers.tdma import _edge_zero, _zero_diag_borders
 
 PER_MEMBER = (-2, -1)  # reduce over (H, W) only: leading dims are separate systems
 
@@ -104,33 +106,23 @@ def _zebra_factors(diags, wz4s):
             for dg, (ww, wn, we, ws) in zip(diags, wz4s)]
 
 
-def _zebra_adi(rhs_fns, diags, facs, wz4s, n: int, diag_flux=None):
+def _zebra_adi(rhs, diags, facs, wz4s, n: int, w_diag=None, m=None):
     """One symmetrised zebra-ADI pass over ``n`` coupled fields from a zero
     guess: field 0..n-1 columns (parity 0, 1), then rows, then the same
-    steps reversed. ``rhs_fns[k](z)`` is field k's RHS given the current
-    corrections (the CG residual and the inter-field coupling);
-    ``diag_flux`` (8 neighbours) adds the diagonal coupling of the field's
-    current correction."""
-    z = tuple(torch.zeros_like(d) for d in diags)
-
-    def pas(z, k, parity, vertical):
-        ww, wn, we, ws = wz4s[k]
-        zk = z[k]
-        if vertical:
-            d = rhs_fns[k](z) + ww * shift_w(zk) + we * shift_e(zk)
-        else:
-            d = rhs_fns[k](z) + wn * shift_n(zk) + ws * shift_s(zk)
-        if diag_flux is not None:
-            d = d + diag_flux(zk)
-        sol = dispatch.line_solve(facs[k][0 if vertical else 1], d, parity, vertical)
-        zk = scatter_lines(zk, sol, parity, vertical)
-        return z[:k] + (zk,) + z[k + 1:]
-
+    steps reversed. Field k's RHS is ``rhs[k]``, less ``m`` times the
+    other field's current correction for the coupled pair (``m`` given);
+    ``w_diag`` (8 neighbours) adds the diagonal coupling of the field's
+    current correction. Each step is one ``dispatch.zebra_pass``: one
+    launch on the card, writing into the corrections allocated here."""
+    z = [torch.zeros_like(d) for d in diags]
     steps = [(k, p, True) for k in range(n) for p in (0, 1)]
     steps += [(k, p, False) for k in range(n) for p in (0, 1)]
     for k, p, vert in steps + steps[::-1]:
-        z = pas(z, k, p, vert)
-    return z
+        ww, wn, we, ws = wz4s[k]
+        z[k] = dispatch.zebra_pass(facs[k][0 if vert else 1], z[k], rhs[k],
+                                   ww if vert else wn, we if vert else ws, p, vert,
+                                   None if m is None else z[1 - k], m, w_diag)
+    return tuple(z)
 
 
 def _flow_pcg(u, v, du0, dv0, m, cu, cv, duc, dvc, w4, w_diag, iters: int):
@@ -176,8 +168,7 @@ def _flow_pcg(u, v, du0, dv0, m, cu, cv, duc, dvc, w4, w_diag, iters: int):
 
     def precond(r):
         ru, rv = r
-        return _zebra_adi((lambda z: ru - m_eff * z[1], lambda z: rv - m_eff * z[0]),
-                          (diag_u, diag_v), facs, (wz4, wz4), 2, dflux)
+        return _zebra_adi((ru, rv), (diag_u, diag_v), facs, (wz4, wz4), 2, wd, m_eff)
 
     return _pcg(apply_a, precond, (b_u, b_v), (du0, dv0), iters)
 
@@ -231,7 +222,7 @@ def _scalar_pcg(u, du0, cu, duc, w4, iters: int, dims, trace=None, b_in=None, w_
     facs = _zebra_factors((diag,), (wz4,))
 
     def precond(r):
-        return _zebra_adi((lambda z: r[0],), (diag,), facs, (wz4,), 1, dflux)
+        return _zebra_adi(r, (diag,), facs, (wz4,), 1, wd)
 
     return _pcg(apply_a, precond, (b,), (du0,), iters, dims)[0]
 

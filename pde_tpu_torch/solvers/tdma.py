@@ -1,12 +1,12 @@
 """Batched tridiagonal (Thomas) solves and zebra alternating-line relaxation
 (ALR), ported from ``pde_tpu/solvers/tdma.py``.
 
-The functions here up to ``line_solve`` are the plain PyTorch versions of
+The functions here up to ``zebra_pass`` are the plain PyTorch versions of
 the CUDA kernel ``csrc/tridiag.cu``: the path for CPU tensors and the
 kernel's reference on the card. Callers reach them through
 ``kernels/dispatch.py`` (``thomas_solve``, ``tridiag_factor``,
-``tridiag_solve``, ``line_factors``, ``line_solve``), which sends CUDA
-tensors to the kernel.
+``tridiag_solve``, ``line_factors``, ``line_solve``, ``zebra_pass``), which
+sends CUDA tensors to the kernel.
 
 * ``thomas_solve_scan``: ``pde_tpu``'s ``lax.scan`` Thomas elimination as a
   Python loop over the line axis, with exactly its float operations.
@@ -15,7 +15,8 @@ tensors to the kernel.
   CPU backend) or ``"cr"`` (cyclic reduction, ``pde_tpu``'s TPU path, kept
   for parity tests). ``thomas_solve`` is the two in one.
 * ``line_factors``/``line_solve``: the zebra helpers (the lines of one
-  parity).
+  parity); ``zebra_pass``: one pass of the PCG preconditioner (RHS
+  assembly, parity solve, scatter).
 * ``alr_*``: the zebra ALR solvers (cf. GS_ALR_SOR_*_2d): whole rows or
   columns of one parity solved at once, SOR-blended with the previous
   iterate, their line solves through ``kernels/dispatch.py``. The
@@ -252,6 +253,26 @@ def line_solve(facs, d_full, parity: int, vertical: bool):
     """Solve the parity lines given the full-field RHS ``d_full``."""
     axis = -2 if vertical else -1
     return tridiag_solve(facs[parity], slice_lines(d_full, parity, vertical), axis)
+
+
+def zebra_pass(facs, z, rhs, w_lo, w_hi, parity: int, vertical: bool, z_o=None, m=None,
+               w_diag=None):
+    """One pass of the zebra-ADI preconditioner (``solvers/krylov.py``) on
+    the lines ``parity::2`` of ``z``: the RHS ``rhs`` (``rhs - m * z_o``
+    for the coupled pair) plus the perpendicular neighbours' flux
+    ``w_lo * z[lo] + w_hi * z[hi]`` (W and E of a column, N and S of a
+    row), plus the diagonal flux of ``w_diag`` = (wnw, wne, wse, wsw) when
+    given, solved with ``facs`` (``line_factors``) and scattered into a
+    copy of ``z``. The plain version of the kernel's fused pass
+    (``kernels/tdma_cuda.py::zebra_pass``); returns a new tensor."""
+    rhs_k = rhs if z_o is None else rhs - m * z_o
+    if vertical:
+        d = rhs_k + w_lo * shift_w(z) + w_hi * shift_e(z)
+    else:
+        d = rhs_k + w_lo * shift_n(z) + w_hi * shift_s(z)
+    if w_diag is not None:
+        d = d + _diag_flux_fn(*w_diag)(z)
+    return scatter_lines(z, line_solve(facs, d, parity, vertical), parity, vertical)
 
 
 def _edge_zero(w, axis: int, side: str):

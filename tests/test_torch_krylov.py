@@ -122,3 +122,21 @@ def test_cpu_solve_launches_nothing(rng):
     out = krylov.pcg_disp_llin4(*(torch.from_numpy(x) for x in f), 2, 1.9)
     assert out.shape == (12, 14) and torch.isfinite(out).all()
     assert tdma_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("name,fields,shape", [
+    ("pcg_flow_elin4", ("u", "v") + FLOW, (17, 23)),
+    ("pcg_disp_llin4", ("u", "du", "cu", "duc") + W4, (17, 23)),
+    ("pcg_pde8", ("x", "trace", "b") + W8, (3, 17, 23)),
+])
+def test_fused_preconditioner_pcg_matches_reference(rng, name, fields, shape):
+    """Every preconditioner step is one fused zebra pass
+    (``dispatch.zebra_pass``); the solvers still agree with pde_tpu at an
+    odd shape (an odd line count of each parity, both directions), with the
+    tolerance above."""
+    shared = W8 if name == "pcg_pde8" else ()
+    f = _fields(rng, fields, shape, shared=shared)
+    if name == "pcg_pde8":
+        f[1] = f[1] + sum(np.abs(x) for x in f[3:])  # TRACE above the weights' absolute sum
+    got, want = _run(name, f)
+    _close(got, want)

@@ -223,3 +223,24 @@ def test_library_name_follows_source_hash():
     path = build.library_path(tdma_cuda.SOURCE)
     assert path.parent == build.BUILD_DIR and path.name.startswith("libtridiag_")
     assert (build.CSRC / f"{tdma_cuda.SOURCE}.cu").is_file()
+
+
+@pytest.mark.parametrize("fn", ["thomas_solve", "tridiag_factor"])
+def test_cuda_wrappers_check_fields_before_building(rng, monkeypatch, fn):
+    """Another dtype, a non-contiguous field or a mismatched shape raises
+    before anything is built, for the whole solve and the factor."""
+    def no_build(name):
+        raise AssertionError("the wrapper must check its inputs before it builds")
+
+    monkeypatch.setattr(build, "load", no_build)
+    a, b, c, d = _t(*_tridiag(rng, (9, 12)))
+    call = getattr(tdma_cuda, fn)
+    rest = (d,) if fn == "thomas_solve" else ()
+    before = dict(tdma_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="float32"):
+        call(a.double(), b, c, *rest)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(a, b.t().contiguous().t(), c, *rest)
+    with pytest.raises(ValueError, match="shape"):
+        call(a, b[:, :11].contiguous(), c, *rest)
+    assert tdma_cuda.LAUNCHES == before
