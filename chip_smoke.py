@@ -22,11 +22,16 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    ``torch.profiler``. The tile kernel (``csrc/tiled_sor.cu``),
    serial and double-buffered, llin4 and elin4, against the plain tile
    schedule, bit for bit between its two variants, and beside the global
-   kernels.
+   kernels. The resident kernel (``csrc/resident_sor.cu``, one launch a
+   solver call), llin4 and disp llin4 (B = 1 and 2), against the global
+   kernels bit for bit and the plain version (disp bit for bit too), at the
+   solvers' shapes and at every level of ``flow_nd``'s and the stereo
+   models' pyramids, with and without NaN data.
 4. ``flow_nd`` with default parameters on a 3-channel 480x640 pair whose
    second frame is the first shifted by a known sub-pixel amount. The flow
-   must be finite and recover the shift, the kernel must have been
-   launched exactly as often as the pyramid implies, and the plain path on
+   must be finite and recover the shift, the kernels must have been
+   launched exactly as often as the pyramid implies (one resident launch a
+   solver call at every level with a resident plan), and the plain path on
    the card must agree. A small pair is also held against the port's CPU
    path, which the CPU tests hold against the JAX package.
 5. ``flow_nd_sequence`` on a 3-frame 240x320 clip against per-pair
@@ -35,7 +40,7 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    known horizontal shift: as phase 4, with the interior-update kernel.
 7. ``disparity_sym``, default parameters, on the same kind of pair: both
    fields recover the shift with opposite signs, each solve of the pair is
-   one kernel call with a batch of 2.
+   one kernel call with a batch of 2, its planes never stacked.
 8. ``tv_denoise4``, default parameters, on a noisy piecewise-flat
    3x480x640 image: exact launches, kernel path against plain path, and
    the noise in a flat patch must fall.
@@ -64,6 +69,9 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
     bytes per pixel-iteration and the bandwidth that implies; exact
     launches; a 1024-sweep result of each tile kernel against the global
     one.
+16. ``flow_nd`` and ``disparity_nd`` at 3x1024x1024, whose finest level
+    has no resident plan: exact launches of the global kernels there and of
+    the resident kernel at every other level; finite fields.
 
 Every phase from 4 on sets every kernel's launch count to 0 just before it
 drives its entry point and reads all counts just after, and profiles one
@@ -99,6 +107,7 @@ MAIN_SHAPE = (3, 480, 640)
 MAIN_SHIFT = (0.4, 1.3)  # (dy, dx) in px: the second frame moves right and down
 DISP_SHIFT = (0.0, 2.6)  # the stereo pair's second frame moves right
 SEQ_SHAPE = (3, 240, 320)
+LARGE_SHAPE = (3, 1024, 1024)  # its finest level has no resident plan
 SMALL_SHAPE = (3, 36, 44)  # card vs the CPU path
 # the main path's finest level and odd neighbours, a coarse level, and
 # degenerate shapes where every pixel is an edge pixel
@@ -122,12 +131,13 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 # float operations per relaxed pixel and sweep (the kernels' arithmetic)
 FLOPS_PER_PX = {"flow_llin4_sor": 40, "flow_elin4_sor": 30, "disp_llin4_sor": 23,
+                "resident_flow_llin4": 40, "resident_disp_llin4": 23,
                 "pde4_sor": 16, "flow_llin8_sor": 64, "pde8_sor": 28,
                 "tiled_flow_llin4": 40, "tiled_flow_llin4_db": 40,
                 "tiled_flow_elin4": 30, "tiled_flow_elin4_db": 30}
 # the kernels whose every float operation is rounded alone in the plain
 # version's order, held to EXACT_TOL; the others contract to FMA (SOR_TOL)
-EXACT = ("tridiag", "tridiag_zebra_pass", "pde8_sor")
+EXACT = ("tridiag", "tridiag_zebra_pass", "pde8_sor", "resident_disp_llin4")
 # float operations per line element of one whole tridiagonal solve
 TRIDIAG_FLOPS_PER_PX = 8
 # dependent rounded operations a line element adds to a solve's chain (3
@@ -161,7 +171,8 @@ GLOBAL_BYTES_PER_PX_SWEEP = {"flow_llin4_sor": 2 * ((10 * 4 + 1) + 4 * 4 + 2 * 4
 # the __global__ functions of pde_tpu_torch/csrc/*.cu
 OWN_KERNELS = {"prepare_kernel", "sweep_kernel", "prepare8_kernel", "sweep8_kernel",
                "disp_color_kernel", "pde4_color_kernel", "pde8_color_kernel", "border_kernel",
-               "border_small_kernel", "lines_kernel", "tiled_sweep_kernel"}
+               "border_small_kernel", "lines_kernel", "tiled_sweep_kernel",
+               "resident_llin4_kernel", "resident_disp_kernel"}
 # the tile kernel's entries: (family, double-buffered)
 TILED = {"tiled_flow_llin4": ("flow_llin4", False), "tiled_flow_llin4_db": ("flow_llin4", True),
          "tiled_flow_elin4": ("flow_elin4", False), "tiled_flow_elin4_db": ("flow_elin4", True)}
@@ -446,8 +457,8 @@ def main() -> None:
         fail(f"pde_tpu_torch not found beside {Path(__file__).name}: run it from the repository")
     sys.path.insert(0, str(HERE))
     from pde_tpu_torch.core.pyramid import pyramid_scales
-    from pde_tpu_torch.kernels import (build, dispatch, interior_cuda, sor_cuda, sweeps,
-                                       tdma_cuda, tiled, tiled_cuda)
+    from pde_tpu_torch.kernels import (build, dispatch, interior_cuda, resident_cuda, sor_cuda,
+                                       sweeps, tdma_cuda, tiled, tiled_cuda)
     from pde_tpu_torch.models.disparity import DisparityParams, disparity_nd
     from pde_tpu_torch.models.disparity_sym import DisparitySymParams, disparity_sym
     from pde_tpu_torch.models.diffusion import Diffusion4Params, diffusion4
@@ -468,7 +479,7 @@ def main() -> None:
 
     def reset_counts():
         for launches in (sor_cuda.LAUNCHES, interior_cuda.LAUNCHES, tdma_cuda.LAUNCHES,
-                         tiled_cuda.LAUNCHES):
+                         tiled_cuda.LAUNCHES, resident_cuda.LAUNCHES):
             for k in launches:
                 launches[k] = 0
 
@@ -480,7 +491,7 @@ def main() -> None:
                 "pde4_sor": interior_cuda.LAUNCHES["pde4"],
                 "pde8_sor": interior_cuda.LAUNCHES["pde8"],
                 **{f"tridiag_{k}": n for k, n in tdma_cuda.LAUNCHES.items()},
-                **tiled_cuda.LAUNCHES}
+                **tiled_cuda.LAUNCHES, **resident_cuda.LAUNCHES}
 
     def check_counts(what: str, expected: dict) -> None:
         got = counts()
@@ -496,13 +507,16 @@ def main() -> None:
     print(f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
     t0 = time.time()
-    sources = (sor_cuda.SOURCE, interior_cuda.SOURCE, tdma_cuda.SOURCE, tiled_cuda.SOURCE)
+    sources = (sor_cuda.SOURCE, interior_cuda.SOURCE, tdma_cuda.SOURCE, tiled_cuda.SOURCE,
+               resident_cuda.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(partial(build.build, verbose=True), sources))
     sor_cuda._lib()
     interior_cuda._lib()
     tdma_cuda._lib()
     tiled_lib = tiled_cuda._lib()
+    resident_lib = resident_cuda._lib()
+    sms = resident_cuda.sm_count(0)
     print(f"built {', '.join(str(p.relative_to(HERE)) for p in libs)} "
           f"in {time.time() - t0:.1f} s", flush=True)
 
@@ -585,6 +599,70 @@ def main() -> None:
                            f"{h}x{w} iters={iters} nan={nan}")
                 print(f"  flow_elin4_sor {h}x{w} iters={iters} nan={nan}: "
                       f"max_abs_err={err:.3g}", flush=True)
+
+    # the resident kernel: the plans and the kernel agree on a block's shared
+    # memory; each family against the global kernel bit for bit and against
+    # the plain version (disp bit for bit), at the solvers' shapes (iters 4
+    # and 5) and at every level of flow_nd's (llin4) and the stereo models'
+    # (disp, B = 1 and 2) pyramids at MAIN_SHAPE (iters 4)
+    flow_levels = pyramid_scales(*MAIN_SHAPE[1:], FlowNDParams().scl_factor, 20)
+    stereo_levels = pyramid_scales(*MAIN_SHAPE[1:], DisparityParams().scl_factor, 10)
+    for fam_i, (family, levels) in enumerate((("llin4", flow_levels), ("disp", stereo_levels))):
+        for h, w in levels:
+            for b in range(1, resident_cuda.MAX_BATCH[family] + 1):
+                pl = resident_cuda.plan_resident(h, w, family, b, sms)
+                if pl is None:
+                    fail(f"no resident {family} plan for a level of {h}x{w}, B={b}")
+                got = resident_lib.resident_sor_smem_bytes(fam_i, pl.rows, w)
+                if got != pl.smem_bytes:
+                    fail(f"resident plan {pl} at {h}x{w}: the kernel counts {got} bytes")
+    resident_cases = 0
+    for h, w in SOR_SHAPES + flow_levels:
+        if resident_cuda.plan_resident(h, w, "llin4", 1, sms) is None:
+            print(f"  resident_flow_llin4 {h}x{w}: no plan (the global kernel takes it)",
+                  flush=True)
+            continue
+        errs = []
+        for iters in ((4, 5) if (h, w) in SOR_SHAPES else (4,)):
+            for nan in (False, True):
+                fields = sor_fields(rng, h, w, nan, dev)
+                got = resident_cuda.flow_llin4_sor(*fields, iters, 1.9)
+                label = f"{h}x{w} iters={iters} nan={nan}"
+                errs.append(hold("resident_flow_llin4", got,
+                                 plain_sor.sor_flow_llin4(*fields, iters, 1.9), label))
+                if not bit_equal(got, sor_cuda.flow_llin4_sor(*fields, iters, 1.9)):
+                    fail(f"resident_flow_llin4 at {label}: not the global kernel's bits")
+                resident_cases += 1
+        scope = resident_cuda.plan_resident(h, w, "llin4", 1, sms).scope
+        print(f"  resident_flow_llin4 {h}x{w} ({scope}): == flow_llin4_sor bit for bit; "
+              f"max_abs_err vs plain {max(errs):.3g}", flush=True)
+    for h, w in INTERIOR_SHAPES + stereo_levels:
+        for b in (1, 2):
+            pl = resident_cuda.plan_resident(h, w, "disp", b, sms)
+            if pl is None:
+                print(f"  resident_disp_llin4 {h}x{w} B={b}: no plan (the global kernel takes "
+                      f"it)", flush=True)
+                continue
+            for iters in ((4, 5) if (h, w) in INTERIOR_SHAPES else (4,)):
+                for nan in (False, True):
+                    fields = disp_fields(rng, b, h, w, nan, dev)
+                    label = f"B={b} {h}x{w} iters={iters} nan={nan}"
+                    if b == 1:
+                        got = resident_cuda.disp_llin4_sor(*fields, iters, 1.9)
+                    else:  # the symmetric pair's form: two sets of planes
+                        got = torch.stack(resident_cuda.disp_llin4_pair(
+                            [f[0] for f in fields], [f[1] for f in fields], iters, 1.9))
+                    want = plain_sor.sor_disp_llin4(*fields, iters, 1.9)
+                    hold("resident_disp_llin4", got, want, label)
+                    glob = interior_cuda.disp_llin4_sor(*fields, iters, 1.9)
+                    if not (bit_equal((got,), (want,)) and bit_equal((got,), (glob,))):
+                        fail(f"resident_disp_llin4 at {label}: not the plain version's and the "
+                             f"global kernel's bits")
+                    resident_cases += 1
+            print(f"  resident_disp_llin4 {h}x{w} B={b} ({pl.scope}): == disp_llin4_sor and "
+                  f"plain bit for bit", flush=True)
+    print(f"  resident kernel: {resident_cases} cases, each bit for bit against the global "
+          f"kernel", flush=True)
 
     # the tile kernel: the plan and the kernel agree on a slot's bytes, for
     # the plans and for odd tiles a plan_override may ask for
@@ -733,6 +811,13 @@ def main() -> None:
             # flow_hs's call with solver=1: every pixel relaxed
             "flow_elin4_sor": (sor_cuda.flow_elin4_sor, plain_sor.sor_flow_elin4,
                                elin_fields(rng, h, w, True, dev), 1.9, (11 + 2) * 4 * px, px),
+            # the resident kernel at flow_nd's and disparity_nd's calls
+            "resident_flow_llin4": (resident_cuda.flow_llin4_sor, plain_sor.sor_flow_llin4,
+                                    sor_fields(rng, h, w, True, dev), 1.9, (13 + 2) * 4 * px,
+                                    px),
+            "resident_disp_llin4": (resident_cuda.disp_llin4_sor, plain_sor.sor_disp_llin4,
+                                    disp_fields(rng, 1, h, w, True, dev), 1.9, (8 + 1) * 4 * px,
+                                    (h - 2) * (w - 2)),
             # flow_ad's call: every pixel relaxed
             "flow_llin8_sor": (sor_cuda.flow_llin8_sor, plain_sor.sor_flow_llin8,
                                llin8_fields(rng, h, w, True, dev), 1.9, (17 + 2) * 4 * px, px),
@@ -742,6 +827,10 @@ def main() -> None:
                          3 * (h - 2) * (w - 2)),
         }
         for name, (kern, plain, fields, omega, nbytes, relaxed) in cases.items():
+            family = {"resident_flow_llin4": "llin4", "resident_disp_llin4": "disp"}.get(name)
+            if family and resident_cuda.plan_resident(h, w, family, 1, sms) is None:
+                print(f"  time {name} {h}x{w}: no plan (the global kernel takes it)", flush=True)
+                continue
             k_ms, p_ms, turns = in_turns(partial(kern, *fields, 4, omega),
                                          partial(plain, *fields, 4, omega))
             b_ms, b_by = bound(nbytes, 4 * relaxed * FLOPS_PER_PX[name])
@@ -834,19 +923,31 @@ def main() -> None:
 
     main_launches = {}
 
+    def sor_launches(shape, scl_factor, stop, scales, calls, family, batch, global_key,
+                     per_call):
+        """The launches of ``calls`` solver calls at every pyramid level of
+        ``shape``: one resident launch a call where the level has a
+        resident plan, else ``per_call`` launches of the global kernel."""
+        levels = pyramid_scales(shape[-2], shape[-1], scl_factor, stop, scales)
+        planned = sum(resident_cuda.plan_resident(h, w, family, batch, sms) is not None
+                      for h, w in levels)
+        return {f"resident_{'flow_llin4' if family == 'llin4' else 'disp_llin4'}":
+                planned * calls, global_key: (len(levels) - planned) * calls * per_call}
+
     phase(f"4 main path: flow_nd {MAIN_SHAPE}, default parameters")
     p = FlowNDParams()
     it0, it1 = (torch.from_numpy(f).to(dev)
                 for f in shifted_frames(rng, MAIN_SHAPE, [(0.0, 0.0), MAIN_SHIFT]))
     n_levels = len(pyramid_scales(MAIN_SHAPE[1], MAIN_SHAPE[2], p.scl_factor, 20, p.scales))
-    expected = n_levels * p.firstLoop * p.secondLoop * (1 + 2 * p.iter)
+    expected = sor_launches(MAIN_SHAPE, p.scl_factor, 20, p.scales, p.firstLoop * p.secondLoop,
+                            "llin4", 1, "flow_llin4_sor", 1 + 2 * p.iter)
     frame_s = []
     for _ in range(3):
         reset_counts()
         (u, v), sec = timed(lambda: flow_nd(it0, it1, "grad", "gradmag"))
         frame_s.append(sec)
-        check_counts("flow_nd", {"flow_llin4_sor": expected})
-    main_launches["flow_llin4_sor"] = expected
+        check_counts("flow_nd", expected)
+    main_launches.update(expected)
     print(f"  {n_levels} levels; frame time: cold {frame_s[0]:.3f} s, "
           f"warm {frame_s[1]:.3f} / {frame_s[2]:.3f} s", flush=True)
     print_profile("flow_nd", min(frame_s[1:]),
@@ -884,9 +985,9 @@ def main() -> None:
     reset_counts()
     us, vs = flow_nd_sequence(clip, "grad", "gradmag")
     torch.cuda.synchronize()
-    seq_levels = len(pyramid_scales(SEQ_SHAPE[1], SEQ_SHAPE[2], p.scl_factor, 20, p.scales))
-    check_counts("flow_nd_sequence", {
-        "flow_llin4_sor": 2 * seq_levels * p.firstLoop * p.secondLoop * (1 + 2 * p.iter)})
+    check_counts("flow_nd_sequence", sor_launches(
+        SEQ_SHAPE, p.scl_factor, 20, p.scales, 2 * p.firstLoop * p.secondLoop, "llin4", 1,
+        "flow_llin4_sor", 1 + 2 * p.iter))
     if us.shape != (2,) + SEQ_SHAPE[1:]:
         fail(f"sequence flow of shape {tuple(us.shape)}")
     seq_err = 0.0
@@ -902,15 +1003,17 @@ def main() -> None:
     il, ir = (torch.from_numpy(f).to(dev)
               for f in shifted_frames(rng, MAIN_SHAPE, [(0.0, 0.0), DISP_SHIFT]))
     d_levels = len(pyramid_scales(MAIN_SHAPE[1], MAIN_SHAPE[2], dp.scl_factor, 10, dp.scales))
-    d_expected = d_levels * dp.firstLoop * dp.secondLoop * 3 * dp.iter
+    d_expected = sor_launches(MAIN_SHAPE, dp.scl_factor, 10, dp.scales,
+                              dp.firstLoop * dp.secondLoop, "disp", 1, "disp_llin4_sor",
+                              3 * dp.iter)
     frame_s = []
     for _ in range(3):
         reset_counts()
         ud, sec = timed(lambda: disparity_nd(il, ir, "grad", "gradmag"))
         frame_s.append(sec)
-        check_counts("disparity_nd", {"disp_llin4_sor": d_expected})
-    main_launches["disp_llin4_sor"] = d_expected
-    print(f"  {d_levels} levels x {dp.firstLoop} x {dp.secondLoop} calls x 3*{dp.iter}; "
+        check_counts("disparity_nd", d_expected)
+    main_launches.update(d_expected)
+    print(f"  {d_levels} levels x {dp.firstLoop} x {dp.secondLoop} calls, one launch each; "
           f"frame time: cold {frame_s[0]:.3f} s, warm {frame_s[1]:.3f} / {frame_s[2]:.3f} s",
           flush=True)
     print_profile("disparity_nd", min(frame_s[1:]),
@@ -942,13 +1045,28 @@ def main() -> None:
     sp = DisparitySymParams()
     s_levels = len(pyramid_scales(MAIN_SHAPE[1], MAIN_SHAPE[2], sp.scl_factor, 10, sp.scales))
     # one call with B = 2 per solve of the pair: two calls would count twice
-    s_expected = s_levels * sp.firstLoop * sp.secondLoop * 3 * sp.iter
+    s_expected = sor_launches(MAIN_SHAPE, sp.scl_factor, 10, sp.scales,
+                              sp.firstLoop * sp.secondLoop, "disp", 2, "disp_llin4_sor",
+                              3 * sp.iter)
     frame_s = []
     for _ in range(2):
         reset_counts()
         us_, sec = timed(lambda: disparity_sym(il, ir))
         frame_s.append(sec)
-        check_counts("disparity_sym", {"disp_llin4_sor": s_expected})
+        check_counts("disparity_sym", s_expected)
+    # the pair's planes go to the resident kernel as two sets: no stack
+    pair = disp_fields(rng, 1, *MAIN_SHAPE[1:], True, dev) + disp_fields(
+        rng, 1, *MAIN_SHAPE[1:], True, dev)
+    torch_stack, stacks = torch.stack, []
+    torch.stack = lambda *a, **k: stacks.append(1) or torch_stack(*a, **k)
+    try:
+        dispatch.sor_disp_llin_sym4(*pair, sp.iter, sp.omega)
+    finally:
+        torch.stack = torch_stack
+    torch.cuda.synchronize()
+    print(f"  the pair's solve at {MAIN_SHAPE[1:]}: {len(stacks)} torch.stack calls", flush=True)
+    if stacks:
+        fail("sor_disp_llin_sym4 stacked the pair's planes")
     if us_.shape != (2,) + MAIN_SHAPE[1:] or not torch.isfinite(us_).all():
         fail(f"symmetric disparity of shape {tuple(us_.shape)}, or not finite")
     m0, m1 = float(us_[0][inner].median()), float(us_[1][inner].median())
@@ -1356,6 +1474,28 @@ def main() -> None:
     for name in TILED:
         main_launches[name] = expected[name]
 
+    phase(f"16 flow_nd and disparity_nd {LARGE_SHAPE}: levels without a resident plan")
+    # the finest level is too large for one band an SM, so the global
+    # kernels take its solves; every other level goes to the resident kernel
+    big0, big1 = (torch.from_numpy(f).to(dev)
+                  for f in shifted_frames(rng, LARGE_SHAPE, [(0.0, 0.0), MAIN_SHIFT]))
+    for name, run, want, key in (
+            ("flow_nd", lambda: flow_nd(big0, big1, "grad", "gradmag"),
+             sor_launches(LARGE_SHAPE, p.scl_factor, 20, p.scales, p.firstLoop * p.secondLoop,
+                          "llin4", 1, "flow_llin4_sor", 1 + 2 * p.iter), "flow_llin4_sor"),
+            ("disparity_nd", lambda: disparity_nd(big0, big1, "grad", "gradmag"),
+             sor_launches(LARGE_SHAPE, dp.scl_factor, 10, dp.scales,
+                          dp.firstLoop * dp.secondLoop, "disp", 1, "disp_llin4_sor",
+                          3 * dp.iter), "disp_llin4_sor")):
+        reset_counts()
+        out, sec = timed(run)
+        check_counts(name, want)
+        outs = out if isinstance(out, tuple) else (out,)
+        if not all(torch.isfinite(o).all() and o.shape == LARGE_SHAPE[1:] for o in outs):
+            fail(f"{name} at {LARGE_SHAPE}: non-finite result or wrong shape")
+        main_launches[key] = want[key]
+        print(f"  {name}: frame {sec:.3f} s (cold), finite", flush=True)
+
     sources = {"flow_llin4_sor": ("pde_tpu_torch/csrc/flow_llin4_sor.cu",
                                   "pde_tpu/kernels/sor_pallas.py:71"),
                "disp_llin4_sor": ("pde_tpu_torch/csrc/interior_sor.cu",
@@ -1368,6 +1508,10 @@ def main() -> None:
                                   "pde_tpu/kernels/sweeps.py:106"),
                "pde8_sor": ("pde_tpu_torch/csrc/interior_sor.cu",
                             "pde_tpu/kernels/sweeps.py:203"),
+               "resident_flow_llin4": ("pde_tpu_torch/csrc/resident_sor.cu",
+                                       "pde_tpu/kernels/sor_pallas.py:71"),
+               "resident_disp_llin4": ("pde_tpu_torch/csrc/resident_sor.cu",
+                                       "pde_tpu/kernels/tiled.py:113"),
                "tridiag": ("pde_tpu_torch/csrc/tridiag.cu",
                            "pde_tpu/kernels/tdma_pallas.py:82"),
                # the preconditioner's pass around the same Pallas solve

@@ -43,11 +43,11 @@
 // Du, four weights) and writes dU, about 36 B/px, for ~25 flops; pde4
 // reads X, TRACE, B and the weights, pde8 eight weights and writes every
 // pixel of a colour launch. Each 4-neighbour colour launch reads every other
-// float of a row, so it moves whole sectors for half their use. Later
-// work: temporal blocking, k sweeps per pass over a tile and its halo in
-// shared memory; and dropping the border launch after the first sweep,
-// since a filled border neighbour of an interior pixel holds that pixel's
-// own value.
+// float of a row, so it moves whole sectors for half their use. The disp
+// solves of every shape with a plan run on the resident kernel instead
+// (resident_sor.cu: one launch a call, the level on chip, the border filled
+// once at the end, since a filled border neighbour of an interior pixel
+// holds that pixel's own value).
 //
 // pde8: a diagonal neighbour (i±1, j±1) has the pixel's own colour, and
 // the plain version computes a whole colour from the state before that
@@ -67,6 +67,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "disp_update.cuh"
+
 namespace {
 
 constexpr int kBlockX = 32;
@@ -76,17 +78,14 @@ constexpr int kBorderThreads = 256;
 // Each operation rounded on its own, in the plain version's order: no FMA
 // contraction, so on the card the kernel gives the plain version's floats.
 // tv_denoise4 needs that: where u == f its PsiData is ~6.7e7, and over its
-// outer iterations an ulp of difference grows into a visible one.
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
-
-__device__ __forceinline__ float nan_to_num(float x) {
-  if (isnan(x)) return 0.0f;
-  if (isinf(x)) return x > 0.0f ? FLT_MAX : -FLT_MAX;
-  return x;
-}
+// outer iterations an ulp of difference grows into a visible one. The
+// helpers, and the disp update itself, live in disp_update.cuh, which the
+// resident kernel (resident_sor.cu) shares.
+using disp_sor::add_rn;
+using disp_sor::div_rn;
+using disp_sor::mul_rn;
+using disp_sor::nan_to_num;
+using disp_sor::sub_rn;
 
 // The interior pixel of colour `color` this thread takes, or false. Threads
 // map to (row, every other column) so that a warp covers 64 columns.
@@ -110,21 +109,9 @@ __global__ void disp_color_kernel(const float* __restrict__ u, float* du,
   const size_t p = base + static_cast<size_t>(i) * w + j;
   const size_t pw = p - 1, pe = p + 1, pn = p - w, ps = p + w;
 
-  const float a = ww[p];
-  const float b = wn[p];
-  const float c = we[p];
-  const float d = ws[p];
-  const float wsum = add_rn(add_rn(add_rn(a, b), c), d);
-  // sum_k w_k (dU_k + U_k) - U_c sum w, in the order W, E, N, S
-  float s = mul_rn(add_rn(du[pw], u[pw]), a);
-  s = add_rn(s, mul_rn(add_rn(du[pe], u[pe]), c));
-  s = add_rn(s, mul_rn(add_rn(du[pn], u[pn]), b));
-  s = add_rn(s, mul_rn(add_rn(du[ps], u[ps]), d));
-  s = sub_rn(s, mul_rn(u[p], wsum));
-  const float cu_p = cu[p];
-  const float num = isnan(cu_p) ? s : add_rn(s, nan_to_num(cu_p));
-  const float inv = div_rn(1.0f, add_rn(wsum, nan_to_num(duc[p])));
-  du[p] = add_rn(mul_rn(one_minus_omega, du[p]), mul_rn(mul_rn(omega, num), inv));
+  const disp_sor::Coef k = disp_sor::prepare(ww[p], wn[p], we[p], ws[p], u[p], cu[p], duc[p]);
+  du[p] = disp_sor::update(du[p], du[pw], u[pw], du[pe], u[pe], du[pn], u[pn], du[ps], u[ps], k,
+                           omega, one_minus_omega);
 }
 
 __global__ void pde4_color_kernel(float* x, const float* __restrict__ trace,

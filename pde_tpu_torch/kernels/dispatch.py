@@ -1,8 +1,12 @@
 """Solver dispatch: the hand-written kernel for CUDA tensors, the plain
 PyTorch version for CPU tensors.
 
-A CUDA tensor goes to the kernel or raises; it never falls back, whatever
-its size. ``plain_solvers()`` runs the plain version on any device, so
+A CUDA tensor goes to a kernel or raises; it never falls back. The llin4
+and disp llin4 solves go to the resident kernel (one launch a call,
+``resident_cuda``) wherever ``resident_cuda.plan_resident`` gives the
+shape a plan, and to the global kernels where it gives None; the choice
+is made from the shape, before any launch, as ``pde_tpu`` chooses
+between its resident and tiled kernels. ``plain_solvers()`` runs the plain version on any device, so
 that a check can hold the kernel against it on the card; the package
 itself never enters it.
 
@@ -22,7 +26,7 @@ import contextvars
 
 import torch
 
-from pde_tpu_torch.kernels import interior_cuda, sor_cuda, tdma_cuda
+from pde_tpu_torch.kernels import interior_cuda, resident_cuda, sor_cuda, tdma_cuda
 from pde_tpu_torch.solvers import sor as _sor
 from pde_tpu_torch.solvers import tdma as _tdma
 
@@ -49,6 +53,9 @@ def sor_flow_llin4(u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws,
     args = (u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws, iters, omega)
     if _plain(u):
         return _sor.sor_flow_llin4(*args)
+    plan = resident_cuda.plan_for(u, "llin4", 1) if u.ndim == 2 else None
+    if plan is not None:
+        return resident_cuda.flow_llin4_sor(*args, plan=plan)
     return sor_cuda.flow_llin4_sor(*args)
 
 
@@ -72,16 +79,27 @@ def sor_disp_llin4(u, du, cu, duc, ww, wn, we, ws, iters: int, omega: float):
     args = (u, du, cu, duc, ww, wn, we, ws, iters, omega)
     if _plain(u):
         return _sor.sor_disp_llin4(*args)
+    plan = resident_cuda.plan_for(u, "disp", u.shape[0] if u.ndim == 3 else 1) \
+        if u.ndim in (2, 3) else None
+    if plan is not None:
+        return resident_cuda.disp_llin4_sor(*args, plan=plan)
     return interior_cuda.disp_llin4_sor(*args)
 
 
 def sor_disp_llin_sym4(u0, du0, cu0, duc0, ww0, wn0, we0, ws0,
                        u1, du1, cu1, duc1, ww1, wn1, we1, ws1,
                        iters: int, omega: float):
-    """The symmetric pair as one kernel call with a batch of 2."""
+    """The symmetric pair as one kernel call with a batch of 2: on the
+    resident kernel each system keeps its own planes; the global kernel
+    takes them stacked."""
     if _plain(u0):
         return _sor.sor_disp_llin_sym4(u0, du0, cu0, duc0, ww0, wn0, we0, ws0,
                                        u1, du1, cu1, duc1, ww1, wn1, we1, ws1, iters, omega)
+    plan = resident_cuda.plan_for(u0, "disp", 2) if u0.ndim == 2 else None
+    if plan is not None:
+        return resident_cuda.disp_llin4_pair((u0, du0, cu0, duc0, ww0, wn0, we0, ws0),
+                                             (u1, du1, cu1, duc1, ww1, wn1, we1, ws1),
+                                             iters, omega, plan=plan)
     pairs = ((u0, u1), (du0, du1), (cu0, cu1), (duc0, duc1),
              (ww0, ww1), (wn0, wn1), (we0, we1), (ws0, ws1))
     out = interior_cuda.disp_llin4_sor(*(torch.stack(pair) for pair in pairs), iters, omega)

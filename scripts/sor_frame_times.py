@@ -1,0 +1,86 @@
+#!/usr/bin/env python3
+"""Warm frame times of the SOR paths whose solves the resident kernel takes
+(``flow_nd``, ``disparity_nd``, ``disparity_sym``; default parameters,
+3x480x640) on one CUDA card, for the ``pde_tpu_torch`` package under
+``--root``.
+
+    python3 scripts/sor_frame_times.py [--root DIR] [--frames N] [--seed N] [--label TEXT]
+
+To compare two checkouts on one card, run it for each in turns (parent,
+change, change, parent) within one call. For each model: one cold frame
+(it builds the kernels), ``N`` warm frames on the host clock (each ends in
+``torch.cuda.synchronize()``), then one frame under ``torch.profiler``: the
+device busy time, the device operations and the device time in the port's
+own kernels (``chip_smoke.device_profile``). Prints the card's name and
+power limit, a line per model and, last, one JSON object; exits non-zero
+without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import statistics
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HERE = Path(__file__).resolve().parent.parent
+SHAPE = (3, 480, 640)
+FLOW_SHIFT, DISP_SHIFT = (0.4, 1.3), (0.0, 2.6)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, default=HERE,
+                    help="the checkout whose pde_tpu_torch is timed")
+    ap.add_argument("--frames", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--label", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA card: the frames are timed on the card")
+    root = args.root.resolve()
+    sys.path.insert(0, str(root))
+    # this checkout's chip_smoke.py for its helpers, whatever --root is
+    spec = importlib.util.spec_from_file_location("smoke_helpers", HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import pde_tpu_torch
+    from pde_tpu_torch.models.disparity import disparity_nd
+    from pde_tpu_torch.models.disparity_sym import disparity_sym
+    from pde_tpu_torch.models.flow_nd import flow_nd
+
+    if Path(pde_tpu_torch.__file__).resolve().parent.parent != root:
+        sys.exit(f"pde_tpu_torch came from {pde_tpu_torch.__file__}, not {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = smoke.nvidia_smi_line()
+    print(smi, flush=True)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(args.seed)
+    f0, f1 = (torch.from_numpy(f).to(dev)
+              for f in smoke.shifted_frames(rng, SHAPE, [(0.0, 0.0), FLOW_SHIFT]))
+    l0, l1 = (torch.from_numpy(f).to(dev)
+              for f in smoke.shifted_frames(rng, SHAPE, [(0.0, 0.0), DISP_SHIFT]))
+    runs = {"flow_nd": lambda: flow_nd(f0, f1, "grad", "gradmag"),
+            "disparity_nd": lambda: disparity_nd(l0, l1, "grad", "gradmag"),
+            "disparity_sym": lambda: disparity_sym(l0, l1)}
+    out = {"root": str(root), "label": args.label or root.name, "nvidia_smi": smi,
+           "device": torch.cuda.get_device_name(0), "models": {}}
+    for name, run in runs.items():
+        cold = smoke.timed(run)[1]
+        warm = [smoke.timed(run)[1] for _ in range(args.frames)]
+        busy_ms, n_ops, own_ms, _ = smoke.device_profile(run)
+        out["models"][name] = {"cold_s": cold, "warm_s": warm, "device_busy_ms": busy_ms,
+                               "device_ops": n_ops, "own_kernels_ms": own_ms}
+        print(f"{out['label']} {name}: warm min {min(warm):.4f} s, median "
+              f"{statistics.median(warm):.4f} s over {len(warm)}; device busy {busy_ms:.3f} ms, "
+              f"{n_ops:.0f} device operations, the port's kernels {own_ms:.3f} ms", flush=True)
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()
