@@ -26,7 +26,11 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    solver call), llin4 and disp llin4 (B = 1 and 2), against the global
    kernels bit for bit and the plain version (disp bit for bit too), at the
    solvers' shapes and at every level of ``flow_nd``'s and the stereo
-   models' pyramids, with and without NaN data.
+   models' pyramids, with and without NaN data. The resident 8-neighbour
+   kernel (``csrc/resident8_sor.cu``), llin8 against the global kernel bit
+   for bit and the plain version, pde8 (C = 1 and 3) against both bit for
+   bit, at the solvers' shapes and at every level of ``flow_ad``'s and
+   ``tv_denoise8``'s pyramids, with and without NaN data.
 4. ``flow_nd`` with default parameters on a 3-channel 480x640 pair whose
    second frame is the first shifted by a known sub-pixel amount. The flow
    must be finite and recover the shift, the kernels must have been
@@ -53,10 +57,11 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
     sweeps on a 48x56 pair.
 11. ``diffusion4``, default parameters, on a noisy 3x480x640 image: exact
     launches, kernel path against plain path, the noise must fall.
-12. ``flow_ad`` (anisotropic tensor flow, the llin8 kernel) with default
-    parameters on the pair of phase 4: as phase 4.
-13. ``tv_denoise8`` (the pde8 kernel), default parameters, on the noisy
-    image of phase 8: as phase 8.
+12. ``flow_ad`` (anisotropic tensor flow, the resident llin8 kernel) with
+    default parameters on the pair of phase 4: as phase 4, one resident
+    launch a solver call.
+13. ``tv_denoise8`` (the resident pde8 kernel), default parameters, on the
+    noisy image of phase 8: as phase 8, one resident launch a solver call.
 14. ``solver=2`` in ``flow_nd``, ``disparity_nd``, ``disparity_sym``,
     ``tv_denoise4``, ``flow_ad`` and ``tv_denoise8`` at 3x480x640: exact
     launches (two factors per field and solver call, one fused zebra pass
@@ -69,9 +74,10 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
     bytes per pixel-iteration and the bandwidth that implies; exact
     launches; a 1024-sweep result of each tile kernel against the global
     one.
-16. ``flow_nd`` and ``disparity_nd`` at 3x1024x1024, whose finest level
-    has no resident plan: exact launches of the global kernels there and of
-    the resident kernel at every other level; finite fields.
+16. ``flow_nd``, ``disparity_nd``, ``flow_ad`` and ``tv_denoise8`` at
+    3x1024x1024, whose finest level has no resident plan (``tv_denoise8``'s
+    second neither): exact launches of the global kernels there and of the
+    resident kernel at every other level; finite fields.
 
 Every phase from 4 on sets every kernel's launch count to 0 just before it
 drives its entry point and reads all counts just after, and profiles one
@@ -116,6 +122,9 @@ SOR_SHAPES = [(1, 1), (1, 9), (9, 1), (37, 53), (480, 640), (481, 641), (1024, 1
 # interior pixel, so their border fill is all there is
 INTERIOR_SHAPES = [(2, 5), (3, 3), (37, 53), (480, 640), (481, 641), (1024, 1024)]
 TIME_SHAPES = [(481, 641), (1024, 1024)]  # the first one is reported as the kernel's ms
+# the 8-neighbour kernels are timed at the main path's finest level too, where
+# tv_denoise8's pde8 call (C = 3) has a resident plan and 481x641 has none
+EIGHT = ("flow_llin8_sor", "pde8_sor", "resident_flow_llin8", "resident_pde8")
 TILED_KS = (1, 2, 4)  # the tile kernel's k_max in phase 3
 # tridiagonal systems, solved along both axes: line lengths 1, 2, 3, 7, 33,
 # 480, 481, 640, 641 and 1024 in each direction
@@ -132,12 +141,13 @@ FP32_FLOPS = 67e12
 # float operations per relaxed pixel and sweep (the kernels' arithmetic)
 FLOPS_PER_PX = {"flow_llin4_sor": 40, "flow_elin4_sor": 30, "disp_llin4_sor": 23,
                 "resident_flow_llin4": 40, "resident_disp_llin4": 23,
+                "resident_flow_llin8": 64, "resident_pde8": 28,
                 "pde4_sor": 16, "flow_llin8_sor": 64, "pde8_sor": 28,
                 "tiled_flow_llin4": 40, "tiled_flow_llin4_db": 40,
                 "tiled_flow_elin4": 30, "tiled_flow_elin4_db": 30}
 # the kernels whose every float operation is rounded alone in the plain
 # version's order, held to EXACT_TOL; the others contract to FMA (SOR_TOL)
-EXACT = ("tridiag", "tridiag_zebra_pass", "pde8_sor", "resident_disp_llin4")
+EXACT = ("tridiag", "tridiag_zebra_pass", "pde8_sor", "resident_disp_llin4", "resident_pde8")
 # float operations per line element of one whole tridiagonal solve
 TRIDIAG_FLOPS_PER_PX = 8
 # dependent rounded operations a line element adds to a solve's chain (3
@@ -172,7 +182,8 @@ GLOBAL_BYTES_PER_PX_SWEEP = {"flow_llin4_sor": 2 * ((10 * 4 + 1) + 4 * 4 + 2 * 4
 OWN_KERNELS = {"prepare_kernel", "sweep_kernel", "prepare8_kernel", "sweep8_kernel",
                "disp_color_kernel", "pde4_color_kernel", "pde8_color_kernel", "border_kernel",
                "border_small_kernel", "lines_kernel", "tiled_sweep_kernel",
-               "resident_llin4_kernel", "resident_disp_kernel"}
+               "resident_llin4_kernel", "resident_disp_kernel", "resident_llin8_kernel",
+               "resident_pde8_kernel"}
 # the tile kernel's entries: (family, double-buffered)
 TILED = {"tiled_flow_llin4": ("flow_llin4", False), "tiled_flow_llin4_db": ("flow_llin4", True),
          "tiled_flow_elin4": ("flow_elin4", False), "tiled_flow_elin4_db": ("flow_elin4", True)}
@@ -409,15 +420,21 @@ def noisy_blocks(rng, shape):
     return clean + 0.1 * rng.standard_normal(shape).astype(np.float32)
 
 
-def partial_pyramid_levels(shape, scl: float, scl_factor: float) -> int:
-    """Levels of tv_denoise's partial pyramid (models/tv_denoise.py's stop
-    rule) for an image of ``shape``."""
-    levels, (h, w) = 1, shape[-2:]
+def partial_pyramid_shapes(shape, scl: float, scl_factor: float) -> list:
+    """The (H, W) of each level of tv_denoise's partial pyramid
+    (models/tv_denoise.py's stop rule) for an image of ``shape``, finest
+    first."""
+    h, w = shape[-2:]
+    levels = [(h, w)]
     while True:
         h, w = int(np.ceil(h * scl_factor)), int(np.ceil(w * scl_factor))
-        levels += 1
+        levels.append((h, w))
         if h <= np.ceil(shape[-2] * scl) or w <= np.ceil(shape[-1] * scl):
             return levels
+
+
+def partial_pyramid_levels(shape, scl: float, scl_factor: float) -> int:
+    return len(partial_pyramid_shapes(shape, scl, scl_factor))
 
 
 def bit_equal(got, want) -> bool:
@@ -508,7 +525,7 @@ def main() -> None:
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
     t0 = time.time()
     sources = (sor_cuda.SOURCE, interior_cuda.SOURCE, tdma_cuda.SOURCE, tiled_cuda.SOURCE,
-               resident_cuda.SOURCE)
+               resident_cuda.SOURCE, resident_cuda.SOURCE8)
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(partial(build.build, verbose=True), sources))
     sor_cuda._lib()
@@ -516,6 +533,7 @@ def main() -> None:
     tdma_cuda._lib()
     tiled_lib = tiled_cuda._lib()
     resident_lib = resident_cuda._lib()
+    resident8_lib = resident_cuda._lib8()
     sms = resident_cuda.sm_count(0)
     print(f"built {', '.join(str(p.relative_to(HERE)) for p in libs)} "
           f"in {time.time() - t0:.1f} s", flush=True)
@@ -664,6 +682,72 @@ def main() -> None:
     print(f"  resident kernel: {resident_cases} cases, each bit for bit against the global "
           f"kernel", flush=True)
 
+    # the resident 8-neighbour kernel: the plans and the kernel agree on a
+    # block's shared memory and the grid's edge scratch; llin8 against the
+    # global kernel bit for bit and the plain version to SOR_TOL, pde8 against
+    # both bit for bit (C = 1 and 3, shared weights), at the solvers' shapes
+    # (iters 4 and 5) and at every level of flow_ad's (llin8) and
+    # tv_denoise8's (pde8) pyramids at MAIN_SHAPE (iters 4)
+    ad_levels_hw = pyramid_scales(*MAIN_SHAPE[1:], FlowADParams().scl_factor, 20)
+    tp8_ = TVDenoise8Params()
+    tv8_levels_hw = partial_pyramid_shapes(MAIN_SHAPE, tp8_.scl, tp8_.scl_factor)
+    for fam_i, (family, levels, batches) in enumerate((("llin8", ad_levels_hw, (1,)),
+                                                        ("pde8", tv8_levels_hw, (1, 3)))):
+        for h, w in levels:
+            for b in batches:
+                pl = resident_cuda.plan_resident(h, w, family, b, sms)
+                if pl is None:
+                    fail(f"no resident {family} plan for a level of {h}x{w}, B={b}")
+                got = resident8_lib.resident8_smem_bytes(fam_i, b, pl.rows, w)
+                edge = resident8_lib.resident8_edge_floats(fam_i, b, pl.blocks, w)
+                if got != pl.smem_bytes or edge != resident_cuda.edge_floats(family, b, pl.blocks,
+                                                                              w):
+                    fail(f"resident plan {pl} at {h}x{w}: the kernel counts {got} bytes, "
+                         f"{edge} edge floats")
+    resident8_cases = 0
+    for h, w in SOR_SHAPES + ad_levels_hw:
+        pl = resident_cuda.plan_resident(h, w, "llin8", 1, sms)
+        if pl is None:
+            print(f"  resident_flow_llin8 {h}x{w}: no plan (the global kernel takes it)",
+                  flush=True)
+            continue
+        errs = []
+        for iters in ((4, 5) if (h, w) in SOR_SHAPES else (4,)):
+            for nan in (False, True):
+                fields = llin8_fields(rng, h, w, nan, dev)
+                got = resident_cuda.flow_llin8_sor(*fields, iters, 1.9)
+                label = f"{h}x{w} iters={iters} nan={nan}"
+                errs.append(hold("resident_flow_llin8", got,
+                                 plain_sor.sor_flow_llin8(*fields, iters, 1.9), label))
+                if not bit_equal(got, sor_cuda.flow_llin8_sor(*fields, iters, 1.9)):
+                    fail(f"resident_flow_llin8 at {label}: not the global kernel's bits")
+                resident8_cases += 1
+        print(f"  resident_flow_llin8 {h}x{w} ({pl.scope} {pl.blocks}/{pl.slots}): == "
+              f"flow_llin8_sor bit for bit; max_abs_err vs plain {max(errs):.3g}", flush=True)
+    for h, w in INTERIOR_SHAPES + tv8_levels_hw:
+        for c in (1, 3):
+            pl = resident_cuda.plan_resident(h, w, "pde8", c, sms)
+            if pl is None:
+                print(f"  resident_pde8 {h}x{w} C={c}: no plan (the global kernel takes it)",
+                      flush=True)
+                continue
+            for iters in ((4, 5) if (h, w) in INTERIOR_SHAPES else (4,)):
+                for nan in (False, True):
+                    fields = pde8_fields(rng, c, h, w, nan, dev)
+                    label = f"C={c} {h}x{w} iters={iters} nan={nan}"
+                    got = resident_cuda.pde8_sor(*fields, iters, 1.75)
+                    want = plain_sor.sor_pde8(*fields, iters, 1.75)
+                    hold("resident_pde8", got, want, label)
+                    glob = interior_cuda.pde8_sor(*fields, iters, 1.75)
+                    if not (bit_equal((got,), (want,)) and bit_equal((got,), (glob,))):
+                        fail(f"resident_pde8 at {label}: not the plain version's and the global "
+                             f"kernel's bits")
+                    resident8_cases += 1
+            print(f"  resident_pde8 {h}x{w} C={c} ({pl.scope} {pl.blocks}/{pl.slots}): == "
+                  f"pde8_sor and plain bit for bit", flush=True)
+    print(f"  resident 8-neighbour kernel: {resident8_cases} cases, each bit for bit against "
+          f"the global kernel", flush=True)
+
     # the tile kernel: the plan and the kernel agree on a slot's bytes, for
     # the plans and for odd tiles a plan_override may ask for
     for n_fields in (13, 11):
@@ -793,7 +877,7 @@ def main() -> None:
     hold_tridiag(a[0], b[0], c[0], d, f"{MAIN_SHAPE} shared a, b, c")
 
     times, bounds = {}, {}
-    for h, w in TIME_SHAPES:
+    for h, w in TIME_SHAPES + [MAIN_SHAPE[1:]]:
         px = h * w
         cases = {
             # (kernel, plain, bytes each input read once and each output
@@ -825,10 +909,21 @@ def main() -> None:
             "pde8_sor": (interior_cuda.pde8_sor, plain_sor.sor_pde8,
                          pde8_fields(rng, 3, h, w, True, dev), 1.75, (4 * 3 + 8) * 4 * px,
                          3 * (h - 2) * (w - 2)),
+            # the resident kernel at flow_ad's and tv_denoise8's calls
+            "resident_flow_llin8": (resident_cuda.flow_llin8_sor, plain_sor.sor_flow_llin8,
+                                    llin8_fields(rng, h, w, True, dev), 1.9, (17 + 2) * 4 * px,
+                                    px),
+            "resident_pde8": (resident_cuda.pde8_sor, plain_sor.sor_pde8,
+                              pde8_fields(rng, 3, h, w, True, dev), 1.75, (4 * 3 + 8) * 4 * px,
+                              3 * (h - 2) * (w - 2)),
         }
         for name, (kern, plain, fields, omega, nbytes, relaxed) in cases.items():
-            family = {"resident_flow_llin4": "llin4", "resident_disp_llin4": "disp"}.get(name)
-            if family and resident_cuda.plan_resident(h, w, family, 1, sms) is None:
+            if (h, w) not in TIME_SHAPES and name not in EIGHT:
+                continue
+            family, batch = {"resident_flow_llin4": ("llin4", 1), "resident_disp_llin4": ("disp", 1),
+                             "resident_flow_llin8": ("llin8", 1),
+                             "resident_pde8": ("pde8", 3)}.get(name, (None, 1))
+            if family and resident_cuda.plan_resident(h, w, family, batch, sms) is None:
                 print(f"  time {name} {h}x{w}: no plan (the global kernel takes it)", flush=True)
                 continue
             k_ms, p_ms, turns = in_turns(partial(kern, *fields, 4, omega),
@@ -929,10 +1024,17 @@ def main() -> None:
         ``shape``: one resident launch a call where the level has a
         resident plan, else ``per_call`` launches of the global kernel."""
         levels = pyramid_scales(shape[-2], shape[-1], scl_factor, stop, scales)
+        return planned_launches(levels, calls, family, batch, global_key, per_call)
+
+    def planned_launches(levels, calls, family, batch, global_key, per_call):
+        """One resident launch a call at each of ``levels`` with a resident
+        plan, ``per_call`` launches of the global kernel at the others."""
         planned = sum(resident_cuda.plan_resident(h, w, family, batch, sms) is not None
                       for h, w in levels)
-        return {f"resident_{'flow_llin4' if family == 'llin4' else 'disp_llin4'}":
-                planned * calls, global_key: (len(levels) - planned) * calls * per_call}
+        resident_key = {"llin4": "resident_flow_llin4", "disp": "resident_disp_llin4",
+                        "llin8": "resident_flow_llin8", "pde8": "resident_pde8"}[family]
+        return {resident_key: planned * calls,
+                global_key: (len(levels) - planned) * calls * per_call}
 
     phase(f"4 main path: flow_nd {MAIN_SHAPE}, default parameters")
     p = FlowNDParams()
@@ -1234,16 +1336,18 @@ def main() -> None:
     ap_ = FlowADParams()
     ad_levels = len(pyramid_scales(MAIN_SHAPE[1], MAIN_SHAPE[2], ap_.scl_factor, 20,
                                    ap_.scales))
-    ad_expected = ad_levels * ap_.firstLoop * ap_.secondLoop * (1 + 2 * ap_.iter)
+    ad_expected = sor_launches(MAIN_SHAPE, ap_.scl_factor, 20, ap_.scales,
+                               ap_.firstLoop * ap_.secondLoop, "llin8", 1, "flow_llin8_sor",
+                               1 + 2 * ap_.iter)
     frame_s = []
     for _ in range(3):
         reset_counts()
         (ua, va), sec = timed(lambda: flow_ad(it0, it1, "grad", "gradmag"))
         frame_s.append(sec)
-        check_counts("flow_ad", {"flow_llin8_sor": ad_expected})
-    main_launches["flow_llin8_sor"] = ad_expected
-    print(f"  {ad_levels} levels x {ap_.firstLoop} x {ap_.secondLoop} calls x "
-          f"(1 + 2*{ap_.iter}); frame time: cold {frame_s[0]:.3f} s, warm {frame_s[1]:.3f} / "
+        check_counts("flow_ad", ad_expected)
+    main_launches.update(ad_expected)
+    print(f"  {ad_levels} levels x {ap_.firstLoop} x {ap_.secondLoop} calls, one resident "
+          f"launch each; frame time: cold {frame_s[0]:.3f} s, warm {frame_s[1]:.3f} / "
           f"{frame_s[2]:.3f} s", flush=True)
     print_profile("flow_ad", min(frame_s[1:]),
                   device_profile(lambda: flow_ad(it0, it1, "grad", "gradmag")))
@@ -1275,15 +1379,17 @@ def main() -> None:
     phase(f"13 tv_denoise8 {MAIN_SHAPE}, default parameters (anisotropic tensor, pde8)")
     tp8 = TVDenoise8Params()
     tv8_levels = partial_pyramid_levels(MAIN_SHAPE, tp8.scl, tp8.scl_factor)
-    tv8_expected = tv8_levels * (tp8.outer_iter + 1) * 3 * tp8.inner_iter
+    # C = 3 channels over shared weights: one resident launch a call
+    tv8_expected = planned_launches(tv8_levels_hw, tp8.outer_iter + 1, "pde8", MAIN_SHAPE[0],
+                                    "pde8_sor", 3 * tp8.inner_iter)
     frame_s = []
     for _ in range(2):
         reset_counts()
         den8, sec = timed(lambda: tv_denoise8(noisy))
         frame_s.append(sec)
-        check_counts("tv_denoise8", {"pde8_sor": tv8_expected})
-    main_launches["pde8_sor"] = tv8_expected
-    print(f"  {tv8_levels} levels x {tp8.outer_iter + 1} calls x 3*{tp8.inner_iter}; "
+        check_counts("tv_denoise8", tv8_expected)
+    main_launches.update(tv8_expected)
+    print(f"  {tv8_levels} levels x {tp8.outer_iter + 1} calls, one resident launch each; "
           f"image time: cold {frame_s[0]:.3f} s, warm {frame_s[1]:.3f} s", flush=True)
     print_profile("tv_denoise8", frame_s[1], device_profile(lambda: tv_denoise8(noisy)))
     if den8.shape != MAIN_SHAPE or not torch.isfinite(den8).all():
@@ -1474,9 +1580,12 @@ def main() -> None:
     for name in TILED:
         main_launches[name] = expected[name]
 
-    phase(f"16 flow_nd and disparity_nd {LARGE_SHAPE}: levels without a resident plan")
+    phase(f"16 flow_nd, disparity_nd, flow_ad and tv_denoise8 {LARGE_SHAPE}: levels without a "
+          f"resident plan")
     # the finest level is too large for one band an SM, so the global
     # kernels take its solves; every other level goes to the resident kernel
+    # (tv_denoise8: neither level, 1024x1024 and 768x768, has a plan, since
+    # three channels' planes of a band would need more shared memory)
     big0, big1 = (torch.from_numpy(f).to(dev)
                   for f in shifted_frames(rng, LARGE_SHAPE, [(0.0, 0.0), MAIN_SHIFT]))
     for name, run, want, key in (
@@ -1486,12 +1595,20 @@ def main() -> None:
             ("disparity_nd", lambda: disparity_nd(big0, big1, "grad", "gradmag"),
              sor_launches(LARGE_SHAPE, dp.scl_factor, 10, dp.scales,
                           dp.firstLoop * dp.secondLoop, "disp", 1, "disp_llin4_sor",
-                          3 * dp.iter), "disp_llin4_sor")):
+                          3 * dp.iter), "disp_llin4_sor"),
+            ("flow_ad", lambda: flow_ad(big0, big1, "grad", "gradmag"),
+             sor_launches(LARGE_SHAPE, ap_.scl_factor, 20, ap_.scales,
+                          ap_.firstLoop * ap_.secondLoop, "llin8", 1, "flow_llin8_sor",
+                          1 + 2 * ap_.iter), "flow_llin8_sor"),
+            ("tv_denoise8", lambda: tv_denoise8(big0 / 255.0),
+             planned_launches(partial_pyramid_shapes(LARGE_SHAPE, tp8.scl, tp8.scl_factor),
+                              tp8.outer_iter + 1, "pde8", LARGE_SHAPE[0], "pde8_sor",
+                              3 * tp8.inner_iter), "pde8_sor")):
         reset_counts()
         out, sec = timed(run)
         check_counts(name, want)
         outs = out if isinstance(out, tuple) else (out,)
-        if not all(torch.isfinite(o).all() and o.shape == LARGE_SHAPE[1:] for o in outs):
+        if not all(torch.isfinite(o).all() and o.shape[-2:] == LARGE_SHAPE[1:] for o in outs):
             fail(f"{name} at {LARGE_SHAPE}: non-finite result or wrong shape")
         main_launches[key] = want[key]
         print(f"  {name}: frame {sec:.3f} s (cold), finite", flush=True)
@@ -1505,13 +1622,18 @@ def main() -> None:
                "flow_elin4_sor": ("pde_tpu_torch/csrc/flow_llin4_sor.cu",
                                   "pde_tpu/kernels/sweeps.py:234"),
                "flow_llin8_sor": ("pde_tpu_torch/csrc/flow_llin4_sor.cu",
-                                  "pde_tpu/kernels/sweeps.py:106"),
+                                  "pde_tpu/kernels/sweeps.py:107"),
                "pde8_sor": ("pde_tpu_torch/csrc/interior_sor.cu",
-                            "pde_tpu/kernels/sweeps.py:203"),
+                            "pde_tpu/kernels/sweeps.py:204"),
                "resident_flow_llin4": ("pde_tpu_torch/csrc/resident_sor.cu",
                                        "pde_tpu/kernels/sor_pallas.py:71"),
                "resident_disp_llin4": ("pde_tpu_torch/csrc/resident_sor.cu",
                                        "pde_tpu/kernels/tiled.py:113"),
+               # _stripe_kernel (tiled.py:113) driving these sweeps
+               "resident_flow_llin8": ("pde_tpu_torch/csrc/resident8_sor.cu",
+                                       "pde_tpu/kernels/sweeps.py:107"),
+               "resident_pde8": ("pde_tpu_torch/csrc/resident8_sor.cu",
+                                 "pde_tpu/kernels/sweeps.py:204"),
                "tridiag": ("pde_tpu_torch/csrc/tridiag.cu",
                            "pde_tpu/kernels/tdma_pallas.py:82"),
                # the preconditioner's pass around the same Pallas solve
@@ -1522,9 +1644,13 @@ def main() -> None:
                   for name, (_, db) in TILED.items()}}
     th, tw = TIME_SHAPES[0]
     # the tridiagonal solve is reported whole, the fused pass coupled, along
-    # axis -2
+    # axis -2; a resident kernel without a plan at th x tw (pde8 with C = 3)
+    # at the main path's finest level
     key = {name: ((name, -2, th, tw) if name.startswith("tridiag") else (name, th, tw))
            for name in sources}
+    for name in EIGHT:
+        if key[name] not in times:
+            key[name] = (name, *MAIN_SHAPE[1:])
     report = {"kernels": [{
         "name": name,
         "route": "cuda",

@@ -7,7 +7,10 @@
 //     frozen-flow loads and the - U_c Σw term; all else is shared;
 //   * late with the 8-neighbour anisotropic tensor stencil (llin8), the
 //     solve of models/flow_ad.py: weights W, NW, N, NE, E, SE, S, SW, the
-//     diagonal ones negative where the image gradient is oblique.
+//     diagonal ones negative where the image gradient is oblique. Since the
+//     resident kernel (resident8_sor.cu) takes every llin8 solve whose shape
+//     has a resident plan, these kernels serve only the shapes without one
+//     (a level above one band an SM, such as 1024x1024).
 //
 // Replaces the TPU kernels that compute these functions:
 //   * pde_tpu/kernels/sor_pallas.py::_kernel (pallas_sor_flow_llin4), the
@@ -17,7 +20,9 @@
 //     for larger levels, driving sweeps.py::flow_elin4_sweep, the elin4
 //     sweep (through kernels/dispatch.py::sor_flow_elin4), and driving
 //     sweeps.py::flow_llin8_sweep (through dispatch.py::sor_flow_llin8).
-// The card has no VMEM budget to split on, so one kernel takes every level.
+// The card has no VMEM budget to split on, so these kernels take every
+// level without a resident plan: the llin4 solves of a shape with one run
+// on resident_sor.cu, the llin8 ones on resident8_sor.cu; elin4 runs here.
 // Its plain PyTorch versions are pde_tpu_torch/solvers/sor.py::
 // sor_flow_llin4, sor_flow_elin4 and sor_flow_llin8.
 //
@@ -43,7 +48,9 @@
 // eight edge-zeroed weights (a diagonal one zeroed where its neighbour is
 // off the image), their sum in the plain order W, NW, N, NE, E, SE, S, SW,
 // 1/(sum + Du), 1/(sum + Dv), M0, Cu0, Cv0 and the NaN flags: 14 planes,
-// plus the two of tmp. Launches: 1 + 2 * iters, as llin4.
+// plus the two of tmp. Launches: 1 + 2 * iters, as llin4. The per-pixel
+// arithmetic is flow8_update.cuh's, shared with the resident kernel, so the
+// two give the same bits.
 //
 // What bounds it: about 13 float32 fields are read per pixel per sweep (the
 // increments and the frozen flow at five points, ten coefficient fields)
@@ -62,11 +69,10 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "flow8_update.cuh"
 #include "flow_update.cuh"
 
 namespace {
-
-using flow_sor::nan_to_num;
 
 enum Scratch { kWW, kWN, kWE, kWS, kWSUM, kINVU, kINVV, kM0, kCU0, kCV0, kNumScratch };
 // llin8: the coefficient planes, then the two planes of the (dU, dV) buffer
@@ -206,32 +212,18 @@ __global__ void prepare8_kernel(const float* __restrict__ du_in, const float* __
   if (i >= h || j >= w) return;
   const size_t n = static_cast<size_t>(h) * w;
   const size_t p = static_cast<size_t>(i) * w + j;
-  const bool top = i == 0, bottom = i == h - 1, left = j == 0, right = j == w - 1;
-
-  // a weight is zeroed where its neighbour is off the image
-  float c[8];
-  c[0] = left ? 0.0f : wt.ww[p];
-  c[1] = (top || left) ? 0.0f : wt.wnw[p];
-  c[2] = top ? 0.0f : wt.wn[p];
-  c[3] = (top || right) ? 0.0f : wt.wne[p];
-  c[4] = right ? 0.0f : wt.we[p];
-  c[5] = (bottom || right) ? 0.0f : wt.wse[p];
-  c[6] = bottom ? 0.0f : wt.ws[p];
-  c[7] = (bottom || left) ? 0.0f : wt.wsw[p];
-  float wsum = c[0];
+  const flow_sor8::Coef k =
+      flow_sor8::prepare(i, j, h, w, wt.ww[p], wt.wnw[p], wt.wn[p], wt.wne[p], wt.we[p],
+                         wt.wse[p], wt.ws[p], wt.wsw[p], m[p], cu[p], cv[p], duc[p], dvc[p]);
 #pragma unroll
-  for (int k = 1; k < 8; ++k) wsum += c[k];  // the plain order W, NW, N, NE, E, SE, S, SW
-#pragma unroll
-  for (int k = 0; k < 8; ++k) scratch[(k8WW + k) * n + p] = c[k];
-  const float cu_p = cu[p];
-  const float cv_p = cv[p];
-  scratch[k8WSUM * n + p] = wsum;
-  scratch[k8INVU * n + p] = 1.0f / (wsum + nan_to_num(duc[p]));
-  scratch[k8INVV * n + p] = 1.0f / (wsum + nan_to_num(dvc[p]));
-  scratch[k8M0 * n + p] = nan_to_num(m[p]);
-  scratch[k8CU0 * n + p] = nan_to_num(cu_p);
-  scratch[k8CV0 * n + p] = nan_to_num(cv_p);
-  flags[p] = static_cast<uint8_t>((isnan(cu_p) ? 1 : 0) | (isnan(cv_p) ? 2 : 0));
+  for (int q = 0; q < 8; ++q) scratch[(k8WW + q) * n + p] = k.c[q];
+  scratch[k8WSUM * n + p] = k.wsum;
+  scratch[k8INVU * n + p] = k.inv_u;
+  scratch[k8INVV * n + p] = k.inv_v;
+  scratch[k8M0 * n + p] = k.m0;
+  scratch[k8CU0 * n + p] = k.cu0;
+  scratch[k8CV0 * n + p] = k.cv0;
+  flags[p] = k.flags;
   du[p] = du_in[p];
   dv[p] = dv_in[p];
 }
@@ -256,38 +248,19 @@ __global__ void sweep8_kernel(const float* __restrict__ u, const float* __restri
     dv_b[p] = fv;
     return;
   }
-  // neighbour indices clamp at the edge (their weights are zero there)
-  const size_t rn = static_cast<size_t>(i > 0 ? i - 1 : 0) * w;
-  const size_t rc = static_cast<size_t>(i) * w;
-  const size_t rs = static_cast<size_t>(i < h - 1 ? i + 1 : h - 1) * w;
-  const int jw = j > 0 ? j - 1 : 0;
-  const int je = j < w - 1 ? j + 1 : w - 1;
-  // the plain neighbour order W, E, N, S, NW, NE, SW, SE with their weights
-  const size_t q[8] = {rc + jw, rc + je, rn + j, rs + j, rn + jw, rn + je, rs + jw, rs + je};
-  const int wk[8] = {k8WW, k8WE, k8WN, k8WS, k8WNW, k8WNE, k8WSW, k8WSE};
-
-  // Σ w_k (df_k + f_k) - f_c Σw
-  float su = 0.0f, sv = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float c = scratch[wk[k] * n + p];
-    const float tu = (du_a[q[k]] + u[q[k]]) * c;
-    const float tv = (dv_a[q[k]] + v[q[k]]) * c;
-    su = k == 0 ? tu : su + tu;
-    sv = k == 0 ? tv : sv + tv;
-  }
-  const float wsum = scratch[k8WSUM * n + p];
-  su -= u[p] * wsum;
-  sv -= v[p] * wsum;
-
-  const uint8_t f = flags[p];
-  const float m0 = scratch[k8M0 * n + p];
-  const float num_u = (f & 1) ? su : (su + scratch[k8CU0 * n + p]) - m0 * fv;
-  const float nu = one_minus_omega * fu + omega * num_u * scratch[k8INVU * n + p];
-  const float num_v = (f & 2) ? sv : (sv + scratch[k8CV0 * n + p]) - m0 * nu;
-  const float nv = one_minus_omega * fv + omega * num_v * scratch[k8INVV * n + p];
-  du_b[p] = nu;
-  dv_b[p] = nv;
+  auto nbr = [&](int k) {
+    int ni, nj;
+    flow_sor8::neighbour(k, i, j, h, w, &ni, &nj);
+    const size_t q = static_cast<size_t>(ni) * w + nj;
+    return make_float4(du_a[q], dv_a[q], u[q], v[q]);
+  };
+  auto weight = [&](int k) { return scratch[(k8WW + flow_sor8::weight_of(k)) * n + p]; };
+  const float2 r = flow_sor8::update(nbr, weight, fu, fv, u[p], v[p], scratch[k8WSUM * n + p],
+                                     flags[p], scratch[k8M0 * n + p], scratch[k8CU0 * n + p],
+                                     scratch[k8CV0 * n + p], scratch[k8INVU * n + p],
+                                     scratch[k8INVV * n + p], omega, one_minus_omega);
+  du_b[p] = r.x;
+  dv_b[p] = r.y;
 }
 
 }  // namespace

@@ -58,7 +58,11 @@
 // launches stay 3 per sweep and the state is back in the output after
 // each; the caller gives the tmp buffer. The weights' sum is taken in the
 // plain order W, NW, N, NE, E, SE, S, SW, the neighbours W, E, N, S, NW,
-// NE, SW, SE.
+// NE, SW, SE; the per-pixel arithmetic is pde8_update.cuh's, shared with
+// the resident kernel (resident8_sor.cu), which takes every pde8 solve whose
+// shape has a resident plan: these launches serve only the shapes without
+// one (H or W of 2, a batch of more than 3 channels, weights per channel,
+// or a level above one band an SM).
 //
 // The kernels allocate nothing. The C entry points return
 // cudaGetLastError() after the copy and each launch.
@@ -68,6 +72,7 @@
 #include <cuda_runtime.h>
 
 #include "disp_update.cuh"
+#include "pde8_update.cuh"
 
 namespace {
 
@@ -171,26 +176,13 @@ __global__ void pde8_color_kernel(const float* __restrict__ xa, float* __restric
     return;
   }
   const size_t pw_ = bz * w_stride + q;
-  // weights in the plain sum order W, NW, N, NE, E, SE, S, SW
-  const float a = wt.ww[pw_], anw = wt.wnw[pw_], b = wt.wn[pw_], ane = wt.wne[pw_];
-  const float c = wt.we[pw_], ase = wt.wse[pw_], d = wt.ws[pw_], asw = wt.wsw[pw_];
-  float wsum = add_rn(add_rn(add_rn(a, anw), b), ane);
-  wsum = add_rn(add_rn(add_rn(add_rn(wsum, c), ase), d), asw);
-  const float t = trace[bz * trace_stride + q];
-  const bool t_nan = isnan(t);
-  const float inv = div_rn(1.0f, t_nan ? wsum : nan_to_num(t));
-  const float b_eff = t_nan ? 0.0f : bb[bz * b_stride + q];
-  // sum_k w_k X_k in the order W, E, N, S, NW, NE, SW, SE
-  float nbr = mul_rn(xs[q - 1], a);
-  nbr = add_rn(nbr, mul_rn(xs[q + 1], c));
-  nbr = add_rn(nbr, mul_rn(xs[q - w], b));
-  nbr = add_rn(nbr, mul_rn(xs[q + w], d));
-  nbr = add_rn(nbr, mul_rn(xs[q - w - 1], anw));
-  nbr = add_rn(nbr, mul_rn(xs[q - w + 1], ane));
-  nbr = add_rn(nbr, mul_rn(xs[q + w - 1], asw));
-  nbr = add_rn(nbr, mul_rn(xs[q + w + 1], ase));
-  const float nx = mul_rn(add_rn(b_eff, nbr), inv);
-  xb[bz * plane + q] = add_rn(mul_rn(one_minus_omega, xc), mul_rn(omega, nx));
+  const pde8_sor::Weights k{wt.ww[pw_], wt.wnw[pw_], wt.wn[pw_], wt.wne[pw_],
+                            wt.we[pw_], wt.wse[pw_], wt.ws[pw_], wt.wsw[pw_]};
+  const float2 inv_b = pde8_sor::diagonal(trace[bz * trace_stride + q], bb[bz * b_stride + q],
+                                          pde8_sor::weight_sum(k));
+  const pde8_sor::Nbr x{xs[q - 1],     xs[q + 1],     xs[q - w],     xs[q + w],
+                        xs[q - w - 1], xs[q - w + 1], xs[q + w - 1], xs[q + w + 1]};
+  xb[bz * plane + q] = pde8_sor::update(xc, x, k, inv_b, omega, one_minus_omega);
 }
 
 // Border fill for H, W >= 3: pixel (i, j) of the border takes the value at

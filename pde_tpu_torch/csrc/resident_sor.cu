@@ -74,36 +74,39 @@
 // (`opaque`) rather than kept live across the sweeps: held, they took the
 // registers the coefficients need and spilled at 3 and 4 slots.
 //
-// The launch goes through cudaLaunchKernelEx with the cluster dimension or the
-// cooperative attribute. Before launching, the C entry checks that the plan
-// is one the kernel takes and that the grid can be co-resident
+// The scope's machinery (the barrier, the layout, the cluster's reads, the
+// co-residency checks and the launch) is resident_scope.cuh, shared with the
+// 8-neighbour families of resident8_sor.cu. The launch goes through
+// cudaLaunchKernelEx with the cluster dimension or the cooperative attribute.
+// Before launching, the C entry checks that the plan is one the kernel takes
+// and that the grid can be co-resident
 // (cudaOccupancyMaxActiveClusters / cudaOccupancyMaxActiveBlocksPerMultiprocessor);
 // otherwise it returns an error, and the wrapper raises. The kernels run on
 // the caller's stream and allocate nothing; the C entry points return
 // cudaGetLastError() of the launch.
 
-#include <cooperative_groups.h>
-
 #include <cstdint>
-#include <mutex>
 
 #include <cuda_runtime.h>
 
 #include "disp_update.cuh"
 #include "flow_update.cuh"
-
-namespace cg = cooperative_groups;
+#include "resident_scope.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 512;
+using resident::kGrid;
+using resident::Layout;
+using resident::opaque;
+using resident::scope_sync;
+using resident::slot_pixel;
+using resident::slot_positions;
+using resident::stage_halo;
+
+constexpr int kMaxThreads = resident::kMaxThreads;
 constexpr int kMaxBatch = 2;
-constexpr int kMaxCluster = 16;
-constexpr int kMaxSmem = 232448;
-constexpr int kMaxDevices = 16;
 
 enum Family { kLlin4 = 0, kDisp = 1 };
-enum Scope { kBlock = 0, kCluster = 1, kGrid = 2 };
 
 // the input planes a batch entry: llin4 u v du dv m cu cv duc dvc ww wn we ws;
 // disp u du cu duc ww wn we ws
@@ -118,89 +121,14 @@ struct Params {
 
 int fields_in_smem(int family) { return family == kLlin4 ? 4 : 2; }
 
-__device__ __forceinline__ void scope_sync(int scope) {
-  if (scope == kGrid) {
-    cg::this_grid().sync();
-  } else if (scope == kCluster) {
-    cg::this_cluster().sync();
-  } else {
-    __syncthreads();
-  }
-}
-
-// Where a field's pixel lies in a block's shared memory: the band's rows and
-// a halo row above and below (`rows + 2` local rows, local row 0 the halo
-// above, `rows` the plan's rows a band), split by colour. Pixel (gi, j) lies
-// in the plane of its colour (gi + j) & 1, at local row gi - r0 + 1, column
-// j / 2. A colour phase reads the other colour's plane only, at consecutive
-// addresses across a warp: no bank conflicts.
-struct Layout {
-  int r0, rows, hw;
-  __device__ __forceinline__ int at(int gi, int j) const {
-    return (((gi + j) & 1) * (rows + 2) + (gi - r0 + 1)) * hw + (j >> 1);
-  }
-};
-
 // dU (or dV) at row gi of the halo, just above (gi = r0 - 1) or below
 // (gi = r1) the band: in the cluster, from the shared memory `s` of the
-// neighbouring block (whose band starts `rows` rows earlier or later); on
-// the grid, from the output, where the block that owns the row wrote it.
+// neighbouring block; on the grid, from the output, where the block that
+// owns the row wrote it.
 __device__ __forceinline__ float halo_at(const float* s, const float* out, int gi, int j,
                                          Layout lay, int w, int scope) {
   if (scope == kGrid) return __ldcg(out + static_cast<size_t>(gi) * w + j);
-  cg::cluster_group cl = cg::this_cluster();
-  const bool above = gi < lay.r0;
-  const float* remote = cl.map_shared_rank(s, cl.block_rank() + (above ? -1 : 1));
-  lay.r0 += above ? -lay.rows : lay.rows;
-  return remote[lay.at(gi, j)];
-}
-
-// `x` as a value the compiler cannot see through: a phase recomputes its
-// slots' indices from it rather than keep them live across the sweeps, which
-// would take registers from the coefficients.
-__device__ __forceinline__ uint32_t opaque(uint32_t x) {
-  asm volatile("" : "+r"(x));
-  return x;
-}
-
-// The pixel (gi, j) of a slot of colour kC; false if the slot has none.
-template <int kC>
-__device__ __forceinline__ bool slot_pixel(uint32_t pos, int r0, int w, int* gi, int* j) {
-  if (pos == ~0u) return false;
-  *gi = r0 + static_cast<int>(pos >> 16);
-  *j = 2 * static_cast<int>(pos & 0xffffu) + ((*gi + kC) & 1);
-  return *j < w;
-}
-
-// Where this thread's slots lie in the band: (local row << 16) | half column,
-// or ~0u past the band.
-template <int kSlots>
-__device__ __forceinline__ void slot_positions(uint32_t (&pos)[kSlots], int rows, int hw) {
-#pragma unroll
-  for (int k = 0; k < kSlots; ++k) {
-    const int q = threadIdx.x + k * blockDim.x;
-    const int li = q / hw;
-    pos[k] = li < rows ? (static_cast<uint32_t>(li) << 16) | static_cast<uint32_t>(q - li * hw)
-                       : ~0u;
-  }
-}
-
-// Stage the halo rows of the frozen field(s) U (and V): the row above the
-// band and the row below, where the image has them. (A thread stages its own
-// pixels of every field with their coefficients, in the prepare.)
-__device__ __forceinline__ void stage_halo(float* s0, const float* src0, float* s1,
-                                           const float* src1, Layout lay, int rows, int h,
-                                           int w) {
-  for (int idx = threadIdx.x; idx < 2 * w; idx += blockDim.x) {
-    const bool below = idx >= w;
-    const int gi = below ? lay.r0 + rows : lay.r0 - 1;
-    const int j = below ? idx - w : idx;
-    if (gi < 0 || gi >= h) continue;
-    const size_t p = static_cast<size_t>(gi) * w + j;
-    const int q = lay.at(gi, j);
-    s0[q] = src0[p];
-    if (s1 != nullptr) s1[q] = src1[p];
-  }
+  return resident::cluster_at(s, gi, j, lay);
 }
 
 // What a llin4 pixel keeps in registers (flow_sor::Coef without its flags,
@@ -515,78 +443,10 @@ bool plan_ok(int family, int batch, int h, int w, int iters, int scope, int bloc
              int threads, int slots) {
   if (family != kLlin4 && family != kDisp) return false;
   if (batch < 1 || batch > (family == kLlin4 ? 1 : kMaxBatch)) return false;
-  if (h < 1 || w < 1 || w > 0xffff || iters < 0) return false;
-  if (family == kDisp && (h < 3 || w < 3)) return false;
-  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0) return false;
+  if (iters < 0 || (family == kDisp && (h < 3 || w < 3))) return false;
   if (pick(family, slots) == nullptr) return false;
-  if (rows < 1 || blocks != (h + rows - 1) / rows) return false;
-  // two rows a band at least, and for disp the last band too
-  if (blocks > 1 && (rows < 2 || (family == kDisp && h - (blocks - 1) * rows < 2))) return false;
-  if (static_cast<int64_t>(rows) * ((w + 1) / 2) > static_cast<int64_t>(threads) * slots)
-    return false;
-  if (smem_bytes_of(family, rows, w) > kMaxSmem) return false;
-  if (scope == kBlock) return blocks == 1;
-  if (scope == kCluster) return blocks >= 2 && blocks <= kMaxCluster;
-  return scope == kGrid;
-}
-
-// Whether a launch of `kernel` with this shape can run: a cluster must fit
-// the card, a cooperative grid must be co-resident. Cached by shape (the
-// queries cost host time on every call otherwise).
-struct Fit {
-  Kernel kernel;
-  int device, scope, blocks, batch, threads, smem;
-  bool ok;
-};
-
-cudaError_t fits(Kernel kernel, int device, int scope, int blocks, int batch, int threads,
-                 int smem, cudaLaunchConfig_t* cfg, bool* ok) {
-  static std::mutex mu;
-  static Fit cache[256];
-  static int n_cache = 0;
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < n_cache; ++i) {
-    const Fit& f = cache[i];
-    if (f.kernel == kernel && f.device == device && f.scope == scope && f.blocks == blocks &&
-        f.batch == batch && f.threads == threads && f.smem == smem) {
-      *ok = f.ok;
-      return cudaSuccess;
-    }
-  }
-  cudaError_t err = cudaSuccess;
-  if (scope == kCluster) {
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel), cfg);
-    *ok = clusters >= 1;
-  } else if (scope == kGrid) {
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, reinterpret_cast<const void*>(kernel), threads, smem);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    *ok = static_cast<int64_t>(per_sm) * sms >= static_cast<int64_t>(blocks) * batch;
-  } else {
-    *ok = true;
-  }
-  if (err != cudaSuccess) return err;
-  if (n_cache < 256) cache[n_cache++] = {kernel, device, scope, blocks, batch, threads, smem, *ok};
-  return cudaSuccess;
-}
-
-// Once per kernel and device: the dynamic shared memory past 48 KB, and
-// clusters past the portable 8 blocks.
-cudaError_t configure(Kernel kernel, int family, int slots, int device) {
-  static std::mutex mu;
-  static bool done[kMaxDevices][2][8] = {};
-  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  std::lock_guard<std::mutex> lock(mu);
-  if (done[device][family][slots]) return cudaSuccess;
-  const void* fn = reinterpret_cast<const void*>(kernel);
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err == cudaSuccess) done[device][family][slots] = true;
-  return err;
+  return resident::bands_ok(h, w, scope, blocks, rows, threads, slots,
+                            smem_bytes_of(family, rows, w), family == kDisp);
 }
 
 int launch(int family, const Params& prm, int batch, int blocks, int threads, int slots,
@@ -594,40 +454,9 @@ int launch(int family, const Params& prm, int batch, int blocks, int threads, in
   if (!plan_ok(family, batch, prm.h, prm.w, prm.iters, prm.scope, blocks, prm.rows, threads,
                slots))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Kernel kernel = pick(family, slots);
-  const int smem = static_cast<int>(smem_bytes_of(family, prm.rows, prm.w));
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = configure(kernel, family, slots, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  cfg.gridDim = dim3(blocks, batch, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = attr;
-  cfg.numAttrs = 0;
-  if (prm.scope == kCluster) {
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = blocks;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.numAttrs = 1;
-  } else if (prm.scope == kGrid) {
-    attr[0].id = cudaLaunchAttributeCooperative;
-    attr[0].val.cooperative = 1;
-    cfg.numAttrs = 1;
-  }
-  bool ok = false;
-  err = fits(kernel, device, prm.scope, blocks, batch, threads, smem, &cfg, &ok);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!ok) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  void* args[] = {const_cast<Params*>(&prm)};
-  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return resident::launch(reinterpret_cast<const void*>(pick(family, slots)), prm, prm.scope,
+                          blocks, batch, threads,
+                          static_cast<int>(smem_bytes_of(family, prm.rows, prm.w)), stream);
 }
 
 }  // namespace

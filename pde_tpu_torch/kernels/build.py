@@ -67,12 +67,12 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str, verbose: bool = False) -> Path:
+def build(name: str, verbose: bool = False, force: bool = False) -> Path:
     """Compile ``csrc/<name>.cu`` unless the library for its current hash
-    exists; returns the library's path. ``verbose`` adds ``-Xptxas -v``
-    and prints the compiler's report (registers, spills)."""
+    exists (or ``force``); returns the library's path. ``verbose`` adds
+    ``-Xptxas -v`` and prints the compiler's report (registers, spills)."""
     out = library_path(name)
-    if out.exists():
+    if out.exists() and not force:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # compile to a private name, then rename: a concurrent process never

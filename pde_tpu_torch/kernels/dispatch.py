@@ -1,11 +1,11 @@
 """Solver dispatch: the hand-written kernel for CUDA tensors, the plain
 PyTorch version for CPU tensors.
 
-A CUDA tensor goes to a kernel or raises; it never falls back. The llin4
-and disp llin4 solves go to the resident kernel (one launch a call,
-``resident_cuda``) wherever ``resident_cuda.plan_resident`` gives the
-shape a plan, and to the global kernels where it gives None; the choice
-is made from the shape, before any launch, as ``pde_tpu`` chooses
+A CUDA tensor goes to a kernel or raises; it never falls back. The llin4,
+disp llin4, llin8 and pde8 solves go to the resident kernels (one launch
+a call, ``resident_cuda``) wherever ``resident_cuda.plan_resident`` gives
+the shape a plan, and to the global kernels where it gives None; the
+choice is made from the shape, before any launch, as ``pde_tpu`` chooses
 between its resident and tiled kernels. ``plain_solvers()`` runs the plain version on any device, so
 that a check can hold the kernel against it on the card; the package
 itself never enters it.
@@ -72,6 +72,9 @@ def sor_flow_llin8(u, v, du, dv, m, cu, cv, duc, dvc,
             iters, omega)
     if _plain(u):
         return _sor.sor_flow_llin8(*args)
+    plan = resident_cuda.plan_for(u, "llin8", 1) if u.ndim == 2 else None
+    if plan is not None:
+        return resident_cuda.flow_llin8_sor(*args, plan=plan)
     return sor_cuda.flow_llin8_sor(*args)
 
 
@@ -114,10 +117,16 @@ def sor_pde4(x, trace, b, ww, wn, we, ws, iters: int, omega: float):
 
 
 def sor_pde8(x, trace, b, ww, wnw, wn, wne, we, wse, ws, wsw, iters: int, omega: float):
-    """(H, W) or (C, H, W) unknowns alike: on the card both run the kernel."""
+    """(H, W) or (C, H, W) unknowns alike: on the card the resident kernel
+    takes up to 3 channels over shared (H, W) weights where the shape has a
+    plan, the global kernel every other call."""
     args = (x, trace, b, ww, wnw, wn, wne, we, wse, ws, wsw, iters, omega)
     if _plain(x):
         return _sor.sor_pde8(*args)
+    channels = resident_cuda.pde8_channels(x, trace, b, (ww, wnw, wn, wne, we, wse, ws, wsw))
+    plan = resident_cuda.plan_for(x, "pde8", channels) if channels else None
+    if plan is not None:
+        return resident_cuda.pde8_sor(*args, plan=plan)
     return interior_cuda.pde8_sor(*args)
 
 

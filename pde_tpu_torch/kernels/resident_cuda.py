@@ -1,22 +1,26 @@
-"""ctypes wrapper of the resident red-black SOR kernels
-(``csrc/resident_sor.cu``): llin4 (``flow_nd``'s solve) and disp llin4
-(``disparity_nd``'s, and ``disparity_sym``'s pair as a batch of 2), each
-call one launch that keeps the level on chip across its sweeps.
+"""ctypes wrapper of the resident red-black SOR kernels, each call one launch
+that keeps the level on chip across its sweeps:
+
+* ``csrc/resident_sor.cu``: llin4 (``flow_nd``'s solve) and disp llin4
+  (``disparity_nd``'s, and ``disparity_sym``'s pair as a batch of 2);
+* ``csrc/resident8_sor.cu``: the 8-neighbour llin8 (``flow_ad``'s solve)
+  and pde8 (``tv_denoise8``'s, up to 3 channels over shared weights), whose
+  relaxed fields keep two buffers a colour (Jacobi within a colour).
 
 Takes CUDA tensors only and raises on anything else: the choice of the
 plain version for CPU tensors, and of the global kernels for shapes
-without a plan, is ``kernels/dispatch.py``'s. The library is built and
+without a plan, is ``kernels/dispatch.py``'s. The libraries are built and
 loaded at the first call, never at import.
 
 Every launch follows a plan from :func:`plan_resident`, pure Python:
 the barrier's scope (one block, a thread block cluster, or a cooperative
 grid over the card), the row bands (one a block), the threads of a block
 and the pixels of each colour a thread owns. :func:`slot_pixels` is the
-kernel's map from threads to pixels, for the tests.
+kernels' map from threads to pixels, for the tests.
 
 ``LAUNCHES`` counts one launch per call (``"resident_flow_llin4"``,
-``"resident_disp_llin4"``), so a run can show that it went through the
-kernel.
+``"resident_disp_llin4"``, ``"resident_flow_llin8"``, ``"resident_pde8"``),
+so a run can show that it went through the kernel.
 """
 
 from __future__ import annotations
@@ -29,21 +33,41 @@ import torch
 
 from pde_tpu_torch.kernels import build
 
-SOURCE = "resident_sor"
-LAUNCHES = {"resident_flow_llin4": 0, "resident_disp_llin4": 0}
+SOURCE = "resident_sor"     # llin4, disp
+SOURCE8 = "resident8_sor"   # llin8, pde8
+LAUNCHES = {"resident_flow_llin4": 0, "resident_disp_llin4": 0, "resident_flow_llin8": 0,
+            "resident_pde8": 0}
 
-FAMILIES = ("llin4", "disp")
+FAMILIES = ("llin4", "disp", "llin8", "pde8")
 SCOPES = ("block", "cluster", "grid")  # resident_sor.cu's Scope
 # what a scope's barrier adds to a colour phase, in units of the time one
 # more slot a thread adds (scripts/resident_plan_sweep.py on an H100,
 # PERF.md, rows 1 and 5): a cluster's about one slot, the grid's about 1.5
 SCOPE_COST = {"block": 0.0, "cluster": 1.0, "grid": 1.5}
+# llin8 and pde8: a phase's time grows with the slots a thread times the
+# warps each of an SM's four schedulers runs, threads / 128, so more and
+# narrower bands are cheaper within a scope; the barriers' cost in those
+# units (a least-squares fit over every plan scripts/resident_plan_sweep.py
+# timed on an H100, PERF.md, rows 4 and 6b: a cluster about 3.6, the grid
+# about 5.5)
+SCOPE_COST8 = {"block": 0.0, "cluster": 3.6, "grid": 5.5}
 # the kernel's instantiations: pixels of each colour a thread owns
-SLOTS = {"llin4": (1, 2, 3, 4), "disp": (1, 2, 3, 4, 6)}
-SMEM_FIELDS = {"llin4": 4, "disp": 2}   # dU, dV, U, V; dU, U
-MAX_BATCH = {"llin4": 1, "disp": 2}
+SLOTS = {"llin4": (1, 2, 3, 4), "disp": (1, 2, 3, 4, 6), "llin8": (1, 2, 3, 4),
+         "pde8": (1, 2, 3, 4, 5)}
+# A block's shared memory in planes of the band: (fields kept with a halo row
+# above and below, a one-buffer field counting 1 and a ping-pong one 2 (pde8:
+# per channel), weight planes of the band alone). llin4: dU, dV, U, V; disp:
+# dU, U; llin8: dU, dV twice, U, V, and the eight weights with their sum;
+# pde8: each channel's X twice, and the eight weights.
+SMEM_FIELDS = {"llin4": (4, 0), "disp": (2, 0), "llin8": (6, 9), "pde8": (2, 8)}
+# systems a launch: disp's pair as blocks of a second grid row, pde8's
+# channels in the thread that owns a pixel (with weights shared by them)
+MAX_BATCH = {"llin4": 1, "disp": 2, "llin8": 1, "pde8": 3}
 LLIN4_NAMES = ("u", "v", "du", "dv", "m", "cu", "cv", "duc", "dvc", "ww", "wn", "we", "ws")
 DISP_NAMES = ("u", "du", "cu", "duc", "ww", "wn", "we", "ws")
+W8_NAMES = ("ww", "wnw", "wn", "wne", "we", "wse", "ws", "wsw")
+LLIN8_NAMES = ("u", "v", "du", "dv", "m", "cu", "cv", "duc", "dvc") + W8_NAMES
+PDE8_NAMES = ("x", "trace", "b") + W8_NAMES
 MAX_THREADS = 512     # __launch_bounds__(512, 1): up to 128 registers a thread
 MAX_CLUSTER = 16      # with cudaFuncAttributeNonPortableClusterSizeAllowed
 MAX_SMEM = 232448     # bytes of shared memory a block may use on the H100
@@ -70,35 +94,49 @@ class ResidentPlan:
         return 2 * self.slots
 
 
-def smem_bytes(family: str, rows: int, w: int) -> int:
-    """A block's shared memory, as ``resident_sor.cu::smem_bytes_of``
-    counts it: the relaxed and frozen fields, each a plane per colour of
-    the band plus a halo row above and below."""
-    return SMEM_FIELDS[family] * 2 * (rows + 2) * ((w + 1) // 2) * 4
+def smem_bytes(family: str, rows: int, w: int, batch: int = 1) -> int:
+    """A block's shared memory, as ``resident_sor.cu::smem_bytes_of`` and
+    ``resident8_sor.cu::smem_bytes_of`` count it (``SMEM_FIELDS``): the
+    fields, each a plane per colour (and buffer) of the band plus a halo
+    row above and below, and the weight planes of the band (pde8: for
+    ``batch`` channels)."""
+    halo, band = SMEM_FIELDS[family]
+    if family == "pde8":
+        halo *= batch
+    hw = (w + 1) // 2
+    return (halo * 2 * (rows + 2) * hw + band * 2 * rows * hw) * 4
+
+
+def edge_floats(family: str, batch: int, blocks: int, w: int) -> int:
+    """Floats of the band-edge scratch a grid launch of llin8 or pde8 needs
+    (``resident8_sor.cu::resident8_edge_floats``): two buffers of the first
+    and last row of every band, for each relaxed field (dU, dV; a channel
+    each)."""
+    return 2 * (2 if family == "llin8" else batch) * 2 * blocks * w
 
 
 def _bands(family: str, h: int, n: int) -> tuple[int, int]:
     """(rows a band, bands) for about ``n`` bands of ``h`` rows: two rows a
-    band at least, and for disp the last band too (its border fill reads
-    row H-2 from the band of row H-1)."""
+    band at least, and for disp and pde8 the last band too (its border fill
+    reads row H-2 from the band of row H-1)."""
     rows = -(-h // n)
     if n > 1:
         rows = max(rows, 2)
     while True:
         n = -(-h // rows)
-        if n == 1 or family != "disp" or h - (n - 1) * rows >= 2:
+        if n == 1 or family not in ("disp", "pde8") or h - (n - 1) * rows >= 2:
             return rows, n
         rows += 1
 
 
-def _scope_of(n: int, batch: int, sm_count: int) -> str | None:
-    """One block, a cluster, or a grid of one band an SM; None if ``n``
-    bands fit none."""
+def _scope_of(n: int, blocks_a_band: int, sm_count: int) -> str | None:
+    """One block, a cluster, or a grid of one band an SM (``blocks_a_band``
+    blocks a band: disp's batch); None if ``n`` bands fit none."""
     if n == 1:
         return "block"
     if n <= MAX_CLUSTER:
         return "cluster"
-    return "grid" if n * batch <= sm_count else None
+    return "grid" if n * blocks_a_band <= sm_count else None
 
 
 def _fit(family: str, h: int, w: int, n: int, batch: int, sm_count: int):
@@ -106,9 +144,9 @@ def _fit(family: str, h: int, w: int, n: int, batch: int, sm_count: int):
     block or the bands no scope: the fewest slots a thread that keep the
     block within ``MAX_THREADS`` (the most threads)."""
     rows, n = _bands(family, h, n)
-    scope = _scope_of(n, batch, sm_count)
+    scope = _scope_of(n, batch if family == "disp" else 1, sm_count)
     half = rows * ((w + 1) // 2)  # pixels of one colour in a band, at most
-    smem = smem_bytes(family, rows, w)
+    smem = smem_bytes(family, rows, w, batch)
     if scope is None or smem > MAX_SMEM:
         return None
     for slots in SLOTS[family]:
@@ -123,24 +161,42 @@ def _taken(h: int, w: int, family: str, batch: int) -> bool:
         raise ValueError(f"family must be one of {FAMILIES}, got {family!r}")
     if not 1 <= batch <= MAX_BATCH[family] or h < 1 or w < 1 or w > 0xFFFF:
         return False
-    return family != "disp" or (h >= 3 and w >= 3)  # disp: an interior, a fill that copies
+    # disp, pde8: an interior, a fill that copies
+    return family not in ("disp", "pde8") or (h >= 3 and w >= 3)
+
+
+def work(plan: ResidentPlan, family: str) -> float:
+    """What sets a colour phase's time besides the barrier: the slots a
+    thread (llin4, disp), times the warps a scheduler runs (llin8, pde8)."""
+    if family in ("llin8", "pde8"):
+        return plan.slots * plan.threads / 128
+    return plan.slots
+
+
+def cost(plan: ResidentPlan, family: str) -> float:
+    """The plan's cost in ``work`` units, with its barrier's."""
+    scope_cost = SCOPE_COST8 if family in ("llin8", "pde8") else SCOPE_COST
+    return work(plan, family) + scope_cost[plan.scope]
 
 
 @functools.lru_cache(maxsize=None)
 def plans_resident(h: int, w: int, family: str, batch: int = 1,
                    sm_count: int = SM_COUNT) -> tuple[ResidentPlan, ...]:
-    """Every plan the kernel takes for a ``batch`` of (h, w) systems of
-    ``family`` that no other beats on both counts that set its time: for
-    each scope and slots a thread, the one with the fewest bands (the plan
-    sweep's candidates)."""
+    """The plans the kernel takes for a ``batch`` of (h, w) systems of
+    ``family`` that the plan sweep times: for each scope and slots a
+    thread, the one with the fewest bands and, for llin8 and pde8 (whose
+    :func:`work` falls with the threads a block), the one with the most."""
     if not _taken(h, w, family, batch):
         return ()
-    best = {}
+    fewest, most = {}, {}
     for n in range(1, h + 1):
         plan = _fit(family, h, w, n, batch, sm_count)
         if plan is not None:
-            best.setdefault((plan.scope, plan.slots), plan)
-    return tuple(best.values())
+            fewest.setdefault((plan.scope, plan.slots), plan)
+            most[(plan.scope, plan.slots)] = plan
+    if family in ("llin8", "pde8"):
+        return tuple(dict.fromkeys([*fewest.values(), *most.values()]))
+    return tuple(fewest.values())
 
 
 def plan_with_bands(h: int, w: int, family: str, batch: int, n: int,
@@ -154,13 +210,13 @@ def plan_with_bands(h: int, w: int, family: str, batch: int, n: int,
 def plan_resident(h: int, w: int, family: str, batch: int = 1,
                   sm_count: int = SM_COUNT) -> ResidentPlan | None:
     """The launch plan of the resident kernel for a ``batch`` of (h, w)
-    systems of ``family`` ("llin4" or "disp"), or None where the kernel
+    systems of ``family`` (one of ``FAMILIES``), or None where the kernel
     does not take the shape (the global kernel does): of
-    :func:`plans_resident`, the least ``slots + SCOPE_COST[scope]``, then
-    the narrowest scope, then the fewest bands."""
+    :func:`plans_resident`, the least :func:`cost`, then the narrowest
+    scope, then the fewest bands."""
     plans = plans_resident(h, w, family, batch, sm_count)
-    return min(plans, key=lambda p: (p.slots + SCOPE_COST[p.scope], SCOPES.index(p.scope),
-                                     p.blocks), default=None)
+    return min(plans, key=lambda p: (cost(p, family), SCOPES.index(p.scope), p.blocks),
+               default=None)
 
 
 def slot_pixels(plan: ResidentPlan, h: int, w: int) -> torch.Tensor:
@@ -211,13 +267,32 @@ def _lib() -> ctypes.CDLL:
     lib.resident_sor_smem_bytes.restype = i
     lib.resident_sor_error_string.argtypes = [i]
     lib.resident_sor_error_string.restype = ctypes.c_char_p
+    lib.error_string = lib.resident_sor_error_string
     return lib
 
 
-def _check(fn: str, names, fields, shape) -> None:
-    """Every field a contiguous float32 tensor of ``shape`` on the first
-    one's card."""
-    device = fields[0].device
+@functools.cache
+def _lib8() -> ctypes.CDLL:
+    lib = build.load(SOURCE8)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.resident_flow_llin8.argtypes = [p, p, p, p, i, i, i, f, f, i, i, i, i, i, p]
+    lib.resident_flow_llin8.restype = i
+    lib.resident_pde8.argtypes = [p, p, p, p, p, p, i, i, i, i, f, f, i, i, i, i, i, p]
+    lib.resident_pde8.restype = i
+    lib.resident8_smem_bytes.argtypes = [i, i, i, i]
+    lib.resident8_smem_bytes.restype = i
+    lib.resident8_edge_floats.argtypes = [i, i, i, i]
+    lib.resident8_edge_floats.restype = ctypes.c_int64
+    lib.resident8_error_string.argtypes = [i]
+    lib.resident8_error_string.restype = ctypes.c_char_p
+    lib.error_string = lib.resident8_error_string
+    return lib
+
+
+def _check(fn: str, names, fields, shape, device=None) -> None:
+    """Every field a contiguous float32 tensor of ``shape`` on ``device``
+    (by default the first one's), a card."""
+    device = device or fields[0].device
     if device.type != "cuda":
         raise ValueError(f"{fn} takes CUDA tensors, got {device}")
     for name, x in zip(names, fields):
@@ -235,10 +310,11 @@ def _plan(fn: str, plan, family: str, batch: int, h: int, w: int, device) -> Res
     return plan
 
 
-def _launch(fn: str, entry: str, plan: ResidentPlan, device, *args) -> None:
-    """One launch of the C entry ``entry`` on ``device``'s current stream
-    (switching the device only when another one is current)."""
-    lib = _lib()
+def _launch(fn: str, entry: str, plan: ResidentPlan, device, *args, lib=None) -> None:
+    """One launch of the C entry ``entry`` of ``lib`` (``_lib()`` by
+    default) on ``device``'s current stream (switching the device only when
+    another one is current)."""
+    lib = lib or _lib()
     call = functools.partial(getattr(lib, entry), *args, SCOPES.index(plan.scope), plan.blocks,
                              plan.rows, plan.threads, plan.slots)
     if device.index == torch.cuda.current_device():
@@ -248,7 +324,7 @@ def _launch(fn: str, entry: str, plan: ResidentPlan, device, *args) -> None:
             err = call(torch._C._cuda_getCurrentRawStream(device.index))
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: cudaError {err} "
-                           f"({lib.resident_sor_error_string(err).decode()}), plan {plan}")
+                           f"({lib.error_string(err).decode()}), plan {plan}")
 
 
 def flow_llin4_sor(u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws, iters: int, omega: float,
@@ -320,3 +396,85 @@ def disp_llin4_pair(fields0, fields1, iters: int, omega: float,
           omega, plan)
     return outs[0], outs[1]
 
+
+
+def _edge(plan: ResidentPlan, family: str, batch: int, w: int, device):
+    """The band-edge scratch of a grid launch (None for the other scopes,
+    which exchange rows in shared memory)."""
+    if plan.scope != "grid":
+        return None
+    return torch.empty(edge_floats(family, batch, plan.blocks, w), dtype=torch.float32,
+                       device=device)
+
+
+def flow_llin8_sor(u, v, du, dv, m, cu, cv, duc, dvc, ww, wnw, wn, wne, we, wse, ws, wsw,
+                   iters: int, omega: float, plan: ResidentPlan | None = None):
+    """``iters`` red-black llin8 SOR sweeps on the card in one launch; the
+    same function as ``solvers/sor.py::sor_flow_llin8``, and the same bits
+    as ``sor_cuda.flow_llin8_sor``. Returns new (dU, dV)."""
+    fields = (u, v, du, dv, m, cu, cv, duc, dvc, ww, wnw, wn, wne, we, wse, ws, wsw)
+    if u.ndim != 2:
+        raise ValueError(f"resident flow_llin8_sor takes (H, W) fields, got {tuple(u.shape)}")
+    _check("resident flow_llin8_sor", LLIN8_NAMES, fields, u.shape)
+    h, w = u.shape
+    plan = _plan("resident flow_llin8_sor", plan, "llin8", 1, h, w, u.device)
+    out_du, out_dv = torch.empty_like(du), torch.empty_like(dv)
+    edge = _edge(plan, "llin8", 1, w, u.device)
+    ptrs = (ctypes.c_void_p * len(fields))(*(x.data_ptr() for x in fields))
+    _launch("resident flow_llin8_sor", "resident_flow_llin8", plan, u.device, ptrs,
+            out_du.data_ptr(), out_dv.data_ptr(), None if edge is None else edge.data_ptr(), h,
+            w, max(int(iters), 0), float(omega), 1.0 - float(omega), lib=_lib8())
+    LAUNCHES["resident_flow_llin8"] += 1
+    return out_du, out_dv
+
+
+def pde8_channels(x, trace, b, weights) -> int | None:
+    """The channels of a pde8 call that the resident kernel takes, from the
+    shapes alone, or None: X (H, W) or (C, H, W) with C <= 3, the eight
+    weights (H, W) planes shared by the channels, TRACE and B each X's
+    shape or one shared (H, W) plane."""
+    if x.ndim not in (2, 3):
+        return None
+    hw_shape = tuple(x.shape[-2:])
+    if any(tuple(wt.shape) != hw_shape for wt in weights):
+        return None
+    if any(tuple(c.shape) not in (tuple(x.shape), hw_shape) for c in (trace, b)):
+        return None
+    channels = x.shape[0] if x.ndim == 3 else 1
+    return channels if 1 <= channels <= MAX_BATCH["pde8"] else None
+
+
+def pde8_sor(x, trace, b, ww, wnw, wn, wne, we, wse, ws, wsw, iters: int, omega: float,
+             plan: ResidentPlan | None = None):
+    """``iters`` red-black diagonal-form 8-neighbour sweeps on the card in
+    one launch; the same function as ``solvers/sor.py::sor_pde8`` and the
+    same bits (as ``interior_cuda.pde8_sor``'s). ``x`` is (H, W) or
+    (C, H, W), C <= 3, H, W >= 3; the weights are (H, W) planes shared by
+    the channels; TRACE and B each have x's shape or are one shared (H, W)
+    plane. Returns new X."""
+    weights = (ww, wnw, wn, wne, we, wse, ws, wsw)
+    if x.device.type != "cuda":
+        raise ValueError(f"resident pde8_sor takes CUDA tensors, got {x.device}")
+    channels = pde8_channels(x, trace, b, weights)
+    if channels is None:
+        raise ValueError(f"resident pde8_sor takes (H, W) or (C <= 3, H, W) X with (H, W) "
+                         f"weights, got {tuple(x.shape)} and {tuple(ww.shape)}")
+    h, w = x.shape[-2:]
+    for name, t in zip(PDE8_NAMES, (x, trace, b) + weights):
+        _check("resident pde8_sor", (name,), (t,), t.shape, x.device)
+    plan = _plan("resident pde8_sor", plan, "pde8", channels, h, w, x.device)
+    out = torch.empty_like(x)
+    plane = h * w * 4
+
+    def per_channel(t):
+        step = plane if t.ndim == x.ndim and channels > 1 else 0
+        return (ctypes.c_void_p * channels)(*(t.data_ptr() + c * step for c in range(channels)))
+
+    edge = _edge(plan, "pde8", channels, w, x.device)
+    wptrs = (ctypes.c_void_p * 8)(*(wt.data_ptr() for wt in weights))
+    _launch("resident pde8_sor", "resident_pde8", plan, x.device, per_channel(x),
+            per_channel(trace), per_channel(b), wptrs, per_channel(out),
+            None if edge is None else edge.data_ptr(), channels, h, w, max(int(iters), 0),
+            float(omega), 1.0 - float(omega), lib=_lib8())
+    LAUNCHES["resident_pde8"] += 1
+    return out

@@ -1,25 +1,29 @@
 #!/usr/bin/env python3
-"""Device time of the resident SOR kernel (``pde_tpu_torch/csrc/resident_sor.cu``)
-over launch plans, beside the global kernels, on one CUDA card.
+"""Device time of the resident SOR kernels (``pde_tpu_torch/csrc/resident_sor.cu``,
+``resident8_sor.cu``) over launch plans, beside the global kernels, on one
+CUDA card.
 
     python3 scripts/resident_plan_sweep.py [--seed N] [--reps N] [--out FILE]
+        [--families llin4 disp llin8 pde8]
 
-At every level shape of ``flow_nd``'s pyramid (llin4, B = 1) and of the
-stereo pyramid (disp llin4, B = 1 and 2) at 3x480x640, iters = 4 with 5%
-NaN in Cu and Du: every plan the kernel takes among a few scopes and band
+At every level shape of ``flow_nd``'s pyramid (llin4, B = 1), of the
+stereo pyramid (disp llin4, B = 1 and 2), of ``flow_ad``'s (llin8, the same
+levels as ``flow_nd``'s) and of ``tv_denoise8``'s (pde8, C = 1 and 3 over
+shared weights) at 3x480x640, iters = 4 with 5% NaN in Cu and Du (TRACE
+for pde8): every plan the kernel takes among a few scopes and band
 counts (for each scope and slots a thread the fewest bands,
 and the most bands a cluster and the grid take), each held against
-the global kernel bit for bit (disp also against the plain version), and
-timed beside the global kernel (``flow_llin4_sor.cu``, ``interior_sor.cu``)
-and, for llin4, the tile kernel with k = iters (``tiled_sor.cu``, one
-launch). Times: device ms a call, ``REPS`` calls queued behind a
+the global kernel bit for bit (disp and pde8 also against the plain
+version), and timed beside the global kernel (``flow_llin4_sor.cu``,
+``interior_sor.cu``) and, for llin4, the tile kernel with k = iters
+(``tiled_sor.cu``, one launch). Times: device ms a call, ``REPS`` calls queued behind a
 ``torch.cuda._sleep`` between two CUDA events (so the host's per-call cost
 is not counted), taken in turns (global, every plan, every plan again in
 reverse, global); and the profiler's device time a call of the default
 plan (``kernels/resident_cuda.py::plan_resident``) and of the global
 kernel; the default plan also at iters 0 and 8 (a call's fixed cost and
 its cost a sweep). A plan the card refuses (a cluster it cannot schedule) is
-recorded as refused. Prints ``nvcc -Xptxas -v`` for the resident source
+recorded as refused. Prints ``nvcc -Xptxas -v`` for the resident sources
 (registers, spills), the card's name and power limit and, last, one JSON
 object of every result; exits non-zero without a card or if any plan
 disagrees with the global kernel.
@@ -28,6 +32,7 @@ disagrees with the global kernel.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
@@ -38,14 +43,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+HERE = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(HERE))
 
 REPS = 40
 SLEEP_CYCLES = 40_000_000  # ~20 ms at the H100's clock: longer than the host's enqueue
 ITERS, OMEGA = 4, 1.9
 SHAPE = (480, 640)
-# (family, batches, the pyramid's stop size: flow_nd 20, the stereo models 10)
-CASES = (("llin4", (1,), 20), ("disp", (1, 2), 10))
+# (family, batches, the levels: flow_nd's and flow_ad's pyramid stops at 20
+# px, the stereo models' at 10, tv_denoise8's partial one after a level)
+CASES = (("llin4", (1,), 20), ("disp", (1, 2), 10), ("llin8", (1,), 20),
+         ("pde8", (1, 3), "partial"))
 
 
 def device_ms(fn, reps: int = REPS) -> float:
@@ -112,8 +120,9 @@ def candidates(resident_cuda, family: str, batch: int, h: int, w: int, sms: int)
     cluster and the grid take, once each."""
     plans = [resident_cuda.plan_resident(h, w, family, batch, sms)]
     plans += resident_cuda.plans_resident(h, w, family, batch, sms)
+    grid_bands = sms // batch if family == "disp" else sms  # pde8's channels share a block
     plans += [resident_cuda.plan_with_bands(h, w, family, batch, n, sms)
-              for n in (resident_cuda.MAX_CLUSTER, sms // batch)]
+              for n in (resident_cuda.MAX_CLUSTER, grid_bands)]
     out = []
     for p in plans:
         if p is not None and p not in out:
@@ -121,17 +130,18 @@ def candidates(resident_cuda, family: str, batch: int, h: int, w: int, sms: int)
     return out
 
 
-def build_all(build, sources, report: Path | None) -> None:
-    """Build the sources, the first with ``-Xptxas -v``: its registers,
-    stack and spills are printed (each kernel on one line) and, in full,
-    written to ``report``."""
+def build_all(build, verbose, sources, report: Path | None) -> None:
+    """Build the sources, those of ``verbose`` with ``-Xptxas -v``: their
+    registers, stack and spills are printed (each kernel on one line) and,
+    in full, written to ``report``."""
     import contextlib
     import io
     import re
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        build.build(sources[0], verbose=True)
+        for name in verbose:
+            build.build(name, verbose=True, force=True)
     text = buf.getvalue()
     if report:
         report.parent.mkdir(parents=True, exist_ok=True)
@@ -144,8 +154,8 @@ def build_all(build, sources, report: Path | None) -> None:
         print(f"ptxas {name}: {regs.group(1) if regs else '?'} registers, "
               + (f"{spill.group(1)} B stack, {spill.group(2)} B spill stores, "
                  f"{spill.group(3)} B spill loads" if spill else "no stack line"), flush=True)
-    with ThreadPoolExecutor(len(sources) - 1) as pool:
-        list(pool.map(build.build, sources[1:]))
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(build.build, sources))
 
 
 def main() -> None:
@@ -156,7 +166,9 @@ def main() -> None:
     ap.add_argument("--ptxas", type=Path, default=None,
                     help="write the resident source's -Xptxas -v report here")
     ap.add_argument("--sass", type=Path, default=None,
-                    help="write the resident library's SASS (cuobjdump -sass) here")
+                    help="write the resident libraries' SASS (cuobjdump -sass) here")
+    ap.add_argument("--families", nargs="+", default=[c[0] for c in CASES],
+                    choices=[c[0] for c in CASES])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA card: the resident kernel runs only on the card")
@@ -168,13 +180,21 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    sources = (resident_cuda.SOURCE, sor_cuda.SOURCE, interior_cuda.SOURCE, tiled_cuda.SOURCE)
-    build_all(build, sources, args.ptxas)
+    verbose = (resident_cuda.SOURCE, resident_cuda.SOURCE8)
+    build_all(build, verbose, (sor_cuda.SOURCE, interior_cuda.SOURCE, tiled_cuda.SOURCE),
+              args.ptxas)
     if args.sass:
         cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
-        sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(sources[0]))],
-                              capture_output=True, text=True)
-        args.sass.write_text(sass.stdout + sass.stderr)
+        text = ""
+        for name in verbose:
+            sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(name))],
+                                  capture_output=True, text=True)
+            text += sass.stdout + sass.stderr
+        args.sass.write_text(text)
+    # chip_smoke.py's field makers and tv_denoise's pyramid rule
+    spec = importlib.util.spec_from_file_location("smoke_helpers", HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
     dev = torch.device("cuda", 0)
     sms = resident_cuda.sm_count(0)
     rng = np.random.default_rng(args.seed)
@@ -183,10 +203,26 @@ def main() -> None:
     llin_prep, llin_sw = sweeps.flow_llin4_sweep(OMEGA)
 
     for family, batches, stop in CASES:
+        if family not in args.families:
+            continue
+        levels = (smoke.partial_pyramid_shapes(SHAPE, 0.75, 0.75) if stop == "partial"
+                  else pyramid_scales(*SHAPE, 0.75, stop))
         for batch in batches:
-            for h, w in pyramid_scales(*SHAPE, 0.75, stop):
-                sets = fields(rng, family, batch, h, w, dev)
-                if family == "llin4":
+            for h, w in levels:
+                tile = plain = None
+                if family == "llin8":
+                    f = smoke.llin8_fields(rng, h, w, True, dev)
+                    glob = partial(sor_cuda.flow_llin8_sor, *f, ITERS, OMEGA)
+                    run = lambda plan, it=ITERS, f=f: resident_cuda.flow_llin8_sor(
+                        *f, it, OMEGA, plan=plan)
+                elif family == "pde8":
+                    f = smoke.pde8_fields(rng, batch, h, w, True, dev)
+                    glob = partial(interior_cuda.pde8_sor, *f, ITERS, OMEGA)
+                    run = lambda plan, it=ITERS, f=f: (resident_cuda.pde8_sor(
+                        *f, it, OMEGA, plan=plan),)
+                    plain = plain_sor.sor_pde8(*f, ITERS, OMEGA)
+                elif family == "llin4":
+                    sets = fields(rng, family, batch, h, w, dev)
                     f = sets[0]
                     glob = partial(sor_cuda.flow_llin4_sor, *f, ITERS, OMEGA)
                     run = lambda plan, it=ITERS, f=f: resident_cuda.flow_llin4_sor(
@@ -194,8 +230,8 @@ def main() -> None:
                     tf = tuple(f[2:4]) + tuple(f[:2]) + tuple(f[4:])
                     tile = partial(tiled.tiled_relax, tf, llin_sw, 2, ITERS, k_max=ITERS,
                                    prepare_fn=llin_prep)
-                    plain = None
                 else:
+                    sets = fields(rng, family, batch, h, w, dev)
                     stacked = [torch.stack(c) for c in zip(*sets)] if batch == 2 else sets[0]
                     glob = partial(interior_cuda.disp_llin4_sor, *stacked, ITERS, OMEGA)
                     if batch == 2:
@@ -205,9 +241,9 @@ def main() -> None:
                         run = lambda plan, it=ITERS, s=stacked: (resident_cuda.disp_llin4_sor(
                             *s, it, OMEGA, plan=plan),)
                     plain = plain_sor.sor_disp_llin4(*stacked, ITERS, OMEGA)
-                    tile = None
                 want = glob()
-                want = want if isinstance(want, tuple) else tuple(want) if batch == 2 else (want,)
+                want = (want if isinstance(want, tuple)
+                        else tuple(want) if family == "disp" and batch == 2 else (want,))
                 plans, rows = candidates(resident_cuda, family, batch, h, w, sms), []
                 for plan in plans:
                     try:
@@ -218,7 +254,8 @@ def main() -> None:
                         continue
                     same = bit_equal(got, want)
                     if plain is not None:
-                        same = same and bit_equal(got, tuple(plain) if batch == 2 else (plain,))
+                        same = same and bit_equal(
+                            got, tuple(plain) if family == "disp" and batch == 2 else (plain,))
                     if not same:
                         wrong.append((family, batch, h, w, plan))
                     rows.append({"plan": vars(plan), "bit_equal": same,

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Warm frame times of the SOR paths whose solves the resident kernel takes
-(``flow_nd``, ``disparity_nd``, ``disparity_sym``; default parameters,
-3x480x640) on one CUDA card, for the ``pde_tpu_torch`` package under
-``--root``.
+"""Warm frame times of the SOR paths whose solves the resident kernels take
+(``flow_nd``, ``disparity_nd``, ``disparity_sym``, ``flow_ad``,
+``tv_denoise8``; default parameters, 3x480x640) on one CUDA card, for the
+``pde_tpu_torch`` package under ``--root``.
 
     python3 scripts/sor_frame_times.py [--root DIR] [--frames N] [--seed N] [--label TEXT]
+        [--models NAME ...]
 
 To compare two checkouts on one card, run it for each in turns (parent,
 change, change, parent) within one call. For each model: one cold frame
@@ -40,6 +41,8 @@ def main() -> None:
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--label", default=None)
+    ap.add_argument("--models", nargs="+", default=None,
+                    help="the models to time (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA card: the frames are timed on the card")
@@ -52,7 +55,9 @@ def main() -> None:
     import pde_tpu_torch
     from pde_tpu_torch.models.disparity import disparity_nd
     from pde_tpu_torch.models.disparity_sym import disparity_sym
+    from pde_tpu_torch.models.flow_ad import flow_ad
     from pde_tpu_torch.models.flow_nd import flow_nd
+    from pde_tpu_torch.models.tv_denoise import tv_denoise8
 
     if Path(pde_tpu_torch.__file__).resolve().parent.parent != root:
         sys.exit(f"pde_tpu_torch came from {pde_tpu_torch.__file__}, not {root}")
@@ -65,9 +70,13 @@ def main() -> None:
               for f in smoke.shifted_frames(rng, SHAPE, [(0.0, 0.0), FLOW_SHIFT]))
     l0, l1 = (torch.from_numpy(f).to(dev)
               for f in smoke.shifted_frames(rng, SHAPE, [(0.0, 0.0), DISP_SHIFT]))
+    noisy = torch.from_numpy(smoke.noisy_blocks(rng, SHAPE)).to(dev)
     runs = {"flow_nd": lambda: flow_nd(f0, f1, "grad", "gradmag"),
             "disparity_nd": lambda: disparity_nd(l0, l1, "grad", "gradmag"),
-            "disparity_sym": lambda: disparity_sym(l0, l1)}
+            "disparity_sym": lambda: disparity_sym(l0, l1),
+            "flow_ad": lambda: flow_ad(f0, f1, "grad", "gradmag"),
+            "tv_denoise8": lambda: tv_denoise8(noisy)}
+    runs = {k: v for k, v in runs.items() if args.models is None or k in args.models}
     out = {"root": str(root), "label": args.label or root.name, "nvidia_smi": smi,
            "device": torch.cuda.get_device_name(0), "models": {}}
     for name, run in runs.items():

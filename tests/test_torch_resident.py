@@ -265,7 +265,8 @@ def test_library_name_follows_source_and_headers():
     path = build.library_path(resident_cuda.SOURCE)
     assert path.parent == build.BUILD_DIR and path.name.startswith("libresident_sor_")
     headers = [f.name for f in build._with_headers(build.CSRC / "resident_sor.cu")]
-    assert headers == ["resident_sor.cu", "disp_update.cuh", "flow_update.cuh"]
+    assert headers == ["resident_sor.cu", "disp_update.cuh", "flow_update.cuh",
+                       "resident_scope.cuh"]
     # the global disp kernel rounds with the same header
     assert "disp_update.cuh" in [f.name for f in build._with_headers(build.CSRC /
                                                                      "interior_sor.cu")]

@@ -214,8 +214,11 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
 
 
 def test_tiled_source_includes_the_shared_arithmetic():
-    for source in (tiled_cuda.SOURCE, "flow_llin4_sor"):
+    # the global source's llin8 arithmetic is flow8_update.cuh, which the
+    # resident 8-neighbour kernel shares; it includes flow_update.cuh too
+    for source, headers in ((tiled_cuda.SOURCE, ["flow_update.cuh"]),
+                            ("flow_llin4_sor", ["flow8_update.cuh", "flow_update.cuh"])):
         files = build._with_headers(build.CSRC / f"{source}.cu")
-        assert [f.name for f in files] == [f"{source}.cu", "flow_update.cuh"]
+        assert [f.name for f in files] == [f"{source}.cu", *headers]
     path = build.library_path(tiled_cuda.SOURCE)
     assert path.parent == build.BUILD_DIR and path.name.startswith("libtiled_sor_")
