@@ -23,10 +23,12 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    serial and double-buffered, llin4 and elin4, against the plain tile
    schedule, bit for bit between its two variants, and beside the global
    kernels. The resident kernel (``csrc/resident_sor.cu``, one launch a
-   solver call), llin4 and disp llin4 (B = 1 and 2), against the global
-   kernels bit for bit and the plain version (disp bit for bit too), at the
-   solvers' shapes and at every level of ``flow_nd``'s and the stereo
-   models' pyramids, with and without NaN data. The resident 8-neighbour
+   solver call), llin4, disp llin4 (B = 1 and 2), pde4 (C = 1 and 3, TRACE
+   and B per channel or shared) and elin4, against the global kernels bit
+   for bit and the plain version (disp and pde4 bit for bit too), at the
+   solvers' shapes and at every level of ``flow_nd``'s, the stereo models',
+   ``tv_denoise4``'s and ``flow_hs``'s pyramids, with and without NaN data.
+   The resident 8-neighbour
    kernel (``csrc/resident8_sor.cu``), llin8 against the global kernel bit
    for bit and the plain version, pde8 (C = 1 and 3) against both bit for
    bit, at the solvers' shapes and at every level of ``flow_ad``'s and
@@ -46,15 +48,16 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    fields recover the shift with opposite signs, each solve of the pair is
    one kernel call with a batch of 2, its planes never stacked.
 8. ``tv_denoise4``, default parameters, on a noisy piecewise-flat
-   3x480x640 image: exact launches, kernel path against plain path, and
-   the noise in a flat patch must fall.
+   3x480x640 image: exact launches (one resident pde4 launch a solver
+   call), kernel path against plain path, and the noise in a flat patch
+   must fall.
 9. ``flow_hs`` with default parameters (the line-implicit PCG, every line
    solve the tridiagonal kernel) on the 3x480x640 pair of phase 4: exact
    launches, finite flow; a small pair against the CPU path, and the
    kernel path against the plain path at a reduced size.
-10. ``flow_hs`` with ``solver=1`` (the elin4 kernel): exact launches,
-    kernel path against plain path, and a 1-px shift recovered at 400
-    sweeps on a 48x56 pair.
+10. ``flow_hs`` with ``solver=1`` (the resident elin4 kernel): exact
+    launches (one a level), kernel path against plain path, and a 1-px
+    shift recovered at 400 sweeps on a 48x56 pair.
 11. ``diffusion4``, default parameters, on a noisy 3x480x640 image: exact
     launches, kernel path against plain path, the noise must fall.
 12. ``flow_ad`` (anisotropic tensor flow, the resident llin8 kernel) with
@@ -74,9 +77,10 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
     bytes per pixel-iteration and the bandwidth that implies; exact
     launches; a 1024-sweep result of each tile kernel against the global
     one.
-16. ``flow_nd``, ``disparity_nd``, ``flow_ad`` and ``tv_denoise8`` at
-    3x1024x1024, whose finest level has no resident plan (``tv_denoise8``'s
-    second neither): exact launches of the global kernels there and of the
+16. ``flow_nd``, ``disparity_nd``, ``flow_ad``, ``tv_denoise8``,
+    ``tv_denoise4`` and ``flow_hs`` with ``solver=1`` at 3x1024x1024, whose
+    finest level has no resident plan (``tv_denoise8``'s second neither, nor
+    ``tv_denoise4``'s): exact launches of the global kernels there and of the
     resident kernel at every other level; finite fields.
 
 Every phase from 4 on sets every kernel's launch count to 0 just before it
@@ -122,9 +126,11 @@ SOR_SHAPES = [(1, 1), (1, 9), (9, 1), (37, 53), (480, 640), (481, 641), (1024, 1
 # interior pixel, so their border fill is all there is
 INTERIOR_SHAPES = [(2, 5), (3, 3), (37, 53), (480, 640), (481, 641), (1024, 1024)]
 TIME_SHAPES = [(481, 641), (1024, 1024)]  # the first one is reported as the kernel's ms
-# the 8-neighbour kernels are timed at the main path's finest level too, where
-# tv_denoise8's pde8 call (C = 3) has a resident plan and 481x641 has none
-EIGHT = ("flow_llin8_sor", "pde8_sor", "resident_flow_llin8", "resident_pde8")
+# the kernels timed at the main path's finest level too (the 8-neighbour ones
+# and those of rows 3 and 6a), where the pde8 and pde4 calls of the
+# denoisers (C = 3) have a resident plan and 481x641 has none
+AT_MAIN = ("flow_llin8_sor", "pde8_sor", "resident_flow_llin8", "resident_pde8", "pde4_sor",
+           "flow_elin4_sor", "resident_pde4", "resident_flow_elin4")
 TILED_KS = (1, 2, 4)  # the tile kernel's k_max in phase 3
 # tridiagonal systems, solved along both axes: line lengths 1, 2, 3, 7, 33,
 # 480, 481, 640, 641 and 1024 in each direction
@@ -141,13 +147,15 @@ FP32_FLOPS = 67e12
 # float operations per relaxed pixel and sweep (the kernels' arithmetic)
 FLOPS_PER_PX = {"flow_llin4_sor": 40, "flow_elin4_sor": 30, "disp_llin4_sor": 23,
                 "resident_flow_llin4": 40, "resident_disp_llin4": 23,
+                "resident_flow_elin4": 30, "resident_pde4": 16,
                 "resident_flow_llin8": 64, "resident_pde8": 28,
                 "pde4_sor": 16, "flow_llin8_sor": 64, "pde8_sor": 28,
                 "tiled_flow_llin4": 40, "tiled_flow_llin4_db": 40,
                 "tiled_flow_elin4": 30, "tiled_flow_elin4_db": 30}
 # the kernels whose every float operation is rounded alone in the plain
 # version's order, held to EXACT_TOL; the others contract to FMA (SOR_TOL)
-EXACT = ("tridiag", "tridiag_zebra_pass", "pde8_sor", "resident_disp_llin4", "resident_pde8")
+EXACT = ("tridiag", "tridiag_zebra_pass", "pde8_sor", "resident_disp_llin4", "resident_pde8",
+         "resident_pde4")
 # float operations per line element of one whole tridiagonal solve
 TRIDIAG_FLOPS_PER_PX = 8
 # dependent rounded operations a line element adds to a solve's chain (3
@@ -183,7 +191,7 @@ OWN_KERNELS = {"prepare_kernel", "sweep_kernel", "prepare8_kernel", "sweep8_kern
                "disp_color_kernel", "pde4_color_kernel", "pde8_color_kernel", "border_kernel",
                "border_small_kernel", "lines_kernel", "tiled_sweep_kernel",
                "resident_llin4_kernel", "resident_disp_kernel", "resident_llin8_kernel",
-               "resident_pde8_kernel"}
+               "resident_pde8_kernel", "resident_flow4_kernel", "resident_pde4_kernel"}
 # the tile kernel's entries: (family, double-buffered)
 TILED = {"tiled_flow_llin4": ("flow_llin4", False), "tiled_flow_llin4_db": ("flow_llin4", True),
          "tiled_flow_elin4": ("flow_elin4", False), "tiled_flow_elin4_db": ("flow_elin4", True)}
@@ -384,12 +392,14 @@ def disp_fields(rng, b, h, w, nan: bool, dev):
                   ("cu", "duc") if nan else (), rng, dev)
 
 
-def pde4_fields(rng, c, h, w, nan: bool, dev):
+def pde4_fields(rng, c, h, w, nan: bool, dev, shared: bool = False):
     """pde4 fields as tv_denoise4 hands them over: X, TRACE, B of (H, W)
-    for c == 1 else (c, H, W), one shared (H, W) plane per weight, TRACE
-    above the weights' sum; 5% NaN in TRACE when ``nan``."""
+    for c == 1 else (c, H, W) (TRACE and B one (H, W) plane with
+    ``shared``), one shared (H, W) plane per weight, TRACE above the
+    weights' sum; 5% NaN in TRACE when ``nan``."""
     shape = (h, w) if c == 1 else (c, h, w)
-    f = {n: unit_field(rng, n, shape) for n in ("x", "trace", "b")}
+    f = {"x": unit_field(rng, "x", shape)}
+    f.update({n: unit_field(rng, n, (h, w) if shared else shape) for n in ("trace", "b")})
     f.update({n: unit_field(rng, n, (h, w)) for n in ("ww", "wn", "we", "ws")})
     f["trace"] = f["trace"] + f["ww"] + f["wn"] + f["we"] + f["ws"]
     return to_dev(f, ("trace",) if nan else (), rng, dev)
@@ -620,18 +630,24 @@ def main() -> None:
 
     # the resident kernel: the plans and the kernel agree on a block's shared
     # memory; each family against the global kernel bit for bit and against
-    # the plain version (disp bit for bit), at the solvers' shapes (iters 4
-    # and 5) and at every level of flow_nd's (llin4) and the stereo models'
-    # (disp, B = 1 and 2) pyramids at MAIN_SHAPE (iters 4)
+    # the plain version (disp and pde4 bit for bit), at the solvers' shapes
+    # (iters 4 and 5) and at every level of flow_nd's (llin4), the stereo
+    # models' (disp, B = 1 and 2), tv_denoise4's (pde4, C = 1 and 3; iters 5)
+    # and flow_hs's (elin4; iters 20) pyramids at MAIN_SHAPE (iters 4)
     flow_levels = pyramid_scales(*MAIN_SHAPE[1:], FlowNDParams().scl_factor, 20)
     stereo_levels = pyramid_scales(*MAIN_SHAPE[1:], DisparityParams().scl_factor, 10)
-    for fam_i, (family, levels) in enumerate((("llin4", flow_levels), ("disp", stereo_levels))):
-        for h, w in levels:
+    tp4_, hp_ = TVDenoise4Params(), FlowHSParams()
+    tv4_levels_hw = partial_pyramid_shapes(MAIN_SHAPE, tp4_.scl, tp4_.scl_factor)
+    hs_levels_hw = pyramid_scales(*MAIN_SHAPE[1:], hp_.scl_factor, 20, hp_.scales)
+    sor_levels = {"llin4": flow_levels, "disp": stereo_levels, "pde4": tv4_levels_hw,
+                  "elin4": hs_levels_hw}
+    for fam_i, family in enumerate(resident_cuda.SOR_FAMILIES):
+        for h, w in sor_levels[family]:
             for b in range(1, resident_cuda.MAX_BATCH[family] + 1):
                 pl = resident_cuda.plan_resident(h, w, family, b, sms)
                 if pl is None:
                     fail(f"no resident {family} plan for a level of {h}x{w}, B={b}")
-                got = resident_lib.resident_sor_smem_bytes(fam_i, pl.rows, w)
+                got = resident_lib.resident_sor_smem_bytes(fam_i, b, pl.rows, w)
                 if got != pl.smem_bytes:
                     fail(f"resident plan {pl} at {h}x{w}: the kernel counts {got} bytes")
     resident_cases = 0
@@ -679,6 +695,51 @@ def main() -> None:
                     resident_cases += 1
             print(f"  resident_disp_llin4 {h}x{w} B={b} ({pl.scope}): == disp_llin4_sor and "
                   f"plain bit for bit", flush=True)
+    # pde4 as tv_denoise4 calls it: C channels over shared (H, W) weights,
+    # TRACE and B per channel or one shared plane
+    for h, w in INTERIOR_SHAPES + tv4_levels_hw:
+        for c in (1, 3):
+            pl = resident_cuda.plan_resident(h, w, "pde4", c, sms)
+            if pl is None:
+                print(f"  resident_pde4 {h}x{w} C={c}: no plan (the global kernel takes it)",
+                      flush=True)
+                continue
+            at_level = (h, w) not in INTERIOR_SHAPES
+            for iters in ((tp4_.inner_iter,) if at_level else (4, 5)):
+                for shared in ((False,) if c == 1 else (False, True)):
+                    for nan in (False, True):
+                        fields = pde4_fields(rng, c, h, w, nan, dev, shared)
+                        label = f"C={c} {h}x{w} iters={iters} shared={shared} nan={nan}"
+                        got = resident_cuda.pde4_sor(*fields, iters, tp4_.omega)
+                        want = plain_sor.sor_pde4(*fields, iters, tp4_.omega)
+                        hold("resident_pde4", got, want, label)
+                        glob = interior_cuda.pde4_sor(*fields, iters, tp4_.omega)
+                        if not (bit_equal((got,), (want,)) and bit_equal((got,), (glob,))):
+                            fail(f"resident_pde4 at {label}: not the plain version's and the "
+                                 f"global kernel's bits")
+                        resident_cases += 1
+            print(f"  resident_pde4 {h}x{w} C={c} ({pl.scope} {pl.blocks}/{pl.slots}): == "
+                  f"pde4_sor and plain bit for bit", flush=True)
+    # elin4 as flow_hs calls it: every level 20 sweeps
+    for h, w in SOR_SHAPES + hs_levels_hw:
+        pl = resident_cuda.plan_resident(h, w, "elin4", 1, sms)
+        if pl is None:
+            print(f"  resident_flow_elin4 {h}x{w}: no plan (the global kernel takes it)",
+                  flush=True)
+            continue
+        errs = []
+        for iters in ((4, 5) if (h, w) in SOR_SHAPES else (hp_.iter,)):
+            for nan in (False, True):
+                fields = elin_fields(rng, h, w, nan, dev)
+                label = f"{h}x{w} iters={iters} nan={nan}"
+                got = resident_cuda.flow_elin4_sor(*fields, iters, 1.9)
+                errs.append(hold("resident_flow_elin4", got,
+                                 plain_sor.sor_flow_elin4(*fields, iters, 1.9), label))
+                if not bit_equal(got, sor_cuda.flow_elin4_sor(*fields, iters, 1.9)):
+                    fail(f"resident_flow_elin4 at {label}: not the global kernel's bits")
+                resident_cases += 1
+        print(f"  resident_flow_elin4 {h}x{w} ({pl.scope} {pl.blocks}/{pl.slots}): == "
+              f"flow_elin4_sor bit for bit; max_abs_err vs plain {max(errs):.3g}", flush=True)
     print(f"  resident kernel: {resident_cases} cases, each bit for bit against the global "
           f"kernel", flush=True)
 
@@ -895,6 +956,13 @@ def main() -> None:
             # flow_hs's call with solver=1: every pixel relaxed
             "flow_elin4_sor": (sor_cuda.flow_elin4_sor, plain_sor.sor_flow_elin4,
                                elin_fields(rng, h, w, True, dev), 1.9, (11 + 2) * 4 * px, px),
+            # the resident kernel at tv_denoise4's and flow_hs's calls
+            "resident_pde4": (resident_cuda.pde4_sor, plain_sor.sor_pde4,
+                              pde4_fields(rng, 3, h, w, True, dev), 1.75, (4 * 3 + 4) * 4 * px,
+                              3 * (h - 2) * (w - 2)),
+            "resident_flow_elin4": (resident_cuda.flow_elin4_sor, plain_sor.sor_flow_elin4,
+                                    elin_fields(rng, h, w, True, dev), 1.9, (11 + 2) * 4 * px,
+                                    px),
             # the resident kernel at flow_nd's and disparity_nd's calls
             "resident_flow_llin4": (resident_cuda.flow_llin4_sor, plain_sor.sor_flow_llin4,
                                     sor_fields(rng, h, w, True, dev), 1.9, (13 + 2) * 4 * px,
@@ -918,9 +986,10 @@ def main() -> None:
                               3 * (h - 2) * (w - 2)),
         }
         for name, (kern, plain, fields, omega, nbytes, relaxed) in cases.items():
-            if (h, w) not in TIME_SHAPES and name not in EIGHT:
+            if (h, w) not in TIME_SHAPES and name not in AT_MAIN:
                 continue
             family, batch = {"resident_flow_llin4": ("llin4", 1), "resident_disp_llin4": ("disp", 1),
+                             "resident_flow_elin4": ("elin4", 1), "resident_pde4": ("pde4", 3),
                              "resident_flow_llin8": ("llin8", 1),
                              "resident_pde8": ("pde8", 3)}.get(name, (None, 1))
             if family and resident_cuda.plan_resident(h, w, family, batch, sms) is None:
@@ -1032,6 +1101,7 @@ def main() -> None:
         planned = sum(resident_cuda.plan_resident(h, w, family, batch, sms) is not None
                       for h, w in levels)
         resident_key = {"llin4": "resident_flow_llin4", "disp": "resident_disp_llin4",
+                        "pde4": "resident_pde4", "elin4": "resident_flow_elin4",
                         "llin8": "resident_flow_llin8", "pde8": "resident_pde8"}[family]
         return {resident_key: planned * calls,
                 global_key: (len(levels) - planned) * calls * per_call}
@@ -1191,16 +1261,18 @@ def main() -> None:
     phase(f"8 tv_denoise4 {MAIN_SHAPE}, default parameters")
     tp = TVDenoise4Params()
     noisy = torch.from_numpy(noisy_blocks(rng, MAIN_SHAPE)).to(dev)
-    tv_levels = partial_pyramid_levels(MAIN_SHAPE, tp.scl, tp.scl_factor)
-    tv_expected = tv_levels * (tp.outer_iter + 1) * 3 * tp.inner_iter
+    tv_levels = len(tv4_levels_hw)
+    # C = 3 channels over shared weights: one resident launch a call
+    tv_expected = planned_launches(tv4_levels_hw, tp.outer_iter + 1, "pde4", MAIN_SHAPE[0],
+                                   "pde4_sor", 3 * tp.inner_iter)
     frame_s = []
     for _ in range(2):
         reset_counts()
         den, sec = timed(lambda: tv_denoise4(noisy))
         frame_s.append(sec)
-        check_counts("tv_denoise4", {"pde4_sor": tv_expected})
-    main_launches["pde4_sor"] = tv_expected
-    print(f"  {tv_levels} levels x {tp.outer_iter + 1} calls x 3*{tp.inner_iter}; "
+        check_counts("tv_denoise4", tv_expected)
+    main_launches.update(tv_expected)
+    print(f"  {tv_levels} levels x {tp.outer_iter + 1} calls, one resident launch each; "
           f"image time: cold {frame_s[0]:.3f} s, warm {frame_s[1]:.3f} s", flush=True)
     print_profile("tv_denoise4", frame_s[1], device_profile(lambda: tv_denoise4(noisy)))
     if den.shape != MAIN_SHAPE or not torch.isfinite(den).all():
@@ -1278,11 +1350,18 @@ def main() -> None:
         fail(f"flow_hs card and CPU paths differ by {d_cpu} px > {FLOW_TOL}")
 
     phase(f"10 flow_hs {MAIN_SHAPE}, solver=1 (elin4 SOR)")
-    elin_expected = hs_levels * (1 + 2 * hp.iter)
-    reset_counts()
-    (u1, v1), sec = timed(lambda: flow_hs(it0, it1, solver=1))
-    check_counts("flow_hs solver=1", {"flow_elin4_sor": elin_expected})
-    main_launches["flow_elin4_sor"] = elin_expected
+    # one resident launch a level
+    elin_expected = sor_launches(MAIN_SHAPE, hp.scl_factor, 20, hp.scales, 1, "elin4", 1,
+                                 "flow_elin4_sor", 1 + 2 * hp.iter)
+    frame_s = []
+    for _ in range(3):
+        reset_counts()
+        (u1, v1), sec = timed(lambda: flow_hs(it0, it1, solver=1))
+        frame_s.append(sec)
+        check_counts("flow_hs solver=1", elin_expected)
+    main_launches.update(elin_expected)
+    print_profile("flow_hs solver=1", min(frame_s[1:]),
+                  device_profile(lambda: flow_hs(it0, it1, solver=1)))
     if not (torch.isfinite(u1).all() and torch.isfinite(v1).all()):
         fail("flow_hs solver=1: non-finite flow")
     reset_counts()
@@ -1290,8 +1369,9 @@ def main() -> None:
         (u1p, v1p), plain_s = timed(lambda: flow_hs(it0, it1, solver=1))
     check_counts("the plain path", {})
     d_plain = mean_flow_diff((u1, v1), (u1p, v1p))
-    print(f"  {hs_levels} levels x (1 + 2*{hp.iter}) launches; frame {sec:.3f} s; plain path "
-          f"{plain_s:.3f} s, mean |dflow| vs kernel path {d_plain:.3g} px", flush=True)
+    print(f"  {hs_levels} levels, one resident launch each; frame time: cold {frame_s[0]:.3f} s, "
+          f"warm {frame_s[1]:.3f} / {frame_s[2]:.3f} s; plain path {plain_s:.3f} s, mean "
+          f"|dflow| vs kernel path {d_plain:.3g} px", flush=True)
     if not d_plain <= FLOW_TOL:
         fail(f"flow_hs solver=1 kernel path and plain path differ by {d_plain} px")
     # the pair of tests/test_models.py: HS relaxed pointwise needs ~400
@@ -1580,12 +1660,14 @@ def main() -> None:
     for name in TILED:
         main_launches[name] = expected[name]
 
-    phase(f"16 flow_nd, disparity_nd, flow_ad and tv_denoise8 {LARGE_SHAPE}: levels without a "
-          f"resident plan")
+    phase(f"16 flow_nd, disparity_nd, flow_ad, tv_denoise8, tv_denoise4 and flow_hs solver=1 "
+          f"{LARGE_SHAPE}: levels without a resident plan")
     # the finest level is too large for one band an SM, so the global
     # kernels take its solves; every other level goes to the resident kernel
     # (tv_denoise8: neither level, 1024x1024 and 768x768, has a plan, since
-    # three channels' planes of a band would need more shared memory)
+    # three channels' planes of a band would need more shared memory;
+    # tv_denoise4: nor 768x768, whose three channels would need 5 slots a
+    # thread)
     big0, big1 = (torch.from_numpy(f).to(dev)
                   for f in shifted_frames(rng, LARGE_SHAPE, [(0.0, 0.0), MAIN_SHIFT]))
     for name, run, want, key in (
@@ -1603,7 +1685,14 @@ def main() -> None:
             ("tv_denoise8", lambda: tv_denoise8(big0 / 255.0),
              planned_launches(partial_pyramid_shapes(LARGE_SHAPE, tp8.scl, tp8.scl_factor),
                               tp8.outer_iter + 1, "pde8", LARGE_SHAPE[0], "pde8_sor",
-                              3 * tp8.inner_iter), "pde8_sor")):
+                              3 * tp8.inner_iter), "pde8_sor"),
+            ("tv_denoise4", lambda: tv_denoise4(big0 / 255.0),
+             planned_launches(partial_pyramid_shapes(LARGE_SHAPE, tp.scl, tp.scl_factor),
+                              tp.outer_iter + 1, "pde4", LARGE_SHAPE[0], "pde4_sor",
+                              3 * tp.inner_iter), "pde4_sor"),
+            ("flow_hs solver=1", lambda: flow_hs(big0, big1, solver=1),
+             sor_launches(LARGE_SHAPE, hp.scl_factor, 20, hp.scales, 1, "elin4", 1,
+                          "flow_elin4_sor", 1 + 2 * hp.iter), "flow_elin4_sor")):
         reset_counts()
         out, sec = timed(run)
         check_counts(name, want)
@@ -1629,6 +1718,10 @@ def main() -> None:
                                        "pde_tpu/kernels/sor_pallas.py:71"),
                "resident_disp_llin4": ("pde_tpu_torch/csrc/resident_sor.cu",
                                        "pde_tpu/kernels/tiled.py:113"),
+               "resident_pde4": ("pde_tpu_torch/csrc/resident_sor.cu",
+                                 "pde_tpu/kernels/sweeps.py:174"),
+               "resident_flow_elin4": ("pde_tpu_torch/csrc/resident_sor.cu",
+                                       "pde_tpu/kernels/sweeps.py:234"),
                # _stripe_kernel (tiled.py:113) driving these sweeps
                "resident_flow_llin8": ("pde_tpu_torch/csrc/resident8_sor.cu",
                                        "pde_tpu/kernels/sweeps.py:107"),
@@ -1644,11 +1737,11 @@ def main() -> None:
                   for name, (_, db) in TILED.items()}}
     th, tw = TIME_SHAPES[0]
     # the tridiagonal solve is reported whole, the fused pass coupled, along
-    # axis -2; a resident kernel without a plan at th x tw (pde8 with C = 3)
-    # at the main path's finest level
+    # axis -2; a resident kernel without a plan at th x tw (pde8 and pde4 with
+    # C = 3) at the main path's finest level
     key = {name: ((name, -2, th, tw) if name.startswith("tridiag") else (name, th, tw))
            for name in sources}
-    for name in EIGHT:
+    for name in AT_MAIN:
         if key[name] not in times:
             key[name] = (name, *MAIN_SHAPE[1:])
     report = {"kernels": [{

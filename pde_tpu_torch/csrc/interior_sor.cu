@@ -43,11 +43,15 @@
 // Du, four weights) and writes dU, about 36 B/px, for ~25 flops; pde4
 // reads X, TRACE, B and the weights, pde8 eight weights and writes every
 // pixel of a colour launch. Each 4-neighbour colour launch reads every other
-// float of a row, so it moves whole sectors for half their use. The disp
-// solves of every shape with a plan run on the resident kernel instead
-// (resident_sor.cu: one launch a call, the level on chip, the border filled
-// once at the end, since a filled border neighbour of an interior pixel
-// holds that pixel's own value).
+// float of a row, so it moves whole sectors for half their use. The disp and
+// pde4 solves of every shape with a resident plan run on the resident kernel
+// instead (resident_sor.cu: one launch a call, the level on chip, the border
+// filled once at the end, since a filled border neighbour of an interior
+// pixel holds that pixel's own value; the per-pixel arithmetic is
+// disp_update.cuh's and pde4_update.cuh's, so the two give the same bits).
+// These launches serve only the shapes without a plan: H or W of 2, a batch
+// of more than 2 (disp) or 3 (pde4) systems, pde4 weights per channel, or a
+// level above one band an SM (such as 1024x1024).
 //
 // pde8: a diagonal neighbour (i±1, j±1) has the pixel's own colour, and
 // the plain version computes a whole colour from the state before that
@@ -72,6 +76,7 @@
 #include <cuda_runtime.h>
 
 #include "disp_update.cuh"
+#include "pde4_update.cuh"
 #include "pde8_update.cuh"
 
 namespace {
@@ -81,16 +86,12 @@ constexpr int kBlockY = 8;
 constexpr int kBorderThreads = 256;
 
 // Each operation rounded on its own, in the plain version's order: no FMA
-// contraction, so on the card the kernel gives the plain version's floats.
+// contraction, so on the card the kernels give the plain version's floats.
 // tv_denoise4 needs that: where u == f its PsiData is ~6.7e7, and over its
 // outer iterations an ulp of difference grows into a visible one. The
-// helpers, and the disp update itself, live in disp_update.cuh, which the
-// resident kernel (resident_sor.cu) shares.
-using disp_sor::add_rn;
-using disp_sor::div_rn;
-using disp_sor::mul_rn;
-using disp_sor::nan_to_num;
-using disp_sor::sub_rn;
+// per-pixel updates live in disp_update.cuh, pde4_update.cuh and
+// pde8_update.cuh, which the resident kernels (resident_sor.cu,
+// resident8_sor.cu) share.
 
 // The interior pixel of colour `color` this thread takes, or false. Threads
 // map to (row, every other column) so that a warp covers 64 columns.
@@ -135,22 +136,11 @@ __global__ void pde4_color_kernel(float* x, const float* __restrict__ trace,
   const float* xb = x + bz * plane;
   const size_t pw_ = bz * w_stride + q;
 
-  const float a = ww[pw_];
-  const float b = wn[pw_];
-  const float c = we[pw_];
-  const float d = ws[pw_];
-  const float wsum = add_rn(add_rn(add_rn(a, b), c), d);
-  const float t = trace[bz * trace_stride + q];
-  const bool t_nan = isnan(t);
-  const float inv = div_rn(1.0f, t_nan ? wsum : nan_to_num(t));
-  const float b_eff = t_nan ? 0.0f : bb[bz * b_stride + q];
-  // sum_k w_k X_k in the order W, E, N, S
-  float nbr = mul_rn(xb[q - 1], a);
-  nbr = add_rn(nbr, mul_rn(xb[q + 1], c));
-  nbr = add_rn(nbr, mul_rn(xb[q - w], b));
-  nbr = add_rn(nbr, mul_rn(xb[q + w], d));
-  const float nx = mul_rn(add_rn(b_eff, nbr), inv);
-  x[bz * plane + q] = add_rn(mul_rn(one_minus_omega, xb[q]), mul_rn(omega, nx));
+  const pde4_sor::Weights k{ww[pw_], wn[pw_], we[pw_], ws[pw_]};
+  const float2 inv_b = pde4_sor::diagonal(trace[bz * trace_stride + q], bb[bz * b_stride + q],
+                                          pde4_sor::weight_sum(k));
+  x[bz * plane + q] = pde4_sor::update(xb[q], xb[q - 1], xb[q + 1], xb[q - w], xb[q + w], k,
+                                       inv_b, omega, one_minus_omega);
 }
 
 struct Weights8 {

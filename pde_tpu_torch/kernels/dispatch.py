@@ -1,14 +1,15 @@
 """Solver dispatch: the hand-written kernel for CUDA tensors, the plain
 PyTorch version for CPU tensors.
 
-A CUDA tensor goes to a kernel or raises; it never falls back. The llin4,
-disp llin4, llin8 and pde8 solves go to the resident kernels (one launch
-a call, ``resident_cuda``) wherever ``resident_cuda.plan_resident`` gives
-the shape a plan, and to the global kernels where it gives None; the
-choice is made from the shape, before any launch, as ``pde_tpu`` chooses
-between its resident and tiled kernels. ``plain_solvers()`` runs the plain version on any device, so
-that a check can hold the kernel against it on the card; the package
-itself never enters it.
+A CUDA tensor goes to a kernel or raises; it never falls back. Every SOR
+solve (llin4, elin4, disp llin4, pde4, llin8 and pde8) goes to the resident
+kernels (one launch a call, ``resident_cuda``) wherever
+``resident_cuda.plan_resident`` gives the shape a plan, and to the global
+kernels (``sor_cuda``, ``interior_cuda``) where it gives None; the choice is
+made from the shape, before any launch, as ``pde_tpu`` chooses between its
+resident and tiled kernels. ``plain_solvers()`` runs the plain version on
+any device, so that a check can hold the kernel against it on the card; the
+package itself never enters it.
 
 Every tridiagonal line solve of the package comes through here
 (``thomas_solve``, ``tridiag_factor``/``tridiag_solve`` and the zebra
@@ -63,6 +64,9 @@ def sor_flow_elin4(u, v, m, cu, cv, duc, dvc, ww, wn, we, ws, iters: int, omega:
     args = (u, v, m, cu, cv, duc, dvc, ww, wn, we, ws, iters, omega)
     if _plain(u):
         return _sor.sor_flow_elin4(*args)
+    plan = resident_cuda.plan_for(u, "elin4", 1) if u.ndim == 2 else None
+    if plan is not None:
+        return resident_cuda.flow_elin4_sor(*args, plan=plan)
     return sor_cuda.flow_elin4_sor(*args)
 
 
@@ -110,20 +114,26 @@ def sor_disp_llin_sym4(u0, du0, cu0, duc0, ww0, wn0, we0, ws0,
 
 
 def sor_pde4(x, trace, b, ww, wn, we, ws, iters: int, omega: float):
+    """(H, W) or (C, H, W) unknowns alike: on the card the resident kernel
+    takes up to 3 channels over shared (H, W) weights where the shape has a
+    plan, the global kernel every other call."""
     args = (x, trace, b, ww, wn, we, ws, iters, omega)
     if _plain(x):
         return _sor.sor_pde4(*args)
+    channels = resident_cuda.diag_channels("pde4", x, trace, b, (ww, wn, we, ws))
+    plan = resident_cuda.plan_for(x, "pde4", channels) if channels else None
+    if plan is not None:
+        return resident_cuda.pde4_sor(*args, plan=plan)
     return interior_cuda.pde4_sor(*args)
 
 
 def sor_pde8(x, trace, b, ww, wnw, wn, wne, we, wse, ws, wsw, iters: int, omega: float):
-    """(H, W) or (C, H, W) unknowns alike: on the card the resident kernel
-    takes up to 3 channels over shared (H, W) weights where the shape has a
-    plan, the global kernel every other call."""
+    """As ``sor_pde4``, with the eight weights W, NW, N, NE, E, SE, S, SW."""
     args = (x, trace, b, ww, wnw, wn, wne, we, wse, ws, wsw, iters, omega)
     if _plain(x):
         return _sor.sor_pde8(*args)
-    channels = resident_cuda.pde8_channels(x, trace, b, (ww, wnw, wn, wne, we, wse, ws, wsw))
+    channels = resident_cuda.diag_channels("pde8", x, trace, b,
+                                           (ww, wnw, wn, wne, we, wse, ws, wsw))
     plan = resident_cuda.plan_for(x, "pde8", channels) if channels else None
     if plan is not None:
         return resident_cuda.pde8_sor(*args, plan=plan)

@@ -1,8 +1,10 @@
 """ctypes wrapper of the resident red-black SOR kernels, each call one launch
 that keeps the level on chip across its sweeps:
 
-* ``csrc/resident_sor.cu``: llin4 (``flow_nd``'s solve) and disp llin4
-  (``disparity_nd``'s, and ``disparity_sym``'s pair as a batch of 2);
+* ``csrc/resident_sor.cu``: llin4 (``flow_nd``'s solve), elin4
+  (``flow_hs``'s with ``solver=1``), disp llin4 (``disparity_nd``'s, and
+  ``disparity_sym``'s pair as a batch of 2) and pde4 (``tv_denoise4``'s, up
+  to 3 channels over shared weights);
 * ``csrc/resident8_sor.cu``: the 8-neighbour llin8 (``flow_ad``'s solve)
   and pde8 (``tv_denoise8``'s, up to 3 channels over shared weights), whose
   relaxed fields keep two buffers a colour (Jacobi within a colour).
@@ -19,8 +21,9 @@ and the pixels of each colour a thread owns. :func:`slot_pixels` is the
 kernels' map from threads to pixels, for the tests.
 
 ``LAUNCHES`` counts one launch per call (``"resident_flow_llin4"``,
-``"resident_disp_llin4"``, ``"resident_flow_llin8"``, ``"resident_pde8"``),
-so a run can show that it went through the kernel.
+``"resident_flow_elin4"``, ``"resident_disp_llin4"``, ``"resident_pde4"``,
+``"resident_flow_llin8"``, ``"resident_pde8"``), so a run can show that it
+went through the kernel.
 """
 
 from __future__ import annotations
@@ -33,38 +36,54 @@ import torch
 
 from pde_tpu_torch.kernels import build
 
-SOURCE = "resident_sor"     # llin4, disp
+SOURCE = "resident_sor"     # llin4, disp, pde4, elin4
 SOURCE8 = "resident8_sor"   # llin8, pde8
-LAUNCHES = {"resident_flow_llin4": 0, "resident_disp_llin4": 0, "resident_flow_llin8": 0,
-            "resident_pde8": 0}
+LAUNCHES = {"resident_flow_llin4": 0, "resident_flow_elin4": 0, "resident_disp_llin4": 0,
+            "resident_pde4": 0, "resident_flow_llin8": 0, "resident_pde8": 0}
 
-FAMILIES = ("llin4", "disp", "llin8", "pde8")
+FAMILIES = ("llin4", "disp", "pde4", "elin4", "llin8", "pde8")
+SOR_FAMILIES = FAMILIES[:4]  # resident_sor.cu's Family, in its order
+# the families that relax interior pixels and fill the 1-px border
+INTERIOR = ("disp", "pde4", "pde8")
 SCOPES = ("block", "cluster", "grid")  # resident_sor.cu's Scope
 # what a scope's barrier adds to a colour phase, in units of the time one
 # more slot a thread adds (scripts/resident_plan_sweep.py on an H100,
-# PERF.md, rows 1 and 5): a cluster's about one slot, the grid's about 1.5
+# PERF.md, rows 1, 3 and 5): a cluster's about one slot, the grid's about 1.5
 SCOPE_COST = {"block": 0.0, "cluster": 1.0, "grid": 1.5}
-# llin8 and pde8: a phase's time grows with the slots a thread times the
-# warps each of an SM's four schedulers runs, threads / 128, so more and
+# llin8, pde8 and pde4: a phase's time grows with the slots a thread times
+# the warps each of an SM's four schedulers runs, threads / 128, so more and
 # narrower bands are cheaper within a scope; the barriers' cost in those
 # units (a least-squares fit over every plan scripts/resident_plan_sweep.py
 # timed on an H100, PERF.md, rows 4 and 6b: a cluster about 3.6, the grid
-# about 5.5)
+# about 5.5). pde4 (channels in the slot) ranks its plans so too: with these
+# costs its default plan was the fastest swept at every level of
+# tv_denoise4's pyramid, C = 1 and 3, where the slots alone lost up to 3%
+# (PERF.md, row 6a)
 SCOPE_COST8 = {"block": 0.0, "cluster": 3.6, "grid": 5.5}
+WARP_COST = ("llin8", "pde8", "pde4")  # the families costed by SCOPE_COST8
 # the kernel's instantiations: pixels of each colour a thread owns
-SLOTS = {"llin4": (1, 2, 3, 4), "disp": (1, 2, 3, 4, 6), "llin8": (1, 2, 3, 4),
-         "pde8": (1, 2, 3, 4, 5)}
+SLOTS = {"llin4": (1, 2, 3, 4), "disp": (1, 2, 3, 4, 6), "pde4": (1, 2, 3, 4, 5),
+         "elin4": (1, 2, 3, 4), "llin8": (1, 2, 3, 4), "pde8": (1, 2, 3, 4, 5)}
+# pde4 keeps 4 + 2 C coefficient floats a slot in registers: past 6 - C
+# slots they spill (nvcc -Xptxas -v, PERF.md row 6a), so the kernel has
+# those slots only
+PDE4_MAX_SLOTS = 6
 # A block's shared memory in planes of the band: (fields kept with a halo row
-# above and below, a one-buffer field counting 1 and a ping-pong one 2 (pde8:
-# per channel), weight planes of the band alone). llin4: dU, dV, U, V; disp:
-# dU, U; llin8: dU, dV twice, U, V, and the eight weights with their sum;
-# pde8: each channel's X twice, and the eight weights.
-SMEM_FIELDS = {"llin4": (4, 0), "disp": (2, 0), "llin8": (6, 9), "pde8": (2, 8)}
-# systems a launch: disp's pair as blocks of a second grid row, pde8's
-# channels in the thread that owns a pixel (with weights shared by them)
-MAX_BATCH = {"llin4": 1, "disp": 2, "llin8": 1, "pde8": 3}
+# above and below, a one-buffer field counting 1 and a ping-pong one 2 (pde4,
+# pde8: per channel), weight planes of the band alone). llin4: dU, dV, U, V;
+# elin4: U, V; disp: dU, U; pde4: each channel's X; llin8: dU, dV twice, U,
+# V, and the eight weights with their sum; pde8: each channel's X twice, and
+# the eight weights.
+SMEM_FIELDS = {"llin4": (4, 0), "disp": (2, 0), "pde4": (1, 0), "elin4": (2, 0),
+               "llin8": (6, 9), "pde8": (2, 8)}
+# systems a launch: disp's pair as blocks of a second grid row, pde4's and
+# pde8's channels in the thread that owns a pixel (with weights shared by
+# them)
+MAX_BATCH = {"llin4": 1, "disp": 2, "pde4": 3, "elin4": 1, "llin8": 1, "pde8": 3}
 LLIN4_NAMES = ("u", "v", "du", "dv", "m", "cu", "cv", "duc", "dvc", "ww", "wn", "we", "ws")
+ELIN4_NAMES = ("u", "v", "m", "cu", "cv", "duc", "dvc", "ww", "wn", "we", "ws")
 DISP_NAMES = ("u", "du", "cu", "duc", "ww", "wn", "we", "ws")
+PDE4_NAMES = ("x", "trace", "b", "ww", "wn", "we", "ws")
 W8_NAMES = ("ww", "wnw", "wn", "wne", "we", "wse", "ws", "wsw")
 LLIN8_NAMES = ("u", "v", "du", "dv", "m", "cu", "cv", "duc", "dvc") + W8_NAMES
 PDE8_NAMES = ("x", "trace", "b") + W8_NAMES
@@ -98,10 +117,10 @@ def smem_bytes(family: str, rows: int, w: int, batch: int = 1) -> int:
     """A block's shared memory, as ``resident_sor.cu::smem_bytes_of`` and
     ``resident8_sor.cu::smem_bytes_of`` count it (``SMEM_FIELDS``): the
     fields, each a plane per colour (and buffer) of the band plus a halo
-    row above and below, and the weight planes of the band (pde8: for
+    row above and below, and the weight planes of the band (pde4, pde8: for
     ``batch`` channels)."""
     halo, band = SMEM_FIELDS[family]
-    if family == "pde8":
+    if family in ("pde4", "pde8"):
         halo *= batch
     hw = (w + 1) // 2
     return (halo * 2 * (rows + 2) * hw + band * 2 * rows * hw) * 4
@@ -117,14 +136,14 @@ def edge_floats(family: str, batch: int, blocks: int, w: int) -> int:
 
 def _bands(family: str, h: int, n: int) -> tuple[int, int]:
     """(rows a band, bands) for about ``n`` bands of ``h`` rows: two rows a
-    band at least, and for disp and pde8 the last band too (its border fill
-    reads row H-2 from the band of row H-1)."""
+    band at least, and for the interior families the last band too (its
+    border fill reads row H-2 from the band of row H-1)."""
     rows = -(-h // n)
     if n > 1:
         rows = max(rows, 2)
     while True:
         n = -(-h // rows)
-        if n == 1 or family not in ("disp", "pde8") or h - (n - 1) * rows >= 2:
+        if n == 1 or family not in INTERIOR or h - (n - 1) * rows >= 2:
             return rows, n
         rows += 1
 
@@ -150,6 +169,8 @@ def _fit(family: str, h: int, w: int, n: int, batch: int, sm_count: int):
     if scope is None or smem > MAX_SMEM:
         return None
     for slots in SLOTS[family]:
+        if family == "pde4" and slots > PDE4_MAX_SLOTS - batch:
+            continue
         threads = 32 * -(-half // (32 * slots))
         if threads <= MAX_THREADS:
             return ResidentPlan(scope, n, rows, threads, slots, smem, batch)
@@ -161,21 +182,22 @@ def _taken(h: int, w: int, family: str, batch: int) -> bool:
         raise ValueError(f"family must be one of {FAMILIES}, got {family!r}")
     if not 1 <= batch <= MAX_BATCH[family] or h < 1 or w < 1 or w > 0xFFFF:
         return False
-    # disp, pde8: an interior, a fill that copies
-    return family not in ("disp", "pde8") or (h >= 3 and w >= 3)
+    # disp, pde4, pde8: an interior, a fill that copies
+    return family not in INTERIOR or (h >= 3 and w >= 3)
 
 
 def work(plan: ResidentPlan, family: str) -> float:
     """What sets a colour phase's time besides the barrier: the slots a
-    thread (llin4, disp), times the warps a scheduler runs (llin8, pde8)."""
-    if family in ("llin8", "pde8"):
+    thread (llin4, elin4, disp), times the warps a scheduler runs (llin8,
+    pde8, pde4)."""
+    if family in WARP_COST:
         return plan.slots * plan.threads / 128
     return plan.slots
 
 
 def cost(plan: ResidentPlan, family: str) -> float:
     """The plan's cost in ``work`` units, with its barrier's."""
-    scope_cost = SCOPE_COST8 if family in ("llin8", "pde8") else SCOPE_COST
+    scope_cost = SCOPE_COST8 if family in WARP_COST else SCOPE_COST
     return work(plan, family) + scope_cost[plan.scope]
 
 
@@ -184,8 +206,9 @@ def plans_resident(h: int, w: int, family: str, batch: int = 1,
                    sm_count: int = SM_COUNT) -> tuple[ResidentPlan, ...]:
     """The plans the kernel takes for a ``batch`` of (h, w) systems of
     ``family`` that the plan sweep times: for each scope and slots a
-    thread, the one with the fewest bands and, for llin8 and pde8 (whose
-    :func:`work` falls with the threads a block), the one with the most."""
+    thread, the one with the fewest bands and, for the ``WARP_COST``
+    families (whose :func:`work` falls with the threads a block), the one
+    with the most."""
     if not _taken(h, w, family, batch):
         return ()
     fewest, most = {}, {}
@@ -194,7 +217,7 @@ def plans_resident(h: int, w: int, family: str, batch: int = 1,
         if plan is not None:
             fewest.setdefault((plan.scope, plan.slots), plan)
             most[(plan.scope, plan.slots)] = plan
-    if family in ("llin8", "pde8"):
+    if family in WARP_COST:
         return tuple(dict.fromkeys([*fewest.values(), *most.values()]))
     return tuple(fewest.values())
 
@@ -261,9 +284,13 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.resident_flow_llin4.argtypes = [p, p, p, i, i, i, f, f, i, i, i, i, i, p]
     lib.resident_flow_llin4.restype = i
+    lib.resident_flow_elin4.argtypes = [p, p, p, i, i, i, f, f, i, i, i, i, i, p]
+    lib.resident_flow_elin4.restype = i
     lib.resident_disp_llin4.argtypes = [p, p, i, i, i, i, f, f, i, i, i, i, i, p]
     lib.resident_disp_llin4.restype = i
-    lib.resident_sor_smem_bytes.argtypes = [i, i, i]
+    lib.resident_pde4.argtypes = [p, p, p, p, p, i, i, i, i, f, f, i, i, i, i, i, p]
+    lib.resident_pde4.restype = i
+    lib.resident_sor_smem_bytes.argtypes = [i, i, i, i]
     lib.resident_sor_smem_bytes.restype = i
     lib.resident_sor_error_string.argtypes = [i]
     lib.resident_sor_error_string.restype = ctypes.c_char_p
@@ -327,24 +354,43 @@ def _launch(fn: str, entry: str, plan: ResidentPlan, device, *args, lib=None) ->
                            f"({lib.error_string(err).decode()}), plan {plan}")
 
 
+def _flow4(family: str, names, fields, relaxed, iters: int, omega: float, plan):
+    """One launch of llin4 or elin4 over the (H, W) ``fields``; returns the
+    two ``relaxed`` fields' new values, in new tensors."""
+    fn = f"resident flow_{family}_sor"
+    u = fields[0]
+    if u.ndim != 2:
+        raise ValueError(f"{fn} takes (H, W) fields, got {tuple(u.shape)}")
+    _check(fn, names, fields, u.shape)
+    h, w = u.shape
+    plan = _plan(fn, plan, family, 1, h, w, u.device)
+    # on the grid the bands' edge rows pass through the outputs during the
+    # call, so they must not alias the inputs
+    out_u, out_v = (torch.empty_like(x) for x in relaxed)
+    ptrs = (ctypes.c_void_p * len(fields))(*(x.data_ptr() for x in fields))
+    _launch(fn, f"resident_flow_{family}", plan, u.device, ptrs, out_u.data_ptr(),
+            out_v.data_ptr(), h, w, max(int(iters), 0), float(omega), 1.0 - float(omega))
+    LAUNCHES[f"resident_flow_{family}"] += 1
+    return out_u, out_v
+
+
 def flow_llin4_sor(u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws, iters: int, omega: float,
                    plan: ResidentPlan | None = None):
     """``iters`` red-black llin4 SOR sweeps on the card in one launch; the
     same function as ``solvers/sor.py::sor_flow_llin4``, and the same bits
     as ``sor_cuda.flow_llin4_sor``. Returns new (dU, dV)."""
-    fields = (u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws)
-    if u.ndim != 2:
-        raise ValueError(f"resident flow_llin4_sor takes (H, W) fields, got {tuple(u.shape)}")
-    _check("resident flow_llin4_sor", LLIN4_NAMES, fields, u.shape)
-    h, w = u.shape
-    plan = _plan("resident flow_llin4_sor", plan, "llin4", 1, h, w, u.device)
-    out_du, out_dv = torch.empty_like(du), torch.empty_like(dv)
-    ptrs = (ctypes.c_void_p * len(fields))(*(x.data_ptr() for x in fields))
-    _launch("resident flow_llin4_sor", "resident_flow_llin4", plan, u.device, ptrs,
-            out_du.data_ptr(), out_dv.data_ptr(), h, w, max(int(iters), 0), float(omega),
-            1.0 - float(omega))
-    LAUNCHES["resident_flow_llin4"] += 1
-    return out_du, out_dv
+    return _flow4("llin4", LLIN4_NAMES, (u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws),
+                  (du, dv), iters, omega, plan)
+
+
+def flow_elin4_sor(u, v, m, cu, cv, duc, dvc, ww, wn, we, ws, iters: int, omega: float,
+                   plan: ResidentPlan | None = None):
+    """``iters`` red-black elin4 SOR sweeps on the card in one launch; the
+    same function as ``solvers/sor.py::sor_flow_elin4``, and the same bits
+    as ``sor_cuda.flow_elin4_sor``. Returns new (U, V); ``u`` and ``v`` are
+    left as they are."""
+    return _flow4("elin4", ELIN4_NAMES, (u, v, m, cu, cv, duc, dvc, ww, wn, we, ws), (u, v),
+                  iters, omega, plan)
 
 
 def _disp(sets, outs, h: int, w: int, iters: int, omega: float, plan) -> None:
@@ -428,9 +474,9 @@ def flow_llin8_sor(u, v, du, dv, m, cu, cv, duc, dvc, ww, wnw, wn, wne, we, wse,
     return out_du, out_dv
 
 
-def pde8_channels(x, trace, b, weights) -> int | None:
-    """The channels of a pde8 call that the resident kernel takes, from the
-    shapes alone, or None: X (H, W) or (C, H, W) with C <= 3, the eight
+def diag_channels(family: str, x, trace, b, weights) -> int | None:
+    """The channels of a pde4 or pde8 call that the resident kernel takes,
+    from the shapes alone, or None: X (H, W) or (C, H, W) with C <= 3, the
     weights (H, W) planes shared by the channels, TRACE and B each X's
     shape or one shared (H, W) plane."""
     if x.ndim not in (2, 3):
@@ -441,40 +487,66 @@ def pde8_channels(x, trace, b, weights) -> int | None:
     if any(tuple(c.shape) not in (tuple(x.shape), hw_shape) for c in (trace, b)):
         return None
     channels = x.shape[0] if x.ndim == 3 else 1
-    return channels if 1 <= channels <= MAX_BATCH["pde8"] else None
+    return channels if 1 <= channels <= MAX_BATCH[family] else None
 
 
-def pde8_sor(x, trace, b, ww, wnw, wn, wne, we, wse, ws, wsw, iters: int, omega: float,
-             plan: ResidentPlan | None = None):
-    """``iters`` red-black diagonal-form 8-neighbour sweeps on the card in
-    one launch; the same function as ``solvers/sor.py::sor_pde8`` and the
-    same bits (as ``interior_cuda.pde8_sor``'s). ``x`` is (H, W) or
-    (C, H, W), C <= 3, H, W >= 3; the weights are (H, W) planes shared by
-    the channels; TRACE and B each have x's shape or are one shared (H, W)
-    plane. Returns new X."""
-    weights = (ww, wnw, wn, wne, we, wse, ws, wsw)
+def _diag(family: str, names, x, trace, b, weights, plan):
+    """Check a pde4 or pde8 call and plan it: (plan, the new X, and a map
+    from a tensor to the pointer array of its channels, a shared plane's
+    pointer repeated)."""
+    fn = f"resident {family}_sor"
     if x.device.type != "cuda":
-        raise ValueError(f"resident pde8_sor takes CUDA tensors, got {x.device}")
-    channels = pde8_channels(x, trace, b, weights)
+        raise ValueError(f"{fn} takes CUDA tensors, got {x.device}")
+    channels = diag_channels(family, x, trace, b, weights)
     if channels is None:
-        raise ValueError(f"resident pde8_sor takes (H, W) or (C <= 3, H, W) X with (H, W) "
-                         f"weights, got {tuple(x.shape)} and {tuple(ww.shape)}")
+        raise ValueError(f"{fn} takes (H, W) or (C <= 3, H, W) X with (H, W) weights, "
+                         f"got {tuple(x.shape)} and {tuple(weights[0].shape)}")
     h, w = x.shape[-2:]
-    for name, t in zip(PDE8_NAMES, (x, trace, b) + weights):
-        _check("resident pde8_sor", (name,), (t,), t.shape, x.device)
-    plan = _plan("resident pde8_sor", plan, "pde8", channels, h, w, x.device)
-    out = torch.empty_like(x)
+    for name, t in zip(names, (x, trace, b) + weights):
+        _check(fn, (name,), (t,), t.shape, x.device)
+    plan = _plan(fn, plan, family, channels, h, w, x.device)
     plane = h * w * 4
 
     def per_channel(t):
         step = plane if t.ndim == x.ndim and channels > 1 else 0
         return (ctypes.c_void_p * channels)(*(t.data_ptr() + c * step for c in range(channels)))
 
-    edge = _edge(plan, "pde8", channels, w, x.device)
+    return plan, torch.empty_like(x), per_channel
+
+
+def pde4_sor(x, trace, b, ww, wn, we, ws, iters: int, omega: float,
+             plan: ResidentPlan | None = None):
+    """``iters`` red-black diagonal-form 4-neighbour sweeps on the card in
+    one launch; the same function as ``solvers/sor.py::sor_pde4`` and the
+    same bits (as ``interior_cuda.pde4_sor``'s). ``x`` is (H, W) or
+    (C, H, W), C <= 3, H, W >= 3; the weights are (H, W) planes shared by
+    the channels; TRACE and B each have x's shape or are one shared (H, W)
+    plane. Returns new X."""
+    weights = (ww, wn, we, ws)
+    plan, out, per_channel = _diag("pde4", PDE4_NAMES, x, trace, b, weights, plan)
+    h, w = x.shape[-2:]
+    wptrs = (ctypes.c_void_p * 4)(*(wt.data_ptr() for wt in weights))
+    _launch("resident pde4_sor", "resident_pde4", plan, x.device, per_channel(x),
+            per_channel(trace), per_channel(b), wptrs, per_channel(out), plan.batch, h, w,
+            max(int(iters), 0), float(omega), 1.0 - float(omega))
+    LAUNCHES["resident_pde4"] += 1
+    return out
+
+
+def pde8_sor(x, trace, b, ww, wnw, wn, wne, we, wse, ws, wsw, iters: int, omega: float,
+             plan: ResidentPlan | None = None):
+    """``iters`` red-black diagonal-form 8-neighbour sweeps on the card in
+    one launch; the same function as ``solvers/sor.py::sor_pde8`` and the
+    same bits (as ``interior_cuda.pde8_sor``'s), with the shapes of
+    ``pde4_sor`` and the eight weights. Returns new X."""
+    weights = (ww, wnw, wn, wne, we, wse, ws, wsw)
+    plan, out, per_channel = _diag("pde8", PDE8_NAMES, x, trace, b, weights, plan)
+    h, w = x.shape[-2:]
+    edge = _edge(plan, "pde8", plan.batch, w, x.device)
     wptrs = (ctypes.c_void_p * 8)(*(wt.data_ptr() for wt in weights))
     _launch("resident pde8_sor", "resident_pde8", plan, x.device, per_channel(x),
             per_channel(trace), per_channel(b), wptrs, per_channel(out),
-            None if edge is None else edge.data_ptr(), channels, h, w, max(int(iters), 0),
+            None if edge is None else edge.data_ptr(), plan.batch, h, w, max(int(iters), 0),
             float(omega), 1.0 - float(omega), lib=_lib8())
     LAUNCHES["resident_pde8"] += 1
     return out

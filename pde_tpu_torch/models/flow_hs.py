@@ -11,9 +11,10 @@ upscale (MATLAB's default ``imresize`` method) to the next level.
 ``solver=2`` (the default) solves each level with the line-implicit PCG
 (``solvers/krylov.py::pcg_flow_elin4``, whose line solves are the CUDA
 tridiagonal kernel on the card); ``solver=1`` with red-black SOR
-(``kernels/dispatch.py::sor_flow_elin4``, the CUDA elin4 kernel on the
-card). Runs eagerly on the card unless the caller asks for the CPU
-(``models/_device.py``).
+(``kernels/dispatch.py::sor_flow_elin4``: on the card the resident elin4
+kernel of ``csrc/resident_sor.cu``, one launch a level, where the level has
+a plan, else the global one). Runs eagerly on the card unless the caller
+asks for the CPU (``models/_device.py``).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ class FlowHSParams:
     b2: float = 0.75
     scl_factor: float = 0.75
     # 2: line-implicit PCG (the CUDA tridiagonal kernel); 1: red-black SOR
-    # (the CUDA elin4 kernel), which converges slowly on this
+    # (the CUDA elin4 kernels), which converges slowly on this
     # diffusion-dominated system
     solver: int = 2
     scales: int = 10**9

@@ -14,11 +14,12 @@ borders; ``tv_denoise8`` the anisotropic diffusion tensor stencil of the
 current estimate (``ops/weights.tensor_diffusion_weights_8``, zeroed
 borders) and a coarsest level left unsmoothed (the TVdenoise8.m:72
 quirk). The channels are one batch of the solver, the (H, W) weights
-shared: one red-black kernel call on the card (``solver=1``: pde4 or pde8
-of ``csrc/interior_sor.cu``), or one line-implicit PCG over all channels
-jointly (``solver=2``, its line solves the CUDA tridiagonal kernel). Runs
-eagerly on the card unless the caller asks for the CPU
-(``models/_device.py``).
+shared: one red-black kernel call on the card (``solver=1``: the resident
+pde4 or pde8 kernel, ``csrc/resident_sor.cu`` or ``resident8_sor.cu``, where
+the level has a plan, else ``csrc/interior_sor.cu``), or one line-implicit
+PCG over all channels jointly (``solver=2``, its line solves the CUDA
+tridiagonal kernel). Runs eagerly on the card unless the caller asks for
+the CPU (``models/_device.py``).
 """
 
 from __future__ import annotations

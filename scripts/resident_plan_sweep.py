@@ -4,18 +4,20 @@
 CUDA card.
 
     python3 scripts/resident_plan_sweep.py [--seed N] [--reps N] [--out FILE]
-        [--families llin4 disp llin8 pde8]
+        [--families llin4 disp pde4 elin4 llin8 pde8]
 
 At every level shape of ``flow_nd``'s pyramid (llin4, B = 1), of the
-stereo pyramid (disp llin4, B = 1 and 2), of ``flow_ad``'s (llin8, the same
-levels as ``flow_nd``'s) and of ``tv_denoise8``'s (pde8, C = 1 and 3 over
-shared weights) at 3x480x640, iters = 4 with 5% NaN in Cu and Du (TRACE
-for pde8): every plan the kernel takes among a few scopes and band
-counts (for each scope and slots a thread the fewest bands,
-and the most bands a cluster and the grid take), each held against
-the global kernel bit for bit (disp and pde8 also against the plain
-version), and timed beside the global kernel (``flow_llin4_sor.cu``,
-``interior_sor.cu``) and, for llin4, the tile kernel with k = iters
+stereo pyramid (disp llin4, B = 1 and 2), of ``tv_denoise4``'s (pde4,
+C = 1 and 3 over shared weights), of ``flow_hs``'s (elin4, the same levels
+as ``flow_nd``'s), of ``flow_ad``'s (llin8, the same again) and of
+``tv_denoise8``'s (pde8, C = 1 and 3 over shared weights) at 3x480x640,
+iters = 4 with 5% NaN in Cu and Du (TRACE for pde4 and pde8): every plan
+the kernel takes among a few scopes and band counts (for each scope and
+slots a thread the fewest bands, and the most bands a cluster and the grid
+take), each held against the global kernel bit for bit (disp, pde4 and
+pde8 also against the plain version), and timed beside the global kernel
+(``flow_llin4_sor.cu``, ``interior_sor.cu``) and, for llin4, the tile
+kernel with k = iters
 (``tiled_sor.cu``, one launch). Times: device ms a call, ``REPS`` calls queued behind a
 ``torch.cuda._sleep`` between two CUDA events (so the host's per-call cost
 is not counted), taken in turns (global, every plan, every plan again in
@@ -50,10 +52,11 @@ REPS = 40
 SLEEP_CYCLES = 40_000_000  # ~20 ms at the H100's clock: longer than the host's enqueue
 ITERS, OMEGA = 4, 1.9
 SHAPE = (480, 640)
-# (family, batches, the levels: flow_nd's and flow_ad's pyramid stops at 20
-# px, the stereo models' at 10, tv_denoise8's partial one after a level)
-CASES = (("llin4", (1,), 20), ("disp", (1, 2), 10), ("llin8", (1,), 20),
-         ("pde8", (1, 3), "partial"))
+# (family, batches, the levels: flow_nd's, flow_hs's and flow_ad's pyramid
+# stops at 20 px, the stereo models' at 10; tv_denoise4's and tv_denoise8's
+# are partial, down to 0.5 and 0.75 of the image)
+CASES = (("llin4", (1,), 20), ("disp", (1, 2), 10), ("pde4", (1, 3), ("partial", 0.5)),
+         ("elin4", (1,), 20), ("llin8", (1,), 20), ("pde8", (1, 3), ("partial", 0.75)))
 
 
 def device_ms(fn, reps: int = REPS) -> float:
@@ -120,7 +123,7 @@ def candidates(resident_cuda, family: str, batch: int, h: int, w: int, sms: int)
     cluster and the grid take, once each."""
     plans = [resident_cuda.plan_resident(h, w, family, batch, sms)]
     plans += resident_cuda.plans_resident(h, w, family, batch, sms)
-    grid_bands = sms // batch if family == "disp" else sms  # pde8's channels share a block
+    grid_bands = sms // batch if family == "disp" else sms  # pde channels share a block
     plans += [resident_cuda.plan_with_bands(h, w, family, batch, n, sms)
               for n in (resident_cuda.MAX_CLUSTER, grid_bands)]
     out = []
@@ -205,7 +208,7 @@ def main() -> None:
     for family, batches, stop in CASES:
         if family not in args.families:
             continue
-        levels = (smoke.partial_pyramid_shapes(SHAPE, 0.75, 0.75) if stop == "partial"
+        levels = (smoke.partial_pyramid_shapes(SHAPE, stop[1], 0.75) if isinstance(stop, tuple)
                   else pyramid_scales(*SHAPE, 0.75, stop))
         for batch in batches:
             for h, w in levels:
@@ -215,12 +218,17 @@ def main() -> None:
                     glob = partial(sor_cuda.flow_llin8_sor, *f, ITERS, OMEGA)
                     run = lambda plan, it=ITERS, f=f: resident_cuda.flow_llin8_sor(
                         *f, it, OMEGA, plan=plan)
-                elif family == "pde8":
-                    f = smoke.pde8_fields(rng, batch, h, w, True, dev)
-                    glob = partial(interior_cuda.pde8_sor, *f, ITERS, OMEGA)
-                    run = lambda plan, it=ITERS, f=f: (resident_cuda.pde8_sor(
-                        *f, it, OMEGA, plan=plan),)
-                    plain = plain_sor.sor_pde8(*f, ITERS, OMEGA)
+                elif family in ("pde4", "pde8"):
+                    f = getattr(smoke, f"{family}_fields")(rng, batch, h, w, True, dev)
+                    glob = partial(getattr(interior_cuda, f"{family}_sor"), *f, ITERS, OMEGA)
+                    run = lambda plan, it=ITERS, f=f, k=getattr(resident_cuda, f"{family}_sor"): (
+                        k(*f, it, OMEGA, plan=plan),)
+                    plain = getattr(plain_sor, f"sor_{family}")(*f, ITERS, OMEGA)
+                elif family == "elin4":
+                    f = smoke.elin_fields(rng, h, w, True, dev)
+                    glob = partial(sor_cuda.flow_elin4_sor, *f, ITERS, OMEGA)
+                    run = lambda plan, it=ITERS, f=f: resident_cuda.flow_elin4_sor(
+                        *f, it, OMEGA, plan=plan)
                 elif family == "llin4":
                     sets = fields(rng, family, batch, h, w, dev)
                     f = sets[0]

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Warm frame times of the SOR paths whose solves the resident kernels take
-(``flow_nd``, ``disparity_nd``, ``disparity_sym``, ``flow_ad``,
+(``flow_nd``, ``disparity_nd``, ``disparity_sym``, ``tv_denoise4``,
+``flow_hs`` with ``solver=1`` (``flow_hs_sor``), ``flow_ad``,
 ``tv_denoise8``; default parameters, 3x480x640) on one CUDA card, for the
 ``pde_tpu_torch`` package under ``--root``.
 
@@ -56,8 +57,9 @@ def main() -> None:
     from pde_tpu_torch.models.disparity import disparity_nd
     from pde_tpu_torch.models.disparity_sym import disparity_sym
     from pde_tpu_torch.models.flow_ad import flow_ad
+    from pde_tpu_torch.models.flow_hs import flow_hs
     from pde_tpu_torch.models.flow_nd import flow_nd
-    from pde_tpu_torch.models.tv_denoise import tv_denoise8
+    from pde_tpu_torch.models.tv_denoise import tv_denoise4, tv_denoise8
 
     if Path(pde_tpu_torch.__file__).resolve().parent.parent != root:
         sys.exit(f"pde_tpu_torch came from {pde_tpu_torch.__file__}, not {root}")
@@ -74,6 +76,8 @@ def main() -> None:
     runs = {"flow_nd": lambda: flow_nd(f0, f1, "grad", "gradmag"),
             "disparity_nd": lambda: disparity_nd(l0, l1, "grad", "gradmag"),
             "disparity_sym": lambda: disparity_sym(l0, l1),
+            "tv_denoise4": lambda: tv_denoise4(noisy),
+            "flow_hs_sor": lambda: flow_hs(f0, f1, solver=1),
             "flow_ad": lambda: flow_ad(f0, f1, "grad", "gradmag"),
             "tv_denoise8": lambda: tv_denoise8(noisy)}
     runs = {k: v for k, v in runs.items() if args.models is None or k in args.models}

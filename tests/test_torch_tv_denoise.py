@@ -1,9 +1,10 @@
 """The port's ``tv_denoise4`` and ``tv_denoise8`` held against
 ``pde_tpu``'s on a noisy 32x32 image, 2-D and 3-channel, at reduced
 iteration counts: the partial pyramid, each level's lagged-diffusivity
-solve from the same input, and the whole result; and ``tv_denoise8`` at
-reference defaults against the oracle golden ``tests/golden/tv8_ctour.npz``
-with the bounds of ``tests/test_golden.py``.
+solve from the same input, and the whole result; and ``tv_denoise4`` and
+``tv_denoise8`` at reference defaults against the oracle goldens
+``tests/golden/tv4_beanbags.npz`` and ``tv8_ctour.npz`` with the bounds of
+``tests/test_golden.py``.
 
 The bound is relative: where u == f the data weight PsiData is
 1/sqrt(eps) ~ 6.7e7 (eps is float64's, added to a float32 square), so
@@ -182,6 +183,20 @@ def test_tv_denoise8_levels_match_reference(rng, channels, solver):
     assert interior_cuda.LAUNCHES == before
     assert out.shape == img.shape and out.device.type == "cpu"
     assert _rel_err(want, out, scale) <= REL_TOL
+
+
+def test_tv_denoise4_matches_oracle_golden():
+    """Reference defaults on the gray 96x128 crop of the beanbags image,
+    against the literal oracle (TVdenoise4.m), within the bounds
+    tests/test_golden.py holds pde_tpu to; a CPU tensor in, so the plain
+    solver and no card (the gray case of the resident pde4 kernel's)."""
+    g = np.load(Path(__file__).parent / "golden" / "tv4_beanbags.npz")
+    out = ttv.tv_denoise4(torch.from_numpy(g["img"])).numpy()
+    ref = g["out"]
+    span = ref.max() - ref.min()
+    assert out.shape == ref.shape and np.isfinite(out).all()
+    assert np.abs(out - ref).max() < 0.08 * span
+    assert np.sqrt(np.mean((out - ref) ** 2)) < 0.02 * span
 
 
 def test_tv_denoise8_matches_oracle_golden():
