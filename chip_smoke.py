@@ -16,7 +16,10 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    diagonal weights of both signs; the tridiagonal solve at line lengths 1
    to 1024 along both axes, whole, by zebra parity and as the fused zebra
    pass in its scalar, coupled and 8-neighbour forms, with batched and
-   shared coefficients, bit for bit); both timed with CUDA events in turns,
+   shared coefficients, bit for bit; lines of 30,000 and 65,536 elements
+   along both axes, which take the global-rows variant, and a batch of
+   70,000 systems, bit for bit against the plain version run on CPU
+   copies); both timed with CUDA events in turns,
    beside the least time the card could take (the bound; for the line
    solves also the chain's floor) and the kernel's device time under
    ``torch.profiler``. The tile kernel (``csrc/tiled_sor.cu``),
@@ -82,6 +85,20 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
     finest level has no resident plan (``tv_denoise8``'s second neither, nor
     ``tv_denoise4``'s): exact launches of the global kernels there and of the
     resident kernel at every other level; finite fields.
+17. ``flow_fmg`` (FAS full multigrid), default parameters, V-cycle, with
+    ``solver=2`` (the PCG) and ``solver=1`` (the resident elin4 kernel) on a
+    3x480x640 pair shifted by 1 px: exact launches (196 resident elin4
+    launches a ``solver=1`` frame), the shift recovered with ``flow_nd``'s
+    sign, a profiled warm frame of each, the kernel path against the plain
+    path (``solver=1`` at full size, ``solver=2`` at 3x32x40); the W-cycle
+    once at 3x240x320 with exact launches.
+18. ``gac_a`` and ``gac_b``, default parameters (100 AOS steps), on
+    ``tests/golden/gac_ctour.npz``'s 320x400 initial contour around a
+    synthetic bright disc: 200 ``tridiag_thomas`` launches a call, the
+    contour shrinks and keeps the disc's centre inside, a profiled warm
+    frame, the kernel path against the plain path at 64x80; and ``gac_a``
+    on a 16x30,000 strip, whose rows take the global-rows variant, against
+    the CPU path.
 
 Every phase from 4 on sets every kernel's launch count to 0 just before it
 drives its entry point and reads all counts just after, and profiles one
@@ -93,6 +110,7 @@ errors, times, bounds) and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import re
 import subprocess
@@ -113,6 +131,7 @@ FLOW_TOL = 1e-3      # px, mean |Δflow| between two paths of the whole model
 SHIFT_TOL = 0.3      # px, median interior flow vs the known shift
 DISP_SHIFT_TOL = 0.5  # px, median interior disparity vs the known shift
 TV_REL_TOL = 1e-4    # max |Δu| over the image's value range, kernel vs plain path
+GAC_TOL = 1e-5       # max |Δφ|, kernel vs plain path (the line solve is bit for bit: 0 expected)
 MAIN_SHAPE = (3, 480, 640)
 MAIN_SHIFT = (0.4, 1.3)  # (dy, dx) in px: the second frame moves right and down
 DISP_SHIFT = (0.0, 2.6)  # the stereo pair's second frame moves right
@@ -136,6 +155,12 @@ TILED_KS = (1, 2, 4)  # the tile kernel's k_max in phase 3
 # 480, 481, 640, 641 and 1024 in each direction
 TRIDIAG_SHAPES = [(1, 7), (7, 1), (2, 3), (3, 2), (7, 33), (33, 7), (480, 640), (481, 641),
                   (640, 480), (1024, 1024)]
+# lines longer than a block's shared memory holds at G = 1 (the global-rows
+# variant of the line solves, lengths 30,000 and 65,536 along each axis), and
+# a batch of 70,000 systems of short lines (over the 65,535 of a grid's y)
+LONG_LINES = [((2, 30_000), -1), ((30_000, 2), -2), ((1, 65_536), -1), ((65_536, 2), -2)]
+BIG_BATCH = (70_000, 3, 5)
+LONG_TIME = ((2, 30_000), -1)  # the variant's reported time: whole solves of 2 rows
 # the plain scan costs ~5 launches per line step on the card, so the kernel
 # path of a line-implicit model is held against its plain path at this size
 PLAIN_SHAPE = (3, 32, 40)
@@ -154,8 +179,8 @@ FLOPS_PER_PX = {"flow_llin4_sor": 40, "flow_elin4_sor": 30, "disp_llin4_sor": 23
                 "tiled_flow_elin4": 30, "tiled_flow_elin4_db": 30}
 # the kernels whose every float operation is rounded alone in the plain
 # version's order, held to EXACT_TOL; the others contract to FMA (SOR_TOL)
-EXACT = ("tridiag", "tridiag_zebra_pass", "pde8_sor", "resident_disp_llin4", "resident_pde8",
-         "resident_pde4")
+EXACT = ("tridiag", "tridiag_long", "tridiag_zebra_pass", "pde8_sor", "resident_disp_llin4",
+         "resident_pde8", "resident_pde4")
 # float operations per line element of one whole tridiagonal solve
 TRIDIAG_FLOPS_PER_PX = 8
 # dependent rounded operations a line element adds to a solve's chain (3
@@ -195,6 +220,11 @@ OWN_KERNELS = {"prepare_kernel", "sweep_kernel", "prepare8_kernel", "sweep8_kern
 # the tile kernel's entries: (family, double-buffered)
 TILED = {"tiled_flow_llin4": ("flow_llin4", False), "tiled_flow_llin4_db": ("flow_llin4", True),
          "tiled_flow_elin4": ("flow_elin4", False), "tiled_flow_elin4_db": ("flow_elin4", True)}
+FMG_SHIFT = (0.0, 1.0)  # early linearisation recovers only small shifts
+FMG_ULP_FACTOR = 3.0  # kernel vs plain at full size, in units of the one-ulp sensitivity
+FMG_W_SHAPE = (3, 240, 320)  # the W-cycle's frame (936 solves at six levels)
+GAC_SMALL = (64, 80)  # the GAC kernel path against its plain path
+GAC_STRIP = (16, 30_000)  # rows longer than the staged line solve holds
 HEADLINE_SHAPE = (1024, 1024)  # bench.py's headline: the llin4 sweep rate
 HEADLINE_ITERS = (128, 1024)   # chained differencing between these sweep counts
 W8 = ("ww", "wnw", "wn", "wne", "we", "wse", "ws", "wsw")
@@ -447,6 +477,38 @@ def partial_pyramid_levels(shape, scl: float, scl_factor: float) -> int:
     return len(partial_pyramid_shapes(shape, scl, scl_factor))
 
 
+def fmg_levels(shape, scales=10**9):
+    """(H, W) of each level of flow_fmg's pyramid (factor-2 decimation, stop
+    once a side is <= 10), finest first."""
+    h, w = shape[-2:]
+    levels = [(h, w)]
+    while len(levels) < scales:
+        h, w = -(-h // 2), -(-w // 2)
+        levels.append((h, w))
+        if h <= 10 or w <= 10:
+            return levels
+    return levels
+
+
+def fmg_smooth_calls(n, cycle_index):
+    """Smoothing calls at each of n levels over flow_fmg's loop: one
+    top-level FAS cycle a level, coarsest first, each recursing."""
+    calls = [0] * n
+
+    def cycle(lvl):
+        if lvl == n - 1:
+            calls[lvl] += 1
+            return
+        for _ in range(cycle_index):
+            calls[lvl] += 1
+            cycle(lvl + 1)
+        calls[lvl] += 1
+
+    for top in range(n - 1, -1, -1):
+        cycle(top)
+    return calls
+
+
 def bit_equal(got, want) -> bool:
     """The same bits in every element of each pair (NaN payloads included)."""
     return all(torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want))
@@ -490,6 +552,8 @@ def main() -> None:
     from pde_tpu_torch.models.disparity_sym import DisparitySymParams, disparity_sym
     from pde_tpu_torch.models.diffusion import Diffusion4Params, diffusion4
     from pde_tpu_torch.models.flow_ad import FlowADParams, flow_ad
+    from pde_tpu_torch.models.flow_fmg import FlowFMGParams, flow_fmg
+    from pde_tpu_torch.models.gac import GACParams, gac_a, gac_b
     from pde_tpu_torch.models.flow_hs import FlowHSParams, flow_hs
     from pde_tpu_torch.models.flow_nd import FlowNDParams, flow_nd, flow_nd_sequence
     from pde_tpu_torch.models.tv_denoise import (TVDenoise4Params, TVDenoise8Params,
@@ -550,6 +614,9 @@ def main() -> None:
 
     phase("3 kernels vs plain")
     rng = np.random.default_rng(args.seed)
+    # the long-line, big-batch and flow_fmg-level checks draw from a
+    # generator of their own, so that every other check keeps its inputs
+    rng11 = np.random.default_rng(args.seed + 11)
     max_err = {}
 
     def hold(name, got, want, label):
@@ -720,17 +787,21 @@ def main() -> None:
                         resident_cases += 1
             print(f"  resident_pde4 {h}x{w} C={c} ({pl.scope} {pl.blocks}/{pl.slots}): == "
                   f"pde4_sor and plain bit for bit", flush=True)
-    # elin4 as flow_hs calls it: every level 20 sweeps
-    for h, w in SOR_SHAPES + hs_levels_hw:
+    # elin4 as flow_hs calls it (every level 20 sweeps) and as flow_fmg does
+    # (every level 4)
+    elin_cases = [(h, w, (4, 5) if (h, w) in SOR_SHAPES else (hp_.iter,), rng)
+                  for h, w in SOR_SHAPES + hs_levels_hw] + \
+        [(h, w, (FlowFMGParams().iter,), rng11) for h, w in fmg_levels(MAIN_SHAPE)]
+    for h, w, iters_all, gen in elin_cases:
         pl = resident_cuda.plan_resident(h, w, "elin4", 1, sms)
         if pl is None:
             print(f"  resident_flow_elin4 {h}x{w}: no plan (the global kernel takes it)",
                   flush=True)
             continue
         errs = []
-        for iters in ((4, 5) if (h, w) in SOR_SHAPES else (hp_.iter,)):
+        for iters in iters_all:
             for nan in (False, True):
-                fields = elin_fields(rng, h, w, nan, dev)
+                fields = elin_fields(gen, h, w, nan, dev)
                 label = f"{h}x{w} iters={iters} nan={nan}"
                 got = resident_cuda.flow_elin4_sor(*fields, iters, 1.9)
                 errs.append(hold("resident_flow_elin4", got,
@@ -912,15 +983,18 @@ def main() -> None:
               f"{max(zebra_errs):.3g} over {len(zebra_errs)} (scalar, coupled, 8 neighbours, "
               f"both, one an axis and parity; bit for bit)", flush=True)
 
-    # the line plan and the kernel agree on a block's shared memory
+    # the line plan and the kernel agree on a block's shared memory, staged
+    # and global-rows variants
     tdma_lib = tdma_cuda._lib()
     for mode_i, mode in enumerate(tdma_cuda.MODES):
         for coupled, diag in ((False, False), (True, False), (True, True)):
-            for length in (1, 480, 641, 1024):
+            for length in (1, 480, 641, 1024, 30_000, 65_536):
                 pl = tdma_cuda.plan_lines(1, length, 7, True, None if mode != "zebra" else 0, mode,
                                           coupled, diag)
+                if pl.global_rows != (length >= 30_000):
+                    fail(f"line plan {pl} for L={length}: the wrong variant")
                 got = tdma_lib.tridiag_smem_bytes(mode_i, int(coupled), int(diag), length, pl.g,
-                                                  pl.r, pl.stages)
+                                                  pl.r, pl.stages, int(pl.global_rows))
                 if got != pl.smem_bytes:
                     fail(f"line plan {pl} ({mode}, coupled={coupled}, diag={diag}, L={length}): "
                          f"the kernel counts {got} bytes")
@@ -936,6 +1010,63 @@ def main() -> None:
     # diffusion4's: every coefficient one shared plane, d (3, H, W)
     a, b, c, d = tridiag_fields(rng, (3,) + MAIN_SHAPE[1:], dev)
     hold_tridiag(a[0], b[0], c[0], d, f"{MAIN_SHAPE} shared a, b, c")
+
+    def hold_tridiag_cpu(name, a, b, c, d, axis, label):
+        """Whole solve, factor/replay, parity 0 and 1 solves and the fused
+        zebra pass (scalar and coupled on parity 0, scalar on parity 1)
+        along ``axis``, the kernel against the plain version run on CPU
+        copies (on the card the plain scan costs ~5 launches a line step),
+        bit for bit."""
+        vertical = axis == -2
+        ac, bc, cc, dc = (x.cpu() for x in (a, b, c, d))
+        want = plain_tdma.thomas_solve(ac, bc, cc, dc, axis)
+        facs = plain_tdma.line_factors(ac, bc, cc, vertical)
+        fac = tdma_cuda.tridiag_factor(a, b, c, axis)
+        cases = [("whole", lambda: tdma_cuda.thomas_solve(a, b, c, d, axis), want),
+                 ("factor/replay", lambda: tdma_cuda.tridiag_solve(fac, d), want)]
+        z, rhs, z_o, m, w_lo, w_hi, *_ = zebra_fields(rng11, tuple(d.shape), dev,
+                                                       shared=a.ndim < d.ndim)
+        zc, rc, zoc, mc, loc, hic = (x.cpu() for x in (z, rhs, z_o, m, w_lo, w_hi))
+        for par in (0, 1):
+            if not len(range(par, d.shape[-1] if vertical else d.shape[-2], 2)):
+                continue
+            cases.append((f"parity {par}", partial(tdma_cuda.tridiag_solve, fac, d, par),
+                          plain_tdma.line_solve(facs, dc, par, vertical)))
+            for form in ("scalar", "coupled")[:2 - par]:
+                extra = dict(z_o=z_o, m=m) if form == "coupled" else {}
+                extra_c = dict(z_o=zoc, m=mc) if form == "coupled" else {}
+                cases.append((f"zebra pass {form} parity {par}",
+                              lambda par=par, extra=extra: tdma_cuda.zebra_pass(
+                                  fac, z.clone(), rhs, w_lo, w_hi, par, **extra),
+                              plain_tdma.zebra_pass(facs, zc, rc, loc, hic, par, vertical,
+                                                    **extra_c)))
+        errs = []
+        for what, run, want in cases:
+            got = run()
+            if got.shape != want.shape:
+                fail(f"{name} {what} at {label}: shape {tuple(got.shape)}, plain "
+                     f"{tuple(want.shape)}")
+            want = want.to(dev)
+            errs.append(hold(name, got, want, f"{label} {what}"))
+            if not bit_equal((got,), (want,)):
+                fail(f"{name} {what} at {label}: not the plain version's bits")
+        print(f"  {name} {label}: max_abs_err {max(errs):.3g} over {len(errs)} solves and "
+              f"passes ({', '.join(w for w, _, _ in cases)}; bit for bit)", flush=True)
+
+    long_before = {k: n for k, n in tdma_cuda.LAUNCHES.items() if k.endswith("_long")}
+    for shape, axis in LONG_LINES:
+        hold_tridiag_cpu("tridiag_long", *tridiag_fields(rng11, shape, dev), axis,
+                         f"{shape[0]}x{shape[1]} axis={axis} (L = {shape[axis]})")
+    long_ran = {k: n - long_before[k] for k, n in tdma_cuda.LAUNCHES.items() if k in long_before}
+    if not all(long_ran.values()):
+        fail(f"the long lines did not all take the global-rows variant: {long_ran}")
+    print(f"  global-rows launches {long_ran}", flush=True)
+    staged_before = dict(tdma_cuda.LAUNCHES)
+    for axis in (-2, -1):
+        hold_tridiag_cpu("tridiag", *tridiag_fields(rng11, BIG_BATCH, dev), axis,
+                         f"batch {BIG_BATCH} axis={axis}")
+    if any(tdma_cuda.LAUNCHES[k] != n for k, n in staged_before.items() if k.endswith("_long")):
+        fail(f"a batch of short lines took the global-rows variant")
 
     times, bounds = {}, {}
     for h, w in TIME_SHAPES + [MAIN_SHAPE[1:]]:
@@ -1080,6 +1211,41 @@ def main() -> None:
                       f"bound {case_bound:.4f} ms, chain floor {floor_ms:.4f} ms "
                       f"(L = {length}, {CHAIN_OPS_PER_ELEMENT} x {CYCLES_PER_OP} cycles at "
                       f"{clock_hz / 1e6:.0f} MHz)", flush=True)
+
+    # the global-rows variant at every long-line shape: whole solve, parity
+    # solve and the coupled fused pass, each beside its byte bound and the
+    # chain's floor; the plain version (on the card) timed at LONG_TIME only,
+    # once before and once after
+    for (h, w), axis in LONG_LINES:
+        vertical = axis == -2
+        length = h if vertical else w
+        a, b, c, d = tridiag_fields(rng11, (h, w), dev)
+        z, rhs, z_o, m, w_lo, w_hi, *_ = zebra_fields(rng11, (h, w), dev)
+        fac = tdma_cuda.tridiag_factor(a, b, c, axis)
+        floor_ms = length * CHAIN_OPS_PER_ELEMENT * CYCLES_PER_OP / clock_hz * 1e3
+        b_ms, b_by = bound((4 + 1) * 4 * h * w, TRIDIAG_FLOPS_PER_PX * h * w)
+        for what, kern, case_bound in (
+                ("whole", partial(tdma_cuda.thomas_solve, a, b, c, d, axis), b_ms),
+                ("parity 0", partial(tdma_cuda.tridiag_solve, fac, d, 0),
+                 bound((4 + 1) * 4 * h * w / 2, 0)[0]),
+                ("zebra pass coupled", partial(tdma_cuda.zebra_pass, fac, z.clone(), rhs, w_lo,
+                                               w_hi, 0, z_o, m),
+                 bound(ROW_BYTES_PER_PX["8z fused zebra pass, coupled (flow_hs)"] * h * w,
+                       0)[0])):
+            k1, k2 = cuda_ms(kern, 5), cuda_ms(kern, 5)
+            dev_ms, dev_ops, _, _ = device_profile(kern, 3)
+            plain_txt = ""
+            if ((h, w), axis) == LONG_TIME and what == "whole":
+                plain = partial(plain_tdma.thomas_solve, a, b, c, d, axis)
+                p1 = timed(plain)[1] * 1e3
+                p2 = timed(plain)[1] * 1e3
+                times[("tridiag_long", axis, h, w)] = ((k1 + k2) / 2, (p1 + p2) / 2)
+                bounds[("tridiag_long", axis, h, w)] = (b_ms, b_by)
+                plain_txt = f", plain {p1:.1f} / {p2:.1f} ms"
+            print(f"  time tridiag_long {what} axis={axis} {h}x{w} per call: kernel {k1:.4f} / "
+                  f"{k2:.4f} ms (device busy {dev_ms:.4f} ms in {dev_ops:.0f} operations)"
+                  f"{plain_txt}, bound {case_bound:.4f} ms, chain floor {floor_ms:.4f} ms "
+                  f"(L = {length})", flush=True)
 
     for label, bpp in ROW_BYTES_PER_PX.items():
         print(f"  bound of row {label}: " + ", ".join(
@@ -1702,6 +1868,174 @@ def main() -> None:
         main_launches[key] = want[key]
         print(f"  {name}: frame {sec:.3f} s (cold), finite", flush=True)
 
+    phase(f"17 flow_fmg {MAIN_SHAPE}, default parameters (V-cycle; solver=2 and solver=1)")
+    fp_ = FlowFMGParams()
+
+    def fmg_expected(shape, solver, cycle_index, p_):
+        """Exact launches of a flow_fmg call: solver=1 one resident elin4
+        launch a solve where the level has a plan (the global kernel's 1 +
+        2 iter elsewhere), solver=2 pcg_launches of every solve."""
+        levels = fmg_levels(shape, p_.scales)
+        calls = fmg_smooth_calls(len(levels), cycle_index)
+        if solver == 2:
+            return pcg_launches(sum(calls) * p_.firstLoop, 2, p_.iter)
+        want = {"resident_flow_elin4": 0, "flow_elin4_sor": 0}
+        for (h, w), c in zip(levels, calls):
+            if resident_cuda.plan_resident(h, w, "elin4", 1, sms) is not None:
+                want["resident_flow_elin4"] += c * p_.firstLoop
+            else:
+                want["flow_elin4_sor"] += c * p_.firstLoop * (1 + 2 * p_.iter)
+        return want
+
+    f0, f1 = (torch.from_numpy(f).to(dev)
+              for f in shifted_frames(rng, MAIN_SHAPE, [(0.0, 0.0), FMG_SHIFT]))
+    fmg_lv = fmg_levels(MAIN_SHAPE)
+    # the sign convention of the warping flow on this pair (tests/test_models.py)
+    nd_sign = float(torch.sign(flow_nd(f0, f1, "grad", "none")[0][inner].median()))
+    fmg_out = {}
+    for solver in (2, 1):
+        expected = fmg_expected(MAIN_SHAPE, solver, 1, fp_)
+        frame_s = []
+        for _ in range(3):
+            reset_counts()
+            (uf, vf), sec = timed(lambda: flow_fmg(f0, f1, solver=solver))
+            frame_s.append(sec)
+            check_counts(f"flow_fmg solver={solver}", expected)
+        fmg_out[solver] = (uf, vf)
+        if not (torch.isfinite(uf).all() and torch.isfinite(vf).all()):
+            fail(f"flow_fmg solver={solver}: non-finite flow")
+        mu, mv = float(uf[inner].median()), float(vf[inner].median())
+        print(f"  solver={solver}: {len(fmg_lv)} levels {fmg_lv[0]} to {fmg_lv[-1]}, "
+              f"{sum(fmg_smooth_calls(len(fmg_lv), 1)) * fp_.firstLoop} solves, "
+              f"{sum(expected.values())} kernel launches; frame time: cold {frame_s[0]:.3f} s, "
+              f"warm {frame_s[1]:.3f} / {frame_s[2]:.3f} s; median interior U={mu:.4f} "
+              f"V={mv:.4f} (shift {FMG_SHIFT[1]}, flow_nd's sign {nd_sign:+.0f})", flush=True)
+        if not (mu * nd_sign > 0.4 and abs(mv) < 0.3):
+            fail(f"flow_fmg solver={solver} misses the {FMG_SHIFT[1]}-px shift: median ({mu}, "
+                 f"{mv})")
+        print_profile(f"flow_fmg solver={solver}", min(frame_s[1:]),
+                      device_profile(lambda: flow_fmg(f0, f1, solver=solver)))
+    # the FAS cycles amplify rounding (ROADMAP F7): at full size one ulp
+    # more in every smoothing solve's U (or less in V) moves the plain path's
+    # flow by a few tenths of a px, so the kernel path is held against the
+    # plain path within a few times that there, and to FLOW_TOL at
+    # PLAIN_SHAPE (every resident elin4 call at this pyramid's levels is held
+    # against the plain solve in phase 3)
+    fmg_mod = importlib.import_module("pde_tpu_torch.models.flow_fmg")
+
+    def nudged_solve(field):
+        """The plain solve with U one ulp up (field 0) or V one ulp down (1)."""
+        def solve(*args):
+            out = list(dispatch.sor_flow_elin4(*args))
+            out[field] = torch.nextafter(out[field], torch.full_like(out[field], (1, -1)[field]
+                                                                     * float("inf")))
+            return tuple(out)
+        return solve
+
+    reset_counts()
+    with dispatch.plain_solvers():
+        fmg_plain, plain_s = timed(lambda: flow_fmg(f0, f1, solver=1))
+        d_ulp = 0.0
+        for field in (0, 1):
+            fmg_mod.sor_flow_elin4 = nudged_solve(field)
+            try:
+                d_ulp = max(d_ulp, mean_flow_diff(flow_fmg(f0, f1, solver=1), fmg_plain))
+            finally:
+                fmg_mod.sor_flow_elin4 = dispatch.sor_flow_elin4
+    check_counts("the plain path", {})
+    d_plain = mean_flow_diff(fmg_out[1], fmg_plain)
+    print(f"  solver=1 plain path on the card: frame {plain_s:.3f} s, mean |dflow| vs kernel "
+          f"path {d_plain:.3g} px; the plain path with every solve's U one ulp up, or V one "
+          f"ulp down, moves up to {d_ulp:.3g} px", flush=True)
+    if not d_plain <= FMG_ULP_FACTOR * max(d_ulp, FLOW_TOL):
+        fail(f"flow_fmg solver=1 kernel path and plain path differ by {d_plain} px, more than "
+             f"{FMG_ULP_FACTOR} x the plain path's one-ulp sensitivity {d_ulp} px")
+    fs0, fs1 = (torch.from_numpy(f).to(dev)
+                for f in shifted_frames(rng, PLAIN_SHAPE, [(0.0, 0.0), FMG_SHIFT]))
+    for solver in (1, 2):
+        kernel_vs_plain(f"flow_fmg solver={solver}",
+                        lambda: flow_fmg(fs0, fs1, solver=solver, firstLoop=2),
+                        mean_flow_diff, FLOW_TOL)
+    w0, w1 = (torch.from_numpy(f).to(dev)
+              for f in shifted_frames(rng, FMG_W_SHAPE, [(0.0, 0.0), FMG_SHIFT]))
+    expected = fmg_expected(FMG_W_SHAPE, 2, 2, fp_)
+    reset_counts()
+    (uw, vw), sec = timed(lambda: flow_fmg(w0, w1, cycle_index=2))
+    check_counts("flow_fmg W-cycle", expected)
+    w_lv = fmg_levels(FMG_W_SHAPE)
+    print(f"  W-cycle at {FMG_W_SHAPE}: {len(w_lv)} levels, "
+          f"{sum(fmg_smooth_calls(len(w_lv), 2)) * fp_.firstLoop} solves, "
+          f"{sum(expected.values())} kernel launches, frame {sec:.3f} s (cold); median interior "
+          f"U={float(uw[inner].median()):.4f} V={float(vw[inner].median()):.4f}", flush=True)
+    if not (torch.isfinite(uw).all() and torch.isfinite(vw).all()):
+        fail("flow_fmg W-cycle: non-finite flow")
+
+    phase("18 gac_a and gac_b, default parameters, on gac_ctour.npz's phi0 with a synthetic "
+          "image")
+    gp = GACParams()
+    phi0 = np.load(HERE / "tests" / "golden" / "gac_ctour.npz")["phi0"]
+    gh, gw = phi0.shape
+    gy, gx = np.mgrid[:gh, :gw]
+    cy, cx, radius = 108, 165, 35  # a bright disc inside the initial contour
+    gimg = 0.3 + 0.1 * rng.random((3, gh, gw)).astype(np.float32)
+    gimg[:, (gy - cy) ** 2 + (gx - cx) ** 2 < radius ** 2] += 0.5
+    import scipy.ndimage as ndi
+    gimg = torch.from_numpy(ndi.gaussian_filter(gimg, (0, 1.5, 1.5)).astype(np.float32)).to(dev)
+    phi0_d = torch.from_numpy(phi0).to(dev)
+    area0 = int((phi0_d > 0).sum())
+    for name, fn in (("gac_a", gac_a), ("gac_b", gac_b)):
+        frame_s = []
+        for _ in range(3):
+            reset_counts()
+            phi, sec = timed(lambda: fn(gimg, phi0_d))
+            frame_s.append(sec)
+            check_counts(name, {"tridiag_thomas": 2 * gp.ITER})
+        area = int((phi > 0).sum())
+        print(f"  {name}: {gp.ITER} AOS steps, {2 * gp.ITER} tridiag_thomas launches; frame "
+              f"time: cold {frame_s[0]:.3f} s, warm {frame_s[1]:.3f} / {frame_s[2]:.3f} s; "
+              f"positive area {area0} -> {area} px, phi at the disc's centre "
+              f"{float(phi[cy, cx]):.3f}", flush=True)
+        if not torch.isfinite(phi).all() or phi.shape != phi0_d.shape:
+            fail(f"{name}: non-finite level set or wrong shape")
+        if not (0 < area < area0 and float(phi[cy, cx]) > 0):
+            fail(f"{name}: the contour did not shrink around the disc ({area0} -> {area} px, "
+                 f"phi at the centre {float(phi[cy, cx])})")
+        print_profile(name, min(frame_s[1:]), device_profile(lambda: fn(gimg, phi0_d)))
+        sh, sw = GAC_SMALL
+        small_img = gimg[:, cy - sh // 2:cy + sh // 2, cx - sw // 2:cx + sw // 2].contiguous()
+        sy, sx = np.mgrid[:sh, :sw]
+        small_phi = torch.from_numpy(
+            (28.0 - np.hypot(sy - sh / 2, sx - sw / 2)).astype(np.float32)).to(dev)
+
+        got = fn(small_img, small_phi, ITER=20)
+        reset_counts()
+        with dispatch.plain_solvers():
+            want, plain_s = timed(lambda: fn(small_img, small_phi, ITER=20))
+        check_counts(f"{name}'s plain path", {})
+        err = float((got - want).abs().max())
+        print(f"  {name} at {GAC_SMALL}, ITER=20: kernel path vs plain path max |dphi| "
+              f"{err:.3g} (plain path {plain_s:.3f} s on the card)", flush=True)
+        if not err <= GAC_TOL:
+            fail(f"{name}: kernel path and plain path differ by {err} > {GAC_TOL}")
+    # rows longer than the staged solve holds: the global-rows variant in a
+    # model call, held against the CPU path
+    lh, lw = GAC_STRIP
+    strip = 0.2 + 0.1 * rng.random((lh, lw)).astype(np.float32)
+    strip[4:12, lw // 3:2 * lw // 3] += 0.6
+    strip_phi = np.broadcast_to(6.0 - np.abs(np.arange(lh, dtype=np.float32) - lh / 2)[:, None],
+                                (lh, lw)).copy()
+    reset_counts()
+    phi_s = gac_a(torch.from_numpy(strip).to(dev), torch.from_numpy(strip_phi).to(dev), ITER=2)
+    torch.cuda.synchronize()
+    check_counts(f"gac_a {GAC_STRIP}", {"tridiag_thomas": 2, "tridiag_thomas_long": 2})
+    main_launches["tridiag_long"] = 2
+    phi_c = gac_a(strip, strip_phi, ITER=2, device="cpu")
+    d_strip = float((phi_s.cpu() - phi_c).abs().max()) / float(phi_c.max() - phi_c.min())
+    print(f"  gac_a on a {lh}x{lw} strip, ITER=2: 2 staged and 2 global-rows tridiag_thomas "
+          f"launches; card vs CPU path max |dphi| / range {d_strip:.3g}", flush=True)
+    if not d_strip <= TV_REL_TOL:
+        fail(f"gac_a on the strip: card and CPU paths differ by {d_strip} of the range")
+
     sources = {"flow_llin4_sor": ("pde_tpu_torch/csrc/flow_llin4_sor.cu",
                                   "pde_tpu/kernels/sor_pallas.py:71"),
                "disp_llin4_sor": ("pde_tpu_torch/csrc/interior_sor.cu",
@@ -1729,6 +2063,9 @@ def main() -> None:
                                  "pde_tpu/kernels/sweeps.py:204"),
                "tridiag": ("pde_tpu_torch/csrc/tridiag.cu",
                            "pde_tpu/kernels/tdma_pallas.py:82"),
+               # its global-rows variant: lines longer than the staged one holds
+               "tridiag_long": ("pde_tpu_torch/csrc/tridiag.cu",
+                                "pde_tpu/kernels/tdma_pallas.py:82"),
                # the preconditioner's pass around the same Pallas solve
                "tridiag_zebra_pass": ("pde_tpu_torch/csrc/tridiag.cu",
                                       "pde_tpu/kernels/tdma_pallas.py:82"),
@@ -1741,6 +2078,7 @@ def main() -> None:
     # C = 3) at the main path's finest level
     key = {name: ((name, -2, th, tw) if name.startswith("tridiag") else (name, th, tw))
            for name in sources}
+    key["tridiag_long"] = ("tridiag_long", LONG_TIME[1], *LONG_TIME[0])
     for name in AT_MAIN:
         if key[name] not in times:
             key[name] = (name, *MAIN_SHAPE[1:])

@@ -18,7 +18,12 @@ anisotropic flow ``models.flow_ad`` and TV denoiser
 ``models.tv_denoise.tv_denoise8`` (their 8-neighbour sweeps in the first
 and second source) and the semi-implicit diffusion ``models.diffusion``. Every model's ``solver=2``,
 the line-implicit PCG (``solvers/krylov.py``), and diffusion solve their
-tridiagonal lines with a third, ``csrc/tridiag.cu``. The temporally blocked
+tridiagonal lines with a third, ``csrc/tridiag.cu``, which also serves the
+FAS full-multigrid flow ``models.flow_fmg`` (its default ``solver=2``; with
+``solver=1`` the resident elin4 kernel smooths) and the geodesic active
+contours ``models.gac`` (``gac_a``, ``gac_b``: two line-set solves an AOS
+step, ``solvers/aos.py``, with the reinitialisation of
+``solvers/reinit.py``). The temporally blocked
 tile engine ``kernels.tiled.tiled_relax`` runs the llin4 and elin4 sweeps k
 at a time over tiles in shared memory, a fourth source,
 ``csrc/tiled_sor.cu``; no model routes through it yet. Entry points run on the CUDA card
@@ -30,3 +35,47 @@ its first launch on a CUDA tensor (``kernels/build.py``).
 __version__ = "0.1.0"
 
 from pde_tpu_torch import core, ops, solvers, kernels, models  # noqa: F401
+from pde_tpu_torch.models import (  # noqa: F401
+    Diffusion4Params,
+    DisparityParams,
+    DisparitySymParams,
+    FlowADParams,
+    FlowFMGParams,
+    FlowHSParams,
+    FlowNDParams,
+    GACParams,
+    TVDenoise4Params,
+    TVDenoise8Params,
+    diffusion4,
+    disparity_nd,
+    disparity_nd_fused,
+    disparity_sym,
+    disparity_sym_fused,
+    flow_ad,
+    flow_ad_fused,
+    flow_fmg,
+    flow_fmg_fused,
+    flow_hs,
+    flow_nd,
+    flow_nd_fused,
+    flow_nd_sequence,
+    gac_a,
+    gac_a_fused,
+    gac_b,
+    gac_b_fused,
+    tv_denoise4,
+    tv_denoise4_fused,
+    tv_denoise8,
+    tv_denoise8_fused,
+)
+from pde_tpu_torch.solvers import (  # noqa: F401
+    ac_aos_step,
+    cv_aos_step,
+    lhs_elin4,
+    lhs_llin4,
+    reinit,
+    reinit_t,
+    residuals_disp_llin4,
+    residuals_elin4,
+    residuals_llin4,
+)

@@ -12,6 +12,7 @@ from pde_tpu_torch.core.conv import (
     separable_filter,
     gaussian_kernel_1d,
     gaussian_kernel_2d,
+    binomial5,
 )
 from pde_tpu_torch.core.resize import imresize, imresize_scale, resize_matrix
 from pde_tpu_torch.core.pyramid import pyramid_scales, build_pyramid

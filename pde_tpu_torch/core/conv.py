@@ -72,3 +72,8 @@ def gaussian_kernel_2d(size: int, sigma: float) -> np.ndarray:
     k1 = gaussian_kernel_1d(size, sigma)
     k2 = np.outer(k1, k1)
     return (k2 / k2.sum()).astype(np.float32)
+
+
+#: 1-4-6-4-1 binomial low-pass of the FMG pyramid
+#: (FlowEminNDFASFMG_elin_2D_v10.m:98-110)
+binomial5 = np.array([1.0, 4.0, 6.0, 4.0, 1.0], dtype=np.float32) / 16.0

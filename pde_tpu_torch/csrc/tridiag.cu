@@ -41,7 +41,18 @@
 // banks. G, R and S come from kernels/tdma_cuda.py::plan_lines (the plan
 // scripts/tridiag_plan_sweep.py measured fastest: small G, so that even a
 // parity's few lines give every SM a block); tridiag_smem_bytes gives the
-// same bytes as the plan does, and a line too long for G = 1 is refused.
+// same bytes as the plan does.
+//
+// Lines of any length (the global-rows variant): where one line's resident
+// rows do not fit in a block's shared memory even at G = 1 (a line of more
+// than ~28,000 elements), plan_lines chooses, from the shape and before any
+// launch, the variant whose forward results go to a scratch in device memory
+// (2 rows of L a line, padded as the resident rows, from torch's allocator)
+// instead: the same staged ring and the same arithmetic, so the same floats.
+// The walker stores its forward results there (for solve and zebra it also
+// copies cp there, staged as one more tile), walks back with its loads four
+// batches ahead of the chain, and the copy-out reads them from there. The
+// batch is folded into blockIdx.x, so a launch takes any batch.
 //
 // Entry points:
 //   * tridiag_thomas: the whole solve of every line in one launch;
@@ -86,7 +97,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxSmem = 232448;  // a block's shared memory on the H100
-constexpr int kMaxTiles = 11;     // the zebra pass, coupled, 8 neighbours
+constexpr int kMaxTiles = 12;     // the zebra pass, coupled, 8 neighbours, cp staged
 
 enum Mode { kThomas = 0, kFactor = 1, kSolve = 2, kZebra = 3 };
 
@@ -98,8 +109,9 @@ struct Src {
 // The staged tiles in a fixed order per mode:
 //   thomas a, b, c, d; factor a, b, c; solve a, denom, d;
 //   zebra a, denom, rhs, w_lo, w_hi [, m, z_o] [, wnw, wne, wse, wsw].
-// cp (solve, zebra) is copied straight into its resident row; z (zebra) is
-// staged as a window around the group.
+// cp (solve, zebra) is copied straight into its resident row (the global-rows
+// variant stages it as one more tile, last); z (zebra) is staged as a window
+// around the group.
 struct Srcs {
   Src f[kMaxTiles];
   Src cp;
@@ -110,6 +122,7 @@ struct Out {
   float* p0;  // factor: cp
   float* p1;  // x (thomas, solve), denom (factor), z (zebra)
   long long bstride, base, tstride, kstride;  // element (b, t, k) of the launch
+  float* rows;  // the global-rows variant's forward results: 2 rows of lp a line
 };
 
 struct Geo {
@@ -122,6 +135,7 @@ struct Geo {
   long long qstride, kstride;        // plane offsets of a line index q and an element k
   int g, lg_g, stages, lp, n_tiles;  // the plan; lp: the resident rows' pitch
   int coupled, diag;
+  int n_groups;  // blocks a batch item: block x takes group x % n_groups of item x / n_groups
 };
 
 // Row pitches in floats: an odd number of 16-byte units (R + 4 for the
@@ -142,12 +156,19 @@ int n_tiles_of(int mode, int coupled, int diag) {
   }
 }
 
-long long smem_bytes_of(int mode, int coupled, int diag, int len, int g, int r, int stages) {
+// The global-rows variant stages cp (solve, zebra) as one more tile and keeps
+// no resident rows in shared memory.
+int staged_tiles(int mode, int coupled, int diag, int global_rows) {
+  return n_tiles_of(mode, coupled, diag) + (global_rows && (mode == kSolve || mode == kZebra));
+}
+
+long long smem_bytes_of(int mode, int coupled, int diag, int len, int g, int r, int stages,
+                        int global_rows) {
   const long long lp = resident_pitch(len);
-  const long long stage = static_cast<long long>(n_tiles_of(mode, coupled, diag)) * g *
-                              tile_pitch(r) +
+  const long long stage = static_cast<long long>(staged_tiles(mode, coupled, diag, global_rows)) *
+                              g * tile_pitch(r) +
                           (mode == kZebra ? (2LL * g + 1) * window_pitch(r) : 0);
-  return 4 * (2 * g * lp + stages * stage);
+  return 4 * ((global_rows ? 0 : 2 * g * lp) + stages * stage);
 }
 
 __device__ __forceinline__ void wait_prior(int n) {
@@ -178,8 +199,9 @@ __device__ __forceinline__ void store8(float* p, const float (&v)[kBatch]) {
 // from the window), then their chain, carried in cp_prev and dp_prev, then
 // the stores into the resident rows r0 and r1 (at k0). st is the line's
 // row of the stage's first tile (the tiles lie tile_f apart), zw its
-// centre line of the z window at k0.
-template <int kMode, int kR, bool kCoupled, bool kDiag, int n>
+// centre line of the z window at k0. With kGlobalRows the rows lie in device
+// memory, and solve and zebra also copy cp (the last staged tile) into r0.
+template <int kMode, int kR, bool kCoupled, bool kDiag, bool kGlobalRows, int n>
 __device__ __forceinline__ void walk_steps(const float* st, const float* zw, float* r0,
                                            float* r1, int tile_f, int k0, int k, int len,
                                            int ne_at, int sw_at, float& cp_prev,
@@ -204,6 +226,8 @@ __device__ __forceinline__ void walk_steps(const float* st, const float* zw, flo
   }
   if (kMode == kThomas) load(3, dv);
   if (kMode == kSolve) load(2, dv);
+  constexpr bool kCopyCp = kGlobalRows && (kMode == kSolve || kMode == kZebra);
+  if (kCopyCp) load(kMode == kSolve ? 3 : 5 + 2 * kCoupled + 4 * kDiag, cv);
   if (kMode == kZebra) {
     float lo[kBatch], hi[kBatch];
     load(2, dv);  // rhs
@@ -251,31 +275,44 @@ __device__ __forceinline__ void walk_steps(const float* st, const float* zw, flo
     }
   }
   if (n == kBatch) {
-    if (kMode == kThomas || kMode == kFactor) store8(r0 + k, cv);
+    if (kMode == kThomas || kMode == kFactor || kCopyCp) store8(r0 + k, cv);
     store8(r1 + k, dv);
   } else {
-    if (kMode == kThomas || kMode == kFactor) r0[k] = cv[0];
+    if (kMode == kThomas || kMode == kFactor || kCopyCp) r0[k] = cv[0];
     r1[k] = dv[0];
   }
 }
 
 // Line t's forward pass over one staged chunk [k0, k0 + nk).
-template <int kMode, int kR, bool kCoupled, bool kDiag>
+template <int kMode, int kR, bool kCoupled, bool kDiag, bool kGlobalRows>
 __device__ __forceinline__ void walk_chunk(const float* st, const float* zw, float* r0, float* r1,
                                            int tile_f, int k0, int nk, int len, int ne_at,
                                            int sw_at, float& cp_prev, float& dp_prev) {
   int k = 0;
   for (; k + kBatch <= nk; k += kBatch)
-    walk_steps<kMode, kR, kCoupled, kDiag, kBatch>(st, zw, r0, r1, tile_f, k0, k, len, ne_at,
-                                                   sw_at, cp_prev, dp_prev);
+    walk_steps<kMode, kR, kCoupled, kDiag, kGlobalRows, kBatch>(
+        st, zw, r0, r1, tile_f, k0, k, len, ne_at, sw_at, cp_prev, dp_prev);
   for (; k < nk; ++k)
-    walk_steps<kMode, kR, kCoupled, kDiag, 1>(st, zw, r0, r1, tile_f, k0, k, len, ne_at, sw_at,
-                                              cp_prev, dp_prev);
+    walk_steps<kMode, kR, kCoupled, kDiag, kGlobalRows, 1>(st, zw, r0, r1, tile_f, k0, k, len,
+                                                           ne_at, sw_at, cp_prev, dp_prev);
+}
+
+// One batch of the backward chain, x = dp - cp x_next, in place in xv.
+__device__ __forceinline__ void back_batch(const float (&cv)[kBatch], float (&xv)[kBatch],
+                                           float& x_next) {
+#pragma unroll
+  for (int u = kBatch - 1; u >= 0; --u) {
+    x_next = __fsub_rn(xv[u], __fmul_rn(cv[u], x_next));
+    xv[u] = x_next;
+  }
 }
 
 // Line t's backward pass over the resident rows: x = dp - cp x_next, in
 // place; the elements above the last multiple of 8 one by one, then 8 at
-// a time with 16-byte accesses, their loads ahead of their chain.
+// a time with 16-byte accesses, their loads ahead of their chain. Rows in
+// device memory (kGlobalRows) are loaded kAhead batches ahead, so that the
+// chain does not wait a memory latency a batch.
+template <bool kGlobalRows>
 __device__ __forceinline__ void walk_back(const float* r0, float* r1, int len) {
   float x_next = 0.0f;
   const int top = len & ~(kBatch - 1);
@@ -283,16 +320,40 @@ __device__ __forceinline__ void walk_back(const float* r0, float* r1, int len) {
     x_next = __fsub_rn(r1[k], __fmul_rn(r0[k], x_next));
     r1[k] = x_next;
   }
-  for (int kb = top - kBatch; kb >= 0; kb -= kBatch) {
-    float cv[kBatch], xv[kBatch];
-    load8(r0 + kb, cv);
-    load8(r1 + kb, xv);
-#pragma unroll
-    for (int u = kBatch - 1; u >= 0; --u) {
-      x_next = __fsub_rn(xv[u], __fmul_rn(cv[u], x_next));
-      xv[u] = x_next;
+  if (!kGlobalRows) {
+    for (int kb = top - kBatch; kb >= 0; kb -= kBatch) {
+      float cv[kBatch], xv[kBatch];
+      load8(r0 + kb, cv);
+      load8(r1 + kb, xv);
+      back_batch(cv, xv, x_next);
+      store8(r1 + kb, xv);
     }
-    store8(r1 + kb, xv);
+    return;
+  }
+  constexpr int kAhead = 4;
+  float cv[kAhead][kBatch], xv[kAhead][kBatch];
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) {
+    const int kb = top - (j + 1) * kBatch;
+    if (kb >= 0) {
+      load8(r0 + kb, cv[j]);
+      load8(r1 + kb, xv[j]);
+    }
+  }
+  for (int base = top; base > 0; base -= kAhead * kBatch) {
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      const int kb = base - (j + 1) * kBatch;
+      if (kb >= 0) {
+        back_batch(cv[j], xv[j], x_next);
+        store8(r1 + kb, xv[j]);
+        const int next = kb - kAhead * kBatch;
+        if (next >= 0) {
+          load8(r0 + next, cv[j]);
+          load8(r1 + next, xv[j]);
+        }
+      }
+    }
   }
 }
 
@@ -300,19 +361,23 @@ __device__ __forceinline__ void walk_back(const float* r0, float* r1, int len) {
 // lives in stage ch % S. Each round: the copiers wait for chunk ch, one
 // barrier (chunk ch visible to the walkers, and chunk ch - 1's stage
 // walked), then the copiers issue chunk ch + S - 1 into that freed stage
-// while the walkers walk chunk ch.
-template <int kMode, int kR>
+// while the walkers walk chunk ch. kGlobalRows: the forward results of line
+// t in out.rows (rows apart by row_f floats) instead of shared memory.
+template <int kMode, int kR, bool kGlobalRows>
 __global__ void __launch_bounds__(kThreads) lines_kernel(Srcs src, Out out, Geo g) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kRp = tile_pitch(kR);
   constexpr int kWp = window_pitch(kR);
   constexpr int kCopiers = kThreads - 32;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * g.g;
+  const int b = blockIdx.x / g.n_groups;
+  const int t0 = (blockIdx.x % g.n_groups) * g.g;
   const int n_g = min(g.g, g.n_lines - t0);
-  float* res0 = smem;               // cp
-  float* res1 = smem + g.g * g.lp;  // dp, then x (denom for the factor)
-  float* ring = res1 + g.g * g.lp;
+  // res0: cp; res1: dp, then x (denom for the factor); line t's at t row_f
+  const long long row_f = kGlobalRows ? 2LL * g.lp : g.lp;
+  float* res0 = kGlobalRows ? out.rows + (static_cast<long long>(b) * g.n_lines + t0) * row_f
+                            : smem;
+  float* res1 = kGlobalRows ? res0 + g.lp : smem + g.g * g.lp;
+  float* ring = kGlobalRows ? smem : res1 + g.g * g.lp;
   const int tile_f = g.g * kRp;
   const int stage_f = g.n_tiles * tile_f + (kMode == kZebra ? (2 * g.g + 1) * kWp : 0);
   const int n_chunks = (g.len + kR - 1) / kR;
@@ -341,7 +406,7 @@ __global__ void __launch_bounds__(kThreads) lines_kernel(Srcs src, Out out, Geo 
             __pipeline_memcpy_async(dst + i * tile_f, src.f[i].p + b * src.f[i].bstride + off,
                                     sizeof(float));
         // cp straight into its resident rows
-        if (kMode == kSolve || kMode == kZebra)
+        if ((kMode == kSolve || kMode == kZebra) && !kGlobalRows)
           __pipeline_memcpy_async(res0 + t * g.lp + k0 + k, src.cp.p + b * src.cp.bstride + off,
                                   sizeof(float));
       }
@@ -381,11 +446,11 @@ __global__ void __launch_bounds__(kThreads) lines_kernel(Srcs src, Out out, Geo 
       const float* st = ring + (ch % g.stages) * stage_f + t * kRp;
       const float* zw = ring + (ch % g.stages) * stage_f + g.n_tiles * tile_f + 2 * t * kWp + 1;
       const int k0 = ch * kR, nk = min(kR, g.len - k0);
-      float* r0 = res0 + t * g.lp + k0;
-      float* r1 = res1 + t * g.lp + k0;
+      float* r0 = res0 + t * row_f + k0;
+      float* r1 = res1 + t * row_f + k0;
       // the zebra pass's form as compile-time flags
       auto walk = [&](auto coupled, auto diag) {
-        walk_chunk<kMode, kR, decltype(coupled)::value, decltype(diag)::value>(
+        walk_chunk<kMode, kR, decltype(coupled)::value, decltype(diag)::value, kGlobalRows>(
             st, zw, r0, r1, tile_f, k0, nk, g.len, ne_at, sw_at, cp_prev, dp_prev);
       };
       using yes = std::true_type;
@@ -397,7 +462,8 @@ __global__ void __launch_bounds__(kThreads) lines_kernel(Srcs src, Out out, Geo 
     }
   }
   if (!walker) __pipeline_wait_prior(0);
-  if (kMode != kFactor && walker && t < n_g) walk_back(res0 + t * g.lp, res1 + t * g.lp, g.len);
+  if (kMode != kFactor && walker && t < n_g)
+    walk_back<kGlobalRows>(res0 + t * row_f, res1 + t * row_f, g.len);
   __syncthreads();
 
   // the group's lines out, adjacent threads on adjacent addresses
@@ -408,12 +474,12 @@ __global__ void __launch_bounds__(kThreads) lines_kernel(Srcs src, Out out, Geo 
     if (g.vertical) {
       for (int e = threadIdx.x; e < g.g * g.len; e += kThreads) {
         const int tt = e & (g.g - 1), k = e >> g.lg_g;
-        if (tt < n_g) o[tt * out.tstride + k * out.kstride] = res[tt * g.lp + k];
+        if (tt < n_g) o[tt * out.tstride + k * out.kstride] = res[tt * row_f + k];
       }
     } else {
       for (int tt = 0; tt < n_g; ++tt)
         for (int k = threadIdx.x; k < g.len; k += kThreads)
-          o[tt * out.tstride + k * out.kstride] = res[tt * g.lp + k];
+          o[tt * out.tstride + k * out.kstride] = res[tt * row_f + k];
     }
   }
 }
@@ -421,15 +487,14 @@ __global__ void __launch_bounds__(kThreads) lines_kernel(Srcs src, Out out, Geo 
 template <int kMode, int kR>
 cudaError_t launch_r(const Srcs& s, const Out& o, const Geo& g, int batch, int smem,
                      cudaStream_t stream) {
-  const auto kernel = lines_kernel<kMode, kR>;
+  const auto kernel = o.rows ? lines_kernel<kMode, kR, true> : lines_kernel<kMode, kR, false>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(static_cast<unsigned>((g.n_lines + g.g - 1) / g.g),
-                  static_cast<unsigned>(batch));
-  kernel<<<grid, kThreads, smem, stream>>>(s, o, g);
+  const long long blocks = static_cast<long long>(g.n_groups) * batch;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(s, o, g);
   return cudaGetLastError();
 }
 
@@ -440,11 +505,13 @@ int lg2(int g) {
 }
 
 // Fills the geometry of a launch over the lines parity::2 (parity < 0: every
-// line) and launches it with the plan (g, r, stages); refuses a plan the
-// kernel does not take.
+// line) and launches it with the plan (g, r, stages), the global-rows variant
+// where rows is not null; refuses a plan the kernel does not take.
 template <int kMode>
 int launch(Srcs& s, Out& o, int batch, int h, int w, int vertical, int parity, int coupled,
-           int diag, int g_lines, int r, int stages, cudaStream_t stream) {
+           int diag, int g_lines, int r, int stages, void* rows, cudaStream_t stream) {
+  const int global_rows = rows != nullptr;
+  o.rows = static_cast<float*>(rows);
   Geo g{};
   g.len = vertical ? h : w;
   g.n_perp = vertical ? w : h;
@@ -459,12 +526,17 @@ int launch(Srcs& s, Out& o, int batch, int h, int w, int vertical, int parity, i
   g.lg_g = lg2(g_lines);
   g.stages = stages;
   g.lp = resident_pitch(g.len);
-  g.n_tiles = n_tiles_of(kMode, coupled, diag);
+  g.n_tiles = staged_tiles(kMode, coupled, diag, global_rows);
+  // the global-rows variant stages cp last
+  if (global_rows && (kMode == kSolve || kMode == kZebra)) s.f[g.n_tiles - 1] = s.cp;
   g.coupled = coupled;
   g.diag = diag;
-  const long long smem = smem_bytes_of(kMode, coupled, diag, g.len, g_lines, r, stages);
+  g.n_groups = (g.n_lines + g_lines - 1) / max(g_lines, 1);
+  const long long smem = smem_bytes_of(kMode, coupled, diag, g.len, g_lines, r, stages,
+                                       global_rows);
   if (g.lg_g < 0 || g_lines > 32 || stages < 2 || stages > 4 || smem > kMaxSmem ||
-      (kMode == kZebra && parity < 0) || batch > 65535)
+      (kMode == kZebra && parity < 0) ||
+      static_cast<long long>(g.n_groups) * batch > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || g.n_lines == 0) return static_cast<int>(cudaSuccess);
   cudaError_t err;
@@ -483,7 +555,7 @@ Out full_out(void* p0, void* p1, int h, int w, int vertical, int parity) {
   const long long qstride = vertical ? 1 : w;
   return Out{static_cast<float*>(p0), static_cast<float*>(p1), static_cast<long long>(h) * w,
              (parity < 0 ? 0 : parity) * qstride, (parity < 0 ? 1 : 2) * qstride,
-             vertical ? w : 1};
+             vertical ? w : 1, nullptr};
 }
 
 }  // namespace
@@ -494,10 +566,12 @@ extern "C" {
 // are (H, W) planes with batch strides sa, sb, sc (0: one plane shared by the
 // batch; H * W: one plane per batch item); d and x are (batch, H, W).
 // vertical = 1 solves along axis -2, 0 along axis -1. (g, r, stages) is the
-// plan: G lines a block, R elements a chunk, S stages in the ring.
+// plan: G lines a block, R elements a chunk, S stages in the ring. rows is
+// null, or the global-rows variant's scratch of batch x (lines solved) x 2
+// rows of resident_pitch(L) floats.
 int tridiag_thomas(const void* a, const void* b, const void* c, const void* d, void* x,
                    long long sa, long long sb, long long sc, int batch, int h, int w,
-                   int vertical, int g, int r, int stages, void* stream) {
+                   int vertical, int g, int r, int stages, void* rows, void* stream) {
   const long long plane = static_cast<long long>(h) * w;
   Srcs s{};
   s.f[0] = Src{f(a), sa};
@@ -505,20 +579,20 @@ int tridiag_thomas(const void* a, const void* b, const void* c, const void* d, v
   s.f[2] = Src{f(c), sc};
   s.f[3] = Src{f(d), plane};
   Out o = full_out(nullptr, x, h, w, vertical, -1);
-  return launch<kThomas>(s, o, batch, h, w, vertical, -1, 0, 0, g, r, stages,
+  return launch<kThomas>(s, o, batch, h, w, vertical, -1, 0, 0, g, r, stages, rows,
                          static_cast<cudaStream_t>(stream));
 }
 
 // cp and denom receive the (batch, H, W) factor of the field's lines.
 int tridiag_factor(const void* a, const void* b, const void* c, void* cp, void* denom,
                    long long sa, long long sb, long long sc, int batch, int h, int w,
-                   int vertical, int g, int r, int stages, void* stream) {
+                   int vertical, int g, int r, int stages, void* rows, void* stream) {
   Srcs s{};
   s.f[0] = Src{f(a), sa};
   s.f[1] = Src{f(b), sb};
   s.f[2] = Src{f(c), sc};
   Out o = full_out(cp, denom, h, w, vertical, -1);
-  return launch<kFactor>(s, o, batch, h, w, vertical, -1, 0, 0, g, r, stages,
+  return launch<kFactor>(s, o, batch, h, w, vertical, -1, 0, 0, g, r, stages, rows,
                          static_cast<cudaStream_t>(stream));
 }
 
@@ -528,7 +602,7 @@ int tridiag_factor(const void* a, const void* b, const void* c, void* cp, void* 
 // (batch, H, ceil((W - parity) / 2)) or (batch, ceil((H - parity) / 2), W).
 int tridiag_solve(const void* a, const void* cp, const void* denom, const void* d, void* x,
                   long long sa, long long sf, int batch, int h, int w, int vertical, int parity,
-                  int g, int r, int stages, void* stream) {
+                  int g, int r, int stages, void* rows, void* stream) {
   const long long plane = static_cast<long long>(h) * w;
   Srcs s{};
   s.f[0] = Src{f(a), sa};
@@ -541,9 +615,9 @@ int tridiag_solve(const void* a, const void* cp, const void* denom, const void* 
   } else {
     const long long n_sel = ((vertical ? w : h) - parity + 1) / 2;
     o = Out{nullptr, static_cast<float*>(x), n_sel * (vertical ? h : w), 0,
-            vertical ? 1 : w, vertical ? n_sel : 1};
+            vertical ? 1 : w, vertical ? n_sel : 1, nullptr};
   }
-  return launch<kSolve>(s, o, batch, h, w, vertical, parity, 0, 0, g, r, stages,
+  return launch<kSolve>(s, o, batch, h, w, vertical, parity, 0, 0, g, r, stages, rows,
                         static_cast<cudaStream_t>(stream));
 }
 
@@ -558,7 +632,7 @@ int tridiag_zebra_pass(const void* a, const void* cp, const void* denom, const v
                        const void* wnw, const void* wne, const void* wse, const void* wsw,
                        void* z, long long sa, long long sf, long long sw, long long sm,
                        int batch, int h, int w, int vertical, int parity, int coupled,
-                       int diag, int g, int r, int stages, void* stream) {
+                       int diag, int g, int r, int stages, void* rows, void* stream) {
   const long long plane = static_cast<long long>(h) * w;
   Srcs s{};
   s.f[0] = Src{f(a), sa};
@@ -581,14 +655,14 @@ int tridiag_zebra_pass(const void* a, const void* cp, const void* denom, const v
   s.z = f(z);
   Out o = full_out(nullptr, z, h, w, vertical, parity);
   return launch<kZebra>(s, o, batch, h, w, vertical, parity, coupled, diag, g, r, stages,
-                        static_cast<cudaStream_t>(stream));
+                        rows, static_cast<cudaStream_t>(stream));
 }
 
-// Shared memory of a block for mode (0 thomas, 1 factor, 2 solve, 3 zebra),
-// as kernels/tdma_cuda.py::plan_lines counts it.
+// Shared memory of a block for mode (0 thomas, 1 factor, 2 solve, 3 zebra)
+// and variant (global_rows), as kernels/tdma_cuda.py::plan_lines counts it.
 long long tridiag_smem_bytes(int mode, int coupled, int diag, int len, int g, int r,
-                             int stages) {
-  return smem_bytes_of(mode, coupled, diag, len, g, r, stages);
+                             int stages, int global_rows) {
+  return smem_bytes_of(mode, coupled, diag, len, g, r, stages, global_rows);
 }
 
 const char* tridiag_error_string(int code) {

@@ -10,11 +10,17 @@ plane shared by the leading dimensions (read with batch stride 0), as
 ``pcg_pde4``'s weights are against its ``(C, H, W)`` diagonal.
 
 Every launch takes a plan from :func:`plan_lines`: G lines a block, R
-elements of each line a staged chunk, S stages in the ring of chunks.
+elements of each line a staged chunk, S stages in the ring of chunks, and
+the variant. Lines whose forward results do not fit in a block's shared
+memory even at G = 1 (longer than ~28,000 elements) take the global-rows
+variant, chosen from the shape before any launch: the same arithmetic with
+those results in a scratch of device memory (:func:`row_scratch`). Any
+batch is taken (the kernel folds it into the grid's x).
 
 ``LAUNCHES`` counts the launches per entry point (``"thomas"``,
 ``"factor"``, ``"solve"``, ``"zebra_pass"``; one per call that has a line
-to solve), so a run can show that it went through the kernel.
+to solve), the global-rows variant's apart (``"thomas_long"``, ...), so a
+run can show that it went through the kernel and which variant ran.
 """
 
 from __future__ import annotations
@@ -29,11 +35,13 @@ import torch
 from pde_tpu_torch.kernels import build
 
 SOURCE = "tridiag"
-LAUNCHES = {"thomas": 0, "factor": 0, "solve": 0, "zebra_pass": 0}
+ENTRIES = ("thomas", "factor", "solve", "zebra_pass")
+LAUNCHES = {**{k: 0 for k in ENTRIES}, **{f"{k}_long": 0 for k in ENTRIES}}
 
 # the kernel's modes (tridiag.cu's Mode)
 MODES = ("thomas", "factor", "solve", "zebra")
 MAX_SMEM = 232448   # bytes of shared memory a block may use on the H100
+MAX_BLOCKS = 2**31 - 1  # a launch's grid x, which holds batch x groups
 # the plan measured fastest by scripts/tridiag_plan_sweep.py at 481x641 and
 # 1024x1024, both axes, on an H100 (PERF.md, row 8): G lines a block per
 # mode, R elements a chunk, S stages
@@ -45,73 +53,97 @@ STAGES = 2
 @dataclasses.dataclass(frozen=True)
 class LinePlan:
     """G lines a block, R elements a chunk, S stages; the shared memory a
-    block takes and the blocks of the launch."""
+    block takes and the blocks of the launch; ``global_rows``: the variant
+    whose forward results lie in device memory."""
 
     g: int
     r: int
     stages: int
     smem_bytes: int
     blocks: int
+    global_rows: bool = False
 
 
-def n_tiles(mode: str, coupled: bool = False, diag: bool = False) -> int:
+def n_tiles(mode: str, coupled: bool = False, diag: bool = False,
+            global_rows: bool = False) -> int:
     """Fields staged a chunk: thomas a, b, c, d; factor a, b, c; solve a,
     denom, d; zebra a, denom, rhs, w_lo, w_hi, (m, z_o), (4 diagonal
-    weights)."""
-    return {"thomas": 4, "factor": 3, "solve": 3}.get(mode, 5 + 2 * coupled + 4 * diag)
+    weights); the global-rows variant stages cp too (solve, zebra)."""
+    base = {"thomas": 4, "factor": 3, "solve": 3}.get(mode, 5 + 2 * coupled + 4 * diag)
+    return base + (global_rows and mode in ("solve", "zebra"))
+
+
+def row_pitch(length: int) -> int:
+    """Floats a row of a line's forward results takes: L rounded up to 4
+    mod 8 (16-byte accesses; in shared memory, no bank conflicts)."""
+    return length + (4 - length) % 8
 
 
 def smem_bytes(mode: str, length: int, g: int, r: int, stages: int, coupled: bool = False,
-               diag: bool = False) -> int:
+               diag: bool = False, global_rows: bool = False) -> int:
     """A block's shared memory, as ``tridiag.cu::smem_bytes_of`` counts it:
-    the resident forward results (2 G rows of L, the pitch rounded up to 4
-    mod 8 floats) and S stages of tiles (G rows of R + 4 floats each) plus,
-    for the zebra pass, the window of z (2 G + 1 rows of R + 4)."""
-    stage = n_tiles(mode, coupled, diag) * g * (r + 4)
+    the resident forward results (2 G rows of ``row_pitch(L)``; none in the
+    global-rows variant) and S stages of tiles (G rows of R + 4 floats each)
+    plus, for the zebra pass, the window of z (2 G + 1 rows of R + 4)."""
+    stage = n_tiles(mode, coupled, diag, global_rows) * g * (r + 4)
     if mode == "zebra":
         stage += (2 * g + 1) * (r + 4)
-    return 4 * (2 * g * (length + (4 - length) % 8) + stages * stage)
+    return 4 * ((0 if global_rows else 2 * g * row_pitch(length)) + stages * stage)
 
 
 @functools.lru_cache(maxsize=None)
 def plan_lines(batch: int, h: int, w: int, vertical: bool, parity: int | None, mode: str,
                coupled: bool = False, diag: bool = False, override=None) -> LinePlan:
     """The launch plan of ``mode`` over the lines ``parity::2`` (None: every
-    line): ``GROUP[mode]`` lines a block, halved while the block does not
-    fit in shared memory, R = ``CHUNK``, S = ``STAGES``. ``override`` =
-    (g, r, stages) replaces the choice (the plan sweep's). Raises if the
-    kernel does not take the plan, as for a line longer than a block's
-    shared memory holds at G = 1."""
+    line): the global-rows variant where one line's resident rows do not fit
+    in a block's shared memory at G = 1, ``GROUP[mode]`` lines a block,
+    halved while the block does not fit, R = ``CHUNK``, S = ``STAGES``.
+    ``override`` = (g, r, stages) replaces the choice (the plan sweep's; the
+    variant stays the shape's). Raises if the kernel does not take the
+    plan."""
     if mode not in MODES:
         raise ValueError(f"plan_lines: mode must be one of {MODES}, got {mode!r}")
     length, n_all = (h, w) if vertical else (w, h)
     n_lines = n_all if parity is None else len(range(parity, n_all, 2))
     g, r, stages = override or (GROUP[mode], CHUNK, STAGES)
+    global_rows = smem_bytes(mode, length, 1, r, stages, coupled, diag) > MAX_SMEM
     if override is None:
-        while g > 1 and smem_bytes(mode, length, g, r, stages, coupled, diag) > MAX_SMEM:
+        while g > 1 and smem_bytes(mode, length, g, r, stages, coupled, diag,
+                                   global_rows) > MAX_SMEM:
             g //= 2
-    plan = LinePlan(g, r, stages, smem_bytes(mode, length, g, r, stages, coupled, diag),
-                    batch * -(-n_lines // g))
+    plan = LinePlan(g, r, stages,
+                    smem_bytes(mode, length, g, r, stages, coupled, diag, global_rows),
+                    batch * -(-n_lines // g), global_rows)
     if g not in (1, 2, 4, 8, 16, 32) or r not in (32, 64) or not 2 <= stages <= 4 \
-            or plan.smem_bytes > MAX_SMEM:
+            or plan.smem_bytes > MAX_SMEM or plan.blocks > MAX_BLOCKS:
         raise ValueError(f"plan_lines: the kernel does not take the plan {plan} for lines "
-                         f"of {length} elements ({MAX_SMEM} bytes of shared memory a block)")
+                         f"of {length} elements ({MAX_SMEM} bytes of shared memory a block, "
+                         f"{MAX_BLOCKS} blocks a launch)")
     return plan
+
+
+def row_scratch(plan: LinePlan, batch: int, n_lines: int, length: int, device):
+    """The global-rows variant's scratch (2 rows of ``row_pitch(L)`` floats
+    a line solved), from torch's allocator; None for the staged variant."""
+    if not plan.global_rows:
+        return None
+    return torch.empty(batch * n_lines * 2 * row_pitch(length), dtype=torch.float32,
+                       device=device)
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.tridiag_thomas.argtypes = [p] * 5 + [q, q, q] + [i] * 7 + [p]
+    lib.tridiag_thomas.argtypes = [p] * 5 + [q, q, q] + [i] * 7 + [p, p]
     lib.tridiag_thomas.restype = i
-    lib.tridiag_factor.argtypes = [p] * 5 + [q, q, q] + [i] * 7 + [p]
+    lib.tridiag_factor.argtypes = [p] * 5 + [q, q, q] + [i] * 7 + [p, p]
     lib.tridiag_factor.restype = i
-    lib.tridiag_solve.argtypes = [p] * 5 + [q, q] + [i] * 8 + [p]
+    lib.tridiag_solve.argtypes = [p] * 5 + [q, q] + [i] * 8 + [p, p]
     lib.tridiag_solve.restype = i
-    lib.tridiag_zebra_pass.argtypes = [p] * 13 + [q] * 4 + [i] * 10 + [p]
+    lib.tridiag_zebra_pass.argtypes = [p] * 13 + [q] * 4 + [i] * 10 + [p, p]
     lib.tridiag_zebra_pass.restype = i
-    lib.tridiag_smem_bytes.argtypes = [i] * 7
+    lib.tridiag_smem_bytes.argtypes = [i] * 8
     lib.tridiag_smem_bytes.restype = q
     lib.tridiag_error_string.argtypes = [i]
     lib.tridiag_error_string.restype = ctypes.c_char_p
@@ -176,6 +208,14 @@ def _raise_on(lib, fn: str, err: int) -> None:
                            f"({lib.tridiag_error_string(err).decode()})")
 
 
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _count(entry: str, plan: LinePlan) -> None:
+    LAUNCHES[entry + ("_long" if plan.global_rows else "")] += 1
+
+
 def _launch(device, launch) -> int:
     """``launch(stream)`` with ``device`` current and its current stream's
     handle (switching the device only when another one is current)."""
@@ -197,12 +237,13 @@ def thomas_solve(a, b, c, d, axis: int = -2, plan=None):
     pl = plan_lines(batch, h, w, vertical, None, "thomas", override=plan)
     lib = _lib()
     x = torch.empty(full, dtype=torch.float32, device=d.device)
+    rows = row_scratch(pl, batch, w if vertical else h, h if vertical else w, d.device)
     err = _launch(d.device, lambda stream: lib.tridiag_thomas(
         a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(), x.data_ptr(),
         _batch_stride(a, full), _batch_stride(b, full), _batch_stride(c, full), batch, h, w,
-        int(vertical), pl.g, pl.r, pl.stages, stream))
+        int(vertical), pl.g, pl.r, pl.stages, _ptr(rows), stream))
     _raise_on(lib, "tridiag_thomas", err)
-    LAUNCHES["thomas"] += 1
+    _count("thomas", pl)
     return x
 
 
@@ -217,12 +258,13 @@ def tridiag_factor(a, b, c, axis: int = -2, plan=None) -> LineFactor:
     lib = _lib()
     cp = torch.empty(full, dtype=torch.float32, device=b.device)
     denom = torch.empty_like(cp)
+    rows = row_scratch(pl, batch, w if vertical else h, h if vertical else w, b.device)
     err = _launch(b.device, lambda stream: lib.tridiag_factor(
         a.data_ptr(), b.data_ptr(), c.data_ptr(), cp.data_ptr(), denom.data_ptr(),
         _batch_stride(a, full), _batch_stride(b, full), _batch_stride(c, full), batch, h, w,
-        int(vertical), pl.g, pl.r, pl.stages, stream))
+        int(vertical), pl.g, pl.r, pl.stages, _ptr(rows), stream))
     _raise_on(lib, "tridiag_factor", err)
-    LAUNCHES["factor"] += 1
+    _count("factor", pl)
     return LineFactor(a, cp, denom, full, vertical)
 
 
@@ -247,10 +289,11 @@ def tridiag_solve(fac: LineFactor, d, parity: int | None = None, plan=None):
     full = _full_shape("tridiag_solve", (d,))
     _check_factor("tridiag_solve", fac, full, d.device)
     batch, (h, w) = math.prod(full[:-2]), full[-2:]
+    n_perp, length = (w, h) if fac.vertical else (h, w)
     if parity is None:
-        out_shape, par = full, -1
+        out_shape, par, n_sel = full, -1, n_perp
     elif parity in (0, 1):
-        n_sel = len(range(parity, w if fac.vertical else h, 2))
+        n_sel = len(range(parity, n_perp, 2))
         out_shape = full[:-1] + (n_sel,) if fac.vertical else full[:-2] + (n_sel, w)
         par = parity
     else:
@@ -260,12 +303,13 @@ def tridiag_solve(fac: LineFactor, d, parity: int | None = None, plan=None):
     if x.numel() == 0:
         return x
     lib = _lib()
+    rows = row_scratch(pl, batch, n_sel, length, d.device)
     err = _launch(d.device, lambda stream: lib.tridiag_solve(
         fac.a.data_ptr(), fac.cp.data_ptr(), fac.denom.data_ptr(), d.data_ptr(), x.data_ptr(),
         _batch_stride(fac.a, full), _batch_stride(fac.cp, full), batch, h, w, int(fac.vertical),
-        par, pl.g, pl.r, pl.stages, stream))
+        par, pl.g, pl.r, pl.stages, _ptr(rows), stream))
     _raise_on(lib, "tridiag_solve", err)
-    LAUNCHES["solve"] += 1
+    _count("solve", pl)
     return x
 
 
@@ -309,9 +353,12 @@ def zebra_pass(fac: LineFactor, z, rhs, w_lo, w_hi, parity: int, z_o=None, m=Non
         raise ValueError("zebra_pass: z shares memory with another argument")
     batch, (h, w) = math.prod(full[:-2]), full[-2:]
     pl = plan_lines(batch, h, w, fac.vertical, parity, "zebra", coupled, diag, override=plan)
-    if len(range(parity, w if fac.vertical else h, 2)) == 0:
+    n_perp, length = (w, h) if fac.vertical else (h, w)
+    n_sel = len(range(parity, n_perp, 2))
+    if n_sel == 0:
         return z
     lib = _lib()
+    rows = row_scratch(pl, batch, n_sel, length, z.device)
     # fields: z, rhs, w_lo, w_hi, (the four diagonal weights), (z_o, m)
     wd = ptrs[4:8] if diag else [0] * 4
     zo_p, m_p = ptrs[-2:] if coupled else (0, 0)
@@ -319,7 +366,8 @@ def zebra_pass(fac: LineFactor, z, rhs, w_lo, w_hi, parity: int, z_o=None, m=Non
         fac.a.data_ptr(), fac.cp.data_ptr(), fac.denom.data_ptr(), ptrs[1], ptrs[2], ptrs[3],
         m_p, zo_p, *wd, ptrs[0], _batch_stride(fac.a, full), _batch_stride(fac.cp, full),
         _batch_stride(w_lo, full), _batch_stride(m, full) if coupled else 0, batch, h, w,
-        int(fac.vertical), parity, int(coupled), int(diag), pl.g, pl.r, pl.stages, stream))
+        int(fac.vertical), parity, int(coupled), int(diag), pl.g, pl.r, pl.stages, _ptr(rows),
+        stream))
     _raise_on(lib, "tridiag_zebra_pass", err)
-    LAUNCHES["zebra_pass"] += 1
+    _count("zebra_pass", pl)
     return z

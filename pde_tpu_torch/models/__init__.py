@@ -24,5 +24,7 @@ from pde_tpu_torch.models.tv_denoise import (
     tv_denoise8_fused,
 )
 from pde_tpu_torch.models.flow_ad import FlowADParams, flow_ad, flow_ad_fused
+from pde_tpu_torch.models.flow_fmg import FlowFMGParams, flow_fmg, flow_fmg_fused
 from pde_tpu_torch.models.flow_hs import FlowHSParams, flow_hs
 from pde_tpu_torch.models.diffusion import Diffusion4Params, diffusion4
+from pde_tpu_torch.models.gac import GACParams, gac_a, gac_a_fused, gac_b, gac_b_fused

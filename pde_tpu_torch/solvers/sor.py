@@ -30,6 +30,14 @@ from ``_scalar_llin_sor`` and ``_pde_sor``:
 * disparity: NaN in Cu means pure diffusion, NaN in Du drops it from the
   divisor. pde4/pde8: NaN in TRACE means pure diffusion (``1/Σw``, no B).
 * Leading dimensions broadcast (a batch of independent systems).
+
+Residual and LHS operators (the multigrid building blocks of
+``models/flow_fmg.py``), ``residuals_elin4``, ``lhs_elin4``,
+``residuals_llin4``, ``lhs_llin4`` and ``residuals_disp_llin4``, as
+``pde_tpu/solvers/sor.py`` computes them: r = b − A·x or A·x of the
+systems above at the given state, a NaN Cu (the residuals) or Du (the LHS)
+selecting the pure-diffusion row, the other coefficients NaN-zeroed, every
+output border-replicated. Plain torch ops on any device; no kernel.
 """
 
 from __future__ import annotations
@@ -253,3 +261,76 @@ def sor_pde8(x, trace, b, ww, wnw, wn, wne, we, wse, ws, wsw, iters: int, omega:
     """Diagonal-form 8-neighbour SOR (cf. GS_SOR_8_2d): as ``sor_pde4``
     with the eight tensor-stencil weights W, NW, N, NE, E, SE, S, SW."""
     return _pde_sor(x, trace, b, (ww, wnw, wn, wne, we, wse, ws, wsw), iters, omega)
+
+
+# ---------------------------------------------------------------------------
+# Residual / LHS operators (multigrid building blocks)
+# ---------------------------------------------------------------------------
+
+
+def residuals_elin4(u, v, m, cu, cv, duc, dvc, ww, wn, we, ws):
+    """r = b − A·x for the elin4 system (cf. Residuals_elin4_2d),
+    border-replicated."""
+    wsum = ww + wn + we + ws
+    su = _nbr_sum4(u, ww, wn, we, ws)
+    sv = _nbr_sum4(v, ww, wn, we, ws)
+    m0 = torch.nan_to_num(m)
+    ru_data = torch.nan_to_num(cu) - m0 * v + su - (torch.nan_to_num(duc) + wsum) * u
+    rv_data = torch.nan_to_num(cv) - m0 * u + sv - (torch.nan_to_num(dvc) + wsum) * v
+    ru = torch.where(torch.isnan(cu), su - wsum * u, ru_data)
+    rv = torch.where(torch.isnan(cv), sv - wsum * v, rv_data)
+    return replicate_border(ru), replicate_border(rv)
+
+
+def residuals_llin4(u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws):
+    """r = b − A·x for the late-linearisation flow system at the increment
+    state (dU, dV) (cf. Residuals_llin4_2d): diffusion term
+    Σ w_k (dU_k + U_k − U_c); a NaN Cu/Cv drops both the data term and the
+    Du/Dv diagonal. Border-replicated."""
+    wsum = ww + wn + we + ws
+    nu = _nbr_sum4(du + u, ww, wn, we, ws) - u * wsum
+    nv = _nbr_sum4(dv + v, ww, wn, we, ws) - v * wsum
+    m0 = torch.nan_to_num(m)
+    ru_data = torch.nan_to_num(cu) - m0 * dv + nu - (torch.nan_to_num(duc) + wsum) * du
+    rv_data = torch.nan_to_num(cv) - m0 * du + nv - (torch.nan_to_num(dvc) + wsum) * dv
+    ru = torch.where(torch.isnan(cu), nu - wsum * du, ru_data)
+    rv = torch.where(torch.isnan(cv), nv - wsum * dv, rv_data)
+    return replicate_border(ru), replicate_border(rv)
+
+
+def residuals_disp_llin4(u, du, cu, duc, ww, wn, we, ws):
+    """The scalar late-linearisation (disparity) residual (cf.
+    disparitySolvers.c Residuals_llin4_2d), border-replicated."""
+    wsum = ww + wn + we + ws
+    nu = _nbr_sum4(du + u, ww, wn, we, ws) - u * wsum
+    r_data = torch.nan_to_num(cu) + nu - (torch.nan_to_num(duc) + wsum) * du
+    return replicate_border(torch.where(torch.isnan(cu), nu - wsum * du, r_data))
+
+
+def lhs_llin4(u, v, du, dv, m, duc, dvc, ww, wn, we, ws):
+    """A·x for the late-linearisation system at the increment state (dU, dV)
+    (cf. LHS_llin4_2d): AU = M·dV − Σ w_k (dU_k + U_k − U_c) + (Du + Σw)·dU;
+    a NaN Du/Dv drops both the coupling and the data diagonal.
+    Border-replicated."""
+    wsum = ww + wn + we + ws
+    nu = _nbr_sum4(du + u, ww, wn, we, ws) - u * wsum
+    nv = _nbr_sum4(dv + v, ww, wn, we, ws) - v * wsum
+    m0 = torch.nan_to_num(m)
+    au_data = m0 * dv - nu + (torch.nan_to_num(duc) + wsum) * du
+    av_data = m0 * du - nv + (torch.nan_to_num(dvc) + wsum) * dv
+    au = torch.where(torch.isnan(duc), -nu + wsum * du, au_data)
+    av = torch.where(torch.isnan(dvc), -nv + wsum * dv, av_data)
+    return replicate_border(au), replicate_border(av)
+
+
+def lhs_elin4(u, v, m, duc, dvc, ww, wn, we, ws):
+    """A·x for the elin4 system (cf. LHS_elin4_2d), border-replicated."""
+    wsum = ww + wn + we + ws
+    su = _nbr_sum4(u, ww, wn, we, ws)
+    sv = _nbr_sum4(v, ww, wn, we, ws)
+    m0 = torch.nan_to_num(m)
+    au_data = m0 * v - su + (torch.nan_to_num(duc) + wsum) * u
+    av_data = m0 * u - sv + (torch.nan_to_num(dvc) + wsum) * v
+    au = torch.where(torch.isnan(duc), -su + wsum * u, au_data)
+    av = torch.where(torch.isnan(dvc), -sv + wsum * v, av_data)
+    return replicate_border(au), replicate_border(av)

@@ -180,7 +180,8 @@ def test_import_pulls_no_jax_and_builds_nothing():
     code = ("import sys, pde_tpu_torch, pde_tpu_torch.kernels.build, "
             "pde_tpu_torch.kernels.sor_cuda, pde_tpu_torch.kernels.dispatch, "
             "pde_tpu_torch.kernels.tdma_cuda, pde_tpu_torch.models.flow_nd, "
-            "pde_tpu_torch.models.flow_hs, pde_tpu_torch.models.diffusion; "
+            "pde_tpu_torch.models.flow_hs, pde_tpu_torch.models.diffusion, "
+            "pde_tpu_torch.models.flow_fmg, pde_tpu_torch.models.gac; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'pde_tpu.'))"
             " or m == 'pde_tpu']; "
             "assert not bad, bad; print('ok')")

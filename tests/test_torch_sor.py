@@ -159,3 +159,49 @@ def test_library_name_follows_source_hash(source):
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("lib" + source + "_") and path.suffix == ".so"
     assert (build.CSRC / f"{source}.cu").is_file()
+
+
+# the residual and LHS operators (the multigrid building blocks), with 5%
+# NaN in Cu and Du/Dv: the pure-diffusion rows
+OPERATORS = {
+    "residuals_elin4": ("u", "v", "m", "cu", "cv", "duc", "dvc", "ww", "wn", "we", "ws"),
+    "lhs_elin4": ("u", "v", "m", "duc", "dvc", "ww", "wn", "we", "ws"),
+    "residuals_llin4": NAMES,
+    "lhs_llin4": ("u", "v", "du", "dv", "m", "duc", "dvc", "ww", "wn", "we", "ws"),
+    "residuals_disp_llin4": ("u", "du", "cu", "duc", "ww", "wn", "we", "ws"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OPERATORS))
+def test_residual_and_lhs_operators_match_reference(rng, name):
+    fields = dict(zip(NAMES, _fields(rng, 37, 53, ("cu", "cv", "duc", "dvc"))))
+    args = [fields[n] for n in OPERATORS[name]]
+    want = getattr(jsor, name)(*(jnp.asarray(a) for a in args))
+    got = getattr(sor, name)(*(torch.from_numpy(a) for a in args))
+    want, got = (want, got) if isinstance(got, tuple) else ((want,), (got,))
+    assert len(got) == len(want) and got[0].shape == (37, 53)
+    _assert_close(got, want)
+
+
+def test_lhs_llin4_consistent_with_residuals(rng):
+    """r = b − A·x at the increment state, on the port: residuals_llin4
+    equals where(valid, Cu, 0) − lhs_llin4 in the interior, for valid and
+    NaN data pixels (as tests/test_solvers.py holds ``pde_tpu``'s)."""
+    h, w = 12, 14
+    mk = lambda: torch.from_numpy(rng.standard_normal((h, w)).astype(np.float32))  # noqa: E731
+    u, v, du, dv, m = mk(), mk(), mk(), mk(), mk() * 0.1
+    cu, cv = mk(), mk()
+    duc = mk().abs() + 0.2
+    dvc = mk().abs() + 0.2
+    nanmask = torch.from_numpy(rng.random((h, w)) < 0.2)
+    cu = torch.where(nanmask, torch.nan, cu)
+    duc = torch.where(nanmask, torch.nan, duc)
+    ww, wn, we, ws = (mk().abs() for _ in range(4))
+
+    ru, rv = sor.residuals_llin4(u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws)
+    au, av = sor.lhs_llin4(u, v, du, dv, m, duc, dvc, ww, wn, we, ws)
+    want_u = torch.where(nanmask, 0.0, torch.nan_to_num(cu)) - au
+    want_v = cv - av
+    inner = (slice(1, -1), slice(1, -1))
+    np.testing.assert_allclose(ru[inner].numpy(), want_u[inner].numpy(), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(rv[inner].numpy(), want_v[inner].numpy(), rtol=1e-4, atol=1e-5)

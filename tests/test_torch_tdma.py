@@ -244,3 +244,88 @@ def test_cuda_wrappers_check_fields_before_building(rng, monkeypatch, fn):
     with pytest.raises(ValueError, match="shape"):
         call(a, b[:, :11].contiguous(), c, *rest)
     assert tdma_cuda.LAUNCHES == before
+
+
+# the line plan's variant: lines whose forward results do not fit in a
+# block's shared memory at G = 1 (the longest staged line is ~28,000
+# elements) take the global-rows variant, from the shape alone
+ZEBRA_FORMS = [(False, False), (True, False), (False, True), (True, True)]
+
+
+@pytest.mark.parametrize("length", [641, 28_000, 30_000, 65_536, 100_000])
+@pytest.mark.parametrize("vertical", [True, False])
+def test_line_plan_takes_any_length(length, vertical):
+    h, w = (length, 3) if vertical else (3, length)
+    for mode in tdma_cuda.MODES:
+        for parity in ((0, 1) if mode == "zebra" else (None, 0)):
+            for coupled, diag in (ZEBRA_FORMS if mode == "zebra" else [(False, False)]):
+                pl = tdma_cuda.plan_lines(2, h, w, vertical, parity, mode, coupled, diag)
+                staged_g1 = tdma_cuda.smem_bytes(mode, length, 1, pl.r, pl.stages, coupled,
+                                                 diag)
+                assert pl.global_rows == (staged_g1 > tdma_cuda.MAX_SMEM)
+                assert pl.global_rows == (length >= 30_000)
+                assert pl.smem_bytes == tdma_cuda.smem_bytes(
+                    mode, length, pl.g, pl.r, pl.stages, coupled, diag, pl.global_rows)
+                assert pl.smem_bytes <= tdma_cuda.MAX_SMEM
+                n_lines = 3 if parity is None else len(range(parity, 3, 2))
+                assert pl.blocks * pl.g >= 2 * n_lines
+                if pl.global_rows:
+                    # no resident rows in shared memory; cp staged as a tile
+                    # by solve and zebra
+                    tiles = {"thomas": 4, "factor": 3, "solve": 4}.get(
+                        mode, 6 + 2 * coupled + 4 * diag)
+                    window = (2 * pl.g + 1) * (pl.r + 4) if mode == "zebra" else 0
+                    assert pl.smem_bytes == 4 * pl.stages * (tiles * pl.g * (pl.r + 4)
+                                                             + window)
+                    assert pl.g == tdma_cuda.GROUP[mode]
+
+
+def test_line_plan_override_keeps_the_shapes_variant():
+    """A (g, r, stages) override (the plan sweep's) leaves the variant to the
+    shape: a long line stays in the global-rows one, a short line staged."""
+    pl = tdma_cuda.plan_lines(1, 30_000, 4, True, None, "thomas", override=(1, 64, 2))
+    assert pl.global_rows and pl.g == 1 and pl.smem_bytes == 4 * 2 * 4 * 1 * 68
+    assert not tdma_cuda.plan_lines(1, 64, 4, True, None, "thomas", override=(4, 64, 2)).global_rows
+
+
+def test_line_plan_takes_a_batch_over_65535():
+    """The batch is folded into the grid's x: 70,000 systems of short lines
+    plan as one launch, in every mode."""
+    for mode in tdma_cuda.MODES:
+        pl = tdma_cuda.plan_lines(70_000, 3, 5, True, 0 if mode == "zebra" else None, mode)
+        n_lines = 3 if mode == "zebra" else 5
+        assert not pl.global_rows and pl.blocks == 70_000 * -(-n_lines // pl.g)
+    with pytest.raises(ValueError, match="does not take"):
+        tdma_cuda.plan_lines(2**31, 3, 5, True, None, "thomas")
+
+
+def test_row_scratch_holds_two_rows_a_line():
+    pl = tdma_cuda.plan_lines(2, 30_000, 5, True, 1, "solve")
+    rows = tdma_cuda.row_scratch(pl, 2, 2, 30_000, "cpu")
+    pitch = tdma_cuda.row_pitch(30_000)
+    assert pitch >= 30_000 and pitch % 8 == 4
+    assert rows.dtype == torch.float32 and rows.numel() == 2 * 2 * 2 * pitch
+    assert tdma_cuda.row_scratch(tdma_cuda.plan_lines(2, 64, 5, True, 1, "solve"), 2, 2, 64,
+                                 "cpu") is None
+
+
+@pytest.mark.parametrize("axis", [-2, -1])
+def test_long_line_plain_solve_matches_reference(rng, monkeypatch, axis):
+    """The CPU path solves a line longer than the staged kernel holds, as
+    ``pde_tpu``'s ``thomas_solve`` does; the kernel's wrapper refuses the
+    CPU tensors before it builds anything."""
+    def no_build(name):
+        raise AssertionError("the wrapper must check its inputs before it builds")
+
+    monkeypatch.setattr(build, "load", no_build)
+    shape = (30_000, 2) if axis == -2 else (2, 30_000)
+    a, b, c, d = _tridiag(rng, shape)
+    want = np.asarray(jtdma.thomas_solve(*(jnp.asarray(x) for x in (a, b, c, d)), axis=axis))
+    before = dict(tdma_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdma_cuda.thomas_solve(*_t(a, b, c, d), axis)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdma_cuda.tridiag_factor(*_t(a, b, c), axis)
+    assert tdma_cuda.LAUNCHES == before
+    got = dispatch.thomas_solve(*_t(a, b, c, d), axis)
+    _close(got, want, SCAN_TOL)

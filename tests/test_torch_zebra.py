@@ -235,8 +235,10 @@ def test_line_plan_fits_shared_memory(h, w):
 
 
 def test_line_plan_refuses_what_the_kernel_does_not_take():
+    # more blocks than a launch's grid holds (a line of any length is taken:
+    # tests/test_torch_tdma.py)
     with pytest.raises(ValueError, match="does not take"):
-        tdma_cuda.plan_lines(1, 100_000, 4, True, None, "thomas")
+        tdma_cuda.plan_lines(2**31, 100_000, 4, True, None, "thomas")
     with pytest.raises(ValueError, match="does not take"):
         tdma_cuda.plan_lines(1, 64, 64, True, 0, "solve", override=(3, 32, 2))
     with pytest.raises(ValueError, match="does not take"):
