@@ -99,6 +99,25 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
     frame, the kernel path against the plain path at 64x80; and ``gac_a``
     on a 16x30,000 strip, whose rows take the global-rows variant, against
     the CPU path.
+19. ``disp_segmentation`` and ``disp_segmentation_sparse`` at default
+    parameters on ``tests/fixtures/disparity_maps.npz``'s 356x451 maps
+    (``dd`` dense, ``ds`` 65% NaN): the dense call cold and warm, the
+    sparse call once, each with exactly the ``tridiag_thomas`` launches its
+    pyramids and the phases that found segments imply (two an AOS step),
+    frame times, segment count, coverage and peak memory. Both line solves
+    of the largest (H, W) seeding step and the largest (S, H, W)
+    competition step of each call, on the coefficients that step built,
+    bit for bit against the plain solve on the same card tensors; the dense
+    call's finest seeding solve is timed and reported as ``tridiag_seg``,
+    whose launches are the dense call's. The dense result
+    held to ``tests/test_segmentation.py``'s bar (>= 2 segments, coverage >
+    0.35, a surface offset within the map's range +- 3, finite phi), the
+    sparse one to >= 1 segment and finite SParam and phi. On the 60x80 crop
+    of the half-resolution map with that test's reduced loop counts, dense,
+    sparse and a warm start run with and without ``plain_solvers()`` from
+    one seed: the same SEG maps and phi. One reduced full-size call of each
+    (2 seeds, the crop's loop counts) is profiled, and its host syncs
+    counted by the port's line that makes them.
 
 Every phase from 4 on sets every kernel's launch count to 0 just before it
 drives its entry point and reads all counts just after, and profiles one
@@ -116,6 +135,8 @@ import re
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from pathlib import Path
@@ -179,7 +200,7 @@ FLOPS_PER_PX = {"flow_llin4_sor": 40, "flow_elin4_sor": 30, "disp_llin4_sor": 23
                 "tiled_flow_elin4": 30, "tiled_flow_elin4_db": 30}
 # the kernels whose every float operation is rounded alone in the plain
 # version's order, held to EXACT_TOL; the others contract to FMA (SOR_TOL)
-EXACT = ("tridiag", "tridiag_long", "tridiag_zebra_pass", "pde8_sor", "resident_disp_llin4",
+EXACT = ("tridiag", "tridiag_long", "tridiag_seg", "tridiag_zebra_pass", "pde8_sor", "resident_disp_llin4",
          "resident_pde8", "resident_pde4")
 # float operations per line element of one whole tridiagonal solve
 TRIDIAG_FLOPS_PER_PX = 8
@@ -225,6 +246,12 @@ FMG_ULP_FACTOR = 3.0  # kernel vs plain at full size, in units of the one-ulp se
 FMG_W_SHAPE = (3, 240, 320)  # the W-cycle's frame (936 solves at six levels)
 GAC_SMALL = (64, 80)  # the GAC kernel path against its plain path
 GAC_STRIP = (16, 30_000)  # rows longer than the staged line solve holds
+# tests/test_segmentation.py's 60x80 crop of the half-resolution map and its
+# reduced loop counts (the kernel path against the plain path)
+SEG_CROP_WINDOW = np.s_[50:110, 60:140]
+SEG_REDUCED = dict(seeds=3, seed_iterations=8, rc_iterations=8, rc_iterations2=6,
+                   ransac_first=300, ransac_rest=50)
+SEG_TOL = 1e-4  # max |dphi|, kernel path vs plain path (bit for bit expected: 0)
 HEADLINE_SHAPE = (1024, 1024)  # bench.py's headline: the llin4 sweep rate
 HEADLINE_ITERS = (128, 1024)   # chained differencing between these sweep counts
 W8 = ("ww", "wnw", "wn", "wne", "we", "wse", "ws", "wsw")
@@ -554,10 +581,12 @@ def main() -> None:
     from pde_tpu_torch.models.flow_ad import FlowADParams, flow_ad
     from pde_tpu_torch.models.flow_fmg import FlowFMGParams, flow_fmg
     from pde_tpu_torch.models.gac import GACParams, gac_a, gac_b
+    from pde_tpu_torch.models import segmentation as seg_mod
     from pde_tpu_torch.models.flow_hs import FlowHSParams, flow_hs
     from pde_tpu_torch.models.flow_nd import FlowNDParams, flow_nd, flow_nd_sequence
     from pde_tpu_torch.models.tv_denoise import (TVDenoise4Params, TVDenoise8Params,
                                                  tv_denoise4, tv_denoise8)
+    from pde_tpu_torch.solvers import aos as aos_mod
     from pde_tpu_torch.solvers import sor as plain_sor
     from pde_tpu_torch.solvers import tdma as plain_tdma
 
@@ -2036,6 +2065,216 @@ def main() -> None:
     if not d_strip <= TV_REL_TOL:
         fail(f"gac_a on the strip: card and CPU paths differ by {d_strip} of the range")
 
+    phase("19 disp_segmentation (dense and sparse) on tests/fixtures/disparity_maps.npz, "
+          "default parameters")
+    maps = np.load(HERE / "tests" / "fixtures" / "disparity_maps.npz")
+    dd, ds = maps["dd"].astype(np.float32), maps["ds"].astype(np.float32)
+    # what each pipeline call returned, phase by phase: (kind, segments out)
+    seg_calls = []
+    real_gen, real_rc = seg_mod._generate_seeds, seg_mod._region_competition
+
+    def gen_logged(*a, **k):
+        out = real_gen(*a, **k)
+        seg_calls.append(("seeds", len(out[0])))
+        return out
+
+    def rc_logged(*a, **k):
+        out = real_rc(*a, **k)
+        seg_calls.append(("competition", len(out[0])))
+        return out
+
+    seg_mod._generate_seeds, seg_mod._region_competition = gen_logged, rc_logged
+    # the inputs of the segmentation's own AOS steps: the largest (H, W)
+    # seeding step and the largest (S, H, W) competition step of the dense
+    # and the sparse call, whose line solves are held against the plain
+    # solve below (a copy is taken only when a larger step comes)
+    aos_inputs = {}
+    aos_label = ["dense"]
+    real_aos = seg_mod.cv_aos_step
+
+    def aos_logged(phi, *rest):
+        which = (aos_label[0], "seeding" if phi.ndim == 2 else "competition")
+        if phi.numel() > aos_inputs.get(which, (0, None))[0] and (phi.ndim == 2
+                                                                   or phi.shape[0] > 1):
+            aos_inputs[which] = (phi.numel(), tuple(x.clone() if torch.is_tensor(x) else x
+                                                   for x in (phi, *rest)))
+        return real_aos(phi, *rest)
+
+    seg_mod.cv_aos_step = aos_logged
+
+    def seg_expected(din, sparse, p, warm_start):
+        """tridiag_thomas launches of one call: two an AOS step, one step a
+        seed and stage iteration of every seeding (dead seeds run on behind
+        their gate) and a stage iteration of every competition, for the
+        phases the segments found let run (seg_calls)."""
+        _, _, seed_pyr, comp_pyr = seg_mod._build_pyramids(
+            torch.from_numpy(din).to(dev), p, sparse, dev)
+        ls, lc = len(seed_pyr) - 1, len(comp_pyr) - 1
+        found = [n for _, n in seg_calls]
+        if warm_start:  # competition, one seed, competition if any segment
+            steps = lc * p.rc_iterations2 + lc * p.seed_iterations
+            steps += lc * p.rc_iterations2 if found[0] + found[1] else 0
+        else:
+            steps = p.seeds * ls * p.seed_iterations
+            if p.seeds != 1 and found[0]:
+                steps += lc * p.rc_iterations + p.seeds * lc * p.seed_iterations
+                steps += lc * p.rc_iterations2 if found[1] + found[2] else 0
+        return {"tridiag_thomas": 2 * steps}, (seed_pyr, comp_pyr)
+
+    def seg_run(fn, din, sparse, p, **kw):
+        """One counted call: (outputs, seconds, expected launches, pyramids)."""
+        seg_calls.clear()
+        reset_counts()
+        out, sec = timed(lambda: fn(torch.from_numpy(din).to(dev), **kw))
+        want, pyrs = seg_expected(din, sparse, p, "phi" in kw)
+        check_counts(f"{fn.__name__} {din.shape}", want)
+        return out, sec, want, pyrs
+
+    def seg_summary(what, out, sec, want, pyrs):
+        phi, seg, sparam = out
+        print(f"  {what}: {phi.shape[0]} segments, coverage {float((seg > 0).float().mean()):.4f}, "
+              f"frame {sec:.3f} s, {want['tridiag_thomas']} tridiag_thomas launches (pyramids "
+              f"{pyrs[0]}, {pyrs[1]}; phases {seg_calls})", flush=True)
+
+    dense_p, sparse_p = seg_mod.DispSegParams(), seg_mod.sparse_defaults()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for label in ("cold", "warm"):
+        out, sec, want, pyrs = seg_run(seg_mod.disp_segmentation, dd, False, dense_p)
+        seg_summary(f"disp_segmentation {dd.shape} ({label})", out, sec, want, pyrs)
+        runs.append((out, sec))
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    main_launches["tridiag_seg"] = want["tridiag_thomas"]
+    phi, seg, sparam = runs[-1][0]
+    dmin, dmax = float(np.nanmin(dd)), float(np.nanmax(dd))
+    offsets_ok = bool(((sparam[:, 2] > dmin - 3.0) & (sparam[:, 2] < dmax + 3.0)).any())
+    coverage = float((seg > 0).float().mean())
+    if not (phi.shape[0] >= 2 and coverage > 0.35 and offsets_ok and torch.isfinite(phi).all()):
+        fail(f"disp_segmentation: {phi.shape[0]} segments, coverage {coverage}, a surface "
+             f"offset within [{dmin - 3}, {dmax + 3}]: {offsets_ok}, finite phi: "
+             f"{bool(torch.isfinite(phi).all())}")
+    if runs[0][0][0].shape != phi.shape or not torch.equal(runs[0][0][1], seg):
+        fail("disp_segmentation: two calls from one seed differ")
+    torch.cuda.reset_peak_memory_stats()
+    aos_label[0] = "sparse"
+    out, sec, want, pyrs = seg_run(seg_mod.disp_segmentation_sparse, ds, True, sparse_p)
+    seg_summary(f"disp_segmentation_sparse {ds.shape} ({np.isnan(ds).mean():.2%} NaN)", out,
+                sec, want, pyrs)
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    phi_s, _, sparam_s = out
+    if not (phi_s.shape[0] >= 1 and torch.isfinite(phi_s).all()
+            and torch.isfinite(sparam_s).all()):
+        fail(f"disp_segmentation_sparse: {phi_s.shape[0]} segments or non-finite phi/SParam")
+    seg_mod.cv_aos_step = real_aos
+
+    # tridiag_thomas at the main path's own shapes: both line solves of each
+    # captured AOS step, on its coefficients, against the plain solve on the
+    # same card tensors, bit for bit
+    solves = []
+    real_solve = aos_mod.thomas_solve
+
+    def solve_logged(a, b, c, d, axis):
+        solves.append((a, b, c, d, axis))
+        return real_solve(a, b, c, d, axis)
+
+    aos_mod.thomas_solve = solve_logged
+    seg_solve = None
+    for (variant, step), (_, inputs) in sorted(aos_inputs.items()):
+        solves.clear()
+        real_aos(*inputs)
+        for a, b, c, d, axis in list(solves):
+            label = f"{variant} {step} {tuple(d.shape)} axis={axis}"
+            got = tdma_cuda.thomas_solve(a, b, c, d, axis)
+            with dispatch.plain_solvers():
+                want_s = dispatch.thomas_solve(a, b, c, d, axis)
+            err = hold("tridiag_seg", got, want_s, label)
+            if not bit_equal((got,), (want_s,)):
+                fail(f"tridiag_thomas at {label}: not the plain version's bits")
+            print(f"  tridiag_thomas at the segmentation's {label}: bit for bit with the plain "
+                  f"solve (max_abs_err {err:.3g})", flush=True)
+            if (variant, step, axis) == ("dense", "seeding", -2):
+                seg_solve = (a, b, c, d, axis)
+    aos_mod.thomas_solve = real_solve
+    if seg_solve is None:
+        fail("disp_segmentation: no full-size seeding step was captured")
+    # the dense call's finest seeding solve, timed as the report's entry
+    a, b, c, d, axis = seg_solve
+    n = d.numel()
+    k_ms, p_ms, turns = in_turns(partial(tdma_cuda.thomas_solve, a, b, c, d, axis),
+                                 partial(plain_tdma.thomas_solve, a, b, c, d, axis), reps=20,
+                                 plain_reps=2)
+    times[("tridiag_seg",)] = (k_ms, p_ms)
+    bounds[("tridiag_seg",)] = bound((4 + 1) * 4 * n, TRIDIAG_FLOPS_PER_PX * n)
+    print(f"  time tridiag_thomas at the segmentation's {tuple(d.shape)} axis={axis} per call: "
+          f"kernel {turns[1]:.4f} / {turns[2]:.4f} ms, plain {turns[0]:.4f} / {turns[3]:.4f} "
+          f"ms, bound {bounds[('tridiag_seg',)][0]:.4f} ms", flush=True)
+
+    # the kernel path against the plain path on the crop: one card generator
+    # seeded alike draws the same samples while the line solves agree bit for
+    # bit, so the runs agree exactly
+    crop_d = np.ascontiguousarray(dd[::2, ::2][SEG_CROP_WINDOW])
+    crop_s = np.ascontiguousarray(ds[::2, ::2][SEG_CROP_WINDOW])
+    warm_phi = None
+    for what, fn, din, sparse, p in (
+            ("dense", seg_mod.disp_segmentation, crop_d, False, dense_p),
+            ("sparse", seg_mod.disp_segmentation_sparse, crop_s, True, sparse_p),
+            ("warm start", seg_mod.disp_segmentation, crop_d, False, dense_p)):
+        kw = dict(SEG_REDUCED) if what != "warm start" else dict(SEG_REDUCED, phi=warm_phi)
+        p_run = seg_mod.with_overrides(p, **{k: v for k, v in kw.items() if k != "phi"})
+        got, sec_k, want_k, _ = seg_run(fn, din, sparse, p_run, **kw)
+        reset_counts()
+        with dispatch.plain_solvers():
+            ref, sec_p = timed(lambda: fn(torch.from_numpy(din).to(dev), **kw))
+        check_counts(f"{what}'s plain path", {})
+        same = got[0].shape == ref[0].shape and torch.equal(got[1], ref[1])
+        err = float((got[0] - ref[0]).abs().max()) if got[0].shape == ref[0].shape else np.inf
+        print(f"  {what} {din.shape}, reduced counts: {got[0].shape[0]} segments, "
+              f"{want_k['tridiag_thomas']} tridiag_thomas launches; kernel vs plain path: SEG "
+              f"equal {same}, max |dphi| {err:.3g} (kernel path {sec_k:.3f} s, plain path "
+              f"{sec_p:.3f} s)", flush=True)
+        if not (same and err <= SEG_TOL):
+            fail(f"disp_segmentation {what}: kernel and plain paths differ (SEG equal {same}, "
+                 f"max |dphi| {err} > {SEG_TOL})")
+        if what == "dense":
+            warm_phi = got[0]
+
+    # one reduced full-size call of each variant: profiled, and its host syncs
+    # counted by the port's line that made them (the connected components'
+    # rounds are the syncs of their convergence check)
+    for what, fn, din, sparse, p in (
+            ("disp_segmentation", seg_mod.disp_segmentation, dd, False, dense_p),
+            ("disp_segmentation_sparse", seg_mod.disp_segmentation_sparse, ds, True, sparse_p)):
+        reduced = dict(SEG_REDUCED, seeds=2)
+        red_fn = partial(fn, torch.from_numpy(din).to(dev), **reduced)
+        _, red_s = timed(red_fn)
+        _, red_s = timed(red_fn)
+        seg_calls.clear()
+        syncs = {}
+
+        def note_sync(message, *rest, **kw):
+            site = [f for f in traceback.extract_stack()[:-1] if "pde_tpu_torch" in f.filename]
+            key = f"{Path(site[-1].filename).name}:{site[-1].lineno} {site[-1].line}" if site \
+                else "outside the port"
+            syncs[key] = syncs.get(key, 0) + 1
+
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = note_sync
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                red_fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        want, _ = seg_expected(din, sparse, seg_mod.with_overrides(p, **reduced), False)
+        print(f"  {what} reduced ({reduced}): warm frame {red_s:.3f} s, "
+              f"{want['tridiag_thomas']} tridiag_thomas launches, {sum(syncs.values())} host "
+              f"syncs; phases {seg_calls}", flush=True)
+        for site, n in sorted(syncs.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"    {n:6d} syncs at {site[:110]}", flush=True)
+        print_profile(f"{what} (reduced)", red_s, device_profile(red_fn))
+    seg_mod._generate_seeds, seg_mod._region_competition = real_gen, real_rc
+
     sources = {"flow_llin4_sor": ("pde_tpu_torch/csrc/flow_llin4_sor.cu",
                                   "pde_tpu/kernels/sor_pallas.py:71"),
                "disp_llin4_sor": ("pde_tpu_torch/csrc/interior_sor.cu",
@@ -2066,6 +2305,9 @@ def main() -> None:
                # its global-rows variant: lines longer than the staged one holds
                "tridiag_long": ("pde_tpu_torch/csrc/tridiag.cu",
                                 "pde_tpu/kernels/tdma_pallas.py:82"),
+               # the same whole solve, launched by the segmentation's AOS steps
+               "tridiag_seg": ("pde_tpu_torch/csrc/tridiag.cu",
+                               "pde_tpu/kernels/tdma_pallas.py:82"),
                # the preconditioner's pass around the same Pallas solve
                "tridiag_zebra_pass": ("pde_tpu_torch/csrc/tridiag.cu",
                                       "pde_tpu/kernels/tdma_pallas.py:82"),
@@ -2079,6 +2321,7 @@ def main() -> None:
     key = {name: ((name, -2, th, tw) if name.startswith("tridiag") else (name, th, tw))
            for name in sources}
     key["tridiag_long"] = ("tridiag_long", LONG_TIME[1], *LONG_TIME[0])
+    key["tridiag_seg"] = ("tridiag_seg",)
     for name in AT_MAIN:
         if key[name] not in times:
             key[name] = (name, *MAIN_SHAPE[1:])
@@ -2100,7 +2343,8 @@ def main() -> None:
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps(report), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 

@@ -23,7 +23,14 @@ FAS full-multigrid flow ``models.flow_fmg`` (its default ``solver=2``; with
 ``solver=1`` the resident elin4 kernel smooths) and the geodesic active
 contours ``models.gac`` (``gac_a``, ``gac_b``: two line-set solves an AOS
 step, ``solvers/aos.py``, with the reinitialisation of
-``solvers/reinit.py``). The temporally blocked
+``solvers/reinit.py``), and the disparity segmentation
+``models.segmentation`` (``disp_segmentation``,
+``disp_segmentation_sparse``: Chan-Vese AOS steps on the same kernel, RANSAC
+surfaces from ``ops/ransac.py``, connected components from
+``ops/components.py``; the NaN-median and ``imresize_nan`` prefilters), so
+all ten of ``pde_tpu``'s pipelines. ``utils`` holds the checkpoint format
+shared with ``pde_tpu``, ``flow2color``, the ``probe`` hooks and the image
+loader. The temporally blocked
 tile engine ``kernels.tiled.tiled_relax`` runs the llin4 and elin4 sweeps k
 at a time over tiles in shared memory, a fourth source,
 ``csrc/tiled_sor.cu``; no model routes through it yet. Entry points run on the CUDA card
@@ -34,9 +41,10 @@ its first launch on a CUDA tensor (``kernels/build.py``).
 
 __version__ = "0.1.0"
 
-from pde_tpu_torch import core, ops, solvers, kernels, models  # noqa: F401
+from pde_tpu_torch import core, ops, solvers, kernels, models, utils  # noqa: F401
 from pde_tpu_torch.models import (  # noqa: F401
     Diffusion4Params,
+    DispSegParams,
     DisparityParams,
     DisparitySymParams,
     FlowADParams,
@@ -47,6 +55,8 @@ from pde_tpu_torch.models import (  # noqa: F401
     TVDenoise4Params,
     TVDenoise8Params,
     diffusion4,
+    disp_segmentation,
+    disp_segmentation_sparse,
     disparity_nd,
     disparity_nd_fused,
     disparity_sym,

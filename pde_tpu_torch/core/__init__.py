@@ -14,6 +14,6 @@ from pde_tpu_torch.core.conv import (
     gaussian_kernel_2d,
     binomial5,
 )
-from pde_tpu_torch.core.resize import imresize, imresize_scale, resize_matrix
+from pde_tpu_torch.core.resize import imresize, imresize_nan, imresize_scale, resize_matrix
 from pde_tpu_torch.core.pyramid import pyramid_scales, build_pyramid
-from pde_tpu_torch.core.median import medfilt2_3x3
+from pde_tpu_torch.core.median import medfilt2_3x3, nanmedfilt2

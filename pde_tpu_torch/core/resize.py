@@ -64,6 +64,13 @@ def resize_matrix(
     return mat.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=256)
+def _device_matrix(in_size: int, out_size: int, kernel: str, device: torch.device) -> torch.Tensor:
+    """``resize_matrix`` on ``device``, copied there once (a copy from the
+    host waits for the card)."""
+    return torch.from_numpy(resize_matrix(in_size, out_size, True, kernel)).to(device)
+
+
 def imresize(x: torch.Tensor, out_size: tuple[int, int], method: str = "bilinear") -> torch.Tensor:
     """Resize (..., H, W) to (..., out_h, out_w) with MATLAB imresize semantics.
 
@@ -74,8 +81,8 @@ def imresize(x: torch.Tensor, out_size: tuple[int, int], method: str = "bilinear
     out_h, out_w = out_size
     h, w = x.shape[-2:]
     kernel = "cubic" if method == "bicubic" else "triangle"
-    r = torch.from_numpy(resize_matrix(h, out_h, True, kernel)).to(x.device)
-    c = torch.from_numpy(resize_matrix(w, out_w, True, kernel)).to(x.device)
+    r = _device_matrix(h, out_h, kernel, x.device)
+    c = _device_matrix(w, out_w, kernel, x.device)
     y = torch.matmul(r, x.to(torch.float32))
     return torch.matmul(y, c.T)
 
@@ -84,3 +91,18 @@ def imresize_scale(x: torch.Tensor, scale: float, method: str = "bilinear") -> t
     """MATLAB ``imresize(x, scale)``: output size = ceil(in * scale)."""
     h, w = x.shape[-2:]
     return imresize(x, (int(np.ceil(h * scale)), int(np.ceil(w * scale))), method)
+
+
+def imresize_nan(x: torch.Tensor, out_size: tuple[int, int], method: str = "bilinear") -> torch.Tensor:
+    """NaN-propagating resize with MATLAB locality.
+
+    :func:`imresize` is a dense matmul, where ``0 * NaN = NaN`` would spread
+    one NaN across the whole axis; MATLAB propagates NaN only to outputs whose
+    kernel support touches it. So the zero-filled values and the NaN
+    indicator are resized apart, and an output is NaN where the indicator
+    picked up any weight.
+    """
+    nanmask = torch.isnan(x)
+    vals = imresize(torch.where(nanmask, 0.0, x), out_size, method)
+    touch = imresize(nanmask.to(torch.float32), out_size, method)
+    return torch.where(torch.abs(touch) > 1e-6, torch.nan, vals)

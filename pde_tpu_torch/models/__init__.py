@@ -28,3 +28,8 @@ from pde_tpu_torch.models.flow_fmg import FlowFMGParams, flow_fmg, flow_fmg_fuse
 from pde_tpu_torch.models.flow_hs import FlowHSParams, flow_hs
 from pde_tpu_torch.models.diffusion import Diffusion4Params, diffusion4
 from pde_tpu_torch.models.gac import GACParams, gac_a, gac_a_fused, gac_b, gac_b_fused
+from pde_tpu_torch.models.segmentation import (
+    DispSegParams,
+    disp_segmentation,
+    disp_segmentation_sparse,
+)
