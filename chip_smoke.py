@@ -25,7 +25,12 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    ``torch.profiler``. The tile kernel (``csrc/tiled_sor.cu``),
    serial and double-buffered, llin4 and elin4, against the plain tile
    schedule, bit for bit between its two variants, and beside the global
-   kernels. The resident kernel (``csrc/resident_sor.cu``, one launch a
+   kernels. Its windowed variant (one chunk of k sweeps over a shard and
+   the 2k halo exchanged from its neighbours), llin4 and elin4, serial and
+   double-buffered, k = 1, 2, 4, 4 and 9 sweeps, with and without NaN data,
+   through the sharded solver at the shards of a 2x2 and a 1x4 mesh over
+   480x640: against the plain windowed schedule on CPU copies, and bit for
+   bit against the global kernel; one shard's chunk timed. The resident kernel (``csrc/resident_sor.cu``, one launch a
    solver call), llin4, disp llin4 (B = 1 and 2), pde4 (C = 1 and 3, TRACE
    and B per channel or shared) and elin4, against the global kernels bit
    for bit and the plain version (disp and pde4 bit for bit too), at the
@@ -119,6 +124,21 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
     (2 seeds, the crop's loop counts) is profiled, and its host syncs
     counted by the port's line that makes them.
 
+20. The mesh (``pde_tpu_torch/parallel``), on a virtual 2x2 mesh of this
+    card (one device four times, as ``pde_tpu``'s virtual CPU mesh):
+    ``flow_nd`` 3x480x640 at default parameters, bit for bit against phase
+    4's flow, with exact launches of the windowed variant (one a shard and
+    chunk of every solve at the levels of >= 64 px that divide over the
+    mesh) and of the resident kernel elsewhere; ``flow_fmg`` 3x480x640,
+    V-cycle, both solvers, bit for bit against phase 17's (``solver=1``
+    sharded at its fine levels, ``solver=2`` whole); the sharded llin8, disp
+    and pde4 solvers (torch ops on the card, no kernel) bit for bit against
+    the plain global solvers and within SOR_TOL of the kernels; the
+    double-buffered windowed variant through the sharded llin4 and elin4
+    solvers; and the tiled PCG on a 2x4 mesh with its ``tridiag_thomas``
+    launches counted (bit for bit against its plain path at 64x96). With two
+    cards or more, a 1x2 mesh over two cards against one card.
+
 Every phase from 4 on sets every kernel's launch count to 0 just before it
 drives its entry point and reads all counts just after, and profiles one
 more warm frame for the card's busy time. The last lines are
@@ -197,7 +217,9 @@ FLOPS_PER_PX = {"flow_llin4_sor": 40, "flow_elin4_sor": 30, "disp_llin4_sor": 23
                 "resident_flow_llin8": 64, "resident_pde8": 28,
                 "pde4_sor": 16, "flow_llin8_sor": 64, "pde8_sor": 28,
                 "tiled_flow_llin4": 40, "tiled_flow_llin4_db": 40,
-                "tiled_flow_elin4": 30, "tiled_flow_elin4_db": 30}
+                "tiled_flow_elin4": 30, "tiled_flow_elin4_db": 30,
+                "tiled_flow_llin4_win": 40, "tiled_flow_llin4_win_db": 40,
+                "tiled_flow_elin4_win": 30, "tiled_flow_elin4_win_db": 30}
 # the kernels whose every float operation is rounded alone in the plain
 # version's order, held to EXACT_TOL; the others contract to FMA (SOR_TOL)
 EXACT = ("tridiag", "tridiag_long", "tridiag_seg", "tridiag_zebra_pass", "pde8_sor", "resident_disp_llin4",
@@ -241,6 +263,11 @@ OWN_KERNELS = {"prepare_kernel", "sweep_kernel", "prepare8_kernel", "sweep8_kern
 # the tile kernel's entries: (family, double-buffered)
 TILED = {"tiled_flow_llin4": ("flow_llin4", False), "tiled_flow_llin4_db": ("flow_llin4", True),
          "tiled_flow_elin4": ("flow_elin4", False), "tiled_flow_elin4_db": ("flow_elin4", True)}
+# its windowed variant's
+TILED_WIN = {"tiled_flow_llin4_win": ("flow_llin4", False),
+             "tiled_flow_llin4_win_db": ("flow_llin4", True),
+             "tiled_flow_elin4_win": ("flow_elin4", False),
+             "tiled_flow_elin4_win_db": ("flow_elin4", True)}
 FMG_SHIFT = (0.0, 1.0)  # early linearisation recovers only small shifts
 FMG_ULP_FACTOR = 3.0  # kernel vs plain at full size, in units of the one-ulp sensitivity
 FMG_W_SHAPE = (3, 240, 320)  # the W-cycle's frame (936 solves at six levels)
@@ -252,6 +279,11 @@ SEG_CROP_WINDOW = np.s_[50:110, 60:140]
 SEG_REDUCED = dict(seeds=3, seed_iterations=8, rc_iterations=8, rc_iterations2=6,
                    ransac_first=300, ransac_rest=50)
 SEG_TOL = 1e-4  # max |dphi|, kernel path vs plain path (bit for bit expected: 0)
+MESH_SHAPE = (2, 2)  # phase 20's virtual mesh of the card
+WIN_MESHES = ((2, 2), (1, 4))  # the shard geometries of the windowed variant in phase 3
+PCG_MESH = (2, 4)  # the tiled PCG's mesh in phase 20
+PCG_ITERS = 20
+PCG_SMALL = (64, 96)  # the tiled PCG against its plain path (the plain line solve scans)
 HEADLINE_SHAPE = (1024, 1024)  # bench.py's headline: the llin4 sweep rate
 HEADLINE_ITERS = (128, 1024)   # chained differencing between these sweep counts
 W8 = ("ww", "wnw", "wn", "wne", "we", "wse", "ws", "wsw")
@@ -586,6 +618,7 @@ def main() -> None:
     from pde_tpu_torch.models.flow_nd import FlowNDParams, flow_nd, flow_nd_sequence
     from pde_tpu_torch.models.tv_denoise import (TVDenoise4Params, TVDenoise8Params,
                                                  tv_denoise4, tv_denoise8)
+    from pde_tpu_torch.parallel import mesh as pmesh, tiled as ptiled
     from pde_tpu_torch.solvers import aos as aos_mod
     from pde_tpu_torch.solvers import sor as plain_sor
     from pde_tpu_torch.solvers import tdma as plain_tdma
@@ -967,6 +1000,44 @@ def main() -> None:
     print(f"  tile kernels vs the global kernels, max-abs over every case: {tiled_vs_global}",
           flush=True)
 
+    # the windowed variant: every shard's chunk of a sharded solve over
+    # MAIN_SHAPE's plane on a virtual mesh of this card, serial and
+    # double-buffered, against the plain windowed schedule (the same sharded
+    # solve over a CPU mesh, on CPU copies) and bit for bit against the
+    # global kernel
+    win_cases = 0
+    mh, mw = MAIN_SHAPE[1:]
+    for ty, tx in WIN_MESHES:
+        card_mesh = pmesh.make_mesh(ty, tx, devices=[dev] * (ty * tx))
+        cpu_mesh = pmesh.make_mesh(ty, tx, devices=["cpu"] * (ty * tx))
+        for family, make, glob in (("flow_llin4", sor_fields, sor_cuda.flow_llin4_sor),
+                                   ("flow_elin4", elin_fields, sor_cuda.flow_elin4_sor)):
+            factory = getattr(sweeps, f"{family}_sweep")
+            for k in TILED_KS:
+                for iters in (4, 9):
+                    for nan in (False, True):
+                        fields = make(rng, mh, mw, nan, dev)
+                        tf = tile_order(family, fields)
+                        want = ptiled.tiled_relax_sharded(cpu_mesh, factory, [x.cpu() for x in tf],
+                                                          2, iters, 1.9, k=k)
+                        want = tuple(x.to(dev) for x in want)
+                        serial, db = (ptiled.tiled_relax_sharded(card_mesh, factory, tf, 2, iters,
+                                                                 1.9, k=k, double_buffer=d)
+                                      for d in (False, True))
+                        label = f"{ty}x{tx} mesh over {mh}x{mw} iters={iters} k={k} nan={nan}"
+                        errs = [hold(f"tiled_{family}_win", serial, want, label),
+                                hold(f"tiled_{family}_win_db", db, want, label)]
+                        if not bit_equal(serial, db):
+                            fail(f"tiled_{family}_win: serial and double-buffered differ at {label}")
+                        if not bit_equal(serial, glob(*fields, iters, 1.9)):
+                            fail(f"tiled_{family}_win at {label}: not the global kernel's bits")
+                        win_cases += 1
+                        print(f"  windowed {family} {label}: max_abs_err {errs[0]:.3g} against the "
+                              f"plain windowed schedule on the CPU; == double-buffered == global "
+                              f"kernel bit for bit", flush=True)
+    print(f"  windowed variant: {win_cases} sharded solves, each bit for bit against the global "
+          f"kernel", flush=True)
+
     def hold_tridiag(a, b, c, d, label):
         """Whole solves, zebra parity solves and fused zebra passes along
         both axes, kernel against plain on the same inputs."""
@@ -1189,6 +1260,38 @@ def main() -> None:
                       f"schedule {p1:.1f} / {p2:.1f} ms, bound {b_ms:.4f} ms ({b_by})",
                       flush=True)
 
+    # the windowed variant, one chunk of 4 sweeps over the top-left shard of a
+    # MESH_SHAPE mesh over MAIN_SHAPE's plane (the shard and its 8-px halo);
+    # its plain version is the windowed schedule at the kernel's plan on the
+    # card, timed once before and once after
+    sh_h, sh_w = MAIN_SHAPE[1] // MESH_SHAPE[0], MAIN_SHAPE[2] // MESH_SHAPE[1]
+    win = tiled.Window(0, 0, *MAIN_SHAPE[1:], (0, sh_h, 0, sh_w))
+    for family, make in (("flow_llin4", sor_fields), ("flow_elin4", elin_fields)):
+        tf = [x[:sh_h + 8, :sh_w + 8].contiguous()
+              for x in tile_order(family, make(rng, *MAIN_SHAPE[1:], True, dev))]
+        prep, sw = getattr(sweeps, f"{family}_sweep")(1.9)
+
+        def win_plain():
+            with dispatch.plain_solvers():
+                return tiled.tiled_relax(tf, sw, 2, 4, prepare_fn=prep, window=win)
+
+        p1 = timed(win_plain)[1] * 1e3
+        kern_ms = {}
+        for name in (f"tiled_{family}_win", f"tiled_{family}_win_db"):
+            kern = partial(tiled.tiled_relax, tf, sw, 2, 4, prepare_fn=prep, window=win,
+                           double_buffer=TILED_WIN[name][1])
+            kern_ms[name] = (cuda_ms(kern, 50), cuda_ms(kern, 50), device_profile(kern, 20)[:2])
+        p2 = timed(win_plain)[1] * 1e3
+        for name, (k1, k2, (dev_ms, dev_ops)) in kern_ms.items():
+            b_ms, b_by = bound(len(tf) * 4 * tf[0].numel() + 2 * 4 * sh_h * sh_w,
+                               4 * sh_h * sh_w * FLOPS_PER_PX[name])
+            times[(name, "win")] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            bounds[(name, "win")] = (b_ms, b_by)
+            print(f"  time {name}, a {sh_h}x{sh_w} shard of {MAIN_SHAPE[1]}x"
+                  f"{MAIN_SHAPE[2]} and its halo, iters=4 per call: kernel {k1:.4f} / {k2:.4f} ms "
+                  f"(device busy {dev_ms:.4f} ms in {dev_ops:.0f} operations), plain windowed "
+                  f"schedule {p1:.1f} / {p2:.1f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+
     # one whole tridiagonal solve (diffusion4's call) along each axis, one
     # zebra parity solve with a factor, and one fused zebra pass (flow_hs's
     # coupled call, and the scalar one); each beside its byte bound and the
@@ -1315,6 +1418,8 @@ def main() -> None:
         frame_s.append(sec)
         check_counts("flow_nd", expected)
     main_launches.update(expected)
+    # phase 20 holds the mesh's frame against this one
+    nd_frames, nd_main, nd_warm_s = (it0, it1), (u, v), frame_s[1:]
     print(f"  {n_levels} levels; frame time: cold {frame_s[0]:.3f} s, "
           f"warm {frame_s[1]:.3f} / {frame_s[2]:.3f} s", flush=True)
     print_profile("flow_nd", min(frame_s[1:]),
@@ -1921,7 +2026,8 @@ def main() -> None:
     fmg_lv = fmg_levels(MAIN_SHAPE)
     # the sign convention of the warping flow on this pair (tests/test_models.py)
     nd_sign = float(torch.sign(flow_nd(f0, f1, "grad", "none")[0][inner].median()))
-    fmg_out = {}
+    fmg_out, fmg_warm_s = {}, {}
+    fmg_frames = (f0, f1)
     for solver in (2, 1):
         expected = fmg_expected(MAIN_SHAPE, solver, 1, fp_)
         frame_s = []
@@ -1931,6 +2037,7 @@ def main() -> None:
             frame_s.append(sec)
             check_counts(f"flow_fmg solver={solver}", expected)
         fmg_out[solver] = (uf, vf)
+        fmg_warm_s[solver] = frame_s[1:]
         if not (torch.isfinite(uf).all() and torch.isfinite(vf).all()):
             fail(f"flow_fmg solver={solver}: non-finite flow")
         mu, mv = float(uf[inner].median()), float(vf[inner].median())
@@ -2275,6 +2382,156 @@ def main() -> None:
         print_profile(f"{what} (reduced)", red_s, device_profile(red_fn))
     seg_mod._generate_seeds, seg_mod._region_competition = real_gen, real_rc
 
+    mty, mtx = MESH_SHAPE
+    phase(f"20 the mesh: flow_nd and flow_fmg {MAIN_SHAPE} on a virtual {mty}x{mtx} mesh of "
+          f"{dev}, the sharded solvers")
+    vmesh = pmesh.make_mesh(mty, mtx, devices=[dev] * (mty * mtx))
+
+    def win_chunks(h, w, iters, mesh_shape=MESH_SHAPE, k=4):
+        """Chunks of a sharded solve of ``iters`` sweeps (parallel/tiled.py's
+        k_eff): one windowed launch a shard each."""
+        k_eff = max(1, min(k, iters, h // mesh_shape[0] // 2, w // mesh_shape[1] // 2))
+        return -(-iters // k_eff)
+
+    def mesh_expected(levels, calls, family, global_key, per_call, iters, shard_min=64):
+        """Launches of ``calls[i]`` solves at each of ``levels`` over the mesh:
+        a windowed launch a shard and chunk where the level is sharded, one
+        resident launch a solve (or the global kernel's) elsewhere."""
+        want = {f"tiled_flow_{family}_win": 0}
+        whole = []
+        for (h, w), c in zip(levels, calls):
+            if min(h, w) >= shard_min and h % mty == 0 and w % mtx == 0:
+                want[f"tiled_flow_{family}_win"] += c * mty * mtx * win_chunks(h, w, iters)
+            else:
+                whole.append(((h, w), c))
+        for (h, w), c in whole:
+            for key, n in planned_launches([(h, w)], c, family, 1, global_key, per_call).items():
+                want[key] = want.get(key, 0) + n
+        return want
+
+    p = FlowNDParams()
+    nd_levels = pyramid_scales(MAIN_SHAPE[1], MAIN_SHAPE[2], p.scl_factor, 20, p.scales)
+    expected = mesh_expected(nd_levels, [p.firstLoop * p.secondLoop] * len(nd_levels), "llin4",
+                             "flow_llin4_sor", 1 + 2 * p.iter, p.iter)
+    reset_counts()
+    (um, vm), sec = timed(lambda: flow_nd(*nd_frames, "grad", "gradmag", mesh=vmesh))
+    check_counts("flow_nd on the mesh", expected)
+    main_launches["tiled_flow_llin4_win"] = expected["tiled_flow_llin4_win"]
+    if not bit_equal((um, vm), nd_main):
+        fail(f"flow_nd on the mesh differs from phase 4's flow: max |dU| "
+             f"{float((um - nd_main[0]).abs().max())}")
+    n_sharded = sum(min(h, w) >= 64 and h % mty == 0 and w % mtx == 0 for h, w in nd_levels)
+    print(f"  flow_nd on the {mty}x{mtx} mesh: {n_sharded} of {len(nd_levels)} levels sharded, "
+          f"frame {sec:.3f} s (phase 4 unsharded, warm: {nd_warm_s[0]:.3f} / "
+          f"{nd_warm_s[1]:.3f} s); == phase 4's flow bit for bit", flush=True)
+    print_profile("flow_nd on the mesh", sec,
+                  device_profile(lambda: flow_nd(*nd_frames, "grad", "gradmag", mesh=vmesh)))
+
+    for solver in (1, 2):
+        if solver == 2:
+            expected = fmg_expected(MAIN_SHAPE, 2, 1, fp_)
+        else:
+            lv = fmg_levels(MAIN_SHAPE, fp_.scales)
+            expected = mesh_expected(lv, [c * fp_.firstLoop for c in fmg_smooth_calls(len(lv), 1)],
+                                     "elin4", "flow_elin4_sor", 1 + 2 * fp_.iter, fp_.iter)
+        reset_counts()
+        (um, vm), sec = timed(lambda: flow_fmg(*fmg_frames, solver=solver, mesh=vmesh))
+        check_counts(f"flow_fmg solver={solver} on the mesh", expected)
+        if solver == 1:
+            main_launches["tiled_flow_elin4_win"] = expected["tiled_flow_elin4_win"]
+        if not bit_equal((um, vm), fmg_out[solver]):
+            fail(f"flow_fmg solver={solver} on the mesh differs from phase 17's flow: max |dU| "
+                 f"{float((um - fmg_out[solver][0]).abs().max())}")
+        print(f"  flow_fmg solver={solver} on the {mty}x{mtx} mesh: frame {sec:.3f} s (phase 17 "
+              f"unsharded, warm: {fmg_warm_s[solver][0]:.3f} / {fmg_warm_s[solver][1]:.3f} s); "
+              f"== phase 17's flow bit for bit", flush=True)
+        if solver == 1:
+            print_profile("flow_fmg solver=1 on the mesh", sec, device_profile(
+                lambda: flow_fmg(*fmg_frames, solver=1, mesh=vmesh)))
+
+    # the families without a tile kernel run their sweeps as torch ops on the
+    # card: no launch, the plain global solver's bits
+    mh, mw = MAIN_SHAPE[1:]
+    for name, fields, sharded, plain, kernel, omega in (
+            ("flow_llin8", llin8_fields(rng, mh, mw, True, dev), ptiled.tiled_sor_flow_llin8,
+             plain_sor.sor_flow_llin8, dispatch.sor_flow_llin8, 1.9),
+            ("disp_llin4", disp_fields(rng, 1, mh, mw, True, dev), ptiled.tiled_sor_disp_llin4,
+             plain_sor.sor_disp_llin4, dispatch.sor_disp_llin4, 1.9),
+            ("pde4", pde4_fields(rng, 1, mh, mw, True, dev), ptiled.tiled_sor_pde4,
+             plain_sor.sor_pde4, dispatch.sor_pde4, 1.75)):
+        reset_counts()
+        got, sec = timed(lambda: sharded(vmesh, *fields, 4, omega))
+        check_counts(f"tiled_sor_{name}", {})
+        got = got if isinstance(got, tuple) else (got,)
+        want = plain(*fields, 4, omega)
+        want = want if isinstance(want, tuple) else (want,)
+        if not bit_equal(got, want):
+            fail(f"tiled_sor_{name} on the mesh: not the plain global solver's bits")
+        kern = kernel(*fields, 4, omega)
+        kern = kern if isinstance(kern, tuple) else (kern,)
+        torch.cuda.synchronize()
+        d_kern = max(float(torch.where(torch.isfinite(b), a - b, 0.0).abs().max())
+                     for a, b in zip(got, kern))
+        if not d_kern <= SOR_TOL:
+            fail(f"tiled_sor_{name} on the mesh differs from the kernel by {d_kern} > {SOR_TOL}")
+        print(f"  tiled_sor_{name} {mh}x{mw}, 4 sweeps on the mesh: {sec * 1e3:.1f} ms, no kernel "
+              f"launch; == the plain global solver bit for bit, max |d| {d_kern:.3g} against "
+              f"the kernel", flush=True)
+
+    # the double-buffered windowed variant, through the sharded llin4 and
+    # elin4 solvers: 9 sweeps in chunks of 4, 4 and 1
+    for family, make in (("flow_llin4", sor_fields), ("flow_elin4", elin_fields)):
+        tf = tile_order(family, make(rng, mh, mw, True, dev))
+        factory = getattr(sweeps, f"{family}_sweep")
+        serial = ptiled.tiled_relax_sharded(vmesh, factory, tf, 2, 9, 1.9)
+        expected = {f"tiled_{family}_win_db": mty * mtx * win_chunks(mh, mw, 9)}
+        reset_counts()
+        db, sec = timed(lambda: ptiled.tiled_relax_sharded(vmesh, factory, tf, 2, 9, 1.9,
+                                                           double_buffer=True))
+        check_counts(f"tiled_relax_sharded {family} double-buffered", expected)
+        main_launches.update(expected)
+        if not bit_equal(db, serial):
+            fail(f"tiled_{family}_win_db on the mesh: not the serial variant's bits")
+        print(f"  tiled_relax_sharded {family} double-buffered, 9 sweeps: {sec * 1e3:.1f} ms; == "
+              f"serial bit for bit", flush=True)
+
+    # the tiled PCG: tile-local zebra lines, one tridiag_thomas a tile and
+    # line pass (16 a preconditioner step); bit for bit against its plain
+    # path at PCG_SMALL, where the plain line solve's scan is affordable
+    pty, ptx = PCG_MESH
+    pmesh_card = pmesh.make_mesh(pty, ptx, devices=[dev] * (pty * ptx))
+    fields = sor_fields(rng, mh, mw, True, dev)
+    expected = {"tridiag_thomas": pty * ptx * 16 * (PCG_ITERS + 1)}
+    reset_counts()
+    (pu, pv), sec = timed(lambda: ptiled.tiled_pcg_flow_llin4(pmesh_card, *fields, PCG_ITERS))
+    check_counts("tiled_pcg_flow_llin4", expected)
+    if not (torch.isfinite(pu).all() and torch.isfinite(pv).all()):
+        fail("tiled_pcg_flow_llin4: non-finite result")
+    from pde_tpu_torch.solvers.krylov import pcg_flow_llin4
+    ref = pcg_flow_llin4(*fields, PCG_ITERS, 1.9)
+    d_ref = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip((pu, pv), ref))
+    small = sor_fields(rng, *PCG_SMALL, True, dev)
+    got = ptiled.tiled_pcg_flow_llin4(pmesh_card, *small, 2)
+    with dispatch.plain_solvers():
+        want = ptiled.tiled_pcg_flow_llin4(pmesh_card, *small, 2)
+    if not bit_equal(got, want):
+        fail(f"tiled_pcg_flow_llin4 at {PCG_SMALL}: the kernel path is not the plain path's bits")
+    print(f"  tiled_pcg_flow_llin4 {mh}x{mw} on a {pty}x{ptx} mesh, {PCG_ITERS} iterations: "
+          f"{sec:.3f} s, max |d| against the unsharded PCG {d_ref:.3g} of its scale; kernel "
+          f"path == plain path bit for bit at {PCG_SMALL[0]}x{PCG_SMALL[1]}", flush=True)
+
+    if torch.cuda.device_count() >= 2:
+        cards = pmesh.make_mesh(1, 2, devices=[torch.device("cuda", i) for i in (0, 1)])
+        fields = sor_fields(rng, mh, mw, True, dev)
+        got, sec = timed(lambda: ptiled.tiled_sor_flow_llin4(cards, *fields, 9, 1.9))
+        if not bit_equal(got, sor_cuda.flow_llin4_sor(*fields, 9, 1.9)):
+            fail("tiled_sor_flow_llin4 over two cards: not the global kernel's bits")
+        print(f"  tiled_sor_flow_llin4 {mh}x{mw} on a 1x2 mesh of two cards, 9 sweeps: "
+              f"{sec * 1e3:.1f} ms; == the global kernel on one card bit for bit", flush=True)
+    else:
+        print(f"  {torch.cuda.device_count()} card: the copies between two cards went "
+              f"unexercised", flush=True)
+
     sources = {"flow_llin4_sor": ("pde_tpu_torch/csrc/flow_llin4_sor.cu",
                                   "pde_tpu/kernels/sor_pallas.py:71"),
                "disp_llin4_sor": ("pde_tpu_torch/csrc/interior_sor.cu",
@@ -2313,7 +2570,7 @@ def main() -> None:
                                       "pde_tpu/kernels/tdma_pallas.py:82"),
                **{name: ("pde_tpu_torch/csrc/tiled_sor.cu",
                          "pde_tpu/kernels/tiled.py:" + ("172" if db else "113"))
-                  for name, (_, db) in TILED.items()}}
+                  for name, (_, db) in (TILED | TILED_WIN).items()}}
     th, tw = TIME_SHAPES[0]
     # the tridiagonal solve is reported whole, the fused pass coupled, along
     # axis -2; a resident kernel without a plan at th x tw (pde8 and pde4 with
@@ -2322,6 +2579,7 @@ def main() -> None:
            for name in sources}
     key["tridiag_long"] = ("tridiag_long", LONG_TIME[1], *LONG_TIME[0])
     key["tridiag_seg"] = ("tridiag_seg",)
+    key.update({name: (name, "win") for name in TILED_WIN})
     for name in AT_MAIN:
         if key[name] not in times:
             key[name] = (name, *MAIN_SHAPE[1:])

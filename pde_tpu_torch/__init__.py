@@ -33,7 +33,11 @@ shared with ``pde_tpu``, ``flow2color``, the ``probe`` hooks and the image
 loader. The temporally blocked
 tile engine ``kernels.tiled.tiled_relax`` runs the llin4 and elin4 sweeps k
 at a time over tiles in shared memory, a fourth source,
-``csrc/tiled_sor.cu``; no model routes through it yet. Entry points run on the CUDA card
+``csrc/tiled_sor.cu``. ``parallel`` shards the image plane over a ("ty",
+"tx") mesh of devices, as ``pde_tpu.parallel`` does: halo exchange between
+tiles, the sharded solvers (each llin4 or elin4 tile's chunk of k sweeps a
+windowed variant of that kernel) and ``mesh=``/``shard_min=`` in
+``flow_nd`` and ``flow_fmg``. Entry points run on the CUDA card
 unless the caller passes CPU tensors or ``device="cpu"``. Importing the
 package builds and loads nothing; a kernel is compiled with ``nvcc`` at
 its first launch on a CUDA tensor (``kernels/build.py``).
@@ -41,7 +45,7 @@ its first launch on a CUDA tensor (``kernels/build.py``).
 
 __version__ = "0.1.0"
 
-from pde_tpu_torch import core, ops, solvers, kernels, models, utils  # noqa: F401
+from pde_tpu_torch import core, ops, solvers, kernels, models, parallel, utils  # noqa: F401
 from pde_tpu_torch.models import (  # noqa: F401
     Diffusion4Params,
     DispSegParams,

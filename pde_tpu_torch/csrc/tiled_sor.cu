@@ -41,6 +41,19 @@
 //     ends. Serial and double-buffered give the same bits.
 //   * Copies are 4-byte cp.async, one warp per row of a plane: no alignment
 //     condition on a tile's origin.
+//   * The windowed variant (the `_win` entry points) runs one chunk over part
+//     of an image: the arrays are the rectangle [r0, r0 + h) x [c0, c0 + w) of
+//     a gh x gw image (a shard of pde_tpu_torch/parallel/tiled.py with the
+//     2k halo exchanged from its neighbours, clipped to the image), and only
+//     the tiles covering a box of the arrays run, writing the box alone into
+//     a box-sized output. Colours are (gi + gj) & 1 and the image edges
+//     gi, gj = 0, gh - 1, gw - 1 in the image's coordinates; a slot is
+//     clamped at the array's edge, which the kept box never reaches. The
+//     whole-image kernel is the window (0, 0, h, w) with the box the whole
+//     array: one code path, the same bits. It replaces pde_tpu/parallel/
+//     tiled.py::tiled_relax_sharded's shard bodies (:301-327, XLA ops under
+//     shard_map there) for llin4 and elin4; its plain version is
+//     kernels/tiled.py::plain_tiled_relax with a Window.
 //
 // What bounds it. Bytes by design: a chunk reads every field of a slot once
 // (13 planes for llin4, 11 for elin4) and writes the two relaxed fields of
@@ -81,15 +94,18 @@ struct Planes {
 };
 
 struct Geometry {
-  int h, w;              // the image
+  int h, w;              // the arrays
+  int r0, c0, gh, gw;    // the arrays' origin in the image, and the image
+  int bi0, bj0, bh, bw;  // the box whose tiles run, in the arrays; the output is bh x bw
   int tile_h, tile_w;    // a tile's interior
-  int tiles_w, n_tiles;  // tiles a row, in all
+  int tiles_w, n_tiles;  // tiles a row of the box, in all
   int k, halo;           // this chunk's sweeps and halo (2k)
   int rows, pitch;       // a slot's plane: rows x pitch floats (tile + 2 halo)
   int slot_bytes;        // one slot: the planes, then a flag byte a pixel
 };
 
-// a tile's interior and its slot (the interior and halo), clipped to the image
+// a tile's interior and its slot (the interior and halo), clipped to the
+// arrays, in the arrays' coordinates
 struct Box {
   int r0, r1, c0, c1;
   int gr0, gr1, gc0, gc1;
@@ -111,10 +127,10 @@ __device__ __forceinline__ int div_by(int q, unsigned long long m) {
 __device__ __forceinline__ Box tile_box(const Geometry& g, int t) {
   Box b;
   const int ty = t / g.tiles_w;
-  b.r0 = ty * g.tile_h;
-  b.c0 = (t - ty * g.tiles_w) * g.tile_w;
-  b.r1 = min(b.r0 + g.tile_h, g.h);
-  b.c1 = min(b.c0 + g.tile_w, g.w);
+  b.r0 = g.bi0 + ty * g.tile_h;
+  b.c0 = g.bj0 + (t - ty * g.tiles_w) * g.tile_w;
+  b.r1 = min(b.r0 + g.tile_h, g.bi0 + g.bh);
+  b.c1 = min(b.c0 + g.tile_w, g.bj0 + g.bw);
   b.gr0 = max(b.r0 - g.halo, 0);
   b.gr1 = min(b.r1 + g.halo, g.h);
   b.gc0 = max(b.c0 - g.halo, 0);
@@ -151,10 +167,10 @@ __device__ __forceinline__ void prepare_tile(float* slot, const Box& b, const Ge
     const int li = div_by(q, m_cols), lj = q - li * cols;
     const int x = li * g.pitch + lj;
     float* f = slot + kC * plane + x;  // f[i * plane]: the i-th plane from M on
-    const flow_sor::Coef k =
-        flow_sor::prepare(b.gr0 + li, b.gc0 + lj, g.h, g.w, f[5 * plane], f[6 * plane],
-                          f[7 * plane], f[8 * plane], f[0], f[plane], f[2 * plane], f[3 * plane],
-                          f[4 * plane]);
+    // edges in the image's coordinates
+    const flow_sor::Coef k = flow_sor::prepare(
+        g.r0 + b.gr0 + li, g.c0 + b.gc0 + lj, g.gh, g.gw, f[5 * plane], f[6 * plane], f[7 * plane],
+        f[8 * plane], f[0], f[plane], f[2 * plane], f[3 * plane], f[4 * plane]);
     f[0] = k.m0;
     f[plane] = k.cu0;
     f[2 * plane] = k.cv0;
@@ -182,6 +198,7 @@ __device__ __forceinline__ void sweep_tile(float* slot, const Box& tb, const Geo
   const float* co = slot + kC * plane;
   const uint8_t* flags = reinterpret_cast<const uint8_t*>(slot + (kC + 9) * plane);
   const int rows = tb.gr1 - tb.gr0, cols = tb.gc1 - tb.gc0;
+  const int origin = g.r0 + g.c0;  // the colour is the image's
   for (int s = 0; s < g.k; ++s) {
     for (int color = 0; color < 2; ++color) {
       const int reach = 2 * (g.k - 1 - s) + 1 - color;
@@ -193,8 +210,8 @@ __device__ __forceinline__ void sweep_tile(float* slot, const Box& tb, const Geo
       for (int q = threadIdx.x; q < n; q += blockDim.x) {
         const int qi = div_by(q, m_half);
         const int gi = i0 + qi;
-        // the pixel of this colour ((gi + gj) & 1 == color) in its pair
-        const int gj = j0 + 2 * (q - qi * half) + ((gi + j0 + color) & 1);
+        // the pixel of this colour ((gi + gj) & 1 == color in the image) in its pair
+        const int gj = j0 + 2 * (q - qi * half) + ((origin + gi + j0 + color) & 1);
         if (gj >= j1) continue;
         const int li = gi - tb.gr0, lj = gj - tb.gc0;
         const int x = li * g.pitch + lj;
@@ -229,7 +246,7 @@ __device__ __forceinline__ void sweep_tile(float* slot, const Box& tb, const Geo
   }
 }
 
-// The interior of the two relaxed planes to the chunk's output.
+// The interior of the two relaxed planes to the chunk's box-sized output.
 __device__ __forceinline__ void store_tile(const float* slot, float* out_u, float* out_v,
                                            const Box& b, const Geometry& g) {
   const int plane = g.rows * g.pitch;
@@ -238,7 +255,8 @@ __device__ __forceinline__ void store_tile(const float* slot, float* out_u, floa
   for (int pr = warp; pr < 2 * rows; pr += n_warps) {
     const int p = pr / rows, r = pr - p * rows;
     const float* src = slot + p * plane + (b.r0 - b.gr0 + r) * g.pitch + (b.c0 - b.gc0);
-    float* dst = (p ? out_v : out_u) + static_cast<size_t>(b.r0 + r) * g.w + b.c0;
+    float* dst =
+        (p ? out_v : out_u) + static_cast<size_t>(b.r0 - g.bi0 + r) * g.bw + (b.c0 - g.bj0);
     for (int c = lane; c < cols; c += 32) dst[c] = src[c];
   }
 }
@@ -307,6 +325,19 @@ cudaError_t launch_chunk(const Planes& in, float* out_u, float* out_v, const Geo
   return cudaGetLastError();
 }
 
+// A chunk of k sweeps over the tiles of the box (bi0, bj0, bh, bw) of h x w
+// arrays lying at (r0, c0) in a gh x gw image.
+template <int kPlanes>
+Geometry geometry(int h, int w, int r0, int c0, int gh, int gw, int bi0, int bj0, int bh, int bw,
+                  int k, int tile_h, int tile_w) {
+  const int tiles_w = (bw + tile_w - 1) / tile_w;
+  return Geometry{h,       w,   r0,          c0,          gh,          gw,
+                  bi0,     bj0, bh,          bw,          tile_h,      tile_w,
+                  tiles_w, tiles_w * ((bh + tile_h - 1) / tile_h),
+                  k,       2 * k, tile_h + 4 * k, tile_w + 4 * k,
+                  slot_bytes(kPlanes, k, tile_h, tile_w)};
+}
+
 // One launch a chunk: iters / k chunks of k sweeps, then one of the
 // remainder; chunk c reads the previous chunk's output (the caller's fields
 // for c = 0) and writes out or tmp so that the last one writes out.
@@ -321,13 +352,9 @@ int run_tiled(const void* const* fields, void* out_u, void* out_v, void* tmp_u, 
   const int n_full = iters / k, rem = iters % k, n_chunks = n_full + (rem > 0 ? 1 : 0);
   float* const dst[2][2] = {{static_cast<float*>(out_u), static_cast<float*>(out_v)},
                             {static_cast<float*>(tmp_u), static_cast<float*>(tmp_v)}};
-  const int tiles_w = (w + tile_w - 1) / tile_w;
   for (int c = 0; c < n_chunks; ++c) {
     const int kc = c < n_full ? k : rem;
-    const Geometry g{h,      w,      tile_h,          tile_w,
-                     tiles_w, tiles_w * ((h + tile_h - 1) / tile_h),
-                     kc,     2 * kc, tile_h + 4 * kc, tile_w + 4 * kc,
-                     slot_bytes(kPlanes, kc, tile_h, tile_w)};
+    const Geometry g = geometry<kPlanes>(h, w, 0, 0, h, w, 0, 0, h, w, kc, tile_h, tile_w);
     float* const* to = dst[(n_chunks - 1 - c) % 2];
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const cudaError_t err =
@@ -338,6 +365,30 @@ int run_tiled(const void* const* fields, void* out_u, void* out_v, void* tmp_u, 
     in.p[1] = to[1];
   }
   return static_cast<int>(cudaSuccess);
+}
+
+// The windowed variant: one launch, k sweeps over the box's tiles, the box
+// written to out (bh x bw). Geometry the caller has not checked is refused.
+template <bool kLate>
+int run_window(const void* const* fields, void* out_u, void* out_v, int h, int w, int r0, int c0,
+               int gh, int gw, int bi0, int bj0, int bh, int bw, int k, int tile_h, int tile_w,
+               int double_buffer, float omega, float one_minus_omega, void* stream) {
+  constexpr int kPlanes = kLate ? 13 : 11;
+  if (h < 1 || w < 1 || k < 1 || tile_h < 1 || tile_w < 1 || r0 < 0 || c0 < 0 ||
+      r0 + h > gh || c0 + w > gw || bi0 < 0 || bj0 < 0 || bh < 1 || bw < 1 || bi0 + bh > h ||
+      bj0 + bw > w)
+    return cudaErrorInvalidValue;
+  Planes in{};
+  for (int p = 0; p < kPlanes; ++p) in.p[p] = static_cast<const float*>(fields[p]);
+  const Geometry g =
+      geometry<kPlanes>(h, w, r0, c0, gh, gw, bi0, bj0, bh, bw, k, tile_h, tile_w);
+  float* const ou = static_cast<float*>(out_u);
+  float* const ov = static_cast<float*>(out_v);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      double_buffer ? launch_chunk<kLate, true>(in, ou, ov, g, omega, one_minus_omega, s)
+                    : launch_chunk<kLate, false>(in, ou, ov, g, omega, one_minus_omega, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -375,6 +426,33 @@ int tiled_flow_elin4(const void* u, const void* v, const void* m, const void* cu
   const void* fields[11] = {u, v, m, cu, cv, duc, dvc, ww, wn, we, ws};
   return run_tiled<false>(fields, u_out, v_out, tmp_u, tmp_v, h, w, iters, k, tile_h, tile_w,
                           double_buffer, omega, one_minus_omega, stream);
+}
+
+// The windowed variant: the fields are h x w arrays at (r0, c0) of a gh x gw
+// image; one launch of k sweeps over the tiles of the box (bi0, bj0) + bh x bw
+// writes the box into out_u/out_v (bh x bw). The caller keeps 2k pixels of
+// the arrays, or the image's edge, around the box.
+int tiled_flow_llin4_win(const void* du, const void* dv, const void* u, const void* v,
+                         const void* m, const void* cu, const void* cv, const void* duc,
+                         const void* dvc, const void* ww, const void* wn, const void* we,
+                         const void* ws, void* du_out, void* dv_out, int h, int w, int r0, int c0,
+                         int gh, int gw, int bi0, int bj0, int bh, int bw, int k, int tile_h,
+                         int tile_w, int double_buffer, float omega, float one_minus_omega,
+                         void* stream) {
+  const void* fields[13] = {du, dv, u, v, m, cu, cv, duc, dvc, ww, wn, we, ws};
+  return run_window<true>(fields, du_out, dv_out, h, w, r0, c0, gh, gw, bi0, bj0, bh, bw, k,
+                          tile_h, tile_w, double_buffer, omega, one_minus_omega, stream);
+}
+
+int tiled_flow_elin4_win(const void* u, const void* v, const void* m, const void* cu,
+                         const void* cv, const void* duc, const void* dvc, const void* ww,
+                         const void* wn, const void* we, const void* ws, void* u_out, void* v_out,
+                         int h, int w, int r0, int c0, int gh, int gw, int bi0, int bj0, int bh,
+                         int bw, int k, int tile_h, int tile_w, int double_buffer, float omega,
+                         float one_minus_omega, void* stream) {
+  const void* fields[11] = {u, v, m, cu, cv, duc, dvc, ww, wn, we, ws};
+  return run_window<false>(fields, u_out, v_out, h, w, r0, c0, gh, gw, bi0, bj0, bh, bw, k,
+                           tile_h, tile_w, double_buffer, omega, one_minus_omega, stream);
 }
 
 const char* tiled_sor_error_string(int code) {

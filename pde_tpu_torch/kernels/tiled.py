@@ -19,6 +19,13 @@ torch ops: the plain version, which CPU-tests the tile and halo indexing
 as ``pde_tpu``'s Pallas kernels run in interpret mode. A CUDA tensor goes
 to the kernel or raises.
 
+A ``Window`` runs one chunk over part of an image instead: the fields are
+a shard of ``parallel/tiled.py`` and the 2k halo its neighbours gave it,
+clipped to the image; colours, the interior and the edges come from the
+image's coordinates, and only the tiles covering the shard (the window's
+box) are relaxed and returned. On the card that is the windowed variant
+of the same kernel.
+
 The plan and the kernel agree on the shared-memory layout: per pixel of a
 slot (tile plus halo), one float32 plane per field and one flag byte.
 """
@@ -74,7 +81,7 @@ class TilePlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def plan_tiles(h: int, w: int, n_fields: int, sweeps: int, k_max: int = 4,
-               double_buffer: bool = False):
+               double_buffer: bool = False, exact_k: bool = False):
     """Choose the temporal block ``k`` and the 2-D tile for an (h, w)
     problem of ``n_fields`` fields; ``None`` when no plan fits.
 
@@ -83,17 +90,20 @@ def plan_tiles(h: int, w: int, n_fields: int, sweeps: int, k_max: int = 4,
     a block's whole shared memory (one block an SM), or half of it when
     ``double_buffer`` (two slots). k is the largest up to
     ``min(k_max, sweeps)`` that leaves the tile at least 16 rows (the
-    image's height rounded up to 8 where that is less).
+    image's height rounded up to 8 where that is less). ``exact_k`` keeps
+    k at ``min(k_max, sweeps)`` (a window's chunk), with tiles down to 8
+    rows.
     ``scripts/tiled_plan_sweep.py`` measured such wide tiles at one block
     an SM fastest on the H100 (PERF.md).
     """
     budget = SMEM_PER_BLOCK // (2 if double_buffer else 1)
     tile_w = min(_TILE_W, _round_up(w, _TILE_STEP))
     hi_h = min(_TILE_H_MAX, _round_up(h, _TILE_STEP))
-    for k in range(max(1, min(k_max, sweeps)), 0, -1):
+    k_top = max(1, min(k_max, sweeps))
+    for k in [k_top] if exact_k else range(k_top, 0, -1):
         fits = [th for th in range(_TILE_STEP, hi_h + 1, _TILE_STEP)
                 if slot_bytes(n_fields, k, th, tile_w) <= budget]
-        if fits and fits[-1] >= min(_TILE_H_MIN, hi_h):
+        if fits and (exact_k or fits[-1] >= min(_TILE_H_MIN, hi_h)):
             tile_h = fits[-1]
             return TilePlan(k, tile_h, tile_w, math.ceil(h / tile_h), math.ceil(w / tile_w),
                             (2 if double_buffer else 1) * slot_bytes(n_fields, k, tile_h, tile_w))
@@ -109,52 +119,112 @@ def bytes_per_pixel_iter(plan: TilePlan, n_fields: int, n_mut: int) -> float:
     return (n_fields * 4 * slot / (plan.tile_h * plan.tile_w) + n_mut * 4) / plan.k
 
 
-def tile_origins(h: int, w: int, tile_h: int, tile_w: int):
-    """(r0, c0) of every tile, row by row; the last row and column of
-    tiles may be ragged."""
-    return [(r0, c0) for r0 in range(0, h, tile_h) for c0 in range(0, w, tile_w)]
+class Window(NamedTuple):
+    """Where the array lies in an image, for a chunk over part of it: the
+    array is the rectangle ``[r0, r0 + H) x [c0, c0 + W)`` of a ``gh`` x
+    ``gw`` image (a shard and the halo it was given, clipped to the image),
+    and only the tiles covering ``box = (i0, i1, j0, j1)``, in the array's
+    coordinates, are relaxed and written. Colours, the interior and the
+    edges come from the image's coordinates."""
+
+    r0: int
+    c0: int
+    gh: int
+    gw: int
+    box: tuple
 
 
-def _plain_chunk(mut, const, sweep_fn, prepare_fn, k: int, tile_h: int, tile_w: int):
+def whole(h: int, w: int) -> Window:
+    """The window of an array that is the whole image."""
+    return Window(0, 0, h, w, (0, h, 0, w))
+
+
+def check_window(shape, window: Window, k: int) -> None:
+    """Raise unless the box lies in the array, the array in the image, and
+    the box keeps ``2 k`` pixels of the array, or the image's edge, on each
+    side (what a chunk of ``k`` sweeps reads)."""
+    h, w = shape
+    i0, i1, j0, j1 = window.box
+    halo = _halo_for(k)
+    if not (0 <= i0 < i1 <= h and 0 <= j0 < j1 <= w):
+        raise ValueError(f"window box {window.box} is not a non-empty box of the {h}x{w} array")
+    if not (0 <= window.r0 and window.r0 + h <= window.gh
+            and 0 <= window.c0 and window.c0 + w <= window.gw):
+        raise ValueError(f"a {h}x{w} array at ({window.r0}, {window.c0}) does not lie in the "
+                         f"{window.gh}x{window.gw} image")
+    for gap, edge in ((i0, window.r0 + i0), (h - i1, window.gh - window.r0 - i1),
+                      (j0, window.c0 + j0), (w - j1, window.gw - window.c0 - j1)):
+        if gap < min(halo, edge):
+            raise ValueError(f"window {window} of a {h}x{w} array: the box needs {halo} pixels "
+                             f"of halo for k = {k}, or the image's edge, on each side")
+
+
+def tile_origins(h: int, w: int, tile_h: int, tile_w: int, box=None):
+    """(r0, c0) of every tile of ``box`` (default the whole h x w array),
+    row by row; the last row and column of tiles may be ragged."""
+    i0, i1, j0, j1 = box or (0, h, 0, w)
+    return [(r0, c0) for r0 in range(i0, i1, tile_h) for c0 in range(j0, j1, tile_w)]
+
+
+def _plain_chunk(mut, const, sweep_fn, prepare_fn, k: int, tile_h: int, tile_w: int,
+                 window: Window | None = None):
     """One chunk of ``k`` sweeps, tile by tile, as the kernel runs it: the
-    tile and its halo cut out (clamped at the image edge), ``k`` sweeps
-    over regions that shrink by 2 each sweep, the interior kept."""
-    h, w = mut[0].shape
+    tile and its halo cut out (clamped at the array's edge), ``k`` sweeps
+    over regions that shrink by 2 each sweep, the interior kept. Returns
+    the box's part of the relaxed fields."""
+    h, w = mut[0].shape[-2:]
+    r0_img, c0_img, gh, gw, box = window or whole(h, w)
+    i0, i1, j0, j1 = box
     halo = _halo_for(k)
     dev = mut[0].device
-    out = [torch.empty_like(x) for x in mut]
-    for r0, c0 in tile_origins(h, w, tile_h, tile_w):
-        r1, c1 = min(r0 + tile_h, h), min(c0 + tile_w, w)
+    out = [x.new_empty(x.shape[:-2] + (i1 - i0, j1 - j0)) for x in mut]
+    for r0, c0 in tile_origins(h, w, tile_h, tile_w, box):
+        r1, c1 = min(r0 + tile_h, i1), min(c0 + tile_w, j1)
         gr0, gr1 = max(r0 - halo, 0), min(r1 + halo, h)
         gc0, gc1 = max(c0 - halo, 0), min(c1 + halo, w)
         ii = torch.arange(gr0, gr1, device=dev)[:, None]
         jj = torch.arange(gc0, gc1, device=dev)[None, :]
-        colour = [(ii + jj) % 2 == c for c in (0, 1)]
+        gi, gj = ii + r0_img, jj + c0_img
+        colour = [(gi + gj) % 2 == c for c in (0, 1)]
+        inner = (gi >= 1) & (gi <= gh - 2) & (gj >= 1) & (gj <= gw - 2)
 
         def region(reach):
             return ((ii >= r0 - reach) & (ii < r1 + reach)
                     & (jj >= c0 - reach) & (jj < c1 + reach))
 
-        aux = TileAux(colour[0], colour[1], jj == 0, ii == 0, jj == w - 1, ii == h - 1)
-        tm = [x[gr0:gr1, gc0:gc1] for x in mut]
-        tc = [x[gr0:gr1, gc0:gc1] for x in const]
+        aux = TileAux(colour[0], colour[1], gj == 0, gi == 0, gj == gw - 1, gi == gh - 1)
+        tm = [x[..., gr0:gr1, gc0:gc1] for x in mut]
+        tc = [x[..., gr0:gr1, gc0:gc1] for x in const]
         if prepare_fn is not None:
             tc = prepare_fn(tc, aux)
         for s in range(k):
             # colour 0 reaches one pixel further than colour 1, which reads it
             reach = 2 * (k - 1 - s)
-            tm = sweep_fn(tm, tc, aux._replace(maskf0=colour[0] & region(reach + 1),
-                                               maskf1=colour[1] & region(reach)))
+            grown = [colour[0] & region(reach + 1), colour[1] & region(reach)]
+            tm = sweep_fn(tm, tc, aux._replace(maskf0=grown[0], maskf1=grown[1],
+                                               mask0=grown[0] & inner, mask1=grown[1] & inner))
         for o, t in zip(out, tm):
-            o[r0:r1, c0:c1] = t[r0 - gr0:r1 - gr0, c0 - gc0:c1 - gc0]
+            o[..., r0 - i0:r1 - i0, c0 - j0:c1 - j0] = t[..., r0 - gr0:r1 - gr0, c0 - gc0:c1 - gc0]
     return out
 
 
 def plain_tiled_relax(fields, sweep_fn, prepare_fn, n_mut: int, iters: int, k: int,
-                      tile_h: int, tile_w: int):
+                      tile_h: int, tile_w: int, window: Window | None = None):
     """The tile schedule in torch ops: ``iters // k`` chunks of ``k``
-    sweeps and one of the remainder, each with its own halo."""
+    sweeps and one of the remainder, each with its own halo. With a
+    ``window``, one chunk of ``iters <= k`` sweeps over its box, whose part
+    of the fields it returns."""
     mut, const = list(fields[:n_mut]), list(fields[n_mut:])
+    if window is not None:
+        iters = max(int(iters), 0)
+        if iters > k:
+            raise ValueError(f"a window is one chunk: iters={iters} > k={k}")
+        check_window(mut[0].shape[-2:], window, iters)
+        if iters == 0:
+            i0, i1, j0, j1 = window.box
+            return tuple(x[..., i0:i1, j0:j1].clone() for x in mut)
+        return tuple(_plain_chunk(mut, const, sweep_fn, prepare_fn, iters, tile_h, tile_w,
+                                  window))
     n_full, rem = divmod(max(int(iters), 0), k)
     for kc in [k] * n_full + ([rem] if rem else []):
         mut = _plain_chunk(mut, const, sweep_fn, prepare_fn, kc, tile_h, tile_w)
@@ -163,7 +233,7 @@ def plain_tiled_relax(fields, sweep_fn, prepare_fn, n_mut: int, iters: int, k: i
 
 def tiled_relax(fields: Sequence[torch.Tensor], sweep_fn, n_mut: int, iters: int,
                 k_max: int = 4, prepare_fn=None, plan_override=None,
-                double_buffer: bool = False):
+                double_buffer: bool = False, window: Window | None = None):
     """Run ``iters`` red-black sweeps of ``sweep_fn`` over ``fields``.
 
     fields[:n_mut] are the relaxed state; the rest are frozen coefficients,
@@ -177,18 +247,35 @@ def tiled_relax(fields: Sequence[torch.Tensor], sweep_fn, n_mut: int, iters: int
     double_buffer=True runs the two-slot kernel on the card (the port of
     ``_stripe_kernel_db``): the same numbers, bit for bit. On CPU tensors
     both run the plain tile schedule.
+
+    window: the fields are part of an image (``Window``, a shard and its
+    exchanged halo); one chunk of ``iters`` sweeps relaxes the tiles of the
+    window's box, planned over the box, and returns the box's part of the
+    relaxed fields, as the same sweeps over the whole image give it. On the
+    card the windowed variant of the kernel runs it.
     """
-    h, w = fields[0].shape
+    h, w = fields[0].shape[-2:]
+    if window is not None:
+        i0, i1, j0, j1 = window.box
+        h, w = i1 - i0, j1 - j0
+        k_max = iters
     if plan_override is not None:
         k, tile = plan_override
         tile_h, tile_w = (tile, tile) if isinstance(tile, int) else tile
     else:
-        plan = plan_tiles(h, w, len(fields), iters, k_max, double_buffer=double_buffer)
+        plan = plan_tiles(h, w, len(fields), iters, k_max, double_buffer=double_buffer,
+                          exact_k=window is not None)
         if plan is None:
             return None
         k, tile_h, tile_w = plan.k, plan.tile_h, plan.tile_w
+    if window is not None and k < iters:
+        raise ValueError(f"a window is one chunk: the plan's k={k} < iters={iters}")
     if dispatch._plain(fields[0]):
-        return plain_tiled_relax(fields, sweep_fn, prepare_fn, n_mut, iters, k, tile_h, tile_w)
+        if window is None:
+            return plain_tiled_relax(fields, sweep_fn, prepare_fn, n_mut, iters, k, tile_h,
+                                     tile_w)
+        return plain_tiled_relax(fields, sweep_fn, prepare_fn, n_mut, iters, k, tile_h,
+                                 tile_w, window)
     family = getattr(sweep_fn, "family", None)
     if (family not in tiled_cuda.FIELD_NAMES or n_mut != 2
             or getattr(prepare_fn, "family", None) != family
@@ -196,5 +283,8 @@ def tiled_relax(fields: Sequence[torch.Tensor], sweep_fn, n_mut: int, iters: int
         raise ValueError("the tile kernel runs the flow_llin4 and flow_elin4 sweeps of "
                          "kernels/sweeps.py with their own prepare; got "
                          f"{getattr(sweep_fn, '__qualname__', sweep_fn)!r}")
-    return tiled_cuda.tiled_flow_sor(family, tuple(fields), iters, sweep_fn.omega, k,
-                                     tile_h, tile_w, double_buffer)
+    if window is None:
+        return tiled_cuda.tiled_flow_sor(family, tuple(fields), iters, sweep_fn.omega, k,
+                                         tile_h, tile_w, double_buffer)
+    return tiled_cuda.tiled_flow_sor_window(family, tuple(fields), iters, sweep_fn.omega,
+                                            window, tile_h, tile_w, double_buffer)

@@ -9,7 +9,10 @@ is built and loaded at the first call, never at import.
 and variant (``"tiled_flow_llin4"``, ``"tiled_flow_llin4_db"``,
 ``"tiled_flow_elin4"``, ``"tiled_flow_elin4_db"``): ``ceil(iters / k)`` per
 call, one a chunk (the prepare runs inside each chunk), none for
-``iters <= 0``.
+``iters <= 0``. The windowed variant (``tiled_flow_sor_window``, one chunk
+over a box of part of an image: a shard of ``parallel/tiled.py`` and its
+halo) counts one a call under ``"tiled_flow_llin4_win"``,
+``"tiled_flow_elin4_win"`` and their ``"_db"`` keys.
 """
 
 from __future__ import annotations
@@ -22,8 +25,8 @@ import torch
 from pde_tpu_torch.kernels import build
 
 SOURCE = "tiled_sor"
-LAUNCHES = {"tiled_flow_llin4": 0, "tiled_flow_llin4_db": 0,
-            "tiled_flow_elin4": 0, "tiled_flow_elin4_db": 0}
+LAUNCHES = {f"tiled_flow_{family}{variant}": 0 for family in ("llin4", "elin4")
+            for variant in ("", "_db", "_win", "_win_db")}
 # the fields of each family in tiled_relax's order: the two relaxed first
 FIELD_NAMES = {
     "flow_llin4": ("du", "dv", "u", "v", "m", "cu", "cv", "duc", "dvc", "ww", "wn", "we", "ws"),
@@ -39,6 +42,9 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, f"tiled_{family}")
         fn.argtypes = [p] * (len(names) + 4) + [i] * 7 + [f, f, p]
         fn.restype = i
+        fn = getattr(lib, f"tiled_{family}_win")
+        fn.argtypes = [p] * (len(names) + 2) + [i] * 14 + [f, f, p]
+        fn.restype = i
     lib.tiled_sor_slot_bytes.argtypes = [i, i, i, i]
     lib.tiled_sor_slot_bytes.restype = i
     lib.tiled_sor_error_string.argtypes = [i]
@@ -46,7 +52,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(family: str, fields) -> tuple[int, int]:
+def _check(family: str, fields, window=None, k: int = 0) -> tuple[int, int]:
+    """The fields' (H, W); raises on what the kernel does not take, the
+    device last (after the ``window`` of a chunk of ``k`` sweeps)."""
     names = FIELD_NAMES[family]
     if len(fields) != len(names):
         raise ValueError(f"tiled_{family} takes {len(names)} fields {names}, got {len(fields)}")
@@ -60,6 +68,10 @@ def _check(family: str, fields) -> tuple[int, int]:
                 f"tiled_{family}: {name} must be a contiguous float32 {tuple(shape)} "
                 f"tensor on {device}, got {x.dtype} {tuple(x.shape)} on {x.device} "
                 f"(contiguous={x.is_contiguous()})")
+    if window is not None:
+        from pde_tpu_torch.kernels.tiled import check_window
+
+        check_window(shape, window, k)
     if device.type != "cuda":
         raise ValueError(f"tiled_{family} takes CUDA tensors, got {device}")
     return shape[0], shape[1]
@@ -97,4 +109,37 @@ def tiled_flow_sor(family: str, fields, iters: int, omega: float, k: int, tile_h
         raise RuntimeError(f"tiled_{family} launch failed: cudaError {err} "
                            f"({lib.tiled_sor_error_string(err).decode()})")
     LAUNCHES[f"tiled_{family}" + ("_db" if double_buffer else "")] += n_chunks
+    return out_a, out_b
+
+
+def tiled_flow_sor_window(family: str, fields, iters: int, omega: float, window, tile_h: int,
+                          tile_w: int, double_buffer: bool = False):
+    """One chunk of ``iters`` red-black sweeps of ``family`` on the card over
+    the tiles of ``window.box`` (``kernels/tiled.Window``: the fields are
+    part of an image), in tiles of ``tile_h`` x ``tile_w``. Returns the
+    box's part of the two relaxed fields, as the same sweeps over the whole
+    image give it."""
+    if family not in FIELD_NAMES:
+        raise ValueError(f"no tile kernel for {family!r}; it has {sorted(FIELD_NAMES)}")
+    if tile_h < 1 or tile_w < 1:
+        raise ValueError(f"tile {tile_h}x{tile_w}: each side must be >= 1")
+    iters = max(int(iters), 0)
+    h, w = _check(family, fields, window, iters)
+    i0, i1, j0, j1 = window.box
+    if iters == 0:
+        return fields[0][i0:i1, j0:j1].clone(), fields[1][i0:i1, j0:j1].clone()
+    lib = _lib()
+    out_a, out_b = (x.new_empty((i1 - i0, j1 - j0)) for x in fields[:2])
+    device = fields[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, f"tiled_{family}_win")(
+            *(x.data_ptr() for x in fields), out_a.data_ptr(), out_b.data_ptr(),
+            h, w, window.r0, window.c0, window.gh, window.gw, i0, j0, i1 - i0, j1 - j0,
+            iters, tile_h, tile_w, int(bool(double_buffer)), float(omega), 1.0 - float(omega),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"tiled_{family}_win launch failed: cudaError {err} "
+                           f"({lib.tiled_sor_error_string(err).decode()})")
+    LAUNCHES[f"tiled_{family}_win" + ("_db" if double_buffer else "")] += 1
     return out_a, out_b

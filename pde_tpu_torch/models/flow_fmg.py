@@ -26,13 +26,20 @@ line-implicit PCG (``solvers/krylov.py::pcg_flow_elin4``: on the card one
 ``tridiag_zebra_pass`` a line set and preconditioner step);
 ``solver=1`` with red-black SOR (``kernels/dispatch.py::sor_flow_elin4``:
 on the card the resident elin4 kernel, one launch a smoothing solve, where
-the level has a plan). The JAX package's ``mesh=``/``shard_min=`` (the
-multi-chip form) are not ported.
+the level has a plan). ``mesh=``/``shard_min=`` run the call over a
+("ty", "tx") mesh of devices (``parallel/``): the fine FAS levels, while
+``min(H, W) >= shard_min`` and the level divides over the mesh, smooth with
+``solver=1`` through the sharded elin4 solve
+(``parallel/tiled.py::tiled_sor_flow_elin4``); coarser levels, and every
+level with ``solver=2``, solve whole on the mesh's first device, where the
+rest of the cycle runs (``parallel/model.py``). The numbers are the
+unsharded call's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import numpy as np
 import torch
@@ -50,6 +57,9 @@ from pde_tpu_torch.models._device import as_tensor, input_device
 from pde_tpu_torch.models.flow_nd import check_solver
 from pde_tpu_torch.ops.derivatives import FST_DERIVATOR5, SMOOTHER5, SND_DERIVATOR5
 from pde_tpu_torch.ops.weights import diffusion_weights_4
+from pde_tpu_torch.parallel.mesh import mesh_device
+from pde_tpu_torch.parallel.model import constrain_level
+from pde_tpu_torch.parallel.tiled import tiled_sor_flow_elin4
 from pde_tpu_torch.solvers.krylov import pcg_flow_elin4
 from pde_tpu_torch.solvers.sor import lhs_elin4, residuals_elin4
 
@@ -138,16 +148,22 @@ def _gd(t, u, v, p, nch: int = 1):
     return 1.0 / (nch * p.alpha * torch.sqrt(_opnorm(t, u, v, p) + 1e-5))
 
 
-def _smooth(u, v, t, c, cu, cv, p: FlowFMGParams, want_residuals: bool):
+def _smooth(u, v, t, c, cu, cv, p: FlowFMGParams, want_residuals: bool, mesh=None):
     """firstLoop x {gd, Brox weights, iter solver sweeps}; optionally a
     residual pass after (FlowEminNDFASFMG_elin_2D_v10.m:367-464). cu/cv may
     be a coarse level's FAS right-hand side, (C, H, W) like the level's
-    constancy terms, instead of those terms."""
+    constancy terms, instead of those terms. ``mesh``: the solver=1 solves
+    run sharded over it."""
     nch = t["dx"].shape[0] if t["dx"].ndim == 3 else 1
+    if p.solver == 2:
+        solve = pcg_flow_elin4
+    elif mesh is None:
+        solve = sor_flow_elin4
+    else:
+        solve = partial(tiled_sor_flow_elin4, mesh)
     for _ in range(p.firstLoop):
         gd = _gd(t, u, v, p, nch)
         ww, wn, we, ws = diffusion_weights_4(torch.stack([u, v]), eps=1e-5, combine="sum")
-        solve = pcg_flow_elin4 if p.solver == 2 else sor_flow_elin4
         u, v = solve(u, v, _reduce_c(c["m"] * gd), _reduce_c(cu * gd), _reduce_c(cv * gd),
                      _reduce_c(c["du"] * gd), _reduce_c(c["dv"] * gd), ww, wn, we, ws,
                      p.iter, p.omega)
@@ -164,16 +180,22 @@ def _smooth(u, v, t, c, cu, cv, p: FlowFMGParams, want_residuals: bool):
     return u, v, ru, rv
 
 
-def _fas_cycle(u, v, tensors, consts, cu, cv, lvl: int, n_levels: int, p: FlowFMGParams):
+def _fas_cycle(u, v, tensors, consts, cu, cv, lvl: int, n_levels: int, p: FlowFMGParams,
+               mesh=None, shard_min: int = 64):
     """FAS V/W cycle (FlowEminNDFASFMG_elin_2D_v10.m:193-273); lvl indexes
-    fine to coarse."""
+    fine to coarse. ``mesh``: the level's solves are sharded while it is at
+    least ``shard_min`` px and divides over the mesh (the coarse-level
+    regather below that, ``parallel/model.constrain_level``)."""
     t, c = tensors[lvl], consts[lvl]
+    level_mesh = None
+    if mesh is not None:
+        level_mesh = constrain_level(u, mesh, shard_min)
     if lvl == n_levels - 1:
-        return _smooth(u, v, t, c, cu, cv, p, want_residuals=False)
+        return _smooth(u, v, t, c, cu, cv, p, want_residuals=False, mesh=level_mesh)
 
     tc, cc = tensors[lvl + 1], consts[lvl + 1]
     for _ in range(p.cycle_index):
-        u, v, ru, rv = _smooth(u, v, t, c, cu, cv, p, want_residuals=True)
+        u, v, ru, rv = _smooth(u, v, t, c, cu, cv, p, want_residuals=True, mesh=level_mesh)
         ru_res, rv_res, u_res, v_res = (_restrict(x, p.scl_factor) for x in (ru, rv, u, v))
 
         # gd is (C, H, W): so is the coarse RHS, which the coarse level's
@@ -188,26 +210,34 @@ def _fas_cycle(u, v, tensors, consts, cu, cv, lvl: int, n_levels: int, p: FlowFM
         fu = (ru_res + au) / gd
         fv = (rv_res + av) / gd
 
-        uc, vc = _fas_cycle(u_res, v_res, tensors, consts, fu, fv, lvl + 1, n_levels, p)
+        uc, vc = _fas_cycle(u_res, v_res, tensors, consts, fu, fv, lvl + 1, n_levels, p,
+                            mesh, shard_min)
 
         shape = u.shape[-2:]
         u = u + imresize((uc - u_res) / p.scl_factor, shape, "bilinear")
         v = v + imresize((vc - v_res) / p.scl_factor, shape, "bilinear")
 
-    return _smooth(u, v, t, c, cu, cv, p, want_residuals=False)
+    return _smooth(u, v, t, c, cu, cv, p, want_residuals=False, mesh=level_mesh)
 
 
 def flow_fmg(it0, it1, params: FlowFMGParams | None = None, collect: list | None = None,
-             device=None, **overrides):
+             mesh=None, shard_min: int = 64, device=None, **overrides):
     """FAS-FMG early-linearisation flow. it0/it1: (H, W) or (C, H, W)
     uint8-range images, as numpy arrays or tensors. Returns (U, V) float32
     (H, W) tensors on the device of ``it0`` if it is a tensor, else on
     ``device``, else on the CUDA card (raises where there is none).
 
     collect: optional list; (U, V) after each top-level FAS cycle is
-    appended, coarsest first."""
+    appended, coarsest first.
+    mesh: optional ("ty", "tx") ``parallel.mesh.Mesh``: the call runs on
+    the mesh's first device (an input or ``device`` of another kind
+    raises); fine FAS levels solve sharded, levels below ``shard_min`` px
+    whole."""
     p = with_overrides(params or FlowFMGParams(), **overrides)
     check_solver("flow_fmg", p.solver)
+    if mesh is not None:
+        device = mesh_device(mesh, it0, device)
+        it0 = it0.to(device) if torch.is_tensor(it0) else it0
     device = input_device(it0, device)
     a = as_tensor(it0, device)
     b = as_tensor(it1, device)
@@ -235,7 +265,7 @@ def flow_fmg(it0, it1, params: FlowFMGParams | None = None, collect: list | None
             u = torch.zeros((h, w), dtype=torch.float32, device=device)
             v = torch.zeros_like(u)
         u, v = _fas_cycle(u, v, tensors, consts, consts[lvl]["cu"], consts[lvl]["cv"], lvl, n,
-                          p)
+                          p, mesh, shard_min)
         if collect is not None:
             collect.append((u, v))
         if lvl > 0:

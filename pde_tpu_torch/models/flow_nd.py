@@ -37,6 +37,8 @@ from pde_tpu_torch.ops.warp import warp_by_flow, warp_window
 from pde_tpu_torch.ops.weights import diffusion_weights_4
 from pde_tpu_torch.kernels.dispatch import sor_flow_llin4
 from pde_tpu_torch.models._device import as_tensor, input_device
+from pde_tpu_torch.parallel.mesh import mesh_device
+from pde_tpu_torch.parallel.model import mesh_nd_level
 from pde_tpu_torch.solvers.krylov import pcg_flow_llin4
 
 
@@ -143,10 +145,12 @@ def _robust_terms(t1, t2, u, v, du, dv, us_ap, vs_ap, as_diff, p, snd_is_gradmag
 
 
 def _nd_level(u, v, it0, i1t0, i1t1, i2t0, i2t1, us_ap, vs_ap, as_diff, p: FlowNDParams,
-              snd_is_gradmag: bool):
+              snd_is_gradmag: bool, sor=sor_flow_llin4):
     """One pyramid level of the warping flow. it0 (the level's image) is
     unused here (flow_ad's tensor reads it); i2* may be None ('none'
-    term); us_ap/vs_ap may be None (no spatial prior)."""
+    term); us_ap/vs_ap may be None (no spatial prior). ``sor`` is the
+    solver=1 solve (over a mesh, ``parallel/model.py`` passes the sharded
+    one)."""
     warp = partial(warp_window, r=p.warp_window) if p.warp_window > 0 else warp_by_flow
 
     for _first in range(p.firstLoop):
@@ -166,7 +170,7 @@ def _nd_level(u, v, it0, i1t0, i1t1, i2t0, i2t1, us_ap, vs_ap, as_diff, p: FlowN
             ww, wn, we, ws = diffusion_weights_4(
                 torch.stack([u + du, v + dv]), eps=1e-5, combine="sum"
             )
-            solve = pcg_flow_llin4 if p.solver == 2 else sor_flow_llin4
+            solve = pcg_flow_llin4 if p.solver == 2 else sor
             du, dv = solve(u, v, du, dv, m_gd, cu_gd, cv_gd, du_gd, dv_gd,
                            ww, wn, we, ws, p.iter, p.omega)
 
@@ -234,7 +238,8 @@ def _coarse_to_fine(it0, it1, fst_term: str, snd_term: str, p, us, vs, collect, 
 
 def flow_nd(it0, it1, fst_term: str = "grad", snd_term: str = "gradmag",
             params: FlowNDParams | None = None, us=None, vs=None,
-            collect: list | None = None, device=None, **overrides):
+            collect: list | None = None, mesh=None, shard_min: int = 64, device=None,
+            **overrides):
     """Warping flow. it0/it1: (C, H, W) or (H, W) uint8-range images, as
     numpy arrays or tensors.
 
@@ -243,11 +248,21 @@ def flow_nd(it0, it1, fst_term: str = "grad", snd_term: str = "gradmag",
     is a tensor, else on ``device``, else on the CUDA card (raises where
     there is none). collect: optional list; per-level (U, V) appended
     coarsest-first.
+    mesh: optional ("ty", "tx") ``parallel.mesh.Mesh``: the call runs on
+    the mesh's first device (an input or ``device`` of another kind
+    raises), and every pyramid level of at least ``shard_min`` px that
+    divides over the mesh solves sharded (``parallel/model.py``), with the
+    unsharded call's numbers.
     """
     p = with_overrides(params or FlowNDParams(), **overrides)
     check_solver("flow_nd", p.solver)
+    level_fn = _nd_level
+    if mesh is not None:
+        device = mesh_device(mesh, it0, device)
+        it0 = it0.to(device) if torch.is_tensor(it0) else it0
+        level_fn = partial(mesh_nd_level, mesh=mesh, shard_min=shard_min)
     return _coarse_to_fine(it0, it1, fst_term, snd_term, p, us, vs, collect, device,
-                           _nd_level)
+                           level_fn)
 
 
 def flow_nd_fused(it0, it1, fst_term: str = "grad", snd_term: str = "gradmag",

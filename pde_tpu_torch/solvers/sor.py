@@ -190,6 +190,33 @@ def sor_flow_llin8(u, v, du, dv, m, cu, cv, duc, dvc,
                      (ww, wnw, wn, wne, we, wse, ws, wsw), iters, omega)
 
 
+class DispCoefficients(NamedTuple):
+    """What a disparity sweep reads besides the increment: the weights,
+    their sum and the NaN-folded data term."""
+
+    weights: tuple
+    wsum: torch.Tensor
+    cu_nan: torch.Tensor
+    cu0: torch.Tensor
+    inv: torch.Tensor
+
+
+def disp_coefficients(cu, duc, weights) -> DispCoefficients:
+    """The coefficients of a disparity sweep from its 4 ``weights`` (not
+    edge-zeroed: the border pixels are filled, not relaxed)."""
+    ww, wn, we, ws = weights
+    wsum = ww + wn + we + ws
+    return DispCoefficients(tuple(weights), wsum, *_fold_data_nan(cu, duc, wsum))
+
+
+def disp_half_sweep(df, u, mask, co: DispCoefficients, omega: float):
+    """One colour (``mask``) of a disparity sweep of the increment ``df``
+    against the frozen ``u``; a NaN Cu is pure diffusion."""
+    s = _nbr_sum4(df + u, *co.weights) - u * co.wsum
+    num = torch.where(co.cu_nan, s, s + co.cu0)
+    return torch.where(mask, (1.0 - omega) * df + omega * num * co.inv, df)
+
+
 def _interior_color_masks(h: int, w: int, device=None):
     inter = interior_mask(h, w, device=device)
     return (checkerboard(h, w, 0, device=device) & inter,
@@ -203,17 +230,10 @@ def sor_disp_llin4(u, du, cu, duc, ww, wn, we, ws, iters: int, omega: float):
     sweep. (..., H, W) float32 tensors on one device; returns new dU."""
     h, w = u.shape[-2:]
     mask0, mask1 = _interior_color_masks(h, w, device=u.device)
-    wsum = ww + wn + we + ws
-    cu_nan, cu0, inv = _fold_data_nan(cu, duc, wsum)
-
-    def half(df, mask):
-        s = _nbr_sum4(df + u, ww, wn, we, ws) - u * wsum
-        num = torch.where(cu_nan, s, s + cu0)
-        return torch.where(mask, (1.0 - omega) * df + omega * num * inv, df)
-
+    co = disp_coefficients(cu, duc, (ww, wn, we, ws))
     for _ in range(iters):
-        du = half(du, mask0)
-        du = half(du, mask1)
+        du = disp_half_sweep(du, u, mask0, co, omega)
+        du = disp_half_sweep(du, u, mask1, co, omega)
         du = replicate_border(du)
     return du
 
@@ -230,22 +250,36 @@ def sor_disp_llin_sym4(u0, du0, cu0, duc0, ww0, wn0, we0, ws0,
     return out[0], out[1]
 
 
-def _pde_sor(x, trace, b, weights, iters: int, omega: float):
-    h, w = x.shape[-2:]
-    mask0, mask1 = _interior_color_masks(h, w, device=x.device)
-    nbr = _nbr_sum(weights)
+class PdeCoefficients(NamedTuple):
+    """What a diagonal-form sweep reads besides X: the weights, 1/TRACE
+    (1/Σw where TRACE is NaN) and B (0 there)."""
+
+    weights: tuple
+    inv: torch.Tensor
+    b_eff: torch.Tensor
+
+
+def pde_coefficients(trace, b, weights) -> PdeCoefficients:
+    """The coefficients of a pde4 or pde8 sweep from its 4 or 8 ``weights``."""
     wsum = _weight_sum(weights)
     tr_nan = torch.isnan(trace)
     inv = torch.where(tr_nan, 1.0 / wsum, 1.0 / torch.nan_to_num(trace, nan=1.0))
-    b_eff = torch.where(tr_nan, 0.0, b)
+    return PdeCoefficients(tuple(weights), inv, torch.where(tr_nan, 0.0, b))
 
-    def half(xc, mask):
-        new = (b_eff + nbr(xc, *weights)) * inv
-        return torch.where(mask, (1.0 - omega) * xc + omega * new, xc)
 
+def pde_half_sweep(xc, mask, co: PdeCoefficients, omega: float):
+    """One colour (``mask``) of a diagonal-form sweep X+ = (B + Σ w X)/TRACE."""
+    new = (co.b_eff + _nbr_sum(co.weights)(xc, *co.weights)) * co.inv
+    return torch.where(mask, (1.0 - omega) * xc + omega * new, xc)
+
+
+def _pde_sor(x, trace, b, weights, iters: int, omega: float):
+    h, w = x.shape[-2:]
+    mask0, mask1 = _interior_color_masks(h, w, device=x.device)
+    co = pde_coefficients(trace, b, weights)
     for _ in range(iters):
-        x = half(x, mask0)
-        x = half(x, mask1)
+        x = pde_half_sweep(x, mask0, co, omega)
+        x = pde_half_sweep(x, mask1, co, omega)
         x = replicate_border(x)
     return x
 

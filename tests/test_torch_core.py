@@ -181,7 +181,9 @@ def test_import_pulls_no_jax_and_builds_nothing():
             "pde_tpu_torch.kernels.sor_cuda, pde_tpu_torch.kernels.dispatch, "
             "pde_tpu_torch.kernels.tdma_cuda, pde_tpu_torch.models.flow_nd, "
             "pde_tpu_torch.models.flow_hs, pde_tpu_torch.models.diffusion, "
-            "pde_tpu_torch.models.flow_fmg, pde_tpu_torch.models.gac; "
+            "pde_tpu_torch.models.flow_fmg, pde_tpu_torch.models.gac, "
+            "pde_tpu_torch.parallel, pde_tpu_torch.parallel.tiled, "
+            "pde_tpu_torch.parallel.model; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'pde_tpu.'))"
             " or m == 'pde_tpu']; "
             "assert not bad, bad; print('ok')")
