@@ -23,9 +23,11 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    beside the least time the card could take (the bound; for the line
    solves also the chain's floor) and the kernel's device time under
    ``torch.profiler``. The tile kernel (``csrc/tiled_sor.cu``),
-   serial and double-buffered, llin4 and elin4, against the plain tile
-   schedule, bit for bit between its two variants, and beside the global
-   kernels. Its windowed variant (one chunk of k sweeps over a shard and
+   serial and double-buffered, llin4 and elin4, at the solvers' shapes and
+   768x768, with and without NaN data, against the plain tile schedule and
+   bit for bit against the global kernels (so its two variants are each
+   other's bits); its slot's bytes and threads against the plan's. Its
+   windowed variant (one chunk of k sweeps over a shard and
    the 2k halo exchanged from its neighbours), llin4 and elin4, serial and
    double-buffered, k = 1, 2, 4, 4 and 9 sweeps, with and without NaN data,
    through the sharded solver at the shards of a 2x2 and a 1x4 mesh over
@@ -88,8 +90,13 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
 16. ``flow_nd``, ``disparity_nd``, ``flow_ad``, ``tv_denoise8``,
     ``tv_denoise4`` and ``flow_hs`` with ``solver=1`` at 3x1024x1024, whose
     finest level has no resident plan (``tv_denoise8``'s second neither, nor
-    ``tv_denoise4``'s): exact launches of the global kernels there and of the
-    resident kernel at every other level; finite fields.
+    ``tv_denoise4``'s, nor ``flow_nd``'s and ``flow_hs``'s 768x768): exact
+    launches, counted apart from the dispatch's routing: the tile kernel
+    for llin4 and elin4 (``ceil(iters / 4)`` a call; ``flow_nd`` 32,
+    ``flow_hs`` 10, pinned), the global kernels for the other families, the
+    resident kernel at every other level; finite fields. These are the
+    serial tile kernels' main-path launches in the kernels line, and the
+    global llin4 and elin4 kernels' (0).
 17. ``flow_fmg`` (FAS full multigrid), default parameters, V-cycle, with
     ``solver=2`` (the PCG) and ``solver=1`` (the resident elin4 kernel) on a
     3x480x640 pair shifted by 1 px: exact launches (196 resident elin4
@@ -136,8 +143,10 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
     the plain global solvers and within SOR_TOL of the kernels; the
     double-buffered windowed variant through the sharded llin4 and elin4
     solvers; and the tiled PCG on a 2x4 mesh with its ``tridiag_thomas``
-    launches counted (bit for bit against its plain path at 64x96). With two
-    cards or more, a 1x2 mesh over two cards against one card.
+    launches counted (bit for bit against its plain path at 64x96). The
+    port's kernels' device ms of each profiled mesh frame beside the
+    unsharded frame's. With two cards or more, a 1x2 mesh over two cards
+    against one card.
 
 Every phase from 4 on sets every kernel's launch count to 0 just before it
 drives its entry point and reads all counts just after, and profiles one
@@ -192,6 +201,13 @@ TIME_SHAPES = [(481, 641), (1024, 1024)]  # the first one is reported as the ker
 AT_MAIN = ("flow_llin8_sor", "pde8_sor", "resident_flow_llin8", "resident_pde8", "pde4_sor",
            "flow_elin4_sor", "resident_pde4", "resident_flow_elin4")
 TILED_KS = (1, 2, 4)  # the tile kernel's k_max in phase 3
+# phase 16's launches of the tile kernel, a frame at LARGE_SHAPE: flow_nd's
+# 1024x1024 and 768x768 levels (no resident plan), 16 calls x 1 chunk each;
+# flow_hs solver=1's, 1 call x 5 chunks (20 sweeps) each
+PHASE16_TILED = {"flow_nd": {"tiled_flow_llin4": 32},
+                 "flow_hs solver=1": {"tiled_flow_elin4": 10}}
+# the tile kernel's shapes in phase 3: SOR_SHAPES and 768x768, a level without a resident plan
+TILE_SHAPES = sorted(set(SOR_SHAPES) | {(768, 768)})
 # tridiagonal systems, solved along both axes: line lengths 1, 2, 3, 7, 33,
 # 480, 481, 640, 641 and 1024 in each direction
 TRIDIAG_SHAPES = [(1, 7), (7, 1), (2, 3), (3, 2), (7, 33), (33, 7), (480, 640), (481, 641),
@@ -289,8 +305,11 @@ HEADLINE_ITERS = (128, 1024)   # chained differencing between these sweep counts
 W8 = ("ww", "wnw", "wn", "wne", "we", "wse", "ws", "wsw")
 
 
+_T0 = time.time()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.time() - _T0:.1f} s)", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -955,6 +974,10 @@ def main() -> None:
         if tiled_lib.tiled_sor_slot_bytes(*args) != tiled.slot_bytes(*args):
             fail(f"slot bytes of {args}: kernel {tiled_lib.tiled_sor_slot_bytes(*args)}, "
                  f"plan {tiled.slot_bytes(*args)}")
+    for args in ((4, 32, 32, 2), (3, 7, 9, 1), (4, 24, 48, 4), (1, 1, 1, 3)):
+        if tiled_lib.tiled_sor_threads(*args) != tiled.block_threads(*args):
+            fail(f"threads of {args}: kernel {tiled_lib.tiled_sor_threads(*args)}, "
+                 f"plan {tiled.block_threads(*args)}")
 
     def tiled_run(name, fields, iters, k_max, plain=False):
         family, db = TILED[name]
@@ -966,7 +989,7 @@ def main() -> None:
             return tiled.tiled_relax(fields, sw, 2, iters, k_max=k_max, prepare_fn=prep)
 
     tiled_vs_global = {}
-    for h, w in SOR_SHAPES:
+    for h, w in TILE_SHAPES:
         for iters in (4, 5):
             for k in TILED_KS:
                 for nan in (False, True):
@@ -994,11 +1017,14 @@ def main() -> None:
                         d_glob = max(float(torch.where(torch.isfinite(b), a - b, 0.0).abs().max())
                                      for a, b in zip(serial, g))
                         tiled_vs_global[family] = max(tiled_vs_global.get(family, 0.0), d_glob)
-                        line.append(f"{family} {errs[0]:.3g} (serial == double-buffered; "
-                                    f"vs global kernel {d_glob:.3g})")
+                        if not bit_equal(serial, g):
+                            fail(f"tiled_{family} at {label}: not the global kernel's bits "
+                                 f"(max |d| {d_glob})")
+                        line.append(f"{family} {errs[0]:.3g} (serial == double-buffered == "
+                                    f"global kernel bit for bit)")
                     print(f"  tiled {label}: max_abs_err " + ", ".join(line), flush=True)
-    print(f"  tile kernels vs the global kernels, max-abs over every case: {tiled_vs_global}",
-          flush=True)
+    print(f"  tile kernels vs the global kernels, max-abs over every case: {tiled_vs_global} "
+          f"(bit for bit)", flush=True)
 
     # the windowed variant: every shard's chunk of a sharded solve over
     # MAIN_SHAPE's plane on a virtual mesh of this card, serial and
@@ -1238,7 +1264,9 @@ def main() -> None:
                   f"bound {b_ms:.4f} ms ({b_by})", flush=True)
 
     # the tile kernels, iters = 4; their plain version is the tile schedule
-    # at the kernel's own plan, timed once before and once after
+    # at the kernel's own plan, timed once before and once after at the
+    # reported shape, once elsewhere (its thousand-odd tiles' torch ops take
+    # ~10 s a call at 1024x1024)
     for h, w in TIME_SHAPES:
         px = h * w
         for family, make in (("flow_llin4", sor_fields), ("flow_elin4", elin_fields)):
@@ -1250,7 +1278,7 @@ def main() -> None:
                 kern = partial(tiled_run, name, tf, 4, 4)
                 kern_ms[name] = (cuda_ms(kern, 50), cuda_ms(kern, 50),
                                  device_profile(kern, 20)[:2])
-            p2 = timed(plain)[1] * 1e3
+            p2 = timed(plain)[1] * 1e3 if (h, w) == TIME_SHAPES[0] else p1
             for name, (k1, k2, (dev_ms, dev_ops)) in kern_ms.items():
                 b_ms, b_by = bound(len(tf) * 4 * px + 2 * 4 * px, 4 * px * FLOPS_PER_PX[name])
                 times[(name, h, w)] = ((k1 + k2) / 2, (p1 + p2) / 2)
@@ -1386,23 +1414,35 @@ def main() -> None:
     main_launches = {}
 
     def sor_launches(shape, scl_factor, stop, scales, calls, family, batch, global_key,
-                     per_call):
+                     per_call, iters=None):
         """The launches of ``calls`` solver calls at every pyramid level of
-        ``shape``: one resident launch a call where the level has a
-        resident plan, else ``per_call`` launches of the global kernel."""
+        ``shape`` (``planned_launches``)."""
         levels = pyramid_scales(shape[-2], shape[-1], scl_factor, stop, scales)
-        return planned_launches(levels, calls, family, batch, global_key, per_call)
+        return planned_launches(levels, calls, family, batch, global_key, per_call, iters)
 
-    def planned_launches(levels, calls, family, batch, global_key, per_call):
-        """One resident launch a call at each of ``levels`` with a resident
-        plan, ``per_call`` launches of the global kernel at the others."""
-        planned = sum(resident_cuda.plan_resident(h, w, family, batch, sms) is not None
-                      for h, w in levels)
+    def planned_launches(levels, calls, family, batch, global_key, per_call, iters=None):
+        """The launches of ``calls`` solver calls at each of ``levels``,
+        counted apart from the dispatch's own routing: one resident launch a
+        call where ``plan_resident`` gives the level a plan; else, for llin4
+        and elin4 of batch 1, ``ceil(iters / 4)`` launches of the tile kernel
+        a call (chunks of ``pde_tpu``'s k_max = 4 sweeps); else ``per_call``
+        launches of the global kernel."""
         resident_key = {"llin4": "resident_flow_llin4", "disp": "resident_disp_llin4",
                         "pde4": "resident_pde4", "elin4": "resident_flow_elin4",
                         "llin8": "resident_flow_llin8", "pde8": "resident_pde8"}[family]
-        return {resident_key: planned * calls,
-                global_key: (len(levels) - planned) * calls * per_call}
+        want = {resident_key: 0, global_key: 0}
+        if family in ("llin4", "elin4"):
+            want[f"tiled_flow_{family}"] = 0
+        for h, w in levels:
+            if resident_cuda.plan_resident(h, w, family, batch, sms) is not None:
+                want[resident_key] += calls
+            elif family in ("llin4", "elin4") and batch == 1:
+                if iters is None:
+                    fail(f"the {family} launches at {h}x{w} need the sweeps a call")
+                want[f"tiled_flow_{family}"] += calls * -(-iters // 4)
+            else:
+                want[global_key] += calls * per_call
+        return want
 
     phase(f"4 main path: flow_nd {MAIN_SHAPE}, default parameters")
     p = FlowNDParams()
@@ -1410,7 +1450,7 @@ def main() -> None:
                 for f in shifted_frames(rng, MAIN_SHAPE, [(0.0, 0.0), MAIN_SHIFT]))
     n_levels = len(pyramid_scales(MAIN_SHAPE[1], MAIN_SHAPE[2], p.scl_factor, 20, p.scales))
     expected = sor_launches(MAIN_SHAPE, p.scl_factor, 20, p.scales, p.firstLoop * p.secondLoop,
-                            "llin4", 1, "flow_llin4_sor", 1 + 2 * p.iter)
+                            "llin4", 1, "flow_llin4_sor", 1 + 2 * p.iter, p.iter)
     frame_s = []
     for _ in range(3):
         reset_counts()
@@ -1422,8 +1462,8 @@ def main() -> None:
     nd_frames, nd_main, nd_warm_s = (it0, it1), (u, v), frame_s[1:]
     print(f"  {n_levels} levels; frame time: cold {frame_s[0]:.3f} s, "
           f"warm {frame_s[1]:.3f} / {frame_s[2]:.3f} s", flush=True)
-    print_profile("flow_nd", min(frame_s[1:]),
-                  device_profile(lambda: flow_nd(it0, it1, "grad", "gradmag")))
+    nd_prof = device_profile(lambda: flow_nd(it0, it1, "grad", "gradmag"))
+    print_profile("flow_nd", min(frame_s[1:]), nd_prof)
     if u.shape != MAIN_SHAPE[1:] or v.shape != MAIN_SHAPE[1:] or u.device != dev:
         fail(f"flow of shape {tuple(u.shape)} on {u.device}")
     if not (torch.isfinite(u).all() and torch.isfinite(v).all()):
@@ -1459,7 +1499,7 @@ def main() -> None:
     torch.cuda.synchronize()
     check_counts("flow_nd_sequence", sor_launches(
         SEQ_SHAPE, p.scl_factor, 20, p.scales, 2 * p.firstLoop * p.secondLoop, "llin4", 1,
-        "flow_llin4_sor", 1 + 2 * p.iter))
+        "flow_llin4_sor", 1 + 2 * p.iter, p.iter))
     if us.shape != (2,) + SEQ_SHAPE[1:]:
         fail(f"sequence flow of shape {tuple(us.shape)}")
     seq_err = 0.0
@@ -1652,7 +1692,7 @@ def main() -> None:
     phase(f"10 flow_hs {MAIN_SHAPE}, solver=1 (elin4 SOR)")
     # one resident launch a level
     elin_expected = sor_launches(MAIN_SHAPE, hp.scl_factor, 20, hp.scales, 1, "elin4", 1,
-                                 "flow_elin4_sor", 1 + 2 * hp.iter)
+                                 "flow_elin4_sor", 1 + 2 * hp.iter, hp.iter)
     frame_s = []
     for _ in range(3):
         reset_counts()
@@ -1892,7 +1932,8 @@ def main() -> None:
     }
     start = {"flow_llin4": (bdu, bdv), "flow_elin4": (bu, bv)}
     n_fields = {"flow_llin4": 13, "flow_elin4": 11}
-    plans = {name: tiled.plan_tiles(hh, hw, n_fields[fam], HEADLINE_ITERS[1], 4, double_buffer=db)
+    plans = {name: tiled.plan_tiles(hh, hw, n_fields[fam], HEADLINE_ITERS[1], 4, double_buffer=db,
+                                    sm_count=sms)
              for name, (fam, db) in TILED.items()}
     expected = {}
 
@@ -1957,14 +1998,18 @@ def main() -> None:
             fail(f"tiled_{family}: serial and double-buffered differ after "
                  f"{HEADLINE_ITERS[1]} sweeps")
     check_counts("phase 15", expected)
+    # the headline is no main path: no model launches the double-buffered
+    # tile kernels (pde_tpu's bench.py alone reaches _stripe_kernel_db), so
+    # the kernels line gives them 0; phase 16's frames give the serial ones
+    # theirs
     for name in TILED:
-        main_launches[name] = expected[name]
+        main_launches[name] = 0
 
     phase(f"16 flow_nd, disparity_nd, flow_ad, tv_denoise8, tv_denoise4 and flow_hs solver=1 "
           f"{LARGE_SHAPE}: levels without a resident plan")
-    # the finest level is too large for one band an SM, so the global
-    # kernels take its solves; every other level goes to the resident kernel
-    # (tv_denoise8: neither level, 1024x1024 and 768x768, has a plan, since
+    # the finest level is too large for one band an SM, so the tile kernel
+    # (llin4, elin4) or the global kernels (the other families) take its
+    # solves; every other level goes to the resident kernel (tv_denoise8: neither level, 1024x1024 and 768x768, has a plan, since
     # three channels' planes of a band would need more shared memory;
     # tv_denoise4: nor 768x768, whose three channels would need 5 slots a
     # thread)
@@ -1973,7 +2018,7 @@ def main() -> None:
     for name, run, want, key in (
             ("flow_nd", lambda: flow_nd(big0, big1, "grad", "gradmag"),
              sor_launches(LARGE_SHAPE, p.scl_factor, 20, p.scales, p.firstLoop * p.secondLoop,
-                          "llin4", 1, "flow_llin4_sor", 1 + 2 * p.iter), "flow_llin4_sor"),
+                          "llin4", 1, "flow_llin4_sor", 1 + 2 * p.iter, p.iter), "flow_llin4_sor"),
             ("disparity_nd", lambda: disparity_nd(big0, big1, "grad", "gradmag"),
              sor_launches(LARGE_SHAPE, dp.scl_factor, 10, dp.scales,
                           dp.firstLoop * dp.secondLoop, "disp", 1, "disp_llin4_sor",
@@ -1992,33 +2037,39 @@ def main() -> None:
                               3 * tp.inner_iter), "pde4_sor"),
             ("flow_hs solver=1", lambda: flow_hs(big0, big1, solver=1),
              sor_launches(LARGE_SHAPE, hp.scl_factor, 20, hp.scales, 1, "elin4", 1,
-                          "flow_elin4_sor", 1 + 2 * hp.iter), "flow_elin4_sor")):
+                          "flow_elin4_sor", 1 + 2 * hp.iter, hp.iter), "flow_elin4_sor")):
+        fixed = PHASE16_TILED.get(name)
+        if fixed is not None and {k: n for k, n in want.items() if k.startswith("tiled")} != fixed:
+            fail(f"{name} at {LARGE_SHAPE}: expected {want}, not the tile kernel's {fixed}")
         reset_counts()
         out, sec = timed(run)
         check_counts(name, want)
         outs = out if isinstance(out, tuple) else (out,)
         if not all(torch.isfinite(o).all() and o.shape[-2:] == LARGE_SHAPE[1:] for o in outs):
             fail(f"{name} at {LARGE_SHAPE}: non-finite result or wrong shape")
-        main_launches[key] = want[key]
-        print(f"  {name}: frame {sec:.3f} s (cold), finite", flush=True)
+        # the main path's launches of the global kernel and of the tile
+        # kernels (0 where the frame has none: no model launches the global
+        # llin4 and elin4 kernels since the tile kernel takes their shapes)
+        main_launches.update({k: n for k, n in want.items() if k == key or k in TILED})
+        print(f"  {name}: frame {sec:.3f} s (cold), finite; launches "
+              f"{ {k: n for k, n in want.items() if n} }", flush=True)
 
     phase(f"17 flow_fmg {MAIN_SHAPE}, default parameters (V-cycle; solver=2 and solver=1)")
     fp_ = FlowFMGParams()
 
     def fmg_expected(shape, solver, cycle_index, p_):
-        """Exact launches of a flow_fmg call: solver=1 one resident elin4
-        launch a solve where the level has a plan (the global kernel's 1 +
-        2 iter elsewhere), solver=2 pcg_launches of every solve."""
+        """Exact launches of a flow_fmg call: solver=1 ``planned_launches``
+        of each level's solves (one resident elin4 launch a solve where the
+        level has a plan), solver=2 pcg_launches of every solve."""
         levels = fmg_levels(shape, p_.scales)
         calls = fmg_smooth_calls(len(levels), cycle_index)
         if solver == 2:
             return pcg_launches(sum(calls) * p_.firstLoop, 2, p_.iter)
-        want = {"resident_flow_elin4": 0, "flow_elin4_sor": 0}
+        want = {}
         for (h, w), c in zip(levels, calls):
-            if resident_cuda.plan_resident(h, w, "elin4", 1, sms) is not None:
-                want["resident_flow_elin4"] += c * p_.firstLoop
-            else:
-                want["flow_elin4_sor"] += c * p_.firstLoop * (1 + 2 * p_.iter)
+            for key, n in planned_launches([(h, w)], c * p_.firstLoop, "elin4", 1,
+                                           "flow_elin4_sor", 1 + 2 * p_.iter, p_.iter).items():
+                want[key] = want.get(key, 0) + n
         return want
 
     f0, f1 = (torch.from_numpy(f).to(dev)
@@ -2026,7 +2077,7 @@ def main() -> None:
     fmg_lv = fmg_levels(MAIN_SHAPE)
     # the sign convention of the warping flow on this pair (tests/test_models.py)
     nd_sign = float(torch.sign(flow_nd(f0, f1, "grad", "none")[0][inner].median()))
-    fmg_out, fmg_warm_s = {}, {}
+    fmg_out, fmg_warm_s, fmg_prof = {}, {}, {}
     fmg_frames = (f0, f1)
     for solver in (2, 1):
         expected = fmg_expected(MAIN_SHAPE, solver, 1, fp_)
@@ -2049,8 +2100,8 @@ def main() -> None:
         if not (mu * nd_sign > 0.4 and abs(mv) < 0.3):
             fail(f"flow_fmg solver={solver} misses the {FMG_SHIFT[1]}-px shift: median ({mu}, "
                  f"{mv})")
-        print_profile(f"flow_fmg solver={solver}", min(frame_s[1:]),
-                      device_profile(lambda: flow_fmg(f0, f1, solver=solver)))
+        fmg_prof[solver] = device_profile(lambda: flow_fmg(f0, f1, solver=solver))
+        print_profile(f"flow_fmg solver={solver}", min(frame_s[1:]), fmg_prof[solver])
     # the FAS cycles amplify rounding (ROADMAP F7): at full size one ulp
     # more in every smoothing solve's U (or less in V) moves the plain path's
     # flow by a few tenths of a px, so the kernel path is held against the
@@ -2405,7 +2456,8 @@ def main() -> None:
             else:
                 whole.append(((h, w), c))
         for (h, w), c in whole:
-            for key, n in planned_launches([(h, w)], c, family, 1, global_key, per_call).items():
+            for key, n in planned_launches([(h, w)], c, family, 1, global_key, per_call,
+                                           iters).items():
                 want[key] = want.get(key, 0) + n
         return want
 
@@ -2424,8 +2476,10 @@ def main() -> None:
     print(f"  flow_nd on the {mty}x{mtx} mesh: {n_sharded} of {len(nd_levels)} levels sharded, "
           f"frame {sec:.3f} s (phase 4 unsharded, warm: {nd_warm_s[0]:.3f} / "
           f"{nd_warm_s[1]:.3f} s); == phase 4's flow bit for bit", flush=True)
-    print_profile("flow_nd on the mesh", sec,
-                  device_profile(lambda: flow_nd(*nd_frames, "grad", "gradmag", mesh=vmesh)))
+    mesh_prof = device_profile(lambda: flow_nd(*nd_frames, "grad", "gradmag", mesh=vmesh))
+    print_profile("flow_nd on the mesh", sec, mesh_prof)
+    print(f"  the port's CUDA kernels, device ms a frame: flow_nd on the mesh {mesh_prof[2]:.3f}, "
+          f"unsharded (phase 4) {nd_prof[2]:.3f}", flush=True)
 
     for solver in (1, 2):
         if solver == 2:
@@ -2446,8 +2500,10 @@ def main() -> None:
               f"unsharded, warm: {fmg_warm_s[solver][0]:.3f} / {fmg_warm_s[solver][1]:.3f} s); "
               f"== phase 17's flow bit for bit", flush=True)
         if solver == 1:
-            print_profile("flow_fmg solver=1 on the mesh", sec, device_profile(
-                lambda: flow_fmg(*fmg_frames, solver=1, mesh=vmesh)))
+            mesh_prof = device_profile(lambda: flow_fmg(*fmg_frames, solver=1, mesh=vmesh))
+            print_profile("flow_fmg solver=1 on the mesh", sec, mesh_prof)
+            print(f"  the port's CUDA kernels, device ms a frame: flow_fmg solver=1 on the mesh "
+                  f"{mesh_prof[2]:.3f}, unsharded (phase 17) {fmg_prof[1][2]:.3f}", flush=True)
 
     # the families without a tile kernel run their sweeps as torch ops on the
     # card: no launch, the plain global solver's bits

@@ -32,8 +32,9 @@ all ten of ``pde_tpu``'s pipelines. ``utils`` holds the checkpoint format
 shared with ``pde_tpu``, ``flow2color``, the ``probe`` hooks and the image
 loader. The temporally blocked
 tile engine ``kernels.tiled.tiled_relax`` runs the llin4 and elin4 sweeps k
-at a time over tiles in shared memory, a fourth source,
-``csrc/tiled_sor.cu``. ``parallel`` shards the image plane over a ("ty",
+at a time over tiles, a fourth source, ``csrc/tiled_sor.cu``; it takes
+every llin4 and elin4 solve whose shape has no resident plan
+(``kernels/dispatch.sor_route``). ``parallel`` shards the image plane over a ("ty",
 "tx") mesh of devices, as ``pde_tpu.parallel`` does: halo exchange between
 tiles, the sharded solvers (each llin4 or elin4 tile's chunk of k sweeps a
 windowed variant of that kernel) and ``mesh=``/``shard_min=`` in

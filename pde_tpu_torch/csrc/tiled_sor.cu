@@ -1,5 +1,5 @@
 // Temporally blocked red-black SOR of the coupled flow pair, k sweeps per
-// pass over a 2-D tile held in shared memory:
+// pass over a 2-D tile and its 2k halo:
 //   * late (llin4): the increments (dU, dV) against the frozen flow (U, V);
 //   * early (elin4): (U, V) themselves (template flag kLate = false).
 //
@@ -10,64 +10,96 @@
 // the same function as the global kernels of flow_llin4_sor.cu and their
 // plain versions pde_tpu_torch/solvers/sor.py::sor_flow_llin4 and
 // sor_flow_elin4; its own plain version is the tile schedule in torch ops,
-// pde_tpu_torch/kernels/tiled.py::plain_tiled_relax.
+// pde_tpu_torch/kernels/tiled.py::plain_tiled_relax. kernels/dispatch.py
+// sends it every llin4 and elin4 solve whose shape has no resident plan
+// (resident_sor.cu), as pde_tpu sends a grid too large for VMEM to
+// _stripe_kernel with k <= 4.
 //
-// Design (simple and exact first):
+// Design (after resident_sor.cu):
 //   * iters sweeps run as iters / k chunks of k and one of the remainder,
 //     one launch a chunk. A chunk reads one (dU, dV) pair and writes another
 //     (ping-pong, the last chunk writing the output): a tile's halo must see
 //     the state at the start of the chunk, not a neighbour's result.
-//   * A block takes a tile (tiled.py::plan_tiles sizes it) plus a halo of 2k
-//     on every side, clamped at the image edge: every field, one float plane
-//     each, and a flag byte a pixel, in one slot of shared memory. The prepare
-//     runs there in place (edge-zeroed weights at the GLOBAL edge, NaN
-//     folding), so there is no prepare launch and no scratch.
-//   * Then k sweeps, a __syncthreads() after each colour. In sweep s colour 1
-//     updates the tile grown by 2 (k - 1 - s) and colour 0 one pixel more,
-//     which is all the kept interior depends on. A neighbour off the slot is
-//     clamped inside it, as the global kernel clamps at the image: a pixel on
-//     the slot's edge that is updated lies on the image edge, where that
-//     weight is zero (and an inf there still meets the zero, as in plain).
+//   * A block takes a tile (kernels/tiled.py::plan_tiles sizes it) plus a
+//     halo of 2k on every side, clamped at the arrays' edge: its slot. Each
+//     thread owns fixed pixels of the slot, `slots` pairs of horizontally
+//     neighbouring pixels (one of each colour): pair j of thread t is pair
+//     p = t + j * threads, local row p / hc, columns 2 (p % hc) and
+//     2 (p % hc) + 1, hc = ceil(slot width / 2). The map is fixed for the
+//     launch, so a pixel's indices are computed once, with the division.
+//   * A pixel's coefficients (the edge-zeroed W, N, E, S weights, 1/(Σw +
+//     Du), 1/(Σw + Dv), the NaN-folded M, Cu, Cv, flow_update.cuh's
+//     prepare) are read from device memory straight into the owning
+//     thread's registers, 8 bytes a pair where the row allows it, with the
+//     NaN flags, the edge clamps and a live bit packed in one word a pair.
+//     They stay there for the chunk's k sweeps and never touch shared
+//     memory. A pair's indices are recomputed each colour phase from the
+//     word (kept live, they took the registers the coefficients need).
+//   * Shared memory holds only what neighbours read: dU, dV, U, V (llin4)
+//     or U, V (elin4), each field split into a plane per colour (16 or 8
+//     bytes a pixel, against 53 for all 13 planes and a flag byte). A pixel
+//     of colour c sits in plane c at row * hc + column / 2; its four
+//     neighbours are in the other plane at the same index -1 or +0 (W), +0
+//     or +1 (E) and -hc, +hc (N, S). A colour phase reads the other plane
+//     at consecutive addresses across a warp: no bank conflicts. A
+//     neighbour off the slot is the pixel itself, as the global kernel
+//     clamps at the image (a pixel on the slot's edge that is relaxed lies
+//     on the image's edge, where that weight is zero; an inf there still
+//     meets the zero, as in the plain version); the clamps are bits of the
+//     pair's word, set once a tile.
+//   * The neighbour planes are copied in with 4-byte cp.async, each thread
+//     its own pixels: a pixel's destination plane differs from its
+//     horizontal neighbour's, so a wider copy could not land it without a
+//     raw staging area and a second pass through shared memory. Such a
+//     staging of the coefficient planes (16-byte cp.async, then 8-byte reads
+//     into registers) measured 1.4-1.7x slower than the 8-byte loads
+//     straight into registers on the H100 (PERF.md).
+//   * Then k sweeps, a __syncthreads() after each colour. In sweep s colour
+//     1 relaxes the tile grown by 2 (k - 1 - s) and colour 0 one pixel more,
+//     which is all the kept interior depends on; a pair outside the region
+//     is predicated off. Colours are (gi + gj) & 1 in the image's
+//     coordinates; in the slot they are local colours, flipped by the
+//     parity of the slot's origin.
 //   * The per-pixel arithmetic is flow_update.cuh's, shared with the global
-//     kernels, so both round alike.
-//   * Serial: one block of 512 threads per tile; the plan gives a slot most
-//     of an SM's shared memory, so one block an SM at a time.
-//     Double-buffered (the port of _stripe_kernel_db): persistent blocks of
-//     1024 threads, one an SM (two slots take its shared memory), walk the
-//     tiles with two slots; while a block sweeps tile t in slot s, cp.async
-//     copies its next tile into slot 1 - s (one commit group a tile, waited on
-//     before its prepare). A __syncthreads() after each tile drains the slot
-//     before it is refilled, and the block waits for every group before it
-//     ends. Serial and double-buffered give the same bits.
-//   * Copies are 4-byte cp.async, one warp per row of a plane: no alignment
-//     condition on a tile's origin.
+//     and resident kernels, so all three round alike (bit for bit).
+//   * Serial: one block a tile. Double-buffered (the port of
+//     _stripe_kernel_db): persistent blocks, as many as the card holds at
+//     once, walk the tiles with two slots; while a block sweeps tile t in
+//     slot s, cp.async copies the neighbour planes of its next tile into
+//     slot 1 - s (one commit group a tile, waited on before the tile's
+//     sweeps), and the next tile's coefficients are read into registers
+//     after the current tile's store. A barrier after the store drains the
+//     slot before a prefetch refills it. Serial and double-buffered give the
+//     same bits.
 //   * The windowed variant (the `_win` entry points) runs one chunk over part
 //     of an image: the arrays are the rectangle [r0, r0 + h) x [c0, c0 + w) of
 //     a gh x gw image (a shard of pde_tpu_torch/parallel/tiled.py with the
 //     2k halo exchanged from its neighbours, clipped to the image), and only
 //     the tiles covering a box of the arrays run, writing the box alone into
-//     a box-sized output. Colours are (gi + gj) & 1 and the image edges
-//     gi, gj = 0, gh - 1, gw - 1 in the image's coordinates; a slot is
-//     clamped at the array's edge, which the kept box never reaches. The
+//     a box-sized output. Colours and the image edges are the image's; a slot
+//     is clamped at the array's edge, which the kept box never reaches. The
 //     whole-image kernel is the window (0, 0, h, w) with the box the whole
 //     array: one code path, the same bits. It replaces pde_tpu/parallel/
 //     tiled.py::tiled_relax_sharded's shard bodies (:301-327, XLA ops under
 //     shard_map there) for llin4 and elin4; its plain version is
 //     kernels/tiled.py::plain_tiled_relax with a Window.
 //
-// What bounds it. Bytes by design: a chunk reads every field of a slot once
-// (13 planes for llin4, 11 for elin4) and writes the two relaxed fields of
-// the interior, the halo read again by the neighbouring tiles: ~26 B a
-// pixel-iteration for llin4's 32x64 tile at k = 4, against the global
-// kernels' ~130 (each colour launch reading every plane). The halo's pixels
-// are relaxed too (~1.4x the interior's arithmetic at that tile; the
-// shrinking regions keep it down). On the H100 the bytes do not bound it (a
-// third of the memory rate or less, PERF.md): the per-tile work does, the
-// halo, the prepare and a barrier per colour, which is why the plan takes the
-// largest tiles (kernels/tiled.py, measured by scripts/tiled_plan_sweep.py).
-// A slot layout without the colours' 2-way bank conflicts measured 5% slower.
-// Later work: coefficients in registers, so that a slot holds only the four
-// fields neighbours read and tiles grow, and fewer barriers.
+// What bounds it. By bytes, a chunk reads each of the 13 (11) input planes
+// once and writes the two relaxed fields once, but a tile reads its halo
+// again from L2, so a slot moves slot / interior times the planes (about 2x
+// at the plans' tiles). The work is the relaxed pixels (the halo's too,
+// shrinking sweep by sweep) at ~16 + 2 shared-memory accesses a llin4
+// update (8 + 2 elin4) and ~40 flops. Registers bound the slot: 9 a pixel
+// kept plus the pair's word. On the H100 neither bytes nor flops bound it
+// but the latency of a tile's serial steps: the coefficient loads, the
+// prepare (two divisions a pixel) and the 2k colour phases with a barrier
+// each. So the kernel at 2 pairs a thread is held to 64 registers, two
+// blocks of up to 512 threads an SM, and one block's loads and prepare
+// overlap the other's phases (measured 7-17% faster at 1024x1024 than one
+// larger block an SM; still ~4-5x the byte bound, PERF.md). The plan
+// (kernels/tiled.py, measured by scripts/tiled_plan_sweep.py) trades tile
+// size against blocks enough to fill the card's 132 SMs. PERF.md has the
+// times beside the byte bound.
 //
 // The kernels run on the caller's stream and allocate nothing. The C entry
 // points return the first failing CUDA call's error, cudaGetLastError()
@@ -82,13 +114,25 @@
 
 namespace {
 
-// double-buffered: one persistent block an SM, so twice the threads to hide
-// the latency of shared memory
-template <bool kDouble>
-constexpr int kThreads = kDouble ? 1024 : 512;
 constexpr int kMaxPlanes = 13;
+constexpr int kCoefPlanes = 9;  // M, Cu, Cv, Du, Dv, W, N, E, S
+constexpr int kMaxSlots = 4;
+// a slot's rows and half-columns: 8 bits each in a pair's word, 255 the
+// row of a pair past the slot
+constexpr int kMaxRows = 254;
+constexpr int kMaxHalfCols = 255;
 
-// the fields, in the order of the C entry points: the two relaxed first
+// threads a block at most, by slots a thread: the register budget of a
+// thread (65,536 / threads) has to hold ~20 registers a slot. At 2 slots
+// the kernel is compiled for two blocks an SM (64 registers a thread), so
+// that one block's loads and prepare overlap the other's colour phases.
+__host__ __device__ constexpr int max_threads(int slots) {
+  return slots == 1 ? 768 : slots == 2 ? 512 : slots == 3 ? 512 : 384;
+}
+__host__ __device__ constexpr int min_blocks(int slots) { return slots == 2 ? 2 : 1; }
+
+// the fields, in the order of the C entry points: the two relaxed first,
+// then (llin4) the frozen flow, then the nine coefficient planes
 struct Planes {
   const float* p[kMaxPlanes];
 };
@@ -100,8 +144,10 @@ struct Geometry {
   int tile_h, tile_w;    // a tile's interior
   int tiles_w, n_tiles;  // tiles a row of the box, in all
   int k, halo;           // this chunk's sweeps and halo (2k)
-  int rows, pitch;       // a slot's plane: rows x pitch floats (tile + 2 halo)
-  int slot_bytes;        // one slot: the planes, then a flag byte a pixel
+  int hc;                // a slot's half-columns: ceil((tile_w + 4k) / 2)
+  int plane;             // one colour plane of one field: (tile_h + 4k) x hc floats
+  int slot_floats;       // one slot: 2 planes a neighbour field, rounded to 16 bytes
+  int vec2;              // every input is 8-byte aligned: pairs load as float2
 };
 
 // a tile's interior and its slot (the interior and halo), clipped to the
@@ -111,17 +157,32 @@ struct Box {
   int gr0, gr1, gc0, gc1;
 };
 
-__host__ __device__ int slot_bytes(int planes, int k, int tile_h, int tile_w) {
-  const int px = (tile_h + 4 * k) * (tile_w + 4 * k);
-  return (planes * 4 * px + px + 15) / 16 * 16;
+// What a thread keeps of a pixel it owns for the chunk: its coefficients
+// (its relaxed pair lives in the slot, where its neighbours read it).
+struct Px {
+  float a, b, c, d, inv_u, inv_v, m0, cu0, cv0;
+};
+
+// A pair's word: bits 0-7 the local row, 8-15 the half-column, then 8 bits
+// for the pixel of each local colour (16-23 colour 0, 24-31 colour 1): bit 0
+// live (relaxed in this chunk), bits 1-2 the NaN flags of Cu and Cv, bits
+// 3-6 the W, E, N, S neighbour clamped to the pixel itself.
+constexpr uint32_t kLive = 1, kClampW = 8, kClampE = 16, kClampN = 32, kClampS = 64;
+
+__device__ __forceinline__ int pair_row(uint32_t wd) { return wd & 0xff; }
+__device__ __forceinline__ int pair_col(uint32_t wd) { return (wd >> 8) & 0xff; }
+
+__host__ __device__ int slot_rows(int k, int tile_h) { return tile_h + 4 * k; }
+__host__ __device__ int slot_half_cols(int k, int tile_w) { return (tile_w + 4 * k + 1) / 2; }
+
+__host__ __device__ int slot_floats(int planes, int k, int tile_h, int tile_w) {
+  const int nbr = planes - kCoefPlanes;
+  return (2 * nbr * slot_rows(k, tile_h) * slot_half_cols(k, tile_w) + 3) / 4 * 4;
 }
 
-// q / d for 0 <= q < 2^16 and 1 <= d <= 2^16 (a slot holds fewer than 2^16
-// pixels) by a multiply with m = ceil(2^32 / d), 2^32 for d = 1: the error of
-// q * m / 2^32 is below q / 2^32 < 1 / d, so the floor is exact
-__device__ __forceinline__ unsigned long long magic(int d) { return 0xFFFFFFFFull / d + 1; }
-__device__ __forceinline__ int div_by(int q, unsigned long long m) {
-  return static_cast<int>((static_cast<unsigned long long>(q) * m) >> 32);
+__host__ __device__ int block_threads(int k, int tile_h, int tile_w, int slots) {
+  const int pairs = slot_rows(k, tile_h) * slot_half_cols(k, tile_w);
+  return ((pairs + slots - 1) / slots + 31) / 32 * 32;
 }
 
 __device__ __forceinline__ Box tile_box(const Geometry& g, int t) {
@@ -138,173 +199,261 @@ __device__ __forceinline__ Box tile_box(const Geometry& g, int t) {
   return b;
 }
 
-// Issues the copies of every plane of tile b into `slot`; the caller
-// commits them as one group.
-template <int kPlanes>
-__device__ __forceinline__ void load_tile(float* slot, const Planes& in, const Box& b,
-                                          const Geometry& g) {
+// The pairs this thread owns: (local row, half-column), the row 255 past
+// the slot. Fixed for the launch.
+template <int kSlots>
+__device__ __forceinline__ void pair_positions(uint32_t (&pos)[kSlots], const Geometry& g) {
+  const int rows = slot_rows(g.k, g.tile_h);
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int p = threadIdx.x + j * blockDim.x;
+    const int li = p / g.hc;
+    pos[j] = li < rows ? static_cast<uint32_t>(li) | (static_cast<uint32_t>(p - li * g.hc) << 8)
+                       : 0xffu;
+  }
+}
+
+// Issues the 4-byte copies of this thread's pixels of the neighbour fields
+// (planes 0 .. kNbr - 1 of `in`) of tile b into `slot`, by colour; the
+// caller commits them as one group.
+template <int kNbr, int kSlots>
+__device__ __forceinline__ void copy_tile(float* slot, const Planes& in, const Box& b,
+                                          const Geometry& g, const uint32_t (&pos)[kSlots]) {
   const int rows = b.gr1 - b.gr0, cols = b.gc1 - b.gc0;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
-  for (int pr = warp; pr < kPlanes * rows; pr += n_warps) {
-    const int p = pr / rows, r = pr - p * rows;
-    const float* src = in.p[p] + static_cast<size_t>(b.gr0 + r) * g.w + b.gc0;
-    float* dst = slot + (p * g.rows + r) * g.pitch;
-    for (int c = lane; c < cols; c += 32) __pipeline_memcpy_async(dst + c, src + c, sizeof(float));
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int li = pair_row(pos[j]), x = pair_col(pos[j]);
+    if (li >= rows) continue;
+    const size_t src = static_cast<size_t>(b.gr0 + li) * g.w + b.gc0 + 2 * x;
+    const int q = li * g.hc + x;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (2 * x + e >= cols) break;
+      const int lc = (li + e) & 1;
+#pragma unroll
+      for (int f = 0; f < kNbr; ++f)
+        __pipeline_memcpy_async(slot + (2 * f + lc) * g.plane + q, in.p[f] + src + e,
+                                sizeof(float));
+    }
   }
 }
 
-// The prepare, in place: M, Cu, Cv, Du, Dv, W, N, E, S become M0, Cu0, Cv0,
-// 1/(Σw + Du), 1/(Σw + Dv) and the edge-zeroed weights; the flags follow the
-// planes.
-template <bool kLate>
-__device__ __forceinline__ void prepare_tile(float* slot, const Box& b, const Geometry& g) {
+__device__ __forceinline__ Px pick(bool first, const Px& x, const Px& y) {
+  return first ? x : y;
+}
+
+// The coefficients of this thread's live pixels of tile b, from device
+// memory into registers (flow_update.cuh's prepare, with the image's edges),
+// and the pairs' words. A pixel is live if colour 0 of the first sweep
+// reaches it (2k - 1 around the tile, within the slot).
+template <bool kLate, int kSlots>
+__device__ __forceinline__ void load_coefficients(const Planes& in, const Box& b,
+                                                  const Geometry& g,
+                                                  const uint32_t (&pos)[kSlots],
+                                                  Px (&px)[2][kSlots], uint32_t (&word)[kSlots]) {
   constexpr int kC = kLate ? 4 : 2;  // the plane of M
-  const int plane = g.rows * g.pitch;
-  uint8_t* flags = reinterpret_cast<uint8_t*>(slot + (kC + 9) * plane);
-  const int cols = b.gc1 - b.gc0, n = (b.gr1 - b.gr0) * cols;
-  const unsigned long long m_cols = magic(cols);
-  for (int q = threadIdx.x; q < n; q += blockDim.x) {
-    const int li = div_by(q, m_cols), lj = q - li * cols;
-    const int x = li * g.pitch + lj;
-    float* f = slot + kC * plane + x;  // f[i * plane]: the i-th plane from M on
-    // edges in the image's coordinates
-    const flow_sor::Coef k = flow_sor::prepare(
-        g.r0 + b.gr0 + li, g.c0 + b.gc0 + lj, g.gh, g.gw, f[5 * plane], f[6 * plane], f[7 * plane],
-        f[8 * plane], f[0], f[plane], f[2 * plane], f[3 * plane], f[4 * plane]);
-    f[0] = k.m0;
-    f[plane] = k.cu0;
-    f[2 * plane] = k.cv0;
-    f[3 * plane] = k.inv_u;
-    f[4 * plane] = k.inv_v;
-    f[5 * plane] = k.a;
-    f[6 * plane] = k.b;
-    f[7 * plane] = k.c;
-    f[8 * plane] = k.d;
-    flags[x] = k.flags;
+  const int rows = b.gr1 - b.gr0, cols = b.gc1 - b.gc0;
+  const int reach = 2 * g.k - 1;
+  const int i0 = max(b.r0 - reach, b.gr0) - b.gr0, i1 = min(b.r1 + reach, b.gr1) - b.gr0;
+  const int j0 = max(b.c0 - reach, b.gc0) - b.gc0, j1 = min(b.c1 + reach, b.gc1) - b.gc0;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int li = pair_row(pos[j]), x = pair_col(pos[j]);
+    uint32_t wd = pos[j];
+    const bool row_live = li >= i0 && li < i1;
+    const bool live0 = row_live && 2 * x >= j0 && 2 * x < j1;
+    const bool live1 = row_live && 2 * x + 1 >= j0 && 2 * x + 1 < j1;
+    if (live0 || live1) {
+      const size_t src = static_cast<size_t>(b.gr0 + li) * g.w + b.gc0 + 2 * x;
+      const bool vec = live0 && live1 && g.vec2 && (src & 1) == 0;
+      float v[kCoefPlanes][2];
+#pragma unroll
+      for (int f = 0; f < kCoefPlanes; ++f) {
+        const float* p = in.p[kC + f] + src;
+        if (vec) {
+          const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+          v[f][0] = t.x;
+          v[f][1] = t.y;
+        } else {
+          v[f][0] = live0 ? __ldg(p) : 0.0f;
+          v[f][1] = live1 ? __ldg(p + 1) : 0.0f;
+        }
+      }
+      Px two[2];
+      uint32_t bits[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int lj = 2 * x + e;
+        // edges in the image's coordinates
+        const flow_sor::Coef c = flow_sor::prepare(
+            g.r0 + b.gr0 + li, g.c0 + b.gc0 + lj, g.gh, g.gw, v[5][e], v[6][e], v[7][e], v[8][e],
+            v[0][e], v[1][e], v[2][e], v[3][e], v[4][e]);
+        two[e] = {c.a, c.b, c.c, c.d, c.inv_u, c.inv_v, c.m0, c.cu0, c.cv0};
+        bits[e] = ((e ? live1 : live0) ? kLive : 0u) | (static_cast<uint32_t>(c.flags) << 1) |
+                  (lj == 0 ? kClampW : 0u) | (lj == cols - 1 ? kClampE : 0u) |
+                  (li == 0 ? kClampN : 0u) | (li == rows - 1 ? kClampS : 0u);
+      }
+      // the pixel at column 2x has local colour li & 1
+      const bool odd = li & 1;
+      px[0][j] = pick(odd, two[1], two[0]);
+      px[1][j] = pick(odd, two[0], two[1]);
+      wd |= (odd ? bits[1] : bits[0]) << 16;
+      wd |= (odd ? bits[0] : bits[1]) << 24;
+    }
+    word[j] = wd;
   }
 }
 
-// g.k red-black sweeps over the prepared slot, each colour over the region
-// the kept interior depends on.
-template <bool kLate>
-__device__ __forceinline__ void sweep_tile(float* slot, const Box& tb, const Geometry& g,
+// One colour phase: every live pixel of local colour kLc whose position
+// lies in [i0, i1) x [j0, j1) of the slot relaxed in place. A pair's
+// indices are recomputed from its opaque word each phase rather than kept
+// live across the sweeps, which would take the registers the coefficients
+// need (the resident kernels' lesson).
+template <bool kLate, int kLc, int kSlots>
+__device__ __forceinline__ void relax_phase(float* slot, const Geometry& g,
+                                            const uint32_t (&word)[kSlots],
+                                            const Px (&px)[2][kSlots],
+                                            int i0, int i1, int j0, int j1, float omega,
+                                            float one_minus_omega) {
+  float* fu = slot;                     // plane lc of field f at (2 f + lc) * plane
+  float* fv = slot + 2 * g.plane;
+  const float* u = slot + 4 * g.plane;  // the frozen flow: late only
+  const float* v = slot + 6 * g.plane;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    uint32_t wd = word[j];
+    asm volatile("" : "+r"(wd));
+    const uint32_t bits = wd >> (16 + 8 * kLc);
+    const int li = pair_row(wd), x = pair_col(wd);
+    const int e = (li + kLc) & 1;  // the pixel's column in its pair
+    const int lj = 2 * x + e;
+    if (!(bits & kLive) || li < i0 || li >= i1 || lj < j0 || lj >= j1) continue;
+    const int q = li * g.hc + x;
+    const int self = kLc * g.plane + q, o = (1 - kLc) * g.plane + q;
+    const int xw = (bits & kClampW) ? self : o - 1 + e;
+    const int xe = (bits & kClampE) ? self : o + e;
+    const int xn = (bits & kClampN) ? self : o - g.hc;
+    const int xs = (bits & kClampS) ? self : o + g.hc;
+    const Px& c = px[kLc][j];
+    const flow_sor::Nbr fu_n{fu[xw], fu[xe], fu[xn], fu[xs]};
+    const flow_sor::Nbr fv_n{fv[xw], fv[xe], fv[xn], fv[xs]};
+    float su, sv;
+    if (kLate) {
+      const float wsum = ((c.a + c.b) + c.c) + c.d;  // as the prepare sums it
+      su = flow_sor::diffusion<true>(fu_n, {u[xw], u[xe], u[xn], u[xs]}, u[self], c.a, c.b, c.c,
+                                     c.d, wsum);
+      sv = flow_sor::diffusion<true>(fv_n, {v[xw], v[xe], v[xn], v[xs]}, v[self], c.a, c.b, c.c,
+                                     c.d, wsum);
+    } else {
+      su = flow_sor::diffusion<false>(fu_n, fu_n, 0.0f, c.a, c.b, c.c, c.d, 0.0f);
+      sv = flow_sor::diffusion<false>(fv_n, fv_n, 0.0f, c.a, c.b, c.c, c.d, 0.0f);
+    }
+    const float2 r = flow_sor::update(fu[self], fv[self], su, sv, (bits >> 1) & 3, c.m0, c.cu0,
+                                      c.cv0, c.inv_u, c.inv_v, omega, one_minus_omega);
+    fu[self] = r.x;
+    fv[self] = r.y;
+  }
+}
+
+// g.k red-black sweeps over the slot, each colour over the region the kept
+// interior depends on.
+template <bool kLate, int kSlots>
+__device__ __forceinline__ void sweep_tile(float* slot, const Box& b, const Geometry& g,
+                                           const uint32_t (&word)[kSlots],
+                                           const Px (&px)[2][kSlots],
                                            float omega, float one_minus_omega) {
-  constexpr int kC = kLate ? 4 : 2;
-  const int plane = g.rows * g.pitch;
-  float* fu = slot;
-  float* fv = slot + plane;
-  const float* u = slot + 2 * plane;  // the frozen flow: late only
-  const float* v = slot + 3 * plane;
-  const float* co = slot + kC * plane;
-  const uint8_t* flags = reinterpret_cast<const uint8_t*>(slot + (kC + 9) * plane);
-  const int rows = tb.gr1 - tb.gr0, cols = tb.gc1 - tb.gc0;
-  const int origin = g.r0 + g.c0;  // the colour is the image's
+  const int rows = b.gr1 - b.gr0, cols = b.gc1 - b.gc0;
+  const int tr0 = b.r0 - b.gr0, tr1 = b.r1 - b.gr0, tc0 = b.c0 - b.gc0, tc1 = b.c1 - b.gc0;
+  // the image colour of local colour 0
+  const int par = (g.r0 + g.c0 + b.gr0 + b.gc0) & 1;
   for (int s = 0; s < g.k; ++s) {
     for (int color = 0; color < 2; ++color) {
       const int reach = 2 * (g.k - 1 - s) + 1 - color;
-      const int i0 = max(tb.r0 - reach, tb.gr0), i1 = min(tb.r1 + reach, tb.gr1);
-      const int j0 = max(tb.c0 - reach, tb.gc0), j1 = min(tb.c1 + reach, tb.gc1);
-      const int half = (j1 - j0 + 1) / 2;
-      const int n = (i1 - i0) * half;
-      const unsigned long long m_half = magic(half);
-      for (int q = threadIdx.x; q < n; q += blockDim.x) {
-        const int qi = div_by(q, m_half);
-        const int gi = i0 + qi;
-        // the pixel of this colour ((gi + gj) & 1 == color in the image) in its pair
-        const int gj = j0 + 2 * (q - qi * half) + ((origin + gi + j0 + color) & 1);
-        if (gj >= j1) continue;
-        const int li = gi - tb.gr0, lj = gj - tb.gc0;
-        const int x = li * g.pitch + lj;
-        const int xw = lj > 0 ? x - 1 : x;
-        const int xe = lj < cols - 1 ? x + 1 : x;
-        const int xn = li > 0 ? x - g.pitch : x;
-        const int xs = li < rows - 1 ? x + g.pitch : x;
-        const float a = co[x + 5 * plane], b = co[x + 6 * plane];
-        const float c = co[x + 7 * plane], d = co[x + 8 * plane];
-        const flow_sor::Nbr fu_n{fu[xw], fu[xe], fu[xn], fu[xs]};
-        const flow_sor::Nbr fv_n{fv[xw], fv[xe], fv[xn], fv[xs]};
-        float su, sv;
-        if (kLate) {
-          const float wsum = ((a + b) + c) + d;  // as the prepare sums it
-          su = flow_sor::diffusion<true>(fu_n, {u[xw], u[xe], u[xn], u[xs]}, u[x], a, b, c, d,
-                                         wsum);
-          sv = flow_sor::diffusion<true>(fv_n, {v[xw], v[xe], v[xn], v[xs]}, v[x], a, b, c, d,
-                                         wsum);
-        } else {
-          su = flow_sor::diffusion<false>(fu_n, fu_n, 0.0f, a, b, c, d, 0.0f);
-          sv = flow_sor::diffusion<false>(fv_n, fv_n, 0.0f, a, b, c, d, 0.0f);
-        }
-        const float2 r =
-            flow_sor::update(fu[x], fv[x], su, sv, flags[x], co[x], co[x + plane],
-                             co[x + 2 * plane], co[x + 3 * plane], co[x + 4 * plane], omega,
-                             one_minus_omega);
-        fu[x] = r.x;
-        fv[x] = r.y;
-      }
+      const int i0 = max(tr0 - reach, 0), i1 = min(tr1 + reach, rows);
+      const int j0 = max(tc0 - reach, 0), j1 = min(tc1 + reach, cols);
+      if ((color ^ par) == 0)
+        relax_phase<kLate, 0>(slot, g, word, px, i0, i1, j0, j1, omega, one_minus_omega);
+      else
+        relax_phase<kLate, 1>(slot, g, word, px, i0, i1, j0, j1, omega, one_minus_omega);
       __syncthreads();
     }
   }
 }
 
-// The interior of the two relaxed planes to the chunk's box-sized output.
-__device__ __forceinline__ void store_tile(const float* slot, float* out_u, float* out_v,
-                                           const Box& b, const Geometry& g) {
-  const int plane = g.rows * g.pitch;
-  const int rows = b.r1 - b.r0, cols = b.c1 - b.c0;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
-  for (int pr = warp; pr < 2 * rows; pr += n_warps) {
-    const int p = pr / rows, r = pr - p * rows;
-    const float* src = slot + p * plane + (b.r0 - b.gr0 + r) * g.pitch + (b.c0 - b.gc0);
-    float* dst =
-        (p ? out_v : out_u) + static_cast<size_t>(b.r0 - g.bi0 + r) * g.bw + (b.c0 - g.bj0);
-    for (int c = lane; c < cols; c += 32) dst[c] = src[c];
+// This thread's pixels of the tile's interior, from the slot, to the
+// chunk's box-sized output.
+template <int kSlots>
+__device__ __forceinline__ void store_tile(float* out_u, float* out_v, const float* slot,
+                                           const Box& b, const Geometry& g,
+                                           const uint32_t (&word)[kSlots]) {
+  const int tr0 = b.r0 - b.gr0, tr1 = b.r1 - b.gr0, tc0 = b.c0 - b.gc0, tc1 = b.c1 - b.gc0;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int li = pair_row(word[j]), x = pair_col(word[j]);
+    if (li < tr0 || li >= tr1) continue;
+    const size_t row = static_cast<size_t>(b.gr0 + li - g.bi0) * g.bw + (b.gc0 - g.bj0);
+#pragma unroll
+    for (int lc = 0; lc < 2; ++lc) {
+      const int lj = 2 * x + ((li + lc) & 1);
+      if (lj < tc0 || lj >= tc1) continue;
+      out_u[row + lj] = slot[lc * g.plane + li * g.hc + x];
+      out_v[row + lj] = slot[(2 + lc) * g.plane + li * g.hc + x];
+    }
   }
 }
 
-template <bool kLate, bool kDouble>
-__global__ void __launch_bounds__(kThreads<kDouble>, kDouble ? 1 : 2)
+template <bool kLate, bool kDouble, int kSlots>
+__global__ void __launch_bounds__(max_threads(kSlots), min_blocks(kSlots))
     tiled_sweep_kernel(Planes in, float* __restrict__ out_u, float* __restrict__ out_v, Geometry g,
                        float omega, float one_minus_omega) {
-  constexpr int kPlanes = kLate ? 13 : 11;
-  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kNbr = kLate ? 4 : 2;
+  extern __shared__ __align__(16) float smem[];
+  uint32_t pos[kSlots], word[kSlots];
+  Px px[2][kSlots];
+  pair_positions(pos, g);
   int s = 0;  // the slot of the current tile
-  auto slot = [&](int i) { return reinterpret_cast<float*>(smem + i * g.slot_bytes); };
   int t = blockIdx.x;
   if (kDouble) {
-    if (t < g.n_tiles) load_tile<kPlanes>(slot(0), in, tile_box(g, t), g);
+    if (t < g.n_tiles) copy_tile<kNbr>(smem, in, tile_box(g, t), g, pos);
     __pipeline_commit();
   }
   for (; t < g.n_tiles; t += gridDim.x) {
-    const Box tb = tile_box(g, t);
+    const Box b = tile_box(g, t);
+    float* slot = smem + s * g.slot_floats;
     if (kDouble) {
-      // the block's next tile into the other slot, then wait for this one's
-      // group (all but the newest)
+      // the neighbour planes of the block's next tile into the other slot
       const int next = t + gridDim.x;
-      if (next < g.n_tiles) load_tile<kPlanes>(slot(s ^ 1), in, tile_box(g, next), g);
-      __pipeline_commit();
-      __pipeline_wait_prior(1);
+      if (next < g.n_tiles)
+        copy_tile<kNbr>(smem + (s ^ 1) * g.slot_floats, in, tile_box(g, next), g, pos);
     } else {
-      load_tile<kPlanes>(slot(0), in, tb, g);
-      __pipeline_commit();
-      __pipeline_wait_prior(0);
+      copy_tile<kNbr>(slot, in, b, g, pos);
     }
+    __pipeline_commit();
+    // the coefficients while the copies are in flight
+    load_coefficients<kLate>(in, b, g, pos, px, word);
+    // this tile's group: all but the newest when double-buffered
+    if (kDouble)
+      __pipeline_wait_prior(1);
+    else
+      __pipeline_wait_prior(0);
     __syncthreads();
-    prepare_tile<kLate>(slot(s), tb, g);
-    __syncthreads();
-    sweep_tile<kLate>(slot(s), tb, g, omega, one_minus_omega);
-    store_tile(slot(s), out_u, out_v, tb, g);
-    // drain: every thread is done with this slot before a prefetch refills it
-    __syncthreads();
-    if (kDouble) s ^= 1;
+    sweep_tile<kLate>(slot, b, g, word, px, omega, one_minus_omega);
+    store_tile(out_u, out_v, slot, b, g, word);
+    if (kDouble) {
+      // drain: every thread has stored from this slot before the next
+      // tile's prefetch refills it
+      __syncthreads();
+      s ^= 1;
+    }
   }
   __pipeline_wait_prior(0);
 }
 
-template <bool kLate, bool kDouble>
+template <bool kLate, bool kDouble, int kSlots>
 cudaError_t launch_chunk(const Planes& in, float* out_u, float* out_v, const Geometry& g,
-                         float omega, float one_minus_omega, cudaStream_t stream) {
-  const auto kernel = tiled_sweep_kernel<kLate, kDouble>;
-  const int smem = (kDouble ? 2 : 1) * g.slot_bytes;
+                         int threads, float omega, float one_minus_omega, cudaStream_t stream) {
+  const auto kernel = tiled_sweep_kernel<kLate, kDouble, kSlots>;
+  const int smem = (kDouble ? 2 : 1) * g.slot_floats * static_cast<int>(sizeof(float));
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -315,27 +464,89 @@ cudaError_t launch_chunk(const Planes& in, float* out_u, float* out_v, const Geo
     if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
       return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads<kDouble>,
-                                                        smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     blocks = std::min(blocks, sms * per_sm);
   }
-  kernel<<<blocks, kThreads<kDouble>, smem, stream>>>(in, out_u, out_v, g, omega, one_minus_omega);
+  kernel<<<blocks, threads, smem, stream>>>(in, out_u, out_v, g, omega, one_minus_omega);
   return cudaGetLastError();
+}
+
+template <bool kLate, bool kDouble>
+cudaError_t launch_slots(int slots, const Planes& in, float* out_u, float* out_v,
+                         const Geometry& g, int threads, float omega, float one_minus_omega,
+                         cudaStream_t stream) {
+  switch (slots) {
+    case 1:
+      return launch_chunk<kLate, kDouble, 1>(in, out_u, out_v, g, threads, omega,
+                                             one_minus_omega, stream);
+    case 2:
+      return launch_chunk<kLate, kDouble, 2>(in, out_u, out_v, g, threads, omega,
+                                             one_minus_omega, stream);
+    case 3:
+      return launch_chunk<kLate, kDouble, 3>(in, out_u, out_v, g, threads, omega,
+                                             one_minus_omega, stream);
+    case 4:
+      return launch_chunk<kLate, kDouble, 4>(in, out_u, out_v, g, threads, omega,
+                                             one_minus_omega, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // A chunk of k sweeps over the tiles of the box (bi0, bj0, bh, bw) of h x w
 // arrays lying at (r0, c0) in a gh x gw image.
 template <int kPlanes>
-Geometry geometry(int h, int w, int r0, int c0, int gh, int gw, int bi0, int bj0, int bh, int bw,
-                  int k, int tile_h, int tile_w) {
-  const int tiles_w = (bw + tile_w - 1) / tile_w;
-  return Geometry{h,       w,   r0,          c0,          gh,          gw,
-                  bi0,     bj0, bh,          bw,          tile_h,      tile_w,
-                  tiles_w, tiles_w * ((bh + tile_h - 1) / tile_h),
-                  k,       2 * k, tile_h + 4 * k, tile_w + 4 * k,
-                  slot_bytes(kPlanes, k, tile_h, tile_w)};
+Geometry geometry(const Planes& in, int h, int w, int r0, int c0, int gh, int gw, int bi0,
+                  int bj0, int bh, int bw, int k, int tile_h, int tile_w) {
+  Geometry g{};
+  g.h = h;
+  g.w = w;
+  g.r0 = r0;
+  g.c0 = c0;
+  g.gh = gh;
+  g.gw = gw;
+  g.bi0 = bi0;
+  g.bj0 = bj0;
+  g.bh = bh;
+  g.bw = bw;
+  g.tile_h = tile_h;
+  g.tile_w = tile_w;
+  g.tiles_w = (bw + tile_w - 1) / tile_w;
+  g.n_tiles = g.tiles_w * ((bh + tile_h - 1) / tile_h);
+  g.k = k;
+  g.halo = 2 * k;
+  g.hc = slot_half_cols(k, tile_w);
+  g.plane = slot_rows(k, tile_h) * g.hc;
+  g.slot_floats = slot_floats(kPlanes, k, tile_h, tile_w);
+  g.vec2 = 1;
+  for (int p = 0; p < kPlanes; ++p)
+    if (reinterpret_cast<uintptr_t>(in.p[p]) % 8 != 0) g.vec2 = 0;
+  return g;
+}
+
+// One launch of a chunk; refuses a plan the kernel does not take.
+template <bool kLate>
+cudaError_t run_chunk(const Planes& in, float* out_u, float* out_v, const Geometry& g, int slots,
+                      int double_buffer, float omega, float one_minus_omega, void* stream) {
+  constexpr int kPlanes = kLate ? 13 : 11;
+  if (slots < 1 || slots > kMaxSlots || slot_rows(g.k, g.tile_h) > kMaxRows ||
+      g.hc > kMaxHalfCols)
+    return cudaErrorInvalidValue;
+  const int threads = block_threads(g.k, g.tile_h, g.tile_w, slots);
+  if (threads > max_threads(slots) ||
+      static_cast<size_t>((double_buffer ? 2 : 1) * slot_floats(kPlanes, g.k, g.tile_h,
+                                                                g.tile_w)) *
+              sizeof(float) >
+          232448)
+    return cudaErrorInvalidConfiguration;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return double_buffer
+             ? launch_slots<kLate, true>(slots, in, out_u, out_v, g, threads, omega,
+                                         one_minus_omega, s)
+             : launch_slots<kLate, false>(slots, in, out_u, out_v, g, threads, omega,
+                                          one_minus_omega, s);
 }
 
 // One launch a chunk: iters / k chunks of k sweeps, then one of the
@@ -343,8 +554,8 @@ Geometry geometry(int h, int w, int r0, int c0, int gh, int gw, int bi0, int bj0
 // for c = 0) and writes out or tmp so that the last one writes out.
 template <bool kLate>
 int run_tiled(const void* const* fields, void* out_u, void* out_v, void* tmp_u, void* tmp_v, int h,
-              int w, int iters, int k, int tile_h, int tile_w, int double_buffer, float omega,
-              float one_minus_omega, void* stream) {
+              int w, int iters, int k, int tile_h, int tile_w, int slots, int double_buffer,
+              float omega, float one_minus_omega, void* stream) {
   constexpr int kPlanes = kLate ? 13 : 11;
   if (h < 1 || w < 1 || k < 1 || tile_h < 1 || tile_w < 1) return cudaErrorInvalidValue;
   Planes in{};
@@ -354,12 +565,11 @@ int run_tiled(const void* const* fields, void* out_u, void* out_v, void* tmp_u, 
                             {static_cast<float*>(tmp_u), static_cast<float*>(tmp_v)}};
   for (int c = 0; c < n_chunks; ++c) {
     const int kc = c < n_full ? k : rem;
-    const Geometry g = geometry<kPlanes>(h, w, 0, 0, h, w, 0, 0, h, w, kc, tile_h, tile_w);
+    const Geometry g =
+        geometry<kPlanes>(in, h, w, 0, 0, h, w, 0, 0, h, w, kc, tile_h, tile_w);
     float* const* to = dst[(n_chunks - 1 - c) % 2];
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const cudaError_t err =
-        double_buffer ? launch_chunk<kLate, true>(in, to[0], to[1], g, omega, one_minus_omega, s)
-                      : launch_chunk<kLate, false>(in, to[0], to[1], g, omega, one_minus_omega, s);
+    const cudaError_t err = run_chunk<kLate>(in, to[0], to[1], g, slots, double_buffer, omega,
+                                             one_minus_omega, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
     in.p[0] = to[0];
     in.p[1] = to[1];
@@ -372,7 +582,7 @@ int run_tiled(const void* const* fields, void* out_u, void* out_v, void* tmp_u, 
 template <bool kLate>
 int run_window(const void* const* fields, void* out_u, void* out_v, int h, int w, int r0, int c0,
                int gh, int gw, int bi0, int bj0, int bh, int bw, int k, int tile_h, int tile_w,
-               int double_buffer, float omega, float one_minus_omega, void* stream) {
+               int slots, int double_buffer, float omega, float one_minus_omega, void* stream) {
   constexpr int kPlanes = kLate ? 13 : 11;
   if (h < 1 || w < 1 || k < 1 || tile_h < 1 || tile_w < 1 || r0 < 0 || c0 < 0 ||
       r0 + h > gh || c0 + w > gw || bi0 < 0 || bj0 < 0 || bh < 1 || bw < 1 || bi0 + bh > h ||
@@ -381,14 +591,10 @@ int run_window(const void* const* fields, void* out_u, void* out_v, int h, int w
   Planes in{};
   for (int p = 0; p < kPlanes; ++p) in.p[p] = static_cast<const float*>(fields[p]);
   const Geometry g =
-      geometry<kPlanes>(h, w, r0, c0, gh, gw, bi0, bj0, bh, bw, k, tile_h, tile_w);
-  float* const ou = static_cast<float*>(out_u);
-  float* const ov = static_cast<float*>(out_v);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      double_buffer ? launch_chunk<kLate, true>(in, ou, ov, g, omega, one_minus_omega, s)
-                    : launch_chunk<kLate, false>(in, ou, ov, g, omega, one_minus_omega, s);
-  return static_cast<int>(err);
+      geometry<kPlanes>(in, h, w, r0, c0, gh, gw, bi0, bj0, bh, bw, k, tile_h, tile_w);
+  return static_cast<int>(run_chunk<kLate>(in, static_cast<float*>(out_u),
+                                           static_cast<float*>(out_v), g, slots, double_buffer,
+                                           omega, one_minus_omega, stream));
 }
 
 }  // namespace
@@ -396,25 +602,32 @@ int run_window(const void* const* fields, void* out_u, void* out_v, int h, int w
 extern "C" {
 
 // Shared memory of one slot for `planes` fields (13 for llin4, 11 for
-// elin4), the plan's `k` and tile; tiled.py::slot_bytes computes the same.
+// elin4: 4 or 2 of them neighbour fields, two colour planes each), the
+// plan's `k` and tile; tiled.py::slot_bytes computes the same.
 int tiled_sor_slot_bytes(int planes, int k, int tile_h, int tile_w) {
-  return slot_bytes(planes, k, tile_h, tile_w);
+  return slot_floats(planes, k, tile_h, tile_w) * static_cast<int>(sizeof(float));
+}
+
+// Threads a block for the plan's k, tile and slots a thread (the same for
+// both families); tiled.py::block_threads computes the same.
+int tiled_sor_threads(int k, int tile_h, int tile_w, int slots) {
+  return block_threads(k, tile_h, tile_w, slots);
 }
 
 // All pointers are contiguous float32 (H, W) arrays on the current device.
 // du_out/dv_out receive du/dv after `iters` sweeps; tmp_u/tmp_v are a second
 // pair the chunks alternate with (unused, and may be null, when iters <= k).
 // Launches ceil(iters / k) kernels on `stream`, double-buffered if
-// `double_buffer` is not 0.
+// `double_buffer` is not 0; `slots` pairs of pixels a thread (1 to 4).
 int tiled_flow_llin4(const void* du, const void* dv, const void* u, const void* v, const void* m,
                      const void* cu, const void* cv, const void* duc, const void* dvc,
                      const void* ww, const void* wn, const void* we, const void* ws,
                      void* du_out, void* dv_out, void* tmp_u, void* tmp_v, int h, int w,
-                     int iters, int k, int tile_h, int tile_w, int double_buffer, float omega,
-                     float one_minus_omega, void* stream) {
+                     int iters, int k, int tile_h, int tile_w, int slots, int double_buffer,
+                     float omega, float one_minus_omega, void* stream) {
   const void* fields[13] = {du, dv, u, v, m, cu, cv, duc, dvc, ww, wn, we, ws};
   return run_tiled<true>(fields, du_out, dv_out, tmp_u, tmp_v, h, w, iters, k, tile_h, tile_w,
-                         double_buffer, omega, one_minus_omega, stream);
+                         slots, double_buffer, omega, one_minus_omega, stream);
 }
 
 // The early form: u, v are the flow, relaxed into u_out/v_out.
@@ -422,10 +635,11 @@ int tiled_flow_elin4(const void* u, const void* v, const void* m, const void* cu
                      const void* duc, const void* dvc, const void* ww, const void* wn,
                      const void* we, const void* ws, void* u_out, void* v_out, void* tmp_u,
                      void* tmp_v, int h, int w, int iters, int k, int tile_h, int tile_w,
-                     int double_buffer, float omega, float one_minus_omega, void* stream) {
+                     int slots, int double_buffer, float omega, float one_minus_omega,
+                     void* stream) {
   const void* fields[11] = {u, v, m, cu, cv, duc, dvc, ww, wn, we, ws};
   return run_tiled<false>(fields, u_out, v_out, tmp_u, tmp_v, h, w, iters, k, tile_h, tile_w,
-                          double_buffer, omega, one_minus_omega, stream);
+                          slots, double_buffer, omega, one_minus_omega, stream);
 }
 
 // The windowed variant: the fields are h x w arrays at (r0, c0) of a gh x gw
@@ -437,22 +651,22 @@ int tiled_flow_llin4_win(const void* du, const void* dv, const void* u, const vo
                          const void* dvc, const void* ww, const void* wn, const void* we,
                          const void* ws, void* du_out, void* dv_out, int h, int w, int r0, int c0,
                          int gh, int gw, int bi0, int bj0, int bh, int bw, int k, int tile_h,
-                         int tile_w, int double_buffer, float omega, float one_minus_omega,
-                         void* stream) {
+                         int tile_w, int slots, int double_buffer, float omega,
+                         float one_minus_omega, void* stream) {
   const void* fields[13] = {du, dv, u, v, m, cu, cv, duc, dvc, ww, wn, we, ws};
   return run_window<true>(fields, du_out, dv_out, h, w, r0, c0, gh, gw, bi0, bj0, bh, bw, k,
-                          tile_h, tile_w, double_buffer, omega, one_minus_omega, stream);
+                          tile_h, tile_w, slots, double_buffer, omega, one_minus_omega, stream);
 }
 
 int tiled_flow_elin4_win(const void* u, const void* v, const void* m, const void* cu,
                          const void* cv, const void* duc, const void* dvc, const void* ww,
                          const void* wn, const void* we, const void* ws, void* u_out, void* v_out,
                          int h, int w, int r0, int c0, int gh, int gw, int bi0, int bj0, int bh,
-                         int bw, int k, int tile_h, int tile_w, int double_buffer, float omega,
-                         float one_minus_omega, void* stream) {
+                         int bw, int k, int tile_h, int tile_w, int slots, int double_buffer,
+                         float omega, float one_minus_omega, void* stream) {
   const void* fields[11] = {u, v, m, cu, cv, duc, dvc, ww, wn, we, ws};
   return run_window<false>(fields, u_out, v_out, h, w, r0, c0, gh, gw, bi0, bj0, bh, bw, k,
-                           tile_h, tile_w, double_buffer, omega, one_minus_omega, stream);
+                           tile_h, tile_w, slots, double_buffer, omega, one_minus_omega, stream);
 }
 
 const char* tiled_sor_error_string(int code) {

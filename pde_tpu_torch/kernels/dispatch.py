@@ -2,14 +2,25 @@
 PyTorch version for CPU tensors.
 
 A CUDA tensor goes to a kernel or raises; it never falls back. Every SOR
-solve (llin4, elin4, disp llin4, pde4, llin8 and pde8) goes to the resident
-kernels (one launch a call, ``resident_cuda``) wherever
-``resident_cuda.plan_resident`` gives the shape a plan, and to the global
-kernels (``sor_cuda``, ``interior_cuda``) where it gives None; the choice is
-made from the shape, before any launch, as ``pde_tpu`` chooses between its
-resident and tiled kernels. ``plain_solvers()`` runs the plain version on
-any device, so that a check can hold the kernel against it on the card; the
-package itself never enters it.
+solve (llin4, elin4, disp llin4, pde4, llin8 and pde8) goes where
+``sor_route`` sends its shape, a pure function of the family, the (H, W),
+the batch, the sweeps and the card's SM count, decided before any launch,
+as ``pde_tpu`` chooses between its resident and tiled kernels
+(``pde_tpu/kernels/dispatch.py``):
+
+- the resident kernels (one launch a call, ``resident_cuda``) wherever
+  ``resident_cuda.plan_resident`` gives the shape a plan;
+- else, for llin4 and elin4, the temporally blocked tile kernel
+  (``tiled_cuda``, ``ceil(iters / k)`` launches a call) wherever
+  ``tiled.plan_tiles`` gives one at ``k_max = 4``, as ``pde_tpu`` sends a
+  grid too large for VMEM to ``_stripe_kernel`` with ``k_max = 4``: the
+  1024x1024 levels, elin4's 768x768;
+- else the global kernels (``sor_cuda``, ``interior_cuda``), one launch a
+  colour.
+
+``plain_solvers()`` (``kernels/plain_mode.py``) runs the plain version on
+any device, so that a check can hold the kernel against it on the card;
+the package itself never enters it.
 
 Every tridiagonal line solve of the package comes through here
 (``thomas_solve``, ``tridiag_factor``/``tridiag_solve`` and the zebra
@@ -22,31 +33,38 @@ the same); in the plain version each parity's lines have their own, as in
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
-
 import torch
 
-from pde_tpu_torch.kernels import interior_cuda, resident_cuda, sor_cuda, tdma_cuda
+from pde_tpu_torch.kernels import (interior_cuda, resident_cuda, sor_cuda, tdma_cuda, tiled,
+                                   tiled_cuda)
+from pde_tpu_torch.kernels.plain_mode import _FORCE_PLAIN, plain_solvers  # noqa: F401
+from pde_tpu_torch.kernels.plain_mode import is_plain as _plain
 from pde_tpu_torch.solvers import sor as _sor
 from pde_tpu_torch.solvers import tdma as _tdma
 
-_FORCE_PLAIN = contextvars.ContextVar("pde_tpu_torch_force_plain", default=False)
+
+def sor_route(family: str, h: int, w: int, batch: int = 1, iters: int = 4,
+              sm_count: int = resident_cuda.SM_COUNT):
+    """Where a solve of ``family`` (``resident_cuda.FAMILIES``) over a
+    batch of (h, w) systems and ``iters`` sweeps goes on a card of
+    ``sm_count`` SMs: ``("resident", ResidentPlan)``, ``("tiled",
+    TilePlan)`` (llin4 and elin4 of batch 1) or ``("global", None)``."""
+    plan = resident_cuda.plan_resident(h, w, family, batch, sm_count)
+    if plan is not None:
+        return "resident", plan
+    names = tiled_cuda.FIELD_NAMES.get(f"flow_{family}")
+    if names is not None and batch == 1:
+        # plan_tiles' default k_max = 4, pde_tpu's for grids too large for VMEM
+        tile_plan = tiled.plan_tiles(h, w, len(names), max(int(iters), 1), sm_count=sm_count)
+        if tile_plan is not None:
+            return "tiled", tile_plan
+    return "global", None
 
 
-@contextlib.contextmanager
-def plain_solvers():
-    """Within this context, dispatch the plain PyTorch solvers instead of
-    the CUDA kernels, whatever the device."""
-    tok = _FORCE_PLAIN.set(True)
-    try:
-        yield
-    finally:
-        _FORCE_PLAIN.reset(tok)
-
-
-def _plain(x) -> bool:
-    return x.is_cpu or _FORCE_PLAIN.get()
+def _flow_route(u, family: str, iters: int):
+    if u.ndim != 2:
+        return "global", None
+    return sor_route(family, *u.shape, 1, iters, resident_cuda.sm_count(u.device.index or 0))
 
 
 def sor_flow_llin4(u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws,
@@ -54,9 +72,14 @@ def sor_flow_llin4(u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws,
     args = (u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws, iters, omega)
     if _plain(u):
         return _sor.sor_flow_llin4(*args)
-    plan = resident_cuda.plan_for(u, "llin4", 1) if u.ndim == 2 else None
-    if plan is not None:
+    route, plan = _flow_route(u, "llin4", iters)
+    if route == "resident":
         return resident_cuda.flow_llin4_sor(*args, plan=plan)
+    if route == "tiled":
+        return tiled_cuda.tiled_flow_sor("flow_llin4", (du, dv, u, v, m, cu, cv, duc, dvc, ww, wn,
+                                                        we, ws),
+                                         iters, omega, plan.k, plan.tile_h, plan.tile_w,
+                                         slots=plan.slots)
     return sor_cuda.flow_llin4_sor(*args)
 
 
@@ -64,9 +87,13 @@ def sor_flow_elin4(u, v, m, cu, cv, duc, dvc, ww, wn, we, ws, iters: int, omega:
     args = (u, v, m, cu, cv, duc, dvc, ww, wn, we, ws, iters, omega)
     if _plain(u):
         return _sor.sor_flow_elin4(*args)
-    plan = resident_cuda.plan_for(u, "elin4", 1) if u.ndim == 2 else None
-    if plan is not None:
+    route, plan = _flow_route(u, "elin4", iters)
+    if route == "resident":
         return resident_cuda.flow_elin4_sor(*args, plan=plan)
+    if route == "tiled":
+        return tiled_cuda.tiled_flow_sor("flow_elin4", (u, v, m, cu, cv, duc, dvc, ww, wn, we, ws),
+                                         iters, omega, plan.k, plan.tile_h, plan.tile_w,
+                                         slots=plan.slots)
     return sor_cuda.flow_elin4_sor(*args)
 
 

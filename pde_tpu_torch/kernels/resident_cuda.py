@@ -10,8 +10,8 @@ that keeps the level on chip across its sweeps:
   relaxed fields keep two buffers a colour (Jacobi within a colour).
 
 Takes CUDA tensors only and raises on anything else: the choice of the
-plain version for CPU tensors, and of the global kernels for shapes
-without a plan, is ``kernels/dispatch.py``'s. The libraries are built and
+plain version for CPU tensors, and of the tile or global kernels for
+shapes without a plan, is ``kernels/dispatch.py``'s. The libraries are built and
 loaded at the first call, never at import.
 
 Every launch follows a plan from :func:`plan_resident`, pure Python:

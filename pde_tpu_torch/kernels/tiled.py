@@ -11,13 +11,15 @@ neighbouring tile's halo must see the state at the start of the chunk.
 
 On the card, ``tiled_relax`` runs the kernel of ``csrc/tiled_sor.cu``
 (``kernels/tiled_cuda.py``) for the two sweep families it has, llin4 and
-elin4 (``kernels/sweeps.py``): one launch a chunk, 2-D tiles in shared
-memory, serial (one block per tile) or double-buffered (persistent blocks
-that copy the next tile in under the current one's sweeps). On CPU tensors,
-or under ``dispatch.plain_solvers()``, it runs the same tile schedule in
-torch ops: the plain version, which CPU-tests the tile and halo indexing
-as ``pde_tpu``'s Pallas kernels run in interpret mode. A CUDA tensor goes
-to the kernel or raises.
+elin4 (``kernels/sweeps.py``): one launch a chunk, one block a tile, serial
+(one block per tile) or double-buffered (persistent blocks that copy the
+next tile's neighbour planes in under the current one's sweeps).
+``kernels/dispatch.py`` sends it every llin4 and elin4 solve whose shape
+has no resident plan, with ``plan_tiles``' plan at ``k_max = 4``. On CPU
+tensors, or under ``dispatch.plain_solvers()``, it runs the same tile
+schedule in torch ops: the plain version, which CPU-tests the tile and
+halo indexing as ``pde_tpu``'s Pallas kernels run in interpret mode. A
+CUDA tensor goes to the kernel or raises.
 
 A ``Window`` runs one chunk over part of an image instead: the fields are
 a shard of ``parallel/tiled.py`` and the 2k halo its neighbours gave it,
@@ -26,8 +28,11 @@ image's coordinates, and only the tiles covering the shard (the window's
 box) are relaxed and returned. On the card that is the windowed variant
 of the same kernel.
 
-The plan and the kernel agree on the shared-memory layout: per pixel of a
-slot (tile plus halo), one float32 plane per field and one flag byte.
+The plan and the kernel agree on the layout: a block's threads own fixed
+pairs of pixels of the slot (tile plus halo), ``slots`` pairs a thread, and
+keep their coefficients in registers; shared memory holds only the fields
+neighbours read (dU, dV, U, V for llin4, U, V for elin4: ``n_fields - 9``
+of them), one float32 plane per colour each.
 """
 
 from __future__ import annotations
@@ -38,17 +43,31 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from pde_tpu_torch.kernels import dispatch, tiled_cuda
+from pde_tpu_torch.kernels import plain_mode, resident_cuda, tiled_cuda
 from pde_tpu_torch.kernels.sweeps import TileAux
 
 # dependency radius of one full red-black sweep
 RB_RADIUS = 2
 # dynamic shared memory one block of an H100 may take (227 KB)
 SMEM_PER_BLOCK = 232_448
-_TILE_STEP = 8
-_TILE_W = 64
-_TILE_H_MAX = 128
-_TILE_H_MIN = 16
+SM_COUNT = resident_cuda.SM_COUNT  # the plans' default; a card's own where it runs
+# the coefficient planes a pixel keeps in registers (M, Cu, Cv, Du, Dv and
+# the four weights); the other fields are what neighbours read
+COEF_PLANES = 9
+# threads a block at most, by pairs of pixels a thread (the kernel's
+# max_threads: at 2 pairs it is compiled for two blocks an SM)
+MAX_THREADS = {1: 768, 2: 512, 3: 512, 4: 384}
+# a slot's rows and half-columns at most (8 bits each in the kernel's word)
+_MAX_ROWS = 254
+_MAX_HALF_COLS = 255
+# the tiles a plan takes (scripts/tiled_plan_sweep.py on the H100,
+# PERF.md): 16x48 measured fastest at every swept shape; the smaller ones
+# give a small level or shard a block an SM
+TILES = ((16, 48), (16, 24), (8, 24), (8, 16))
+# threads a block at most in a plan, so that two blocks share an SM (at 64
+# registers a thread): one block's loads and prepare overlap the other's
+# sweeps
+PLAN_THREADS = 512
 
 
 def _round_up(x: int, m: int) -> int:
@@ -61,13 +80,26 @@ def _halo_for(k: int) -> int:
     return RB_RADIUS * k
 
 
-def slot_bytes(n_fields: int, k: int, tile_h: int, tile_w: int) -> int:
-    """Shared memory of one slot: a float32 plane per field and a flag
-    byte per pixel of the tile and its halo, rounded to 16 bytes (the
-    kernel's ``slot_bytes``)."""
+def _slot_dims(k: int, tile_h: int, tile_w: int) -> tuple[int, int]:
+    """A slot's rows and half-columns (pairs a row)."""
     halo = _halo_for(k)
-    px = (tile_h + 2 * halo) * (tile_w + 2 * halo)
-    return _round_up(n_fields * 4 * px + px, 16)
+    return tile_h + 2 * halo, (tile_w + 2 * halo + 1) // 2
+
+
+def slot_bytes(n_fields: int, k: int, tile_h: int, tile_w: int) -> int:
+    """Shared memory of one slot: two float32 planes (one a colour) of each
+    of the ``n_fields - 9`` fields neighbours read, over the tile and its
+    halo, rounded to 16 bytes (the kernel's ``slot_floats``). Families of
+    fewer fields have no kernel (their tiles run the plain schedule): 0."""
+    rows, hc = _slot_dims(k, tile_h, tile_w)
+    return 4 * _round_up(2 * max(n_fields - COEF_PLANES, 0) * rows * hc, 4)
+
+
+def block_threads(k: int, tile_h: int, tile_w: int, slots: int) -> int:
+    """Threads a block: every pair of the slot owned, ``slots`` a thread,
+    rounded up to a warp (the kernel's ``block_threads``)."""
+    rows, hc = _slot_dims(k, tile_h, tile_w)
+    return _round_up(-(-rows * hc // slots), 32)
 
 
 class TilePlan(NamedTuple):
@@ -77,46 +109,81 @@ class TilePlan(NamedTuple):
     n_tiles_h: int
     n_tiles_w: int
     smem_bytes: int  # per block: one slot, or two when double-buffered
+    slots: int    # pairs of pixels a thread
+    threads: int  # a block's
+
+
+def make_plan(h: int, w: int, n_fields: int, k: int, tile_h: int, tile_w: int,
+              slots: int | None = None, double_buffer: bool = False) -> TilePlan | None:
+    """The plan of ``k`` sweeps a chunk over ``tile_h`` x ``tile_w`` tiles
+    of an (h, w) box, ``slots`` pairs a thread (by default the fewest that
+    keep a block within ``MAX_THREADS``); ``None`` if the kernel does not
+    take it."""
+    rows, hc = _slot_dims(k, tile_h, tile_w)
+    if k < 1 or tile_h < 1 or tile_w < 1 or rows > _MAX_ROWS or hc > _MAX_HALF_COLS:
+        return None
+    smem = (2 if double_buffer else 1) * slot_bytes(n_fields, k, tile_h, tile_w)
+    if smem > SMEM_PER_BLOCK:
+        return None
+    for s in [slots] if slots is not None else sorted(MAX_THREADS):
+        if s in MAX_THREADS and block_threads(k, tile_h, tile_w, s) <= MAX_THREADS[s]:
+            return TilePlan(k, tile_h, tile_w, math.ceil(h / tile_h), math.ceil(w / tile_w),
+                            smem, s, block_threads(k, tile_h, tile_w, s))
+    return None
 
 
 @functools.lru_cache(maxsize=256)
 def plan_tiles(h: int, w: int, n_fields: int, sweeps: int, k_max: int = 4,
-               double_buffer: bool = False, exact_k: bool = False):
+               double_buffer: bool = False, exact_k: bool = False,
+               sm_count: int = SM_COUNT):
     """Choose the temporal block ``k`` and the 2-D tile for an (h, w)
-    problem of ``n_fields`` fields; ``None`` when no plan fits.
+    problem of ``n_fields`` fields on a card of ``sm_count`` SMs; ``None``
+    when no plan fits.
 
-    The tile is 64 columns wide (the image's width rounded up to 8 where
-    that is less) and as tall, in steps of 8 up to 128, as one slot allows:
-    a block's whole shared memory (one block an SM), or half of it when
-    ``double_buffer`` (two slots). k is the largest up to
-    ``min(k_max, sweeps)`` that leaves the tile at least 16 rows (the
-    image's height rounded up to 8 where that is less). ``exact_k`` keeps
-    k at ``min(k_max, sweeps)`` (a window's chunk), with tiles down to 8
-    rows.
-    ``scripts/tiled_plan_sweep.py`` measured such wide tiles at one block
-    an SM fastest on the H100 (PERF.md).
+    k is ``min(k_max, sweeps)`` (less only where no tile fits; ``exact_k``,
+    a window's chunk, never less). Each tile of ``TILES`` (cut to the image
+    rounded up to 8) takes the fewest pairs a thread that keep a block
+    within ``PLAN_THREADS``. Among the plans of at least ``sm_count`` tiles,
+    a block an SM (a 240x320 shard, a 1024x1024 level), or among all where
+    the image has too few pixels for that, the plan is the one whose SMs
+    work through the fewest slot pixels (tiles an SM times a tile and its
+    halo): 16x48 at 1024x1024 and 768x768, 16x24 at a 240x320 shard, 8x24
+    or 8x16 at the smaller shards of a mesh frame.
     """
-    budget = SMEM_PER_BLOCK // (2 if double_buffer else 1)
-    tile_w = min(_TILE_W, _round_up(w, _TILE_STEP))
-    hi_h = min(_TILE_H_MAX, _round_up(h, _TILE_STEP))
     k_top = max(1, min(k_max, sweeps))
+    hi_h, hi_w = _round_up(h, 8), _round_up(w, 8)
+
+    def slot_pixels_an_sm(p: TilePlan) -> int:
+        rows, hc = _slot_dims(p.k, p.tile_h, p.tile_w)
+        return math.ceil(p.n_tiles_h * p.n_tiles_w / sm_count) * rows * 2 * hc
+
     for k in [k_top] if exact_k else range(k_top, 0, -1):
-        fits = [th for th in range(_TILE_STEP, hi_h + 1, _TILE_STEP)
-                if slot_bytes(n_fields, k, th, tile_w) <= budget]
-        if fits and (exact_k or fits[-1] >= min(_TILE_H_MIN, hi_h)):
-            tile_h = fits[-1]
-            return TilePlan(k, tile_h, tile_w, math.ceil(h / tile_h), math.ceil(w / tile_w),
-                            (2 if double_buffer else 1) * slot_bytes(n_fields, k, tile_h, tile_w))
+        plans = []
+        for th, tw in TILES:
+            th, tw = min(th, hi_h), min(tw, hi_w)
+            slots = next((s for s in sorted(MAX_THREADS)
+                          if block_threads(k, th, tw, s) <= PLAN_THREADS), None)
+            plan = (make_plan(h, w, n_fields, k, th, tw, slots, double_buffer)
+                    if slots is not None else None)
+            if plan is not None:
+                plans.append(plan)
+        if plans:
+            full = [p for p in plans if p.n_tiles_h * p.n_tiles_w >= sm_count]
+            return min(full or plans, key=lambda p: (slot_pixels_an_sm(p), -p.tile_h * p.tile_w))
     return None
 
 
 def bytes_per_pixel_iter(plan: TilePlan, n_fields: int, n_mut: int) -> float:
-    """Device-memory bytes a pixel-iteration moves under ``plan``: every
-    field of the slot read (the halo re-read by the neighbouring tiles)
+    """Device-memory bytes a pixel-iteration moves under ``plan``: the
+    neighbour fields over the slot and the coefficient planes over the
+    pixels the chunk relaxes (the halo re-read by the neighbouring tiles),
     and the relaxed fields of the interior written, once per k sweeps."""
     halo = _halo_for(plan.k)
     slot = (plan.tile_h + 2 * halo) * (plan.tile_w + 2 * halo)
-    return (n_fields * 4 * slot / (plan.tile_h * plan.tile_w) + n_mut * 4) / plan.k
+    live = (plan.tile_h + 2 * halo - 2) * (plan.tile_w + 2 * halo - 2)
+    nbr = n_fields - COEF_PLANES
+    return ((nbr * slot + COEF_PLANES * live) * 4 / (plan.tile_h * plan.tile_w)
+            + n_mut * 4) / plan.k
 
 
 class Window(NamedTuple):
@@ -241,8 +308,9 @@ def tiled_relax(fields: Sequence[torch.Tensor], sweep_fn, n_mut: int, iters: int
     updated mutable fields, identical to running the same sweeps globally,
     or ``None`` when no plan fits.
 
-    plan_override: ``(k, tile)`` forcing the temporal block and the tile,
-    ``tile`` an int (square) or ``(tile_h, tile_w)``.
+    plan_override: ``(k, tile)`` or ``(k, tile, slots)`` forcing the
+    temporal block, the tile (an int, square, or ``(tile_h, tile_w)``) and
+    the kernel's pairs of pixels a thread (by default the fewest that fit).
 
     double_buffer=True runs the two-slot kernel on the card (the port of
     ``_stripe_kernel_db``): the same numbers, bit for bit. On CPU tensors
@@ -260,17 +328,18 @@ def tiled_relax(fields: Sequence[torch.Tensor], sweep_fn, n_mut: int, iters: int
         h, w = i1 - i0, j1 - j0
         k_max = iters
     if plan_override is not None:
-        k, tile = plan_override
+        k, tile, *slots = plan_override
         tile_h, tile_w = (tile, tile) if isinstance(tile, int) else tile
+        slots = slots[0] if slots else None
     else:
         plan = plan_tiles(h, w, len(fields), iters, k_max, double_buffer=double_buffer,
-                          exact_k=window is not None)
+                          exact_k=window is not None, sm_count=_sm_count(fields[0]))
         if plan is None:
             return None
-        k, tile_h, tile_w = plan.k, plan.tile_h, plan.tile_w
+        k, tile_h, tile_w, slots = plan.k, plan.tile_h, plan.tile_w, plan.slots
     if window is not None and k < iters:
         raise ValueError(f"a window is one chunk: the plan's k={k} < iters={iters}")
-    if dispatch._plain(fields[0]):
+    if plain_mode.is_plain(fields[0]):
         if window is None:
             return plain_tiled_relax(fields, sweep_fn, prepare_fn, n_mut, iters, k, tile_h,
                                      tile_w)
@@ -285,6 +354,11 @@ def tiled_relax(fields: Sequence[torch.Tensor], sweep_fn, n_mut: int, iters: int
                          f"{getattr(sweep_fn, '__qualname__', sweep_fn)!r}")
     if window is None:
         return tiled_cuda.tiled_flow_sor(family, tuple(fields), iters, sweep_fn.omega, k,
-                                         tile_h, tile_w, double_buffer)
+                                         tile_h, tile_w, double_buffer, slots)
     return tiled_cuda.tiled_flow_sor_window(family, tuple(fields), iters, sweep_fn.omega,
-                                            window, tile_h, tile_w, double_buffer)
+                                            window, tile_h, tile_w, double_buffer, slots)
+
+
+def _sm_count(x: torch.Tensor) -> int:
+    """SMs of the card ``x`` lies on; ``SM_COUNT`` off the card."""
+    return resident_cuda.sm_count(x.device.index or 0) if x.device.type == "cuda" else SM_COUNT

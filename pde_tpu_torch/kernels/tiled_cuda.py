@@ -1,5 +1,7 @@
 """ctypes wrapper of the temporally blocked tile kernel
-(``csrc/tiled_sor.cu``): llin4 and elin4, serial or double-buffered.
+(``csrc/tiled_sor.cu``): llin4 and elin4, serial or double-buffered, a
+plan of k sweeps a chunk, a tile and ``slots`` pairs of pixels a thread
+(``kernels/tiled.py``'s ``TilePlan``).
 
 Takes CUDA tensors only and raises on anything else: the choice of the
 plain tile schedule for CPU tensors is ``kernels/tiled.py``'s. The library
@@ -40,13 +42,15 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for family, names in FIELD_NAMES.items():
         fn = getattr(lib, f"tiled_{family}")
-        fn.argtypes = [p] * (len(names) + 4) + [i] * 7 + [f, f, p]
+        fn.argtypes = [p] * (len(names) + 4) + [i] * 8 + [f, f, p]
         fn.restype = i
         fn = getattr(lib, f"tiled_{family}_win")
-        fn.argtypes = [p] * (len(names) + 2) + [i] * 14 + [f, f, p]
+        fn.argtypes = [p] * (len(names) + 2) + [i] * 15 + [f, f, p]
         fn.restype = i
     lib.tiled_sor_slot_bytes.argtypes = [i, i, i, i]
     lib.tiled_sor_slot_bytes.restype = i
+    lib.tiled_sor_threads.argtypes = [i, i, i, i]
+    lib.tiled_sor_threads.restype = i
     lib.tiled_sor_error_string.argtypes = [i]
     lib.tiled_sor_error_string.restype = ctypes.c_char_p
     return lib
@@ -77,18 +81,33 @@ def _check(family: str, fields, window=None, k: int = 0) -> tuple[int, int]:
     return shape[0], shape[1]
 
 
+def _slots(family: str, k: int, tile_h: int, tile_w: int, slots, double_buffer: bool) -> int:
+    """The pairs a thread of the plan (the fewest that fit where ``slots``
+    is None); raises where the kernel does not take the plan."""
+    from pde_tpu_torch.kernels import tiled
+
+    if k < 1 or tile_h < 1 or tile_w < 1:
+        raise ValueError(f"tile plan k={k}, tile {tile_h}x{tile_w}: each must be >= 1")
+    plan = tiled.make_plan(tile_h, tile_w, len(FIELD_NAMES[family]), k, tile_h, tile_w, slots,
+                           double_buffer)
+    if plan is None:
+        raise ValueError(f"tiled_{family} takes no plan of k={k}, tile {tile_h}x{tile_w}, "
+                         f"slots={slots} (double_buffer={double_buffer})")
+    return plan.slots
+
+
 def tiled_flow_sor(family: str, fields, iters: int, omega: float, k: int, tile_h: int,
-                   tile_w: int, double_buffer: bool = False):
+                   tile_w: int, double_buffer: bool = False, slots: int | None = None):
     """``iters`` red-black sweeps of ``family`` (``"flow_llin4"`` or
     ``"flow_elin4"``) on the card, in chunks of ``k`` over tiles of
-    ``tile_h`` x ``tile_w``; the same function as ``solvers/sor.py``'s
+    ``tile_h`` x ``tile_w``, ``slots`` pairs of pixels a thread (the fewest
+    that fit by default); the same function as ``solvers/sor.py``'s
     ``sor_<family>``. ``fields`` in the order of ``FIELD_NAMES[family]``.
     Returns the two relaxed fields."""
     if family not in FIELD_NAMES:
         raise ValueError(f"no tile kernel for {family!r}; it has {sorted(FIELD_NAMES)}")
     h, w = _check(family, fields)
-    if k < 1 or tile_h < 1 or tile_w < 1:
-        raise ValueError(f"tile plan k={k}, tile {tile_h}x{tile_w}: each must be >= 1")
+    slots = _slots(family, k, tile_h, tile_w, slots, double_buffer)
     iters = max(int(iters), 0)  # as the plain loop: no sweep for iters <= 0
     if iters == 0:
         return fields[0].clone(), fields[1].clone()
@@ -103,7 +122,7 @@ def tiled_flow_sor(family: str, fields, iters: int, omega: float, k: int, tile_h
         err = getattr(lib, f"tiled_{family}")(
             *(x.data_ptr() for x in fields), out_a.data_ptr(), out_b.data_ptr(),
             *(0 if t is None else t.data_ptr() for t in tmp),
-            h, w, iters, k, tile_h, tile_w, int(bool(double_buffer)),
+            h, w, iters, k, tile_h, tile_w, slots, int(bool(double_buffer)),
             float(omega), 1.0 - float(omega), stream)
     if err != 0:
         raise RuntimeError(f"tiled_{family} launch failed: cudaError {err} "
@@ -113,18 +132,19 @@ def tiled_flow_sor(family: str, fields, iters: int, omega: float, k: int, tile_h
 
 
 def tiled_flow_sor_window(family: str, fields, iters: int, omega: float, window, tile_h: int,
-                          tile_w: int, double_buffer: bool = False):
+                          tile_w: int, double_buffer: bool = False, slots: int | None = None):
     """One chunk of ``iters`` red-black sweeps of ``family`` on the card over
     the tiles of ``window.box`` (``kernels/tiled.Window``: the fields are
-    part of an image), in tiles of ``tile_h`` x ``tile_w``. Returns the
-    box's part of the two relaxed fields, as the same sweeps over the whole
-    image give it."""
+    part of an image), in tiles of ``tile_h`` x ``tile_w``, ``slots`` pairs
+    a thread. Returns the box's part of the two relaxed fields, as the same
+    sweeps over the whole image give it."""
     if family not in FIELD_NAMES:
         raise ValueError(f"no tile kernel for {family!r}; it has {sorted(FIELD_NAMES)}")
     if tile_h < 1 or tile_w < 1:
         raise ValueError(f"tile {tile_h}x{tile_w}: each side must be >= 1")
     iters = max(int(iters), 0)
     h, w = _check(family, fields, window, iters)
+    slots = _slots(family, max(iters, 1), tile_h, tile_w, slots, double_buffer)
     i0, i1, j0, j1 = window.box
     if iters == 0:
         return fields[0][i0:i1, j0:j1].clone(), fields[1][i0:i1, j0:j1].clone()
@@ -136,8 +156,8 @@ def tiled_flow_sor_window(family: str, fields, iters: int, omega: float, window,
         err = getattr(lib, f"tiled_{family}_win")(
             *(x.data_ptr() for x in fields), out_a.data_ptr(), out_b.data_ptr(),
             h, w, window.r0, window.c0, window.gh, window.gw, i0, j0, i1 - i0, j1 - j0,
-            iters, tile_h, tile_w, int(bool(double_buffer)), float(omega), 1.0 - float(omega),
-            stream)
+            iters, tile_h, tile_w, slots, int(bool(double_buffer)), float(omega),
+            1.0 - float(omega), stream)
     if err != 0:
         raise RuntimeError(f"tiled_{family}_win launch failed: cudaError {err} "
                            f"({lib.tiled_sor_error_string(err).decode()})")

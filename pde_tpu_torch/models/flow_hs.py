@@ -13,7 +13,8 @@ upscale (MATLAB's default ``imresize`` method) to the next level.
 tridiagonal kernel on the card); ``solver=1`` with red-black SOR
 (``kernels/dispatch.py::sor_flow_elin4``: on the card the resident elin4
 kernel of ``csrc/resident_sor.cu``, one launch a level, where the level has
-a plan, else the global one). Runs eagerly on the card unless the caller
+a plan, else the tile kernel of ``csrc/tiled_sor.cu``, one launch a chunk of
+4 sweeps). Runs eagerly on the card unless the caller
 asks for the CPU (``models/_device.py``).
 """
 

@@ -20,7 +20,8 @@ import jax.numpy as jnp
 from pde_tpu.solvers import sor as jsor
 from pde_tpu_torch.core.grid import replicate_border
 from pde_tpu_torch.core.pyramid import pyramid_scales
-from pde_tpu_torch.kernels import build, dispatch, interior_cuda, resident_cuda, sor_cuda
+from pde_tpu_torch.kernels import (build, dispatch, interior_cuda, resident_cuda, sor_cuda, tiled,
+                                   tiled_cuda)
 from pde_tpu_torch.solvers import sor
 
 torch.set_num_threads(1)
@@ -280,6 +281,13 @@ def card_routes(monkeypatch):
     monkeypatch.setattr(interior_cuda, "disp_llin4_sor", recorder("global disp", 1))
     monkeypatch.setattr(interior_cuda, "pde4_sor", recorder("global pde4", 1))
     monkeypatch.setattr(sor_cuda, "flow_elin4_sor", recorder("global elin4", 2))
+
+    def tile_recorder(family, fields, iters, omega, k, tile_h, tile_w, double_buffer=False,
+                      slots=None):
+        calls.append((f"tile {family[len('flow_'):]}", (k, tile_h, tile_w, slots), fields))
+        return torch.zeros((2, 1)), torch.zeros((2, 1))
+
+    monkeypatch.setattr(tiled_cuda, "tiled_flow_sor", tile_recorder)
     return calls
 
 
@@ -337,6 +345,10 @@ def test_dispatch_picks_resident_pde4_and_elin4_from_the_shape(card_routes, h, w
 
 
 def test_dispatch_sends_pde4_and_elin4_without_a_plan_to_the_global_kernels(card_routes):
+    """pde4 without a resident plan, and elin4 of a shape that is not
+    (H, W), go to the global kernels. An elin4 (H, W) without a resident
+    plan (1024x1024) now goes to the tile kernel instead, the route that
+    tests/test_torch_tiled.py holds for every such shape."""
     big = torch.zeros((1024, 1024))
     dispatch.sor_pde4(*([big] * 7), 5, 1.75)                                 # eight slots
     dispatch.sor_pde4(*([torch.zeros((2, 9))] * 7), 5, 1.75)                # no interior
@@ -345,10 +357,14 @@ def test_dispatch_sends_pde4_and_elin4_without_a_plan_to_the_global_kernels(card
     x3 = torch.zeros((3, 9, 9))
     dispatch.sor_pde4(*([x3] * 7), 5, 1.75)                                 # weights per channel
     dispatch.sor_pde4(torch.zeros((2, 3, 9, 9)), *([x] * 6), 5, 1.75)       # (B, C, H, W)
-    dispatch.sor_flow_elin4(*([big] * 11), 20, 1.9)                          # eight slots
+    # eight slots: no resident plan, so the tile kernel (since the tile
+    # kernel's redesign every llin4 and elin4 shape without one takes it)
+    dispatch.sor_flow_elin4(*([big] * 11), 20, 1.9)
     dispatch.sor_flow_elin4(*([torch.zeros((2, 5, 5))] * 11), 20, 1.9)     # not (H, W)
-    assert [c[0] for c in card_routes] == ["global pde4"] * 5 + ["global elin4"] * 2
-    assert all(c[1] is None for c in card_routes)
+    assert [c[0] for c in card_routes] == ["global pde4"] * 5 + ["tile elin4", "global elin4"]
+    assert all(c[1] is None for c in card_routes if c[0].startswith("global"))
+    plan = tiled.plan_tiles(1024, 1024, 11, 20, 4, sm_count=resident_cuda.SM_COUNT)
+    assert card_routes[5][1] == (4, plan.tile_h, plan.tile_w, plan.slots)
 
 
 def test_resident_wrapper_rejects_cpu_tensors_before_building(rng, monkeypatch):

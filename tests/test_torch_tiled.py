@@ -1,8 +1,11 @@
 """The tile engine (``pde_tpu_torch/kernels/tiled.py``): its plain tile
 schedule held exactly against the port's plain global solvers and within
 ``tests/test_kernels.py``'s tolerance against ``pde_tpu``'s Pallas stripe
-engine in interpret mode (serial and double-buffered); the tile plan; the
-wrapper's refusals; and the build rule for headers.
+engine in interpret mode (serial and double-buffered), also at the tiles
+of the redesigned kernel's plans and through windows; the tile plan (a
+block an SM, the colour-split slot's bytes, threads); the dispatch's route
+from the shape (``kernels/dispatch.sor_route``: resident, tile or global
+kernel); the wrapper's refusals; and the build rule for headers.
 
 The kernel (``csrc/tiled_sor.cu``) runs only on the card: ``chip_smoke.py``
 holds it against the plain schedule there.
@@ -17,7 +20,7 @@ import jax.numpy as jnp
 
 from pde_tpu.kernels import sweeps as jsweeps
 from pde_tpu.kernels.tiled import tiled_relax as jtiled_relax
-from pde_tpu_torch.kernels import build, sweeps, tiled, tiled_cuda
+from pde_tpu_torch.kernels import build, dispatch, resident_cuda, sor_cuda, sweeps, tiled, tiled_cuda
 from pde_tpu_torch.solvers import sor
 
 torch.set_num_threads(1)
@@ -222,3 +225,211 @@ def test_tiled_source_includes_the_shared_arithmetic():
         assert [f.name for f in files] == [f"{source}.cu", *headers]
     path = build.library_path(tiled_cuda.SOURCE)
     assert path.parent == build.BUILD_DIR and path.name.startswith("libtiled_sor_")
+
+
+# ---------------------------------------------------------------------------
+# the redesigned kernel's plan and the dispatch's route
+# ---------------------------------------------------------------------------
+
+# (family, (h, w), where the dispatch sends it): phase 16's shapes of
+# chip_smoke.py and the main path's
+ROUTES = {
+    "llin4 1024x1024": ("llin4", (1024, 1024), "tiled"),
+    "llin4 768x768": ("llin4", (768, 768), "tiled"),
+    "elin4 1024x1024": ("elin4", (1024, 1024), "tiled"),
+    "elin4 768x768": ("elin4", (768, 768), "tiled"),
+    "llin4 480x640": ("llin4", (480, 640), "resident"),
+    "elin4 480x640": ("elin4", (480, 640), "resident"),
+    "llin8 1024x1024, no tile kernel": ("llin8", (1024, 1024), "global"),
+    "disp 1024x1024, no tile kernel": ("disp", (1024, 1024), "global"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_sor_route_from_the_shape(case):
+    family, (h, w), want = ROUTES[case]
+    route, plan = dispatch.sor_route(family, h, w, 1, 4, 132)
+    assert route == want
+    if route == "tiled":
+        n_fields = len(tiled_cuda.FIELD_NAMES[f"flow_{family}"])
+        assert plan == tiled.plan_tiles(h, w, n_fields, 4, 4, sm_count=132)
+        assert plan.k == 4 and plan.n_tiles_h * plan.n_tiles_w >= 132
+    elif route == "resident":
+        assert plan == resident_cuda.plan_resident(h, w, family, 1, 132)
+    else:
+        assert plan is None
+    # a batch has no tile kernel
+    if route == "tiled":
+        assert dispatch.sor_route(family, h, w, 2, 4, 132)[0] == "global"
+
+
+@pytest.mark.parametrize("family", ["llin4", "elin4"])
+def test_dispatch_sends_a_shape_without_resident_plan_to_the_tile_kernel(monkeypatch, family):
+    """Off the CPU, a 1024x1024 solve goes to the tile wrapper with the
+    route's plan, chosen before any launch; neither the resident nor the
+    global kernel is called."""
+    seen = []
+
+    def tile_spy(fam, fields, iters, omega, k, tile_h, tile_w, double_buffer=False, slots=None):
+        seen.append((fam, len(fields), iters, k, tile_h, tile_w, slots))
+        return fields[0], fields[1]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the shape has a tile plan: no other kernel may run")
+
+    monkeypatch.setattr(resident_cuda, "sm_count", lambda index: 132)
+    monkeypatch.setattr(tiled_cuda, "tiled_flow_sor", tile_spy)
+    for mod, name in ((sor_cuda, f"flow_{family}_sor"), (resident_cuda, f"flow_{family}_sor")):
+        monkeypatch.setattr(mod, name, refuse)
+    names = LLIN if family == "llin4" else ELIN
+    meta = [torch.empty((1024, 1024), device="meta") for _ in names]
+    fn = dispatch.sor_flow_llin4 if family == "llin4" else dispatch.sor_flow_elin4
+    if family == "llin4":
+        du, dv, u, v, *rest = meta
+        fn(u, v, du, dv, *rest, 9, 1.9)
+    else:
+        fn(*meta, 9, 1.9)
+    plan = dispatch.sor_route(family, 1024, 1024, 1, 9, 132)[1]
+    assert seen == [(f"flow_{family}", len(names), 9, 4, plan.tile_h, plan.tile_w, plan.slots)]
+
+
+# (the array (h, w), the window's box, or None for the whole array; the
+# plan's tile and pairs a thread)
+PLAN_SHAPES = {
+    "1024x1024": ((1024, 1024), None, (16, 48, 2)),
+    "a 240x320 shard and its 8-px halo (2x2 mesh over 480x640)":
+        ((248, 328), (0, 240, 0, 320), (16, 24, 2)),
+    "a 480x160 shard and its halo (1x4 mesh over 480x640)":
+        ((480, 168), (0, 480, 0, 160), (16, 24, 2)),
+    "a 180x240 shard and its halo (2x2 mesh over 360x480)":
+        ((188, 248), (0, 180, 0, 240), (8, 24, 1)),
+}
+
+
+@pytest.mark.parametrize("double_buffer", [False, True])
+@pytest.mark.parametrize("n_fields", [13, 11])
+@pytest.mark.parametrize("case", sorted(PLAN_SHAPES))
+def test_plan_fills_the_card(case, n_fields, double_buffer):
+    (h, w), box, want = PLAN_SHAPES[case]
+    bh, bw = (h, w) if box is None else (box[1] - box[0], box[3] - box[2])
+    plan = tiled.plan_tiles(bh, bw, n_fields, 4, 4, double_buffer=double_buffer,
+                            exact_k=box is not None, sm_count=132)
+    assert plan.k == 4
+    assert plan.n_tiles_h * plan.n_tiles_w >= 132  # a block an SM at least
+    assert plan.smem_bytes == (2 if double_buffer else 1) * tiled.slot_bytes(
+        n_fields, 4, plan.tile_h, plan.tile_w) <= tiled.SMEM_PER_BLOCK
+    assert plan.threads == tiled.block_threads(4, plan.tile_h, plan.tile_w, plan.slots)
+    assert plan.threads <= tiled.MAX_THREADS[plan.slots] and plan.threads % 32 == 0
+    # 16x48 tiles give a shard fewer blocks than SMs (105, 120, 60)
+    assert (plan.tile_h, plan.tile_w, plan.slots) == want
+    assert plan.threads <= tiled.PLAN_THREADS  # two blocks an SM
+    rows, hc = tiled._slot_dims(4, plan.tile_h, plan.tile_w)
+    assert plan.threads * plan.slots >= rows * hc  # every pair of the slot owned
+
+
+@pytest.mark.parametrize("k", [6, 8, 9])
+def test_plan_of_a_long_window_chunk_takes_smaller_tiles(k):
+    """A window's chunk of more than 4 sweeps keeps its k (exact_k): its
+    halo gives 16x48 tiles more pairs than a block holds, so the plan takes
+    a smaller tile or more pairs a thread, which the kernel takes."""
+    plan = tiled.plan_tiles(240, 320, 13, k, k, exact_k=True, sm_count=132)
+    assert plan.k == k
+    assert (plan.tile_h, plan.tile_w) in tiled.TILES[1:]
+    assert plan.threads <= tiled.MAX_THREADS[plan.slots]
+    assert plan == tiled.make_plan(240, 320, 13, k, plan.tile_h, plan.tile_w, plan.slots)
+
+
+# (n_fields, k, tile_h, tile_w, bytes): two float32 planes (one a colour) of
+# each field neighbours read, over the tile and its 2k halo, 16-byte rounded
+SLOT_BYTES = {
+    "llin4 32x48, k=4": (13, 4, 32, 48, 4 * 2 * 4 * 48 * 32),
+    "elin4 32x48, k=4": (11, 4, 32, 48, 4 * 2 * 2 * 48 * 32),
+    "llin4 odd 7x9, k=3": (13, 3, 7, 9, 4 * 2 * 4 * 19 * 11),
+    "elin4 1x1, k=1": (11, 1, 1, 1, 4 * 2 * 2 * 5 * 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SLOT_BYTES))
+def test_slot_bytes_of_the_colour_split_layout(case):
+    n_fields, k, th, tw, want = SLOT_BYTES[case]
+    assert tiled.slot_bytes(n_fields, k, th, tw) == want
+    # the old layout, every field and a flag byte a pixel, took 53 (45) B a pixel
+    px = (th + 4 * k) * (tw + 4 * k)
+    assert tiled.slot_bytes(n_fields, k, th, tw) < (n_fields * 4 + 1) * px
+
+
+def test_plan_refuses_what_the_kernel_does_not_take():
+    assert tiled.make_plan(64, 64, 13, 4, 300, 16) is None          # rows past 254
+    assert tiled.make_plan(64, 64, 13, 4, 16, 600) is None          # half-columns past 255
+    assert tiled.make_plan(64, 64, 13, 4, 64, 96, slots=1) is None  # too many threads
+    plan = tiled.make_plan(64, 64, 13, 4, 16, 24)
+    assert plan.slots == 1 and plan.threads == tiled.block_threads(4, 16, 24, 1)
+
+
+# (h, w, iters, NaN fields, k, tile, slots): the new plans' tile shapes at
+# small sizes, ragged edges and several chunks
+NEW_TILE_CASES = {
+    "16x24 tiles, k = 4, 9 sweeps": (40, 53, 9, NAN_ALL, 4, (16, 24), 2),
+    "32x32 tiles, k = 4, one tile ragged": (37, 45, 4, NAN_ALL, 4, (32, 32), 2),
+    "24x48 tiles, k = 3": (50, 61, 7, ("cu", "duc"), 3, (24, 48), 3),
+    "8x16 tiles, k = 2": (19, 35, 5, NAN_ALL, 2, (8, 16), 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NEW_TILE_CASES))
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_plain_schedule_at_the_new_tiles_equals_plain_global_solver(rng, family, case):
+    h, w, iters, nan_names, k, tile, slots = NEW_TILE_CASES[case]
+    names, factory, _ = FAMILIES[family]
+    t = [torch.from_numpy(x) for x in _fields(rng, h, w, names, nan_names)]
+    prepare, sweep = factory(1.9)
+    for double_buffer in (False, True):
+        got = tiled.tiled_relax(t, sweep, 2, iters, prepare_fn=prepare,
+                                plan_override=(k, tile, slots), double_buffer=double_buffer)
+        _assert_equal(got, _plain_global(family, t, iters))
+
+
+# (image (gh, gw), box in the image (R0, R1, C0, C1), k, tile or None for
+# the default plan): odd origins, the image's edges, NaN data
+NEW_WINDOW_CASES = {
+    "odd origin, 16x24 tiles": ((45, 61), (9, 30, 13, 44), 4, (16, 24)),
+    "the image's corner, 8x16 tiles": ((45, 61), (0, 17, 40, 61), 3, (8, 16)),
+    "a 2x2 shard, the default plan": ((64, 96), (32, 64, 0, 48), 4, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NEW_WINDOW_CASES))
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_windowed_schedule_at_the_new_tiles_equals_plain_global_solver(rng, family, case):
+    (gh, gw), (R0, R1, C0, C1), k, tile = NEW_WINDOW_CASES[case]
+    names, factory, _ = FAMILIES[family]
+    t = [torch.from_numpy(x) for x in _fields(rng, gh, gw, names, NAN_ALL)]
+    want = _plain_global(family, t, k)
+    halo = 2 * k
+    r0, r1 = max(0, R0 - halo), min(gh, R1 + halo)
+    c0, c1 = max(0, C0 - halo), min(gw, C1 + halo)
+    window = tiled.Window(r0, c0, gh, gw, (R0 - r0, R1 - r0, C0 - c0, C1 - c0))
+    prepare, sweep = factory(1.9)
+    kw = {} if tile is None else dict(plan_override=(k, tile))
+    got = tiled.tiled_relax([x[r0:r1, c0:c1] for x in t], sweep, 2, k, prepare_fn=prepare,
+                            window=window, **kw)
+    _assert_equal(tuple(got), tuple(x[R0:R1, C0:C1] for x in want))
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_new_tile_shape_matches_pallas_stripe_engine(rng, family):
+    """The port's plain schedule at a tile of the new plans (16x24, k = 4)
+    against pde_tpu's kernel in interpret mode (16-row stripes, k = 2), NaN
+    in Cu and Du, within tests/test_kernels.py's tolerance."""
+    names, factory, jfactory = FAMILIES[family]
+    f = _fields(rng, 48, 65, names, ("cu", "duc"))
+    jprep, jsweep = jfactory(1.9)
+    want = jtiled_relax(tuple(jnp.asarray(x) for x in f), jsweep, 2, 5, prepare_fn=jprep,
+                        interpret=True, plan_override=(2, 16))
+    prepare, sweep = factory(1.9)
+    got = tiled.tiled_relax([torch.from_numpy(x) for x in f], sweep, 2, 5, prepare_fn=prepare,
+                            plan_override=(4, (16, 24), 2))
+    for g, w_ in zip(got, want):
+        g = g.numpy()
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, np.asarray(w_), atol=2e-6, rtol=1e-5)
