@@ -32,7 +32,15 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    double-buffered, k = 1, 2, 4, 4 and 9 sweeps, with and without NaN data,
    through the sharded solver at the shards of a 2x2 and a 1x4 mesh over
    480x640: against the plain windowed schedule on CPU copies, and bit for
-   bit against the global kernel; one shard's chunk timed. The resident kernel (``csrc/resident_sor.cu``, one launch a
+   bit against the global kernel; one shard's chunk timed. The tile kernel's
+   other families, serial: disp llin4 (B = 1 and 2), pde4 and pde8 (C = 1
+   and 3, TRACE and B per channel or shared) and llin8, at the solvers'
+   shapes without a resident plan and 1024x1024, with and without NaN data,
+   against the plain tile schedule, bit for bit against the global kernel
+   (disp and pde also against the plain global solver); their windowed
+   variant (llin8, disp, pde4) through the sharded solvers at the shards of
+   the same meshes, k = 1, 2, 4 and 9, bit for bit against the global
+   kernel; a 4-sweep call of each timed beside the global kernel's. The resident kernel (``csrc/resident_sor.cu``, one launch a
    solver call), llin4, disp llin4 (B = 1 and 2), pde4 (C = 1 and 3, TRACE
    and B per channel or shared) and elin4, against the global kernels bit
    for bit and the plain version (disp and pde4 bit for bit too), at the
@@ -92,11 +100,11 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
     finest level has no resident plan (``tv_denoise8``'s second neither, nor
     ``tv_denoise4``'s, nor ``flow_nd``'s and ``flow_hs``'s 768x768): exact
     launches, counted apart from the dispatch's routing: the tile kernel
-    for llin4 and elin4 (``ceil(iters / 4)`` a call; ``flow_nd`` 32,
-    ``flow_hs`` 10, pinned), the global kernels for the other families, the
-    resident kernel at every other level; finite fields. These are the
-    serial tile kernels' main-path launches in the kernels line, and the
-    global llin4 and elin4 kernels' (0).
+    of every family (``ceil(iters / 4)`` a call; ``flow_nd`` 32,
+    ``flow_hs`` 10, ``disparity_nd`` 24, ``flow_ad`` 32, ``tv_denoise8``
+    42, ``tv_denoise4`` 66, pinned), the resident kernel at every other
+    level; finite fields. These are the serial tile kernels' main-path
+    launches in the kernels line, and the global SOR kernels' (0).
 17. ``flow_fmg`` (FAS full multigrid), default parameters, V-cycle, with
     ``solver=2`` (the PCG) and ``solver=1`` (the resident elin4 kernel) on a
     3x480x640 pair shifted by 1 px: exact launches (196 resident elin4
@@ -139,8 +147,9 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
     mesh) and of the resident kernel elsewhere; ``flow_fmg`` 3x480x640,
     V-cycle, both solvers, bit for bit against phase 17's (``solver=1``
     sharded at its fine levels, ``solver=2`` whole); the sharded llin8, disp
-    and pde4 solvers (torch ops on the card, no kernel) bit for bit against
-    the plain global solvers and within SOR_TOL of the kernels; the
+    and pde4 solvers (one windowed launch a shard and chunk, exact counts)
+    bit for bit against the unsharded solve (disp and pde4 against the plain
+    global solvers too, llin8 within SOR_TOL of it); the
     double-buffered windowed variant through the sharded llin4 and elin4
     solvers; and the tiled PCG on a 2x4 mesh with its ``tridiag_thomas``
     launches counted (bit for bit against its plain path at 64x96). The
@@ -204,8 +213,16 @@ TILED_KS = (1, 2, 4)  # the tile kernel's k_max in phase 3
 # phase 16's launches of the tile kernel, a frame at LARGE_SHAPE: flow_nd's
 # 1024x1024 and 768x768 levels (no resident plan), 16 calls x 1 chunk each;
 # flow_hs solver=1's, 1 call x 5 chunks (20 sweeps) each
+# and the other families' (disparity_nd: its 1024x1024 level, 24 calls x 1
+# chunk; flow_ad: 1024x1024 and 768x768, 16 calls x 1 chunk each;
+# tv_denoise8: both levels, 21 calls x 1 chunk each; tv_denoise4: 1024x1024,
+# 768x768 and 576x576, 11 calls x 2 chunks (5 sweeps) each)
 PHASE16_TILED = {"flow_nd": {"tiled_flow_llin4": 32},
-                 "flow_hs solver=1": {"tiled_flow_elin4": 10}}
+                 "flow_hs solver=1": {"tiled_flow_elin4": 10},
+                 "disparity_nd": {"tiled_disp_llin4": 24},
+                 "flow_ad": {"tiled_flow_llin8": 32},
+                 "tv_denoise8": {"tiled_pde8": 42},
+                 "tv_denoise4": {"tiled_pde4": 66}}
 # the tile kernel's shapes in phase 3: SOR_SHAPES and 768x768, a level without a resident plan
 TILE_SHAPES = sorted(set(SOR_SHAPES) | {(768, 768)})
 # tridiagonal systems, solved along both axes: line lengths 1, 2, 3, 7, 33,
@@ -235,11 +252,15 @@ FLOPS_PER_PX = {"flow_llin4_sor": 40, "flow_elin4_sor": 30, "disp_llin4_sor": 23
                 "tiled_flow_llin4": 40, "tiled_flow_llin4_db": 40,
                 "tiled_flow_elin4": 30, "tiled_flow_elin4_db": 30,
                 "tiled_flow_llin4_win": 40, "tiled_flow_llin4_win_db": 40,
-                "tiled_flow_elin4_win": 30, "tiled_flow_elin4_win_db": 30}
+                "tiled_flow_elin4_win": 30, "tiled_flow_elin4_win_db": 30,
+                "tiled_flow_llin8": 64, "tiled_flow_llin8_win": 64,
+                "tiled_disp_llin4": 23, "tiled_disp_llin4_win": 23,
+                "tiled_pde4": 16, "tiled_pde4_win": 16, "tiled_pde8": 28}
 # the kernels whose every float operation is rounded alone in the plain
 # version's order, held to EXACT_TOL; the others contract to FMA (SOR_TOL)
 EXACT = ("tridiag", "tridiag_long", "tridiag_seg", "tridiag_zebra_pass", "pde8_sor", "resident_disp_llin4",
-         "resident_pde8", "resident_pde4")
+         "resident_pde8", "resident_pde4", "tiled_disp_llin4", "tiled_disp_llin4_win", "tiled_pde4",
+         "tiled_pde4_win", "tiled_pde8")
 # float operations per line element of one whole tridiagonal solve
 TRIDIAG_FLOPS_PER_PX = 8
 # dependent rounded operations a line element adds to a solve's chain (3
@@ -284,6 +305,27 @@ TILED_WIN = {"tiled_flow_llin4_win": ("flow_llin4", False),
              "tiled_flow_llin4_win_db": ("flow_llin4", True),
              "tiled_flow_elin4_win": ("flow_elin4", False),
              "tiled_flow_elin4_win_db": ("flow_elin4", True)}
+# the tile kernel's other families (serial only), with the global kernel's
+# key that served their shapes before; and the windowed variant of those
+# the sharded solvers run
+TILED_NEW = {"tiled_flow_llin8": ("flow_llin8", "flow_llin8_sor"),
+             "tiled_disp_llin4": ("disp_llin4", "disp_llin4_sor"),
+             "tiled_pde4": ("pde4", "pde4_sor"),
+             "tiled_pde8": ("pde8", "pde8_sor")}
+TILED_WIN_NEW = {"tiled_flow_llin8_win": "flow_llin8", "tiled_disp_llin4_win": "disp_llin4",
+                 "tiled_pde4_win": "pde4"}
+# phase 3's cases of the other families: (family, systems or channels,
+# TRACE and B shared by the channels, (h, w)): the solvers' shapes without a
+# resident plan, and 1024x1024
+NEW_TILE_CASES = (("flow_llin8", 1, False, (37, 53)), ("flow_llin8", 1, False, (480, 640)),
+                  ("flow_llin8", 1, False, (1024, 1024)),
+                  ("disp_llin4", 1, False, (480, 640)), ("disp_llin4", 2, False, (37, 53)),
+                  ("disp_llin4", 1, False, (1024, 1024)), ("disp_llin4", 2, False, (1024, 1024)),
+                  ("pde4", 1, False, (3, 3)), ("pde4", 3, True, (481, 641)),
+                  ("pde4", 3, False, (481, 641)), ("pde4", 3, False, (1024, 1024)),
+                  ("pde8", 1, False, (37, 53)), ("pde8", 3, True, (481, 641)),
+                  ("pde8", 3, False, (481, 641)), ("pde8", 3, False, (1024, 1024)))
+NEW_WIN_KS = (1, 2, 4, 9)  # the windowed variant's k through the sharded solvers (9 sweeps)
 FMG_SHIFT = (0.0, 1.0)  # early linearisation recovers only small shifts
 FMG_ULP_FACTOR = 3.0  # kernel vs plain at full size, in units of the one-ulp sensitivity
 FMG_W_SHAPE = (3, 240, 320)  # the W-cycle's frame (936 solves at six levels)
@@ -455,12 +497,14 @@ def llin8_fields(rng, h, w, nan: bool, dev):
                   ("cu", "duc") if nan else (), rng, dev)
 
 
-def pde8_fields(rng, c, h, w, nan: bool, dev):
+def pde8_fields(rng, c, h, w, nan: bool, dev, shared: bool = False):
     """pde8 fields as tv_denoise8 hands them over: X, TRACE, B of (H, W)
-    for c == 1 else (c, H, W), one shared (H, W) plane per weight, TRACE
-    above the weights' absolute sum; 5% NaN in TRACE when ``nan``."""
+    for c == 1 else (c, H, W) (TRACE and B one (H, W) plane with
+    ``shared``), one shared (H, W) plane per weight, TRACE above the
+    weights' absolute sum; 5% NaN in TRACE when ``nan``."""
     shape = (h, w) if c == 1 else (c, h, w)
-    f = {n: unit_field(rng, n, shape) for n in ("x", "trace", "b")}
+    f = {"x": unit_field(rng, "x", shape)}
+    f.update({n: unit_field(rng, n, (h, w) if shared else shape) for n in ("trace", "b")})
     f.update({n: unit_field(rng, n, (h, w)) for n in W8})
     f["trace"] = f["trace"] + sum(np.abs(f[n]) for n in W8)
     return to_dev(f, ("trace",) if nan else (), rng, dev)
@@ -593,9 +637,14 @@ def bit_equal(got, want) -> bool:
 
 
 def tile_order(family: str, fields):
-    """``sor_fields``/``elin_fields`` in the tile engine's order, the two
-    relaxed fields first (llin4: dU, dV, U, V, ...)."""
-    return fields[2:4] + fields[:2] + fields[4:] if family == "flow_llin4" else fields
+    """The solver fields (``sor_fields``, ``llin8_fields``, ``disp_fields``
+    ...) in the tile engine's order, the relaxed fields first (llin4 and
+    llin8: dU, dV, U, V, ...; disp: dU, U, ...)."""
+    if family in ("flow_llin4", "flow_llin8"):
+        return fields[2:4] + fields[:2] + fields[4:]
+    if family == "disp_llin4":
+        return fields[1:2] + fields[:1] + fields[2:]
+    return fields
 
 
 def mean_flow_diff(a, b) -> float:
@@ -961,23 +1010,28 @@ def main() -> None:
     print(f"  resident 8-neighbour kernel: {resident8_cases} cases, each bit for bit against "
           f"the global kernel", flush=True)
 
-    # the tile kernel: the plan and the kernel agree on a slot's bytes, for
-    # the plans and for odd tiles a plan_override may ask for
-    for n_fields in (13, 11):
-        for db in (False, True):
-            plan = tiled.plan_tiles(*TIME_SHAPES[-1], n_fields, 4, 4, double_buffer=db)
-            slot = tiled_lib.tiled_sor_slot_bytes(n_fields, plan.k, plan.tile_h, plan.tile_w)
+    # the tile kernel: the plan and the kernel agree on a slot's bytes and a
+    # block's threads, for every family's plans and for odd tiles a
+    # plan_override may ask for
+    for family, layout in tiled.LAYOUTS.items():
+        for db in (False, True) if layout.double_buffer else (False,):
+            plan = tiled.plan_tiles(*TIME_SHAPES[-1], family, 4, 4, double_buffer=db)
+            slot = tiled_lib.tiled_sor_slot_bytes(layout.index, plan.k, plan.tile_h, plan.tile_w)
             if (2 if db else 1) * slot != plan.smem_bytes:
                 fail(f"tile plan {plan} and the kernel's slot of {slot} bytes disagree")
-            print(f"  tile plan {n_fields} fields double_buffer={db}: {plan}", flush=True)
-    for args in ((13, 3, 7, 9), (11, 1, 1, 1), (13, 2, 16, 5)):
-        if tiled_lib.tiled_sor_slot_bytes(*args) != tiled.slot_bytes(*args):
-            fail(f"slot bytes of {args}: kernel {tiled_lib.tiled_sor_slot_bytes(*args)}, "
-                 f"plan {tiled.slot_bytes(*args)}")
-    for args in ((4, 32, 32, 2), (3, 7, 9, 1), (4, 24, 48, 4), (1, 1, 1, 3)):
-        if tiled_lib.tiled_sor_threads(*args) != tiled.block_threads(*args):
-            fail(f"threads of {args}: kernel {tiled_lib.tiled_sor_threads(*args)}, "
-                 f"plan {tiled.block_threads(*args)}")
+            print(f"  tile plan {family} double_buffer={db}: {plan}", flush=True)
+        for args in ((3, 7, 9), (1, 1, 1), (2, 16, 5), (4, 16, 48)):
+            if tiled_lib.tiled_sor_slot_bytes(layout.index, *args) != tiled.slot_bytes(family,
+                                                                                      *args):
+                fail(f"slot bytes of {family} {args}: kernel "
+                     f"{tiled_lib.tiled_sor_slot_bytes(layout.index, *args)}, "
+                     f"plan {tiled.slot_bytes(family, *args)}")
+        for args in ((4, 32, 32, 2), (3, 7, 9, 1), (4, 24, 48, 4), (1, 1, 1, 3), (4, 16, 48, 3)):
+            if tiled_lib.tiled_sor_threads(layout.index, *args) != tiled.block_threads(family,
+                                                                                       *args):
+                fail(f"threads of {family} {args}: kernel "
+                     f"{tiled_lib.tiled_sor_threads(layout.index, *args)}, "
+                     f"plan {tiled.block_threads(family, *args)}")
 
     def tiled_run(name, fields, iters, k_max, plain=False):
         family, db = TILED[name]
@@ -1063,6 +1117,98 @@ def main() -> None:
                               f"kernel bit for bit", flush=True)
     print(f"  windowed variant: {win_cases} sharded solves, each bit for bit against the global "
           f"kernel", flush=True)
+
+    # the tile kernel's other families, serial, at the default plan (k_max =
+    # 4): against the plain tile schedule on the card (one tile the image's
+    # size: the schedule is exact whatever its tiles), bit for bit against
+    # the global kernel that served the shape before, and disp and pde bit
+    # for bit against the plain global solver too
+    def new_fields(family, batch, h, w, nan, shared=False):
+        """The solver's fields of ``family`` (its global kernel's order)."""
+        if family == "flow_llin8":
+            return llin8_fields(rng, h, w, nan, dev)
+        if family == "disp_llin4":
+            return disp_fields(rng, batch, h, w, nan, dev)
+        return (pde4_fields if family == "pde4" else pde8_fields)(rng, batch, h, w, nan, dev,
+                                                                  shared)
+
+    new_global = {"flow_llin8": (sor_cuda.flow_llin8_sor, plain_sor.sor_flow_llin8, 1.9),
+                  "disp_llin4": (interior_cuda.disp_llin4_sor, plain_sor.sor_disp_llin4, 1.9),
+                  "pde4": (interior_cuda.pde4_sor, plain_sor.sor_pde4, 1.75),
+                  "pde8": (interior_cuda.pde8_sor, plain_sor.sor_pde8, 1.75)}
+
+    def new_tiled(family, tf, iters, omega, plain=False, **kw):
+        """The tile engine's solve of ``family`` on the fields ``tf`` (its
+        order): the kernel, or with ``plain`` the plain schedule on the card
+        over one tile the image's size."""
+        prep, sw = getattr(sweeps, f"{family}_sweep")(omega)
+        n_mut = tiled.LAYOUTS[family].n_mut
+        if not plain:
+            return tiled.tiled_relax(tf, sw, n_mut, iters, prepare_fn=prep, **kw)
+        with dispatch.plain_solvers():
+            return tiled.tiled_relax(tf, sw, n_mut, iters, prepare_fn=prep,
+                                     plan_override=(4, tuple(tf[0].shape[-2:])))
+
+    def as_tuple(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    new_cases = 0
+    for family, batch, shared, (h, w) in NEW_TILE_CASES:
+        glob, plain_glob, omega = new_global[family]
+        name = f"tiled_{family}"
+        for iters in (4, 5):
+            for nan in (False, True):
+                fields = new_fields(family, batch, h, w, nan, shared)
+                tf = tile_order(family, fields)
+                label = (f"{'B' if family == 'disp_llin4' else 'C'}={batch}"
+                         f"{' shared TRACE, B' if shared else ''} {h}x{w} iters={iters} nan={nan}")
+                got = new_tiled(family, tf, iters, omega)
+                hold(name, got, new_tiled(family, tf, iters, omega, plain=True), label)
+                g = as_tuple(glob(*fields, iters, omega))
+                if not bit_equal(got, g):
+                    fail(f"{name} at {label}: not the global kernel's bits")
+                if tiled.LAYOUTS[family].fill and not bit_equal(
+                        got, as_tuple(plain_glob(*fields, iters, omega))):
+                    fail(f"{name} at {label}: not the plain global solver's bits")
+                new_cases += 1
+        print(f"  {name} {label.split(' iters')[0]}: == {glob.__name__} bit for bit"
+              f"{' and the plain global solver' if tiled.LAYOUTS[family].fill else ''}, "
+              f"max_abs_err {max_err[name]:.3g} against the plain tile schedule", flush=True)
+    print(f"  the tile kernel's other families: {new_cases} cases, each bit for bit against the "
+          f"global kernel", flush=True)
+
+    # their windowed variant, through the sharded llin8, disp and pde4
+    # solvers at the shards of WIN_MESHES over MAIN_SHAPE's plane: 9 sweeps
+    # in chunks of k, bit for bit against the global kernel (and disp and pde4
+    # against the plain global solver, the max-abs error's reference)
+    new_win = {"flow_llin8": ptiled.tiled_sor_flow_llin8, "disp_llin4": ptiled.tiled_sor_disp_llin4,
+               "pde4": ptiled.tiled_sor_pde4}
+    new_win_cases = 0
+    for ty, tx in WIN_MESHES:
+        card_mesh = pmesh.make_mesh(ty, tx, devices=[dev] * (ty * tx))
+        for family, sharded in new_win.items():
+            glob, plain_glob, omega = new_global[family]
+            layout = tiled.LAYOUTS[family]
+            for k in NEW_WIN_KS:
+                for nan in (False, True):
+                    fields = new_fields(family, 1, mh, mw, nan)
+                    tf = tile_order(family, fields)
+                    got = ptiled.tiled_relax_sharded(card_mesh, getattr(sweeps, f"{family}_sweep"),
+                                                     tf, layout.n_mut, 9, omega, k=k)
+                    label = f"{ty}x{tx} mesh over {mh}x{mw} iters=9 k={k} nan={nan}"
+                    hold(f"tiled_{family}_win", got, as_tuple(plain_glob(*fields, 9, omega)), label)
+                    if not bit_equal(got, as_tuple(glob(*fields, 9, omega))):
+                        fail(f"tiled_{family}_win at {label}: not the global kernel's bits")
+                    new_win_cases += 1
+            got = as_tuple(sharded(card_mesh, *fields, 9, omega))
+            if not bit_equal(got, as_tuple(glob(*fields, 9, omega))):
+                fail(f"{sharded.__name__} on a {ty}x{tx} mesh: not the global kernel's bits")
+            print(f"  windowed {family} on a {ty}x{tx} mesh, k = {NEW_WIN_KS}: == "
+                  f"{glob.__name__} bit for bit, max_abs_err "
+                  f"{max_err[f'tiled_{family}_win']:.3g} against the plain global solver",
+                  flush=True)
+    print(f"  windowed other families: {new_win_cases} sharded solves, each bit for bit against "
+          f"the global kernel", flush=True)
 
     def hold_tridiag(a, b, c, d, label):
         """Whole solves, zebra parity solves and fused zebra passes along
@@ -1320,6 +1466,66 @@ def main() -> None:
                   f"(device busy {dev_ms:.4f} ms in {dev_ops:.0f} operations), plain windowed "
                   f"schedule {p1:.1f} / {p2:.1f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
 
+    # the tile kernel's other families, iters = 4, at their models' calls
+    # (flow_ad's llin8, disparity_nd's disp of B = 1, tv_denoise4's and
+    # tv_denoise8's C = 3 over shared weights), beside the global kernel that
+    # served these shapes before; the plain version is the tile schedule over
+    # one tile the image's size (the same function, exact whatever its
+    # tiles), timed once before and once after
+    new_batch = {"flow_llin8": 1, "disp_llin4": 1, "pde4": 3, "pde8": 3}
+    for h, w in TIME_SHAPES:
+        px = h * w
+        for name, (family, glob_key) in TILED_NEW.items():
+            glob, _, omega = new_global[family]
+            batch = new_batch[family]
+            fields = new_fields(family, batch, h, w, True)
+            tf = tile_order(family, fields)
+            plain = partial(new_tiled, family, tf, 4, omega, plain=True)
+            kern = partial(new_tiled, family, tf, 4, omega)
+            p1 = timed(plain)[1] * 1e3
+            k1, k2 = cuda_ms(kern, 50), cuda_ms(kern, 50)
+            dev_ms, dev_ops = device_profile(kern, 20)[:2]
+            g_ms = cuda_ms(partial(glob, *fields, 4, omega), 50)
+            p2 = timed(plain)[1] * 1e3
+            nbytes = sum(x.numel() for x in fields) * 4 + tiled.LAYOUTS[family].n_mut * 4 * px * batch
+            relaxed = batch * (px if family == "flow_llin8" else (h - 2) * (w - 2))
+            b_ms, b_by = bound(nbytes, 4 * relaxed * FLOPS_PER_PX[name])
+            times[(name, h, w)] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            bounds[(name, h, w)] = (b_ms, b_by)
+            print(f"  time {name} {'C' if batch > 1 else 'B'}={batch} {h}x{w} iters=4 per call: "
+                  f"kernel {k1:.4f} / {k2:.4f} ms (device busy {dev_ms:.4f} ms in {dev_ops:.0f} "
+                  f"operations), {glob_key} {g_ms:.4f} ms, plain tile schedule {p1:.1f} / "
+                  f"{p2:.1f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    # and their windowed variant over the same shard as llin4's and elin4's,
+    # with the family's halo (2k + 1 for disp and pde4)
+    for name, family in TILED_WIN_NEW.items():
+        _, _, omega = new_global[family]
+        halo = tiled._halo_for(family, 4)
+        tf = [x[:sh_h + halo, :sh_w + halo].contiguous()
+              for x in tile_order(family, new_fields(family, 1, *MAIN_SHAPE[1:], True))]
+        prep, sw = getattr(sweeps, f"{family}_sweep")(omega)
+        n_mut = tiled.LAYOUTS[family].n_mut
+
+        def win_plain():
+            with dispatch.plain_solvers():
+                return tiled.tiled_relax(tf, sw, n_mut, 4, prepare_fn=prep, window=win,
+                                         plan_override=(4, (sh_h, sh_w)))
+
+        kern = partial(tiled.tiled_relax, tf, sw, n_mut, 4, prepare_fn=prep, window=win)
+        p1 = timed(win_plain)[1] * 1e3
+        k1, k2 = cuda_ms(kern, 50), cuda_ms(kern, 50)
+        dev_ms, dev_ops = device_profile(kern, 20)[:2]
+        p2 = timed(win_plain)[1] * 1e3
+        relaxed = sh_h * sh_w
+        b_ms, b_by = bound(len(tf) * 4 * tf[0].numel() + n_mut * 4 * relaxed,
+                           4 * relaxed * FLOPS_PER_PX[name])
+        times[(name, "win")] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        bounds[(name, "win")] = (b_ms, b_by)
+        print(f"  time {name}, a {sh_h}x{sh_w} shard of {MAIN_SHAPE[1]}x{MAIN_SHAPE[2]} and its "
+              f"halo, iters=4 per call: kernel {k1:.4f} / {k2:.4f} ms (device busy {dev_ms:.4f} "
+              f"ms in {dev_ops:.0f} operations), plain windowed schedule {p1:.1f} / {p2:.1f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+
     # one whole tridiagonal solve (diffusion4's call) along each axis, one
     # zebra parity solve with a factor, and one fused zebra pass (flow_hs's
     # coupled call, and the scalar one); each beside its byte bound and the
@@ -1423,23 +1629,29 @@ def main() -> None:
     def planned_launches(levels, calls, family, batch, global_key, per_call, iters=None):
         """The launches of ``calls`` solver calls at each of ``levels``,
         counted apart from the dispatch's own routing: one resident launch a
-        call where ``plan_resident`` gives the level a plan; else, for llin4
-        and elin4 of batch 1, ``ceil(iters / 4)`` launches of the tile kernel
-        a call (chunks of ``pde_tpu``'s k_max = 4 sweeps); else ``per_call``
-        launches of the global kernel."""
+        call where ``plan_resident`` gives the level a plan; else, where the
+        tile kernel takes the batch (llin4, elin4 and llin8 one system, disp
+        two, pde4 and pde8 three channels) and, for the families that fill
+        the border, the level is 3 px or more each way, ``ceil(iters / 4)``
+        launches of the tile kernel a call (chunks of ``pde_tpu``'s
+        k_max = 4 sweeps); else ``per_call`` launches of the global
+        kernel."""
         resident_key = {"llin4": "resident_flow_llin4", "disp": "resident_disp_llin4",
                         "pde4": "resident_pde4", "elin4": "resident_flow_elin4",
                         "llin8": "resident_flow_llin8", "pde8": "resident_pde8"}[family]
-        want = {resident_key: 0, global_key: 0}
-        if family in ("llin4", "elin4"):
-            want[f"tiled_flow_{family}"] = 0
+        tile_key = {"llin4": "tiled_flow_llin4", "elin4": "tiled_flow_elin4",
+                    "llin8": "tiled_flow_llin8", "disp": "tiled_disp_llin4",
+                    "pde4": "tiled_pde4", "pde8": "tiled_pde8"}[family]
+        max_batch, fill = {"llin4": (1, 0), "elin4": (1, 0), "llin8": (1, 0), "disp": (2, 1),
+                           "pde4": (3, 1), "pde8": (3, 1)}[family]
+        want = {resident_key: 0, global_key: 0, tile_key: 0}
         for h, w in levels:
             if resident_cuda.plan_resident(h, w, family, batch, sms) is not None:
                 want[resident_key] += calls
-            elif family in ("llin4", "elin4") and batch == 1:
+            elif batch <= max_batch and (not fill or min(h, w) >= 3):
                 if iters is None:
                     fail(f"the {family} launches at {h}x{w} need the sweeps a call")
-                want[f"tiled_flow_{family}"] += calls * -(-iters // 4)
+                want[tile_key] += calls * -(-iters // 4)
             else:
                 want[global_key] += calls * per_call
         return want
@@ -1517,7 +1729,7 @@ def main() -> None:
     d_levels = len(pyramid_scales(MAIN_SHAPE[1], MAIN_SHAPE[2], dp.scl_factor, 10, dp.scales))
     d_expected = sor_launches(MAIN_SHAPE, dp.scl_factor, 10, dp.scales,
                               dp.firstLoop * dp.secondLoop, "disp", 1, "disp_llin4_sor",
-                              3 * dp.iter)
+                              3 * dp.iter, dp.iter)
     frame_s = []
     for _ in range(3):
         reset_counts()
@@ -1559,7 +1771,7 @@ def main() -> None:
     # one call with B = 2 per solve of the pair: two calls would count twice
     s_expected = sor_launches(MAIN_SHAPE, sp.scl_factor, 10, sp.scales,
                               sp.firstLoop * sp.secondLoop, "disp", 2, "disp_llin4_sor",
-                              3 * sp.iter)
+                              3 * sp.iter, sp.iter)
     frame_s = []
     for _ in range(2):
         reset_counts()
@@ -1604,7 +1816,7 @@ def main() -> None:
     tv_levels = len(tv4_levels_hw)
     # C = 3 channels over shared weights: one resident launch a call
     tv_expected = planned_launches(tv4_levels_hw, tp.outer_iter + 1, "pde4", MAIN_SHAPE[0],
-                                   "pde4_sor", 3 * tp.inner_iter)
+                                   "pde4_sor", 3 * tp.inner_iter, tp.inner_iter)
     frame_s = []
     for _ in range(2):
         reset_counts()
@@ -1758,7 +1970,7 @@ def main() -> None:
                                    ap_.scales))
     ad_expected = sor_launches(MAIN_SHAPE, ap_.scl_factor, 20, ap_.scales,
                                ap_.firstLoop * ap_.secondLoop, "llin8", 1, "flow_llin8_sor",
-                               1 + 2 * ap_.iter)
+                               1 + 2 * ap_.iter, ap_.iter)
     frame_s = []
     for _ in range(3):
         reset_counts()
@@ -1801,7 +2013,7 @@ def main() -> None:
     tv8_levels = partial_pyramid_levels(MAIN_SHAPE, tp8.scl, tp8.scl_factor)
     # C = 3 channels over shared weights: one resident launch a call
     tv8_expected = planned_launches(tv8_levels_hw, tp8.outer_iter + 1, "pde8", MAIN_SHAPE[0],
-                                    "pde8_sor", 3 * tp8.inner_iter)
+                                    "pde8_sor", 3 * tp8.inner_iter, tp8.inner_iter)
     frame_s = []
     for _ in range(2):
         reset_counts()
@@ -1931,8 +2143,7 @@ def main() -> None:
             (a, b) + coef, elin_sw, 2, it, k_max=4, prepare_fn=elin_prep, double_buffer=True)),
     }
     start = {"flow_llin4": (bdu, bdv), "flow_elin4": (bu, bv)}
-    n_fields = {"flow_llin4": 13, "flow_elin4": 11}
-    plans = {name: tiled.plan_tiles(hh, hw, n_fields[fam], HEADLINE_ITERS[1], 4, double_buffer=db,
+    plans = {name: tiled.plan_tiles(hh, hw, fam, HEADLINE_ITERS[1], 4, double_buffer=db,
                                     sm_count=sms)
              for name, (fam, db) in TILED.items()}
     expected = {}
@@ -1970,7 +2181,7 @@ def main() -> None:
         rates[name] = rate
         if name in TILED:
             plan = plans[name]
-            bpp = tiled.bytes_per_pixel_iter(plan, n_fields[family], 2)
+            bpp = tiled.bytes_per_pixel_iter(plan, family)
             how = f"plan k={plan.k}, {plan.tile_h}x{plan.tile_w} tiles"
         else:
             bpp = GLOBAL_BYTES_PER_PX_SWEEP[name]
@@ -2008,11 +2219,11 @@ def main() -> None:
     phase(f"16 flow_nd, disparity_nd, flow_ad, tv_denoise8, tv_denoise4 and flow_hs solver=1 "
           f"{LARGE_SHAPE}: levels without a resident plan")
     # the finest level is too large for one band an SM, so the tile kernel
-    # (llin4, elin4) or the global kernels (the other families) take its
-    # solves; every other level goes to the resident kernel (tv_denoise8: neither level, 1024x1024 and 768x768, has a plan, since
-    # three channels' planes of a band would need more shared memory;
-    # tv_denoise4: nor 768x768, whose three channels would need 5 slots a
-    # thread)
+    # takes its solves, in every family; every other level goes to the
+    # resident kernel (tv_denoise8: neither level, 1024x1024 and 768x768,
+    # has a plan, since three channels' planes of a band would need more
+    # shared memory; tv_denoise4: nor 768x768 and 576x576, whose three
+    # channels would need 5 slots a thread)
     big0, big1 = (torch.from_numpy(f).to(dev)
                   for f in shifted_frames(rng, LARGE_SHAPE, [(0.0, 0.0), MAIN_SHIFT]))
     for name, run, want, key in (
@@ -2022,19 +2233,19 @@ def main() -> None:
             ("disparity_nd", lambda: disparity_nd(big0, big1, "grad", "gradmag"),
              sor_launches(LARGE_SHAPE, dp.scl_factor, 10, dp.scales,
                           dp.firstLoop * dp.secondLoop, "disp", 1, "disp_llin4_sor",
-                          3 * dp.iter), "disp_llin4_sor"),
+                          3 * dp.iter, dp.iter), "disp_llin4_sor"),
             ("flow_ad", lambda: flow_ad(big0, big1, "grad", "gradmag"),
              sor_launches(LARGE_SHAPE, ap_.scl_factor, 20, ap_.scales,
                           ap_.firstLoop * ap_.secondLoop, "llin8", 1, "flow_llin8_sor",
-                          1 + 2 * ap_.iter), "flow_llin8_sor"),
+                          1 + 2 * ap_.iter, ap_.iter), "flow_llin8_sor"),
             ("tv_denoise8", lambda: tv_denoise8(big0 / 255.0),
              planned_launches(partial_pyramid_shapes(LARGE_SHAPE, tp8.scl, tp8.scl_factor),
                               tp8.outer_iter + 1, "pde8", LARGE_SHAPE[0], "pde8_sor",
-                              3 * tp8.inner_iter), "pde8_sor"),
+                              3 * tp8.inner_iter, tp8.inner_iter), "pde8_sor"),
             ("tv_denoise4", lambda: tv_denoise4(big0 / 255.0),
              planned_launches(partial_pyramid_shapes(LARGE_SHAPE, tp.scl, tp.scl_factor),
                               tp.outer_iter + 1, "pde4", LARGE_SHAPE[0], "pde4_sor",
-                              3 * tp.inner_iter), "pde4_sor"),
+                              3 * tp.inner_iter, tp.inner_iter), "pde4_sor"),
             ("flow_hs solver=1", lambda: flow_hs(big0, big1, solver=1),
              sor_launches(LARGE_SHAPE, hp.scl_factor, 20, hp.scales, 1, "elin4", 1,
                           "flow_elin4_sor", 1 + 2 * hp.iter, hp.iter), "flow_elin4_sor")):
@@ -2049,8 +2260,9 @@ def main() -> None:
             fail(f"{name} at {LARGE_SHAPE}: non-finite result or wrong shape")
         # the main path's launches of the global kernel and of the tile
         # kernels (0 where the frame has none: no model launches the global
-        # llin4 and elin4 kernels since the tile kernel takes their shapes)
-        main_launches.update({k: n for k, n in want.items() if k == key or k in TILED})
+        # SOR kernels since the tile kernel takes their shapes)
+        main_launches.update({k: n for k, n in want.items()
+                              if k == key or k in TILED or k in TILED_NEW})
         print(f"  {name}: frame {sec:.3f} s (cold), finite; launches "
               f"{ {k: n for k, n in want.items() if n} }", flush=True)
 
@@ -2505,8 +2717,9 @@ def main() -> None:
             print(f"  the port's CUDA kernels, device ms a frame: flow_fmg solver=1 on the mesh "
                   f"{mesh_prof[2]:.3f}, unsharded (phase 17) {fmg_prof[1][2]:.3f}", flush=True)
 
-    # the families without a tile kernel run their sweeps as torch ops on the
-    # card: no launch, the plain global solver's bits
+    # the sharded llin8, disp and pde4 solvers: each shard's chunk one launch
+    # of the windowed tile kernel, the unsharded solve's bits (its resident
+    # kernel here), and disp's and pde4's the plain global solver's too
     mh, mw = MAIN_SHAPE[1:]
     for name, fields, sharded, plain, kernel, omega in (
             ("flow_llin8", llin8_fields(rng, mh, mw, True, dev), ptiled.tiled_sor_flow_llin8,
@@ -2515,24 +2728,27 @@ def main() -> None:
              plain_sor.sor_disp_llin4, dispatch.sor_disp_llin4, 1.9),
             ("pde4", pde4_fields(rng, 1, mh, mw, True, dev), ptiled.tiled_sor_pde4,
              plain_sor.sor_pde4, dispatch.sor_pde4, 1.75)):
+        expected = {f"tiled_{name}_win": mty * mtx * win_chunks(mh, mw, 9)}
         reset_counts()
-        got, sec = timed(lambda: sharded(vmesh, *fields, 4, omega))
-        check_counts(f"tiled_sor_{name}", {})
-        got = got if isinstance(got, tuple) else (got,)
-        want = plain(*fields, 4, omega)
-        want = want if isinstance(want, tuple) else (want,)
-        if not bit_equal(got, want):
+        got, sec = timed(lambda: sharded(vmesh, *fields, 9, omega))
+        check_counts(f"tiled_sor_{name}", expected)
+        main_launches.update(expected)
+        got = as_tuple(got)
+        kern = as_tuple(kernel(*fields, 9, omega))
+        if not bit_equal(got, kern):
+            fail(f"tiled_sor_{name} on the mesh: not the unsharded solve's bits")
+        want = as_tuple(plain(*fields, 9, omega))
+        if tiled.LAYOUTS[name].fill and not bit_equal(got, want):
             fail(f"tiled_sor_{name} on the mesh: not the plain global solver's bits")
-        kern = kernel(*fields, 4, omega)
-        kern = kern if isinstance(kern, tuple) else (kern,)
         torch.cuda.synchronize()
-        d_kern = max(float(torch.where(torch.isfinite(b), a - b, 0.0).abs().max())
-                     for a, b in zip(got, kern))
-        if not d_kern <= SOR_TOL:
-            fail(f"tiled_sor_{name} on the mesh differs from the kernel by {d_kern} > {SOR_TOL}")
-        print(f"  tiled_sor_{name} {mh}x{mw}, 4 sweeps on the mesh: {sec * 1e3:.1f} ms, no kernel "
-              f"launch; == the plain global solver bit for bit, max |d| {d_kern:.3g} against "
-              f"the kernel", flush=True)
+        d_plain = max(float(torch.where(torch.isfinite(b), a - b, 0.0).abs().max())
+                      for a, b in zip(got, want))
+        if not d_plain <= SOR_TOL:
+            fail(f"tiled_sor_{name} on the mesh differs from the plain solver by {d_plain} > "
+                 f"{SOR_TOL}")
+        print(f"  tiled_sor_{name} {mh}x{mw}, 9 sweeps on the mesh: {sec * 1e3:.1f} ms, "
+              f"{expected} ; == the unsharded solve bit for bit, max |d| {d_plain:.3g} against "
+              f"the plain global solver", flush=True)
 
     # the double-buffered windowed variant, through the sharded llin4 and
     # elin4 solvers: 9 sweeps in chunks of 4, 4 and 1
@@ -2626,7 +2842,11 @@ def main() -> None:
                                       "pde_tpu/kernels/tdma_pallas.py:82"),
                **{name: ("pde_tpu_torch/csrc/tiled_sor.cu",
                          "pde_tpu/kernels/tiled.py:" + ("172" if db else "113"))
-                  for name, (_, db) in (TILED | TILED_WIN).items()}}
+                  for name, (_, db) in (TILED | TILED_WIN).items()},
+               # _stripe_kernel (tiled.py:113) driving the disp, pde4, llin8
+               # and pde8 sweeps
+               **{name: ("pde_tpu_torch/csrc/tiled_sor.cu", "pde_tpu/kernels/tiled.py:113")
+                  for name in (*TILED_NEW, *TILED_WIN_NEW)}}
     th, tw = TIME_SHAPES[0]
     # the tridiagonal solve is reported whole, the fused pass coupled, along
     # axis -2; a resident kernel without a plan at th x tw (pde8 and pde4 with
@@ -2635,7 +2855,7 @@ def main() -> None:
            for name in sources}
     key["tridiag_long"] = ("tridiag_long", LONG_TIME[1], *LONG_TIME[0])
     key["tridiag_seg"] = ("tridiag_seg",)
-    key.update({name: (name, "win") for name in TILED_WIN})
+    key.update({name: (name, "win") for name in (*TILED_WIN, *TILED_WIN_NEW)})
     for name in AT_MAIN:
         if key[name] not in times:
             key[name] = (name, *MAIN_SHAPE[1:])

@@ -31,13 +31,14 @@ surfaces from ``ops/ransac.py``, connected components from
 all ten of ``pde_tpu``'s pipelines. ``utils`` holds the checkpoint format
 shared with ``pde_tpu``, ``flow2color``, the ``probe`` hooks and the image
 loader. The temporally blocked
-tile engine ``kernels.tiled.tiled_relax`` runs the llin4 and elin4 sweeps k
-at a time over tiles, a fourth source, ``csrc/tiled_sor.cu``; it takes
-every llin4 and elin4 solve whose shape has no resident plan
+tile engine ``kernels.tiled.tiled_relax`` runs the sweeps of all six SOR
+families (llin4, elin4, disp llin4, pde4, llin8, pde8) k at a time over
+tiles, a fourth source, ``csrc/tiled_sor.cu``; it takes every solve whose
+shape has no resident plan and that it plans
 (``kernels/dispatch.sor_route``). ``parallel`` shards the image plane over a ("ty",
 "tx") mesh of devices, as ``pde_tpu.parallel`` does: halo exchange between
-tiles, the sharded solvers (each llin4 or elin4 tile's chunk of k sweeps a
-windowed variant of that kernel) and ``mesh=``/``shard_min=`` in
+tiles, the sharded solvers (each tile's chunk of k sweeps a windowed
+variant of that kernel) and ``mesh=``/``shard_min=`` in
 ``flow_nd`` and ``flow_fmg``. Entry points run on the CUDA card
 unless the caller passes CPU tensors or ``device="cpu"``. Importing the
 package builds and loads nothing; a kernel is compiled with ``nvcc`` at

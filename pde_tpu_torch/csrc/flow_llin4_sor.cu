@@ -20,9 +20,10 @@
 //     for larger levels, driving sweeps.py::flow_elin4_sweep, the elin4
 //     sweep (through kernels/dispatch.py::sor_flow_elin4), and driving
 //     sweeps.py::flow_llin8_sweep (through dispatch.py::sor_flow_llin8).
-// The card has no VMEM budget to split on, so these kernels take every
-// level without a resident plan: the llin4 and elin4 solves of a shape with
-// one run on resident_sor.cu, the llin8 ones on resident8_sor.cu.
+// The llin4 and elin4 solves of a shape with a resident plan run on
+// resident_sor.cu, the llin8 ones on resident8_sor.cu, and those of a
+// larger shape on the tile kernel (tiled_sor.cu); these kernels take the
+// shapes neither plans (a batch, which the flow solvers never hand over).
 // Its plain PyTorch versions are pde_tpu_torch/solvers/sor.py::
 // sor_flow_llin4, sor_flow_elin4 and sor_flow_llin8.
 //

@@ -64,9 +64,9 @@
 // plain order W, NW, N, NE, E, SE, S, SW, the neighbours W, E, N, S, NW,
 // NE, SW, SE; the per-pixel arithmetic is pde8_update.cuh's, shared with
 // the resident kernel (resident8_sor.cu), which takes every pde8 solve whose
-// shape has a resident plan: these launches serve only the shapes without
-// one (H or W of 2, a batch of more than 3 channels, weights per channel,
-// or a level above one band an SM).
+// shape has a resident plan, and the tile kernel (tiled_sor.cu) every
+// larger one it plans: these launches serve only the shapes neither takes
+// (H or W of 2, a batch of more than 3 channels, weights per channel).
 //
 // The kernels allocate nothing. The C entry points return
 // cudaGetLastError() after the copy and each launch.

@@ -1,52 +1,74 @@
-// Temporally blocked red-black SOR of the coupled flow pair, k sweeps per
-// pass over a 2-D tile and its 2k halo:
-//   * late (llin4): the increments (dU, dV) against the frozen flow (U, V);
-//   * early (elin4): (U, V) themselves (template flag kLate = false).
+// Temporally blocked red-black SOR, k sweeps per pass over a 2-D tile and
+// its halo, for the six families of pde_tpu_torch/kernels/sweeps.py:
+//   * flow_llin4: the increments (dU, dV) against the frozen flow (U, V);
+//   * flow_elin4: (U, V) themselves (template flag kLate = false);
+//   * disp_llin4: the disparity increment dU against the frozen U, a batch
+//     of 1 or 2 systems (disparity_sym's pair, each its own planes);
+//   * pde4: the diagonal form X+ = (B + sum w X) / TRACE, up to 3 channels;
+//   * flow_llin8: the 8-neighbour (dU, dV) pair (anisotropic tensor);
+//   * pde8: the 8-neighbour diagonal form, up to 3 channels.
 //
 // Replaces the TPU kernels pde_tpu/kernels/tiled.py::_stripe_kernel
 // (tiled.py:113, serial) and ::_stripe_kernel_db (tiled.py:172, the next
-// stripe's DMA under the current one's sweeps) driving pde_tpu/kernels/
-// sweeps.py::flow_llin4_sweep (:66) and flow_elin4_sweep (:234). It computes
-// the same function as the global kernels of flow_llin4_sor.cu and their
-// plain versions pde_tpu_torch/solvers/sor.py::sor_flow_llin4 and
-// sor_flow_elin4; its own plain version is the tile schedule in torch ops,
-// pde_tpu_torch/kernels/tiled.py::plain_tiled_relax. kernels/dispatch.py
-// sends it every llin4 and elin4 solve whose shape has no resident plan
-// (resident_sor.cu), as pde_tpu sends a grid too large for VMEM to
-// _stripe_kernel with k <= 4.
+// stripe's DMA under the current one's sweeps; llin4 and elin4 only) driving
+// pde_tpu/kernels/sweeps.py::flow_llin4_sweep (:66), flow_elin4_sweep
+// (:234), disp_llin4_sweep (:145), pde4_sweep (:174), flow_llin8_sweep
+// (:107) and pde8_sweep (:204). It computes the same function as the global
+// kernels (flow_llin4_sor.cu, interior_sor.cu) and their plain versions
+// pde_tpu_torch/solvers/sor.py::sor_*; its own plain version is the tile
+// schedule in torch ops, pde_tpu_torch/kernels/tiled.py::plain_tiled_relax.
+// kernels/dispatch.py sends it every solve whose shape has no resident plan
+// (resident_sor.cu, resident8_sor.cu) and that a tile plan takes, as
+// pde_tpu sends a grid too large for VMEM to _stripe_kernel with k <= 4.
 //
 // Design (after resident_sor.cu):
 //   * iters sweeps run as iters / k chunks of k and one of the remainder,
-//     one launch a chunk. A chunk reads one (dU, dV) pair and writes another
+//     one launch a chunk. A chunk reads one state and writes another
 //     (ping-pong, the last chunk writing the output): a tile's halo must see
 //     the state at the start of the chunk, not a neighbour's result.
 //   * A block takes a tile (kernels/tiled.py::plan_tiles sizes it) plus a
-//     halo of 2k on every side, clamped at the arrays' edge: its slot. Each
-//     thread owns fixed pixels of the slot, `slots` pairs of horizontally
-//     neighbouring pixels (one of each colour): pair j of thread t is pair
-//     p = t + j * threads, local row p / hc, columns 2 (p % hc) and
-//     2 (p % hc) + 1, hc = ceil(slot width / 2). The map is fixed for the
-//     launch, so a pixel's indices are computed once, with the division.
-//   * A pixel's coefficients (the edge-zeroed W, N, E, S weights, 1/(Σw +
-//     Du), 1/(Σw + Dv), the NaN-folded M, Cu, Cv, flow_update.cuh's
-//     prepare) are read from device memory straight into the owning
-//     thread's registers, 8 bytes a pair where the row allows it, with the
-//     NaN flags, the edge clamps and a live bit packed in one word a pair.
-//     They stay there for the chunk's k sweeps and never touch shared
+//     halo of 2k on every side (2k + 1 for the families that fill the
+//     border, below), clamped at the arrays' edge: its slot; blockIdx.y is
+//     the system (disp) or channel (pde4, pde8). Each thread owns fixed
+//     pixels of the slot, `slots` pairs of horizontally neighbouring pixels
+//     (one of each colour): pair j of thread t is pair p = t + j * threads,
+//     local row p / hc, columns 2 (p % hc) and 2 (p % hc) + 1, hc = the
+//     slot's half-columns. The map is fixed for the launch.
+//   * A pixel's coefficients (the family's prepare of the shared headers,
+//     with the image's edges) are read from device memory straight into the
+//     owning thread's registers, 8 bytes a pair where the row allows it,
+//     with the NaN flags, the edge bits and a live bit packed in one word a
+//     pair. They stay there for the chunk's k sweeps and never touch shared
 //     memory. A pair's indices are recomputed each colour phase from the
 //     word (kept live, they took the registers the coefficients need).
-//   * Shared memory holds only what neighbours read: dU, dV, U, V (llin4)
-//     or U, V (elin4), each field split into a plane per colour (16 or 8
-//     bytes a pixel, against 53 for all 13 planes and a flag byte). A pixel
-//     of colour c sits in plane c at row * hc + column / 2; its four
-//     neighbours are in the other plane at the same index -1 or +0 (W), +0
-//     or +1 (E) and -hc, +hc (N, S). A colour phase reads the other plane
-//     at consecutive addresses across a warp: no bank conflicts. A
-//     neighbour off the slot is the pixel itself, as the global kernel
-//     clamps at the image (a pixel on the slot's edge that is relaxed lies
-//     on the image's edge, where that weight is zero; an inf there still
-//     meets the zero, as in the plain version); the clamps are bits of the
-//     pair's word, set once a tile.
+//   * Shared memory holds only what neighbours read, each field split into
+//     a plane per colour: dU, dV, U, V (llin4, llin8), U, V (elin4), dU, U
+//     (disp), X (pde4, pde8). A pixel of colour c sits in plane c at row *
+//     hc + column / 2; a neighbour (di, dj) of the pixel in column 2x + e is
+//     at row + di, half-column x + ((e + dj) >> 1), in the other plane when
+//     di + dj is odd. A colour phase reads the other plane at consecutive
+//     addresses across a warp: no bank conflicts.
+//   * The 8-neighbour families: a diagonal neighbour has the pixel's own
+//     colour and the plain version computes a colour from the state before
+//     its half-sweep, so each relaxed field keeps two buffers a colour, as
+//     resident8_sor.cu: the phase of image colour C in sweep s reads its own
+//     colour from buffer s & 1, writes buffer (s + 1) & 1, and reads the
+//     other colour from buffer (s + C) & 1, its count of relaxations.
+//   * Edges. llin4, elin4 and llin8 relax every pixel with the out-facing
+//     weights zeroed; a neighbour off the image is clamped to the image, row
+//     and column alone (the weight is zero there; an inf still meets the
+//     zero, as in the plain version). disp, pde4 and pde8 relax the image's
+//     interior and fill the 1-px border after every sweep, rows first, then
+//     columns (core/grid.replicate_border): for H, W >= 3 a border pixel
+//     then holds the pixel (clamp(i, 1, H-2), clamp(j, 1, W-2)), its fill
+//     source, as of the sweep's end. The kernel never writes the border:
+//     in sweep 0 a border neighbour reads its input value, from sweep 1 on
+//     its fill source's value of s relaxations (the pixel's own for a
+//     4-neighbour, buffer s & 1 for pde8), and the tile's border pixels are
+//     written from their sources. A source lies one pixel inward, so these
+//     families' halo is 2k + 1 and every colour phase reaches one pixel
+//     further (without it a tile one pixel wide at the image's edge would
+//     fill its border from a stale source).
 //   * The neighbour planes are copied in with 4-byte cp.async, each thread
 //     its own pixels: a pixel's destination plane differs from its
 //     horizontal neighbour's, so a wider copy could not land it without a
@@ -55,51 +77,52 @@
 //     into registers) measured 1.4-1.7x slower than the 8-byte loads
 //     straight into registers on the H100 (PERF.md).
 //   * Then k sweeps, a __syncthreads() after each colour. In sweep s colour
-//     1 relaxes the tile grown by 2 (k - 1 - s) and colour 0 one pixel more,
-//     which is all the kept interior depends on; a pair outside the region
-//     is predicated off. Colours are (gi + gj) & 1 in the image's
-//     coordinates; in the slot they are local colours, flipped by the
-//     parity of the slot's origin.
-//   * The per-pixel arithmetic is flow_update.cuh's, shared with the global
-//     and resident kernels, so all three round alike (bit for bit).
+//     1 relaxes the tile grown by 2 (k - 1 - s) (+ 1 with a border fill) and
+//     colour 0 one pixel more, which is all the kept interior depends on; a
+//     pair outside the region is predicated off. Colours are (gi + gj) & 1
+//     in the image's coordinates; in the slot they are local colours,
+//     flipped by the parity of the slot's origin.
+//   * The per-pixel arithmetic is the shared headers' (flow_update.cuh,
+//     disp_update.cuh, pde4_update.cuh, flow8_update.cuh, pde8_update.cuh),
+//     which the global and resident kernels use too, so all round alike
+//     (bit for bit).
 //   * Serial: one block a tile. Double-buffered (the port of
-//     _stripe_kernel_db): persistent blocks, as many as the card holds at
-//     once, walk the tiles with two slots; while a block sweeps tile t in
-//     slot s, cp.async copies the neighbour planes of its next tile into
-//     slot 1 - s (one commit group a tile, waited on before the tile's
-//     sweeps), and the next tile's coefficients are read into registers
-//     after the current tile's store. A barrier after the store drains the
-//     slot before a prefetch refills it. Serial and double-buffered give the
-//     same bits.
+//     _stripe_kernel_db; llin4 and elin4): persistent blocks, as many as the
+//     card holds at once, walk the tiles with two slots; while a block
+//     sweeps tile t in slot s, cp.async copies the neighbour planes of its
+//     next tile into slot 1 - s (one commit group a tile, waited on before
+//     the tile's sweeps), and the next tile's coefficients are read into
+//     registers after the current tile's store. A barrier after the store
+//     drains the slot before a prefetch refills it. Serial and
+//     double-buffered give the same bits.
 //   * The windowed variant (the `_win` entry points) runs one chunk over part
 //     of an image: the arrays are the rectangle [r0, r0 + h) x [c0, c0 + w) of
-//     a gh x gw image (a shard of pde_tpu_torch/parallel/tiled.py with the
-//     2k halo exchanged from its neighbours, clipped to the image), and only
+//     a gh x gw image (a shard of pde_tpu_torch/parallel/tiled.py with its
+//     halo exchanged from its neighbours, clipped to the image), and only
 //     the tiles covering a box of the arrays run, writing the box alone into
 //     a box-sized output. Colours and the image edges are the image's; a slot
 //     is clamped at the array's edge, which the kept box never reaches. The
 //     whole-image kernel is the window (0, 0, h, w) with the box the whole
 //     array: one code path, the same bits. It replaces pde_tpu/parallel/
 //     tiled.py::tiled_relax_sharded's shard bodies (:301-327, XLA ops under
-//     shard_map there) for llin4 and elin4; its plain version is
-//     kernels/tiled.py::plain_tiled_relax with a Window.
+//     shard_map there); its plain version is kernels/tiled.py::
+//     plain_tiled_relax with a Window.
 //
-// What bounds it. By bytes, a chunk reads each of the 13 (11) input planes
-// once and writes the two relaxed fields once, but a tile reads its halo
-// again from L2, so a slot moves slot / interior times the planes (about 2x
-// at the plans' tiles). The work is the relaxed pixels (the halo's too,
-// shrinking sweep by sweep) at ~16 + 2 shared-memory accesses a llin4
-// update (8 + 2 elin4) and ~40 flops. Registers bound the slot: 9 a pixel
-// kept plus the pair's word. On the H100 neither bytes nor flops bound it
-// but the latency of a tile's serial steps: the coefficient loads, the
-// prepare (two divisions a pixel) and the 2k colour phases with a barrier
-// each. So the kernel at 2 pairs a thread is held to 64 registers, two
-// blocks of up to 512 threads an SM, and one block's loads and prepare
-// overlap the other's phases (measured 7-17% faster at 1024x1024 than one
-// larger block an SM; still ~4-5x the byte bound, PERF.md). The plan
-// (kernels/tiled.py, measured by scripts/tiled_plan_sweep.py) trades tile
-// size against blocks enough to fill the card's 132 SMs. PERF.md has the
-// times beside the byte bound.
+// What bounds it. By bytes, a chunk reads each input plane once and writes
+// the relaxed fields once, but a tile reads its halo again from L2, so a
+// slot moves slot / interior times the planes (about 2x at the plans'
+// tiles). Registers bound the slot: a llin4 pixel keeps 9 coefficients, a
+// llin8 pixel 14, pde8 10, disp 7, pde4 6, plus the pair's word. On the
+// H100 neither bytes nor flops bound it but the latency of a tile's serial
+// steps: the coefficient loads, the prepare (divisions) and the 2k colour
+// phases with a barrier each. So llin4 and elin4 at 2 pairs a thread are
+// held to 64 registers, two blocks of up to 512 threads an SM, and one
+// block's loads and prepare overlap the other's phases (measured 7-17%
+// faster at 1024x1024 than one larger block an SM; PERF.md). The other
+// families keep more coefficients and are compiled for one block an SM.
+// The plan (kernels/tiled.py, measured by scripts/tiled_plan_sweep.py)
+// trades tile size against blocks enough to fill the card's 132 SMs.
+// PERF.md has the times beside the byte bound.
 //
 // The kernels run on the caller's stream and allocate nothing. The C entry
 // points return the first failing CUDA call's error, cudaGetLastError()
@@ -110,13 +133,23 @@
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
+#include "disp_update.cuh"
+#include "flow8_update.cuh"
 #include "flow_update.cuh"
+#include "pde4_update.cuh"
+#include "pde8_update.cuh"
 
 namespace {
+
+// the families, in the order of kernels/tiled.py::LAYOUTS
+enum Family { kLlin4 = 0, kElin4 = 1, kDisp = 2, kPde4 = 3, kLlin8 = 4, kPde8 = 5 };
+constexpr int kFamilies = 6;
 
 constexpr int kMaxPlanes = 13;
 constexpr int kCoefPlanes = 9;  // M, Cu, Cv, Du, Dv, W, N, E, S
 constexpr int kMaxSlots = 4;
+constexpr int kMaxBatch = 3;    // systems (disp) or channels (pde4, pde8) a launch
+constexpr int kMaxFields = 17;  // llin8's
 // a slot's rows and half-columns: 8 bits each in a pair's word, 255 the
 // row of a pair past the slot
 constexpr int kMaxRows = 254;
@@ -131,6 +164,26 @@ __host__ __device__ constexpr int max_threads(int slots) {
 }
 __host__ __device__ constexpr int min_blocks(int slots) { return slots == 2 ? 2 : 1; }
 
+// A family's shared-memory planes of one slot (two colours of each field
+// neighbours read, two buffers a colour of the 8-neighbour families' relaxed
+// fields), its fields, relaxed fields and systems a launch at most, and the
+// halo's extra pixel of the families that fill the border.
+__host__ __device__ constexpr int smem_planes(int f) {
+  return f == kLlin4 ? 8 : f == kElin4 ? 4 : f == kDisp ? 4 : f == kPde4 ? 2 : f == kLlin8 ? 12 : 4;
+}
+__host__ __device__ constexpr int fill_of(int f) {
+  return f == kDisp || f == kPde4 || f == kPde8 ? 1 : 0;
+}
+__host__ __device__ constexpr int fields_of(int f) {
+  return f == kLlin4 ? 13 : f == kElin4 ? 11 : f == kDisp ? 8 : f == kPde4 ? 7 : f == kLlin8 ? 17
+                                                                                           : 11;
+}
+__host__ __device__ constexpr int mut_of(int f) { return f == kDisp || f == kPde4 || f == kPde8 ? 1 : 2; }
+__host__ __device__ constexpr int max_batch(int f) {
+  return f == kDisp ? 2 : f == kPde4 || f == kPde8 ? 3 : 1;
+}
+__host__ __device__ constexpr int halo_of(int f, int k) { return 2 * k + fill_of(f); }
+
 // the fields, in the order of the C entry points: the two relaxed first,
 // then (llin4) the frozen flow, then the nine coefficient planes
 struct Planes {
@@ -143,10 +196,10 @@ struct Geometry {
   int bi0, bj0, bh, bw;  // the box whose tiles run, in the arrays; the output is bh x bw
   int tile_h, tile_w;    // a tile's interior
   int tiles_w, n_tiles;  // tiles a row of the box, in all
-  int k, halo;           // this chunk's sweeps and halo (2k)
-  int hc;                // a slot's half-columns: ceil((tile_w + 4k) / 2)
-  int plane;             // one colour plane of one field: (tile_h + 4k) x hc floats
-  int slot_floats;       // one slot: 2 planes a neighbour field, rounded to 16 bytes
+  int k, fill, halo;     // this chunk's sweeps, the border fill's pixel, halo (2k + fill)
+  int hc;                // a slot's half-columns: ceil((tile_w + 2 halo) / 2)
+  int plane;             // one colour plane of one field: (tile_h + 2 halo) x hc floats
+  int slot_floats;       // one slot: the family's planes, rounded to 16 bytes
   int vec2;              // every input is 8-byte aligned: pairs load as float2
 };
 
@@ -172,16 +225,18 @@ constexpr uint32_t kLive = 1, kClampW = 8, kClampE = 16, kClampN = 32, kClampS =
 __device__ __forceinline__ int pair_row(uint32_t wd) { return wd & 0xff; }
 __device__ __forceinline__ int pair_col(uint32_t wd) { return (wd >> 8) & 0xff; }
 
-__host__ __device__ int slot_rows(int k, int tile_h) { return tile_h + 4 * k; }
-__host__ __device__ int slot_half_cols(int k, int tile_w) { return (tile_w + 4 * k + 1) / 2; }
+__host__ __device__ int slot_rows(int halo, int tile_h) { return tile_h + 2 * halo; }
+__host__ __device__ int slot_half_cols(int halo, int tile_w) { return (tile_w + 2 * halo + 1) / 2; }
 
-__host__ __device__ int slot_floats(int planes, int k, int tile_h, int tile_w) {
-  const int nbr = planes - kCoefPlanes;
-  return (2 * nbr * slot_rows(k, tile_h) * slot_half_cols(k, tile_w) + 3) / 4 * 4;
+__host__ __device__ int slot_floats(int family, int k, int tile_h, int tile_w) {
+  const int halo = halo_of(family, k);
+  return (smem_planes(family) * slot_rows(halo, tile_h) * slot_half_cols(halo, tile_w) + 3) / 4 *
+         4;
 }
 
-__host__ __device__ int block_threads(int k, int tile_h, int tile_w, int slots) {
-  const int pairs = slot_rows(k, tile_h) * slot_half_cols(k, tile_w);
+__host__ __device__ int block_threads(int family, int k, int tile_h, int tile_w, int slots) {
+  const int halo = halo_of(family, k);
+  const int pairs = slot_rows(halo, tile_h) * slot_half_cols(halo, tile_w);
   return ((pairs + slots - 1) / slots + 31) / 32 * 32;
 }
 
@@ -203,7 +258,7 @@ __device__ __forceinline__ Box tile_box(const Geometry& g, int t) {
 // the slot. Fixed for the launch.
 template <int kSlots>
 __device__ __forceinline__ void pair_positions(uint32_t (&pos)[kSlots], const Geometry& g) {
-  const int rows = slot_rows(g.k, g.tile_h);
+  const int rows = slot_rows(g.halo, g.tile_h);
 #pragma unroll
   for (int j = 0; j < kSlots; ++j) {
     const int p = threadIdx.x + j * blockDim.x;
@@ -253,7 +308,7 @@ __device__ __forceinline__ void load_coefficients(const Planes& in, const Box& b
                                                   Px (&px)[2][kSlots], uint32_t (&word)[kSlots]) {
   constexpr int kC = kLate ? 4 : 2;  // the plane of M
   const int rows = b.gr1 - b.gr0, cols = b.gc1 - b.gc0;
-  const int reach = 2 * g.k - 1;
+  const int reach = 2 * g.k - 1 + g.fill;
   const int i0 = max(b.r0 - reach, b.gr0) - b.gr0, i1 = min(b.r1 + reach, b.gr1) - b.gr0;
   const int j0 = max(b.c0 - reach, b.gc0) - b.gc0, j1 = min(b.c1 + reach, b.gc1) - b.gc0;
 #pragma unroll
@@ -368,7 +423,7 @@ __device__ __forceinline__ void sweep_tile(float* slot, const Box& b, const Geom
   const int par = (g.r0 + g.c0 + b.gr0 + b.gc0) & 1;
   for (int s = 0; s < g.k; ++s) {
     for (int color = 0; color < 2; ++color) {
-      const int reach = 2 * (g.k - 1 - s) + 1 - color;
+      const int reach = 2 * (g.k - 1 - s) + 1 - color + g.fill;
       const int i0 = max(tr0 - reach, 0), i1 = min(tr1 + reach, rows);
       const int j0 = max(tc0 - reach, 0), j1 = min(tc1 + reach, cols);
       if ((color ^ par) == 0)
@@ -495,11 +550,11 @@ cudaError_t launch_slots(int slots, const Planes& in, float* out_u, float* out_v
   }
 }
 
-// A chunk of k sweeps over the tiles of the box (bi0, bj0, bh, bw) of h x w
-// arrays lying at (r0, c0) in a gh x gw image.
-template <int kPlanes>
-Geometry geometry(const Planes& in, int h, int w, int r0, int c0, int gh, int gw, int bi0,
-                  int bj0, int bh, int bw, int k, int tile_h, int tile_w) {
+// A chunk of k sweeps of `family` over the tiles of the box (bi0, bj0, bh,
+// bw) of h x w arrays lying at (r0, c0) in a gh x gw image; vec2 is left to
+// the caller, which knows the pointers.
+Geometry geometry(int family, int h, int w, int r0, int c0, int gh, int gw, int bi0, int bj0,
+                  int bh, int bw, int k, int tile_h, int tile_w) {
   Geometry g{};
   g.h = h;
   g.w = w;
@@ -516,31 +571,43 @@ Geometry geometry(const Planes& in, int h, int w, int r0, int c0, int gh, int gw
   g.tiles_w = (bw + tile_w - 1) / tile_w;
   g.n_tiles = g.tiles_w * ((bh + tile_h - 1) / tile_h);
   g.k = k;
-  g.halo = 2 * k;
-  g.hc = slot_half_cols(k, tile_w);
-  g.plane = slot_rows(k, tile_h) * g.hc;
-  g.slot_floats = slot_floats(kPlanes, k, tile_h, tile_w);
+  g.fill = fill_of(family);
+  g.halo = halo_of(family, k);
+  g.hc = slot_half_cols(g.halo, tile_w);
+  g.plane = slot_rows(g.halo, tile_h) * g.hc;
+  g.slot_floats = slot_floats(family, k, tile_h, tile_w);
   g.vec2 = 1;
-  for (int p = 0; p < kPlanes; ++p)
-    if (reinterpret_cast<uintptr_t>(in.p[p]) % 8 != 0) g.vec2 = 0;
   return g;
+}
+
+// 0 unless every pointer is 8-byte aligned
+int aligned8(const float* const* p, int n) {
+  for (int i = 0; i < n; ++i)
+    if (reinterpret_cast<uintptr_t>(p[i]) % 8 != 0) return 0;
+  return 1;
+}
+
+// Refuses a plan the kernel does not take: the slots, the slot's rows and
+// half-columns (8 bits each in a pair's word), the threads and the shared
+// memory of one slot (two when double-buffered).
+cudaError_t check_plan(int family, const Geometry& g, int slots, int double_buffer) {
+  if (slots < 1 || slots > kMaxSlots || slot_rows(g.halo, g.tile_h) > kMaxRows ||
+      g.hc > kMaxHalfCols)
+    return cudaErrorInvalidValue;
+  if (block_threads(family, g.k, g.tile_h, g.tile_w, slots) > max_threads(slots) ||
+      static_cast<size_t>((double_buffer ? 2 : 1) * g.slot_floats) * sizeof(float) > 232448)
+    return cudaErrorInvalidConfiguration;
+  return cudaSuccess;
 }
 
 // One launch of a chunk; refuses a plan the kernel does not take.
 template <bool kLate>
 cudaError_t run_chunk(const Planes& in, float* out_u, float* out_v, const Geometry& g, int slots,
                       int double_buffer, float omega, float one_minus_omega, void* stream) {
-  constexpr int kPlanes = kLate ? 13 : 11;
-  if (slots < 1 || slots > kMaxSlots || slot_rows(g.k, g.tile_h) > kMaxRows ||
-      g.hc > kMaxHalfCols)
-    return cudaErrorInvalidValue;
-  const int threads = block_threads(g.k, g.tile_h, g.tile_w, slots);
-  if (threads > max_threads(slots) ||
-      static_cast<size_t>((double_buffer ? 2 : 1) * slot_floats(kPlanes, g.k, g.tile_h,
-                                                                g.tile_w)) *
-              sizeof(float) >
-          232448)
-    return cudaErrorInvalidConfiguration;
+  constexpr int kFam = kLate ? kLlin4 : kElin4;
+  const cudaError_t bad = check_plan(kFam, g, slots, double_buffer);
+  if (bad != cudaSuccess) return bad;
+  const int threads = block_threads(kFam, g.k, g.tile_h, g.tile_w, slots);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return double_buffer
              ? launch_slots<kLate, true>(slots, in, out_u, out_v, g, threads, omega,
@@ -565,8 +632,9 @@ int run_tiled(const void* const* fields, void* out_u, void* out_v, void* tmp_u, 
                             {static_cast<float*>(tmp_u), static_cast<float*>(tmp_v)}};
   for (int c = 0; c < n_chunks; ++c) {
     const int kc = c < n_full ? k : rem;
-    const Geometry g =
-        geometry<kPlanes>(in, h, w, 0, 0, h, w, 0, 0, h, w, kc, tile_h, tile_w);
+    Geometry g = geometry(kLate ? kLlin4 : kElin4, h, w, 0, 0, h, w, 0, 0, h, w, kc, tile_h,
+                          tile_w);
+    g.vec2 = aligned8(in.p, kPlanes);
     float* const* to = dst[(n_chunks - 1 - c) % 2];
     const cudaError_t err = run_chunk<kLate>(in, to[0], to[1], g, slots, double_buffer, omega,
                                              one_minus_omega, stream);
@@ -590,28 +658,477 @@ int run_window(const void* const* fields, void* out_u, void* out_v, int h, int w
     return cudaErrorInvalidValue;
   Planes in{};
   for (int p = 0; p < kPlanes; ++p) in.p[p] = static_cast<const float*>(fields[p]);
-  const Geometry g =
-      geometry<kPlanes>(in, h, w, r0, c0, gh, gw, bi0, bj0, bh, bw, k, tile_h, tile_w);
+  Geometry g = geometry(kLate ? kLlin4 : kElin4, h, w, r0, c0, gh, gw, bi0, bj0, bh, bw, k,
+                        tile_h, tile_w);
+  g.vec2 = aligned8(in.p, kPlanes);
   return static_cast<int>(run_chunk<kLate>(in, static_cast<float*>(out_u),
                                            static_cast<float*>(out_v), g, slots, double_buffer,
                                            omega, one_minus_omega, stream));
+}
+
+// ---------------------------------------------------------------------------
+// disp llin4, pde4, llin8 and pde8: one relaxed field (disp, pde) or two
+// (llin8), a batch of systems or channels along blockIdx.y, each system its
+// own planes (a shared plane repeats its pointer). Serial only.
+// ---------------------------------------------------------------------------
+
+// The pointers of a launch: the family's fields and relaxed outputs, by
+// system.
+struct Systems {
+  const float* in[kMaxBatch][kMaxFields];
+  float* out[kMaxBatch][2];
+};
+
+// What a family keeps of a pixel in registers, its prepare from the
+// coefficient fields [kCoef0, kFields) at image pixel (gi, gj) of a gh x gw
+// image, and its NaN flags (bits 0-1); kFill: the border is filled after
+// each sweep (fill_of), not relaxed.
+template <int kFam>
+struct Fam;
+
+template <>
+struct Fam<kDisp> {
+  // du | u, cu, duc, ww, wn, we, ws; neighbours read du and u
+  static constexpr int kFields = 8, kMut = 1, kNbr = 2, kBufs = 1, kCoef0 = 1;
+  static constexpr bool kFill = true;
+  struct Px {
+    float a, b, c, d, uw, cu0, inv;
+  };
+  __device__ static __forceinline__ Px prepare(const float* v, int, int, int, int, uint32_t& nan) {
+    const disp_sor::Coef k = disp_sor::prepare(v[3], v[4], v[5], v[6], v[0], v[1], v[2]);
+    nan = k.cu_nan ? 1u : 0u;
+    return {k.a, k.b, k.c, k.d, k.uw, k.cu0, k.inv};
+  }
+};
+
+template <>
+struct Fam<kPde4> {
+  // x | trace, b, ww, wn, we, ws
+  static constexpr int kFields = 7, kMut = 1, kNbr = 1, kBufs = 1, kCoef0 = 1;
+  static constexpr bool kFill = true;
+  struct Px {
+    pde4_sor::Weights wt;
+    float2 inv_b;
+  };
+  __device__ static __forceinline__ Px prepare(const float* v, int, int, int, int, uint32_t& nan) {
+    const pde4_sor::Weights wt{v[2], v[3], v[4], v[5]};
+    nan = 0;
+    return {wt, pde4_sor::diagonal(v[0], v[1], pde4_sor::weight_sum(wt))};
+  }
+};
+
+template <>
+struct Fam<kLlin8> {
+  // du, dv | u, v, m, cu, cv, duc, dvc, ww, wnw, wn, wne, we, wse, ws, wsw;
+  // neighbours read du, dv, u, v
+  static constexpr int kFields = 17, kMut = 2, kNbr = 4, kBufs = 2, kCoef0 = 4;
+  static constexpr bool kFill = false;
+  struct Px {
+    float c[8];
+    float wsum, inv_u, inv_v, m0, cu0, cv0;
+  };
+  __device__ static __forceinline__ Px prepare(const float* v, int gi, int gj, int gh, int gw,
+                                               uint32_t& nan) {
+    const flow_sor8::Coef k = flow_sor8::prepare(gi, gj, gh, gw, v[5], v[6], v[7], v[8], v[9],
+                                                 v[10], v[11], v[12], v[0], v[1], v[2], v[3],
+                                                 v[4]);
+    nan = k.flags;
+    Px p;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) p.c[q] = k.c[q];
+    p.wsum = k.wsum;
+    p.inv_u = k.inv_u;
+    p.inv_v = k.inv_v;
+    p.m0 = k.m0;
+    p.cu0 = k.cu0;
+    p.cv0 = k.cv0;
+    return p;
+  }
+};
+
+template <>
+struct Fam<kPde8> {
+  // x | trace, b, ww, wnw, wn, wne, we, wse, ws, wsw
+  static constexpr int kFields = 11, kMut = 1, kNbr = 1, kBufs = 2, kCoef0 = 1;
+  static constexpr bool kFill = true;
+  struct Px {
+    pde8_sor::Weights wt;
+    float2 inv_b;
+  };
+  __device__ static __forceinline__ Px prepare(const float* v, int, int, int, int, uint32_t& nan) {
+    const pde8_sor::Weights wt{v[2], v[3], v[4], v[5], v[6], v[7], v[8], v[9]};
+    nan = 0;
+    return {wt, pde8_sor::diagonal(v[0], v[1], pde8_sor::weight_sum(wt))};
+  }
+};
+
+// The plane of field f, local colour lc and buffer buf in a slot: a relaxed
+// field's buffers of a colour side by side, then the frozen fields' colours.
+template <class F>
+__device__ __forceinline__ int plane_of(int f, int lc, int buf) {
+  return f < F::kMut ? (2 * f + lc) * F::kBufs + buf : 2 * F::kMut * F::kBufs + 2 * (f - F::kMut) + lc;
+}
+
+// The pointer of field f of system b (a select, so that the parameter
+// space is indexed by constants only).
+__device__ __forceinline__ const float* in_ptr(const Systems& sys, int b, int f) {
+  return b == 0 ? sys.in[0][f] : b == 1 ? sys.in[1][f] : sys.in[2][f];
+}
+__device__ __forceinline__ float* out_ptr(const Systems& sys, int b, int f) {
+  return b == 0 ? sys.out[0][f] : b == 1 ? sys.out[1][f] : sys.out[2][f];
+}
+
+// The 4-byte copies of this thread's pixels of the neighbour fields of
+// system `sb`'s tile b into the slot (buffer 0 of a relaxed field).
+template <class F, int kSlots>
+__device__ __forceinline__ void copy_family(float* slot, const Systems& sys, int sb, const Box& b,
+                                            const Geometry& g, const uint32_t (&pos)[kSlots]) {
+  const int rows = b.gr1 - b.gr0, cols = b.gc1 - b.gc0;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int li = pair_row(pos[j]), x = pair_col(pos[j]);
+    if (li >= rows) continue;
+    const size_t src = static_cast<size_t>(b.gr0 + li) * g.w + b.gc0 + 2 * x;
+    const int q = li * g.hc + x;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (2 * x + e >= cols) break;
+      const int lc = (li + e) & 1;
+#pragma unroll
+      for (int f = 0; f < F::kNbr; ++f)
+        __pipeline_memcpy_async(slot + plane_of<F>(f, lc, 0) * g.plane + q,
+                                in_ptr(sys, sb, f) + src + e, sizeof(float));
+    }
+  }
+}
+
+// The coefficients of this thread's live pixels of system sb's tile b, from
+// device memory into registers, and the pairs' words. A pixel is live if
+// colour 0 of the first sweep reaches it (2k - 1 + fill around the tile,
+// within the slot) and, for the families that fill the border, it lies in
+// the image's interior.
+template <class F, int kSlots>
+__device__ __forceinline__ void load_family(const Systems& sys, int sb, const Box& b,
+                                            const Geometry& g, const uint32_t (&pos)[kSlots],
+                                            typename F::Px (&px)[2][kSlots],
+                                            uint32_t (&word)[kSlots]) {
+  constexpr int kCoefs = F::kFields - F::kCoef0;
+  const int reach = 2 * g.k - 1 + g.fill;
+  const int i0 = max(b.r0 - reach, b.gr0) - b.gr0, i1 = min(b.r1 + reach, b.gr1) - b.gr0;
+  const int j0 = max(b.c0 - reach, b.gc0) - b.gc0, j1 = min(b.c1 + reach, b.gc1) - b.gc0;
+  // the image's rows and columns a relaxed pixel may lie in
+  const int lo = g.fill, hi_i = g.gh - 1 - g.fill, hi_j = g.gw - 1 - g.fill;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int li = pair_row(pos[j]), x = pair_col(pos[j]);
+    uint32_t wd = pos[j];
+    const int gi = g.r0 + b.gr0 + li, gj = g.c0 + b.gc0 + 2 * x;
+    const bool row_live = li >= i0 && li < i1 && gi >= lo && gi <= hi_i;
+    const bool live0 = row_live && 2 * x >= j0 && 2 * x < j1 && gj >= lo && gj <= hi_j;
+    const bool live1 =
+        row_live && 2 * x + 1 >= j0 && 2 * x + 1 < j1 && gj + 1 >= lo && gj + 1 <= hi_j;
+    if (live0 || live1) {
+      const size_t src = static_cast<size_t>(b.gr0 + li) * g.w + b.gc0 + 2 * x;
+      const bool vec = live0 && live1 && g.vec2 && (src & 1) == 0;
+      float v[2][kCoefs];
+#pragma unroll
+      for (int f = 0; f < kCoefs; ++f) {
+        const float* p = in_ptr(sys, sb, F::kCoef0 + f) + src;
+        if (vec) {
+          const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+          v[0][f] = t.x;
+          v[1][f] = t.y;
+        } else {
+          v[0][f] = live0 ? __ldg(p) : 0.0f;
+          v[1][f] = live1 ? __ldg(p + 1) : 0.0f;
+        }
+      }
+      typename F::Px two[2];
+      uint32_t bits[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int pj = gj + e;
+        uint32_t nan = 0;
+        two[e] = F::prepare(v[e], gi, pj, g.gh, g.gw, nan);
+        // the edge bits (kClampW ... kClampS): llin8, the neighbour is off
+        // the image and clamped; the others, it lies on the image's border
+        // and is filled
+        const int f = g.fill;
+        bits[e] = ((e ? live1 : live0) ? kLive : 0u) | (nan << 1) |
+                  (pj - f == 0 ? kClampW : 0u) | (pj + f == g.gw - 1 ? kClampE : 0u) |
+                  (gi - f == 0 ? kClampN : 0u) | (gi + f == g.gh - 1 ? kClampS : 0u);
+      }
+      const bool odd = li & 1;
+      px[0][j] = odd ? two[1] : two[0];
+      px[1][j] = odd ? two[0] : two[1];
+      wd |= (odd ? bits[1] : bits[0]) << 16;
+      wd |= (odd ? bits[0] : bits[1]) << 24;
+    }
+    word[j] = wd;
+  }
+}
+
+// Where the neighbour (di, dj) of a pixel is read, as (row offset, column
+// offset, buffer) in the slot: ``edge`` says whether its row (bit 0) or
+// column (bit 1) lies past the pixel's edge bits. llin8 clamps such a
+// neighbour to the image; the border families read it as it was filled:
+// its input value in sweep 0 (buffer 0), its fill source's of s
+// relaxations after (buffer s & 1).
+struct At {
+  int di, dj, buf;
+};
+
+template <class F>
+__device__ __forceinline__ At neighbour_at(int di, int dj, uint32_t bits, int s, int own_buf,
+                                           int other_buf) {
+  const bool row = (di < 0 && (bits & kClampN)) || (di > 0 && (bits & kClampS));
+  const bool col = (dj < 0 && (bits & kClampW)) || (dj > 0 && (bits & kClampE));
+  At a{di, dj, 0};
+  if (!F::kFill || ((row || col) && s > 0)) {
+    if (row) a.di = 0;
+    if (col) a.dj = 0;
+  }
+  if (F::kFill && (row || col))
+    a.buf = s > 0 ? (s & 1) : 0;
+  else
+    a.buf = ((a.di + a.dj) & 1) ? other_buf : own_buf;
+  return a;
+}
+
+// One colour phase of image colour `color` in sweep s: every live pixel of
+// local colour kLc whose position lies in [i0, i1) x [j0, j1) relaxed.
+template <int kFam, int kLc, int kSlots>
+__device__ __forceinline__ void family_phase(float* slot, const Geometry& g,
+                                             const uint32_t (&word)[kSlots],
+                                             const typename Fam<kFam>::Px (&px)[2][kSlots], int i0,
+                                             int i1, int j0, int j1, int s, int color, float omega,
+                                             float one_minus_omega) {
+  using F = Fam<kFam>;
+  // a relaxed field's buffers: its own colour's state before the phase, where
+  // the phase writes, and the other colour's (its count of relaxations)
+  const int rb = F::kBufs == 2 ? s & 1 : 0, wb = F::kBufs == 2 ? (s + 1) & 1 : 0;
+  const int ob = F::kBufs == 2 ? (s + color) & 1 : 0;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    uint32_t wd = word[j];
+    asm volatile("" : "+r"(wd));
+    const uint32_t bits = wd >> (16 + 8 * kLc);
+    const int li = pair_row(wd), x = pair_col(wd);
+    const int e = (li + kLc) & 1;  // the pixel's column in its pair
+    const int lj = 2 * x + e;
+    if (!(bits & kLive) || li < i0 || li >= i1 || lj < j0 || lj >= j1) continue;
+    const int q = li * g.hc + x;
+    const typename F::Px& c = px[kLc][j];
+    // field f's value at the neighbour (di, dj), read as neighbour_at says
+    auto nbr = [&](int f, int di, int dj) {
+      const At a = neighbour_at<F>(di, dj, bits, s, rb, ob);
+      const int lc = kLc ^ ((a.di + a.dj) & 1);
+      const int buf = f < F::kMut && F::kBufs == 2 ? a.buf : 0;
+      return slot[plane_of<F>(f, lc, buf) * g.plane + q + a.di * g.hc + ((e + a.dj) >> 1)];
+    };
+    // a frozen field's value at the neighbour itself (disp's U is not filled)
+    auto frozen = [&](int f, int di, int dj) {
+      const int lc = kLc ^ ((di + dj) & 1);
+      return slot[plane_of<F>(f, lc, 0) * g.plane + q + di * g.hc + ((e + dj) >> 1)];
+    };
+    if constexpr (kFam == kDisp) {
+      float* du = slot + plane_of<F>(0, kLc, 0) * g.plane + q;
+      const disp_sor::Coef k{c.a, c.b, c.c, c.d, c.uw, c.cu0, c.inv, (bits & 2) != 0};
+      *du = disp_sor::update(*du, nbr(0, 0, -1), frozen(1, 0, -1), nbr(0, 0, 1), frozen(1, 0, 1),
+                             nbr(0, -1, 0), frozen(1, -1, 0), nbr(0, 1, 0), frozen(1, 1, 0), k,
+                             omega, one_minus_omega);
+    } else if constexpr (kFam == kPde4) {
+      float* xc = slot + plane_of<F>(0, kLc, 0) * g.plane + q;
+      *xc = pde4_sor::update(*xc, nbr(0, 0, -1), nbr(0, 0, 1), nbr(0, -1, 0), nbr(0, 1, 0), c.wt,
+                             c.inv_b, omega, one_minus_omega);
+    } else if constexpr (kFam == kPde8) {
+      const float xc = slot[plane_of<F>(0, kLc, rb) * g.plane + q];
+      const pde8_sor::Nbr n{nbr(0, 0, -1),  nbr(0, 0, 1),  nbr(0, -1, 0), nbr(0, 1, 0),
+                            nbr(0, -1, -1), nbr(0, -1, 1), nbr(0, 1, -1), nbr(0, 1, 1)};
+      slot[plane_of<F>(0, kLc, wb) * g.plane + q] =
+          pde8_sor::update(xc, n, c.wt, c.inv_b, omega, one_minus_omega);
+    } else {  // llin8
+      constexpr int kDi[8] = {0, 0, -1, 1, -1, -1, 1, 1};
+      constexpr int kDj[8] = {-1, 1, 0, 0, -1, 1, -1, 1};
+      float4 nb[8];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        nb[n] = make_float4(nbr(0, kDi[n], kDj[n]), nbr(1, kDi[n], kDj[n]),
+                            nbr(2, kDi[n], kDj[n]), nbr(3, kDi[n], kDj[n]));
+      const float fu = slot[plane_of<F>(0, kLc, rb) * g.plane + q];
+      const float fv = slot[plane_of<F>(1, kLc, rb) * g.plane + q];
+      const float uc = slot[plane_of<F>(2, kLc, 0) * g.plane + q];
+      const float vc = slot[plane_of<F>(3, kLc, 0) * g.plane + q];
+      const float2 r = flow_sor8::update(
+          [&](int n) { return nb[n]; }, [&](int n) { return c.c[flow_sor8::weight_of(n)]; }, fu,
+          fv, uc, vc, c.wsum, (bits >> 1) & 3, c.m0, c.cu0, c.cv0, c.inv_u, c.inv_v, omega,
+          one_minus_omega);
+      slot[plane_of<F>(0, kLc, wb) * g.plane + q] = r.x;
+      slot[plane_of<F>(1, kLc, wb) * g.plane + q] = r.y;
+    }
+  }
+}
+
+// g.k red-black sweeps over the slot, each colour over the region the kept
+// interior (and, for the border families, its fill sources) depends on.
+template <int kFam, int kSlots>
+__device__ __forceinline__ void sweep_family(float* slot, const Box& b, const Geometry& g,
+                                             const uint32_t (&word)[kSlots],
+                                             const typename Fam<kFam>::Px (&px)[2][kSlots],
+                                             float omega, float one_minus_omega) {
+  const int rows = b.gr1 - b.gr0, cols = b.gc1 - b.gc0;
+  const int tr0 = b.r0 - b.gr0, tr1 = b.r1 - b.gr0, tc0 = b.c0 - b.gc0, tc1 = b.c1 - b.gc0;
+  const int par = (g.r0 + g.c0 + b.gr0 + b.gc0) & 1;  // the image colour of local colour 0
+  for (int s = 0; s < g.k; ++s) {
+    for (int color = 0; color < 2; ++color) {
+      const int reach = 2 * (g.k - 1 - s) + 1 - color + g.fill;
+      const int i0 = max(tr0 - reach, 0), i1 = min(tr1 + reach, rows);
+      const int j0 = max(tc0 - reach, 0), j1 = min(tc1 + reach, cols);
+      if ((color ^ par) == 0)
+        family_phase<kFam, 0>(slot, g, word, px, i0, i1, j0, j1, s, color, omega,
+                              one_minus_omega);
+      else
+        family_phase<kFam, 1>(slot, g, word, px, i0, i1, j0, j1, s, color, omega,
+                              one_minus_omega);
+      __syncthreads();
+    }
+  }
+}
+
+// This thread's pixels of the tile's interior, from the slot, to system
+// sb's box-sized outputs; a pixel on the image's border (the border
+// families) takes its fill source's value.
+template <int kFam, int kSlots>
+__device__ __forceinline__ void store_family(const Systems& sys, int sb, const float* slot,
+                                             const Box& b, const Geometry& g,
+                                             const uint32_t (&word)[kSlots]) {
+  using F = Fam<kFam>;
+  const int tr0 = b.r0 - b.gr0, tr1 = b.r1 - b.gr0, tc0 = b.c0 - b.gc0, tc1 = b.c1 - b.gc0;
+  const int buf = F::kBufs == 2 ? g.k & 1 : 0;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int li = pair_row(word[j]), x = pair_col(word[j]);
+    if (li < tr0 || li >= tr1) continue;
+    const size_t row = static_cast<size_t>(b.gr0 + li - g.bi0) * g.bw + (b.gc0 - g.bj0);
+    const int gi = g.r0 + b.gr0 + li;
+    const int si = li + (g.fill && gi == 0 ? 1 : 0) - (g.fill && gi == g.gh - 1 ? 1 : 0);
+#pragma unroll
+    for (int lc = 0; lc < 2; ++lc) {
+      const int lj = 2 * x + ((li + lc) & 1);
+      if (lj < tc0 || lj >= tc1) continue;
+      const int gj = g.c0 + b.gc0 + lj;
+      const int sj = lj + (g.fill && gj == 0 ? 1 : 0) - (g.fill && gj == g.gw - 1 ? 1 : 0);
+      const int at = si * g.hc + (sj >> 1);
+#pragma unroll
+      for (int f = 0; f < F::kMut; ++f)
+        out_ptr(sys, sb, f)[row + lj] = slot[plane_of<F>(f, (si + sj) & 1, buf) * g.plane + at];
+    }
+  }
+}
+
+template <int kFam, int kSlots>
+__global__ void __launch_bounds__(max_threads(kSlots), 1)
+    tiled_family_kernel(Systems sys, Geometry g, float omega, float one_minus_omega) {
+  using F = Fam<kFam>;
+  extern __shared__ __align__(16) float smem[];
+  uint32_t pos[kSlots], word[kSlots];
+  typename F::Px px[2][kSlots];
+  const int sb = blockIdx.y;
+  pair_positions(pos, g);
+  const Box b = tile_box(g, blockIdx.x);
+  copy_family<F>(smem, sys, sb, b, g, pos);
+  __pipeline_commit();
+  // the coefficients while the copies are in flight
+  load_family<F>(sys, sb, b, g, pos, px, word);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  sweep_family<kFam>(smem, b, g, word, px, omega, one_minus_omega);
+  store_family<kFam>(sys, sb, smem, b, g, word);
+}
+
+template <int kFam, int kSlots>
+cudaError_t launch_family(const Systems& sys, int batch, const Geometry& g, int threads,
+                          float omega, float one_minus_omega, cudaStream_t stream) {
+  const auto kernel = tiled_family_kernel<kFam, kSlots>;
+  const int smem = g.slot_floats * static_cast<int>(sizeof(float));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(g.n_tiles, batch), threads, smem, stream>>>(sys, g, omega, one_minus_omega);
+  return cudaGetLastError();
+}
+
+template <int kFam>
+cudaError_t family_slots(int slots, const Systems& sys, int batch, const Geometry& g,
+                         float omega, float one_minus_omega, cudaStream_t stream) {
+  const cudaError_t bad = check_plan(kFam, g, slots, 0);
+  if (bad != cudaSuccess) return bad;
+  const int threads = block_threads(kFam, g.k, g.tile_h, g.tile_w, slots);
+  switch (slots) {
+    case 1:
+      return launch_family<kFam, 1>(sys, batch, g, threads, omega, one_minus_omega, stream);
+    case 2:
+      return launch_family<kFam, 2>(sys, batch, g, threads, omega, one_minus_omega, stream);
+    case 3:
+      return launch_family<kFam, 3>(sys, batch, g, threads, omega, one_minus_omega, stream);
+    default:
+      return launch_family<kFam, 4>(sys, batch, g, threads, omega, one_minus_omega, stream);
+  }
+}
+
+// One launch of a chunk of `family` (disp, pde4, llin8 or pde8).
+cudaError_t family_chunk(int family, const Systems& sys, int batch, Geometry g, int slots,
+                         float omega, float one_minus_omega, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n = fields_of(family);
+  g.vec2 = 1;
+  for (int b = 0; b < batch; ++b) g.vec2 &= aligned8(sys.in[b], n);
+  switch (family) {
+    case kDisp:
+      return family_slots<kDisp>(slots, sys, batch, g, omega, one_minus_omega, s);
+    case kPde4:
+      return family_slots<kPde4>(slots, sys, batch, g, omega, one_minus_omega, s);
+    case kLlin8:
+      return family_slots<kLlin8>(slots, sys, batch, g, omega, one_minus_omega, s);
+    case kPde8:
+      return family_slots<kPde8>(slots, sys, batch, g, omega, one_minus_omega, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The systems of a launch from the caller's arrays: `fields` batch x
+// fields_of(family) pointers, `out` batch x mut_of(family).
+bool family_systems(int family, const void* const* fields, void* const* out, int batch,
+                    Systems* sys) {
+  if (family < kDisp || family >= kFamilies || batch < 1 || batch > max_batch(family))
+    return false;
+  *sys = Systems{};
+  const int n = fields_of(family), m = mut_of(family);
+  for (int b = 0; b < batch; ++b) {
+    for (int f = 0; f < n; ++f) sys->in[b][f] = static_cast<const float*>(fields[b * n + f]);
+    for (int f = 0; f < m; ++f) sys->out[b][f] = static_cast<float*>(out[b * m + f]);
+  }
+  return true;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory of one slot for `planes` fields (13 for llin4, 11 for
-// elin4: 4 or 2 of them neighbour fields, two colour planes each), the
-// plan's `k` and tile; tiled.py::slot_bytes computes the same.
-int tiled_sor_slot_bytes(int planes, int k, int tile_h, int tile_w) {
-  return slot_floats(planes, k, tile_h, tile_w) * static_cast<int>(sizeof(float));
+// Shared memory of one slot of `family` (0 llin4, 1 elin4, 2 disp llin4,
+// 3 pde4, 4 llin8, 5 pde8: kernels/tiled.py::LAYOUTS' order) for the plan's
+// `k` and tile; tiled.py::slot_bytes computes the same.
+int tiled_sor_slot_bytes(int family, int k, int tile_h, int tile_w) {
+  if (family < 0 || family >= kFamilies) return -1;
+  return slot_floats(family, k, tile_h, tile_w) * static_cast<int>(sizeof(float));
 }
 
-// Threads a block for the plan's k, tile and slots a thread (the same for
-// both families); tiled.py::block_threads computes the same.
-int tiled_sor_threads(int k, int tile_h, int tile_w, int slots) {
-  return block_threads(k, tile_h, tile_w, slots);
+// Threads a block of `family` for the plan's k, tile and slots a thread;
+// tiled.py::block_threads computes the same.
+int tiled_sor_threads(int family, int k, int tile_h, int tile_w, int slots) {
+  if (family < 0 || family >= kFamilies) return -1;
+  return block_threads(family, k, tile_h, tile_w, slots);
 }
 
 // All pointers are contiguous float32 (H, W) arrays on the current device.
@@ -667,6 +1184,62 @@ int tiled_flow_elin4_win(const void* u, const void* v, const void* m, const void
   const void* fields[11] = {u, v, m, cu, cv, duc, dvc, ww, wn, we, ws};
   return run_window<false>(fields, u_out, v_out, h, w, r0, c0, gh, gw, bi0, bj0, bh, bw, k,
                            tile_h, tile_w, slots, double_buffer, omega, one_minus_omega, stream);
+}
+
+// disp llin4 (2), pde4 (3), llin8 (4) or pde8 (5), serial: `fields` holds
+// batch x fields_of(family) pointers (each system's fields in the order of
+// kernels/tiled_cuda.py::FIELD_NAMES; a plane shared by the systems repeats
+// its pointer), `out` and `tmp` batch x the relaxed fields (tmp unused, and
+// may hold nulls, when iters <= k). All are contiguous float32 (H, W) arrays
+// on the current device, H, W >= 3 for the families that fill the border.
+// Launches ceil(iters / k) kernels on `stream`, a block a tile and system;
+// `slots` pairs of pixels a thread (1 to 4).
+int tiled_sor_family(int family, const void* const* fields, void* const* out, void* const* tmp,
+                     int batch, int h, int w, int iters, int k, int tile_h, int tile_w, int slots,
+                     float omega, float one_minus_omega, void* stream) {
+  Systems sys, next;
+  if (!family_systems(family, fields, out, batch, &sys) || h < 1 || w < 1 || k < 1 ||
+      tile_h < 1 || tile_w < 1 || (fill_of(family) && (h < 3 || w < 3)))
+    return cudaErrorInvalidValue;
+  if (!family_systems(family, fields, tmp, batch, &next)) return cudaErrorInvalidValue;
+  const int m = mut_of(family);
+  const int n_full = iters / k, rem = iters % k, n_chunks = n_full + (rem > 0 ? 1 : 0);
+  for (int c = 0; c < n_chunks; ++c) {
+    const int kc = c < n_full ? k : rem;
+    const Geometry g = geometry(family, h, w, 0, 0, h, w, 0, 0, h, w, kc, tile_h, tile_w);
+    // chunk c writes out or tmp so that the last one writes out
+    Systems run = sys;
+    for (int b = 0; b < batch; ++b)
+      for (int f = 0; f < m; ++f)
+        run.out[b][f] = (n_chunks - 1 - c) % 2 == 0 ? sys.out[b][f] : next.out[b][f];
+    const cudaError_t err = family_chunk(family, run, batch, g, slots, omega, one_minus_omega,
+                                         stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    for (int b = 0; b < batch; ++b)
+      for (int f = 0; f < m; ++f) sys.in[b][f] = run.out[b][f];
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+// The windowed variant of disp llin4, pde4 and llin8 (and pde8): the fields
+// are h x w arrays at (r0, c0) of a gh x gw image; one launch of k sweeps
+// over the tiles of the box (bi0, bj0) + bh x bw writes the box into `out`
+// (bh x bw arrays). The caller keeps 2k pixels of the arrays (2k + 1 for
+// the families that fill the border), or the image's edge, around the box.
+int tiled_sor_family_win(int family, const void* const* fields, void* const* out, int batch,
+                         int h, int w, int r0, int c0, int gh, int gw, int bi0, int bj0, int bh,
+                         int bw, int k, int tile_h, int tile_w, int slots, float omega,
+                         float one_minus_omega, void* stream) {
+  Systems sys;
+  if (!family_systems(family, fields, out, batch, &sys) || h < 1 || w < 1 || k < 1 ||
+      tile_h < 1 || tile_w < 1 || r0 < 0 || c0 < 0 || r0 + h > gh || c0 + w > gw || bi0 < 0 ||
+      bj0 < 0 || bh < 1 || bw < 1 || bi0 + bh > h || bj0 + bw > w ||
+      (fill_of(family) && (gh < 3 || gw < 3)))
+    return cudaErrorInvalidValue;
+  const Geometry g =
+      geometry(family, h, w, r0, c0, gh, gw, bi0, bj0, bh, bw, k, tile_h, tile_w);
+  return static_cast<int>(family_chunk(family, sys, batch, g, slots, omega, one_minus_omega,
+                                       stream));
 }
 
 const char* tiled_sor_error_string(int code) {

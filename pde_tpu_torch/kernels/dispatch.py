@@ -10,11 +10,15 @@ as ``pde_tpu`` chooses between its resident and tiled kernels
 
 - the resident kernels (one launch a call, ``resident_cuda``) wherever
   ``resident_cuda.plan_resident`` gives the shape a plan;
-- else, for llin4 and elin4, the temporally blocked tile kernel
-  (``tiled_cuda``, ``ceil(iters / k)`` launches a call) wherever
-  ``tiled.plan_tiles`` gives one at ``k_max = 4``, as ``pde_tpu`` sends a
-  grid too large for VMEM to ``_stripe_kernel`` with ``k_max = 4``: the
-  1024x1024 levels, elin4's 768x768;
+- else the temporally blocked tile kernel (``tiled_cuda``,
+  ``ceil(iters / k)`` launches a call) wherever ``tiled.plan_tiles`` gives
+  one at ``k_max = 4`` and the kernel takes the batch (llin4, elin4 and
+  llin8 one system, disp llin4 up to 2, pde4 and pde8 up to 3 channels
+  over shared weights) and, for the families that fill the border, H, W
+  >= 3, as ``pde_tpu`` sends a grid too large for VMEM to
+  ``_stripe_kernel`` with ``k_max = 4``: the 1024x1024 levels of every
+  family, elin4's 768x768, pde4 and pde8 with C = 3 at 481x641 (pde4 also
+  at 576x576 and 768x768);
 - else the global kernels (``sor_cuda``, ``interior_cuda``), one launch a
   colour.
 
@@ -43,28 +47,40 @@ from pde_tpu_torch.solvers import sor as _sor
 from pde_tpu_torch.solvers import tdma as _tdma
 
 
+# the tile kernel's family (tiled.LAYOUTS) of each solver family
+TILE_FAMILY = {"llin4": "flow_llin4", "elin4": "flow_elin4", "disp": "disp_llin4",
+               "pde4": "pde4", "llin8": "flow_llin8", "pde8": "pde8"}
+
+
 def sor_route(family: str, h: int, w: int, batch: int = 1, iters: int = 4,
               sm_count: int = resident_cuda.SM_COUNT):
     """Where a solve of ``family`` (``resident_cuda.FAMILIES``) over a
     batch of (h, w) systems and ``iters`` sweeps goes on a card of
     ``sm_count`` SMs: ``("resident", ResidentPlan)``, ``("tiled",
-    TilePlan)`` (llin4 and elin4 of batch 1) or ``("global", None)``."""
+    TilePlan)`` or ``("global", None)``."""
     plan = resident_cuda.plan_resident(h, w, family, batch, sm_count)
     if plan is not None:
         return "resident", plan
-    names = tiled_cuda.FIELD_NAMES.get(f"flow_{family}")
-    if names is not None and batch == 1:
+    layout = tiled.LAYOUTS[TILE_FAMILY[family]]
+    # W4: the border fill of an image under 3 px is the global kernels'
+    if 1 <= batch <= layout.max_batch and (not layout.fill or min(h, w) >= 3):
         # plan_tiles' default k_max = 4, pde_tpu's for grids too large for VMEM
-        tile_plan = tiled.plan_tiles(h, w, len(names), max(int(iters), 1), sm_count=sm_count)
+        tile_plan = tiled.plan_tiles(h, w, TILE_FAMILY[family], max(int(iters), 1),
+                                     sm_count=sm_count, batch=batch)
         if tile_plan is not None:
             return "tiled", tile_plan
     return "global", None
 
 
-def _flow_route(u, family: str, iters: int):
-    if u.ndim != 2:
-        return "global", None
-    return sor_route(family, *u.shape, 1, iters, resident_cuda.sm_count(u.device.index or 0))
+def _route(x, family: str, batch: int, iters: int):
+    """``sor_route`` of systems shaped like ``x`` (..., H, W) on its card."""
+    return sor_route(family, *x.shape[-2:], batch, iters,
+                     resident_cuda.sm_count(x.device.index or 0))
+
+
+def _tiled(family: str, fields, iters: int, omega: float, plan):
+    return tiled_cuda.tiled_sor(TILE_FAMILY[family], fields, iters, omega, plan.k, plan.tile_h,
+                                plan.tile_w, slots=plan.slots)
 
 
 def sor_flow_llin4(u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws,
@@ -72,14 +88,12 @@ def sor_flow_llin4(u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws,
     args = (u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws, iters, omega)
     if _plain(u):
         return _sor.sor_flow_llin4(*args)
-    route, plan = _flow_route(u, "llin4", iters)
+    route, plan = _route(u, "llin4", 1, iters) if u.ndim == 2 else ("global", None)
     if route == "resident":
         return resident_cuda.flow_llin4_sor(*args, plan=plan)
     if route == "tiled":
-        return tiled_cuda.tiled_flow_sor("flow_llin4", (du, dv, u, v, m, cu, cv, duc, dvc, ww, wn,
-                                                        we, ws),
-                                         iters, omega, plan.k, plan.tile_h, plan.tile_w,
-                                         slots=plan.slots)
+        return _tiled("llin4", (du, dv, u, v, m, cu, cv, duc, dvc, ww, wn, we, ws), iters, omega,
+                      plan)
     return sor_cuda.flow_llin4_sor(*args)
 
 
@@ -87,13 +101,11 @@ def sor_flow_elin4(u, v, m, cu, cv, duc, dvc, ww, wn, we, ws, iters: int, omega:
     args = (u, v, m, cu, cv, duc, dvc, ww, wn, we, ws, iters, omega)
     if _plain(u):
         return _sor.sor_flow_elin4(*args)
-    route, plan = _flow_route(u, "elin4", iters)
+    route, plan = _route(u, "elin4", 1, iters) if u.ndim == 2 else ("global", None)
     if route == "resident":
         return resident_cuda.flow_elin4_sor(*args, plan=plan)
     if route == "tiled":
-        return tiled_cuda.tiled_flow_sor("flow_elin4", (u, v, m, cu, cv, duc, dvc, ww, wn, we, ws),
-                                         iters, omega, plan.k, plan.tile_h, plan.tile_w,
-                                         slots=plan.slots)
+        return _tiled("elin4", args[:-2], iters, omega, plan)
     return sor_cuda.flow_elin4_sor(*args)
 
 
@@ -103,9 +115,12 @@ def sor_flow_llin8(u, v, du, dv, m, cu, cv, duc, dvc,
             iters, omega)
     if _plain(u):
         return _sor.sor_flow_llin8(*args)
-    plan = resident_cuda.plan_for(u, "llin8", 1) if u.ndim == 2 else None
-    if plan is not None:
+    route, plan = _route(u, "llin8", 1, iters) if u.ndim == 2 else ("global", None)
+    if route == "resident":
         return resident_cuda.flow_llin8_sor(*args, plan=plan)
+    if route == "tiled":
+        return _tiled("llin8", (du, dv, u, v, m, cu, cv, duc, dvc, ww, wnw, wn, wne, we, wse, ws,
+                                wsw), iters, omega, plan)
     return sor_cuda.flow_llin8_sor(*args)
 
 
@@ -113,10 +128,12 @@ def sor_disp_llin4(u, du, cu, duc, ww, wn, we, ws, iters: int, omega: float):
     args = (u, du, cu, duc, ww, wn, we, ws, iters, omega)
     if _plain(u):
         return _sor.sor_disp_llin4(*args)
-    plan = resident_cuda.plan_for(u, "disp", u.shape[0] if u.ndim == 3 else 1) \
-        if u.ndim in (2, 3) else None
-    if plan is not None:
+    route, plan = (_route(u, "disp", u.shape[0] if u.ndim == 3 else 1, iters)
+                   if u.ndim in (2, 3) else ("global", None))
+    if route == "resident":
         return resident_cuda.disp_llin4_sor(*args, plan=plan)
+    if route == "tiled":
+        return _tiled("disp", (du, u, cu, duc, ww, wn, we, ws), iters, omega, plan)[0]
     return interior_cuda.disp_llin4_sor(*args)
 
 
@@ -124,16 +141,22 @@ def sor_disp_llin_sym4(u0, du0, cu0, duc0, ww0, wn0, we0, ws0,
                        u1, du1, cu1, duc1, ww1, wn1, we1, ws1,
                        iters: int, omega: float):
     """The symmetric pair as one kernel call with a batch of 2: on the
-    resident kernel each system keeps its own planes; the global kernel
-    takes them stacked."""
+    resident and the tile kernel each system keeps its own planes; the
+    global kernel takes them stacked."""
     if _plain(u0):
         return _sor.sor_disp_llin_sym4(u0, du0, cu0, duc0, ww0, wn0, we0, ws0,
                                        u1, du1, cu1, duc1, ww1, wn1, we1, ws1, iters, omega)
-    plan = resident_cuda.plan_for(u0, "disp", 2) if u0.ndim == 2 else None
-    if plan is not None:
+    route, plan = _route(u0, "disp", 2, iters) if u0.ndim == 2 else ("global", None)
+    if route == "resident":
         return resident_cuda.disp_llin4_pair((u0, du0, cu0, duc0, ww0, wn0, we0, ws0),
                                              (u1, du1, cu1, duc1, ww1, wn1, we1, ws1),
                                              iters, omega, plan=plan)
+    if route == "tiled":
+        (out0,), (out1,) = tiled_cuda.tiled_sor_systems(
+            "disp_llin4", [(du0, u0, cu0, duc0, ww0, wn0, we0, ws0),
+                           (du1, u1, cu1, duc1, ww1, wn1, we1, ws1)],
+            iters, omega, plan.k, plan.tile_h, plan.tile_w, plan.slots)
+        return out0, out1
     pairs = ((u0, u1), (du0, du1), (cu0, cu1), (duc0, duc1),
              (ww0, ww1), (wn0, wn1), (we0, we1), (ws0, ws1))
     out = interior_cuda.disp_llin4_sor(*(torch.stack(pair) for pair in pairs), iters, omega)
@@ -141,16 +164,18 @@ def sor_disp_llin_sym4(u0, du0, cu0, duc0, ww0, wn0, we0, ws0,
 
 
 def sor_pde4(x, trace, b, ww, wn, we, ws, iters: int, omega: float):
-    """(H, W) or (C, H, W) unknowns alike: on the card the resident kernel
-    takes up to 3 channels over shared (H, W) weights where the shape has a
-    plan, the global kernel every other call."""
+    """(H, W) or (C, H, W) unknowns alike: on the card the resident or the
+    tile kernel takes up to 3 channels over shared (H, W) weights where
+    ``sor_route`` sends the shape, the global kernel every other call."""
     args = (x, trace, b, ww, wn, we, ws, iters, omega)
     if _plain(x):
         return _sor.sor_pde4(*args)
     channels = resident_cuda.diag_channels("pde4", x, trace, b, (ww, wn, we, ws))
-    plan = resident_cuda.plan_for(x, "pde4", channels) if channels else None
-    if plan is not None:
+    route, plan = _route(x, "pde4", channels, iters) if channels else ("global", None)
+    if route == "resident":
         return resident_cuda.pde4_sor(*args, plan=plan)
+    if route == "tiled":
+        return _tiled("pde4", args[:-2], iters, omega, plan)[0]
     return interior_cuda.pde4_sor(*args)
 
 
@@ -161,9 +186,11 @@ def sor_pde8(x, trace, b, ww, wnw, wn, wne, we, wse, ws, wsw, iters: int, omega:
         return _sor.sor_pde8(*args)
     channels = resident_cuda.diag_channels("pde8", x, trace, b,
                                            (ww, wnw, wn, wne, we, wse, ws, wsw))
-    plan = resident_cuda.plan_for(x, "pde8", channels) if channels else None
-    if plan is not None:
+    route, plan = _route(x, "pde8", channels, iters) if channels else ("global", None)
+    if route == "resident":
         return resident_cuda.pde8_sor(*args, plan=plan)
+    if route == "tiled":
+        return _tiled("pde8", args[:-2], iters, omega, plan)[0]
     return interior_cuda.pde8_sor(*args)
 
 

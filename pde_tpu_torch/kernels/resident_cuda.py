@@ -271,13 +271,6 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def plan_for(x: torch.Tensor, family: str, batch: int) -> ResidentPlan | None:
-    """The default plan for systems shaped like ``x`` (..., H, W) on its
-    card."""
-    h, w = x.shape[-2:]
-    return plan_resident(h, w, family, batch, sm_count(x.device.index or 0))
-
-
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)

@@ -15,10 +15,11 @@ border after each sweep), so a tile rounds exactly as the global plain
 version does. Colours, the interior and the edges come from the tile's
 ``TileAux``, which holds them in global coordinates.
 
-On CUDA tensors ``tiled_relax`` runs llin4 and elin4 on the kernel of
-``csrc/tiled_sor.cu``; only their sweeps carry a family and ``omega`` as
-attributes for that. The factories are cached, so a family's functions
-are one object per ``omega``, as in ``pde_tpu``.
+On CUDA tensors ``tiled_relax`` runs every family on the kernel of
+``csrc/tiled_sor.cu``: each factory's ``prepare`` and ``sweep`` carry the
+family's name (``tiled.LAYOUTS``) and ``omega`` as attributes for that.
+The factories are cached, so a family's functions are one object per
+``omega``, as in ``pde_tpu``.
 """
 
 from __future__ import annotations
@@ -71,6 +72,14 @@ def _border(x, aux: TileAux):
     return torch.where(aux.edge_w, shift_e(x), torch.where(aux.edge_e, shift_w(x), x))
 
 
+def _named(prepare, sweep, family: str, omega: float):
+    """``(prepare, sweep)`` with the family and ``omega`` the tile kernel
+    reads."""
+    sweep.family = prepare.family = family
+    sweep.omega = prepare.omega = float(omega)
+    return prepare, sweep
+
+
 def _flow_sweep(omega: float, late: bool, eight: bool = False):
     zero_edges = _zero_edges8 if eight else _zero_edges4
 
@@ -90,10 +99,8 @@ def _flow_sweep(omega: float, late: bool, eight: bool = False):
         fu, fv = flow_half_sweep(fu, fv, u, v, aux.maskf1, co, omega)
         return [fu, fv]
 
-    if not eight:
-        sweep.family = prepare.family = "flow_llin4" if late else "flow_elin4"
-        sweep.omega = prepare.omega = float(omega)
-    return prepare, sweep
+    return _named(prepare, sweep, "flow_llin8" if eight else "flow_llin4" if late else "flow_elin4",
+                  omega)
 
 
 @lru_cache(maxsize=None)
@@ -143,10 +150,10 @@ def disp_llin4_sweep(omega: float):
         du = disp_half_sweep(du, u, aux.mask1, co, omega)
         return [_border(du, aux)]
 
-    return prepare, sweep
+    return _named(prepare, sweep, "disp_llin4", omega)
 
 
-def _pde_sweep(omega: float):
+def _pde_sweep(omega: float, family: str):
     def prepare(const, aux):
         trace, b, *weights = const
         return pde_coefficients(trace, b, weights)
@@ -157,7 +164,7 @@ def _pde_sweep(omega: float):
         x = pde_half_sweep(x, aux.mask1, co, omega)
         return [_border(x, aux)]
 
-    return prepare, sweep
+    return _named(prepare, sweep, family, omega)
 
 
 @lru_cache(maxsize=None)
@@ -167,7 +174,7 @@ def pde4_sweep(omega: float):
 
     fields = [x | trace, b, ww, wn, we, ws].
     """
-    return _pde_sweep(omega)
+    return _pde_sweep(omega, "pde4")
 
 
 @lru_cache(maxsize=None)
@@ -176,4 +183,4 @@ def pde8_sweep(omega: float):
 
     fields = [x | trace, b, ww, wnw, wn, wne, we, wse, ws, wsw].
     """
-    return _pde_sweep(omega)
+    return _pde_sweep(omega, "pde8")

@@ -10,16 +10,22 @@ per colour. Each chunk reads one state and writes another, since a
 neighbouring tile's halo must see the state at the start of the chunk.
 
 On the card, ``tiled_relax`` runs the kernel of ``csrc/tiled_sor.cu``
-(``kernels/tiled_cuda.py``) for the two sweep families it has, llin4 and
-elin4 (``kernels/sweeps.py``): one launch a chunk, one block a tile, serial
-(one block per tile) or double-buffered (persistent blocks that copy the
-next tile's neighbour planes in under the current one's sweeps).
-``kernels/dispatch.py`` sends it every llin4 and elin4 solve whose shape
-has no resident plan, with ``plan_tiles``' plan at ``k_max = 4``. On CPU
-tensors, or under ``dispatch.plain_solvers()``, it runs the same tile
-schedule in torch ops: the plain version, which CPU-tests the tile and
-halo indexing as ``pde_tpu``'s Pallas kernels run in interpret mode. A
-CUDA tensor goes to the kernel or raises.
+(``kernels/tiled_cuda.py``) for the six sweep families of
+``kernels/sweeps.py``, ``LAYOUTS``: flow_llin4, flow_elin4, disp_llin4,
+pde4, flow_llin8 and pde8. One launch a chunk, one block a tile (and
+system or channel), serial, or for llin4 and elin4 also double-buffered
+(persistent blocks that copy the next tile's neighbour planes in under the
+current one's sweeps). ``kernels/dispatch.py`` sends it every solve whose
+shape has no resident plan and that ``plan_tiles`` plans at
+``k_max = 4``. On CPU tensors, or under ``dispatch.plain_solvers()``, it
+runs the same tile schedule in torch ops: the plain version, which
+CPU-tests the tile and halo indexing as ``pde_tpu``'s Pallas kernels run
+in interpret mode. A CUDA tensor goes to the kernel or raises.
+
+The interior-update families (disp_llin4, pde4, pde8) fill the 1-px
+border after every sweep from the pixel one step inward, so a tile's
+border pixels need their sources relaxed as far as the tile: their halo
+is ``2k + 1``, and every colour phase reaches one pixel further.
 
 A ``Window`` runs one chunk over part of an image instead: the fields are
 a shard of ``parallel/tiled.py`` and the 2k halo its neighbours gave it,
@@ -28,11 +34,13 @@ image's coordinates, and only the tiles covering the shard (the window's
 box) are relaxed and returned. On the card that is the windowed variant
 of the same kernel.
 
-The plan and the kernel agree on the layout: a block's threads own fixed
-pairs of pixels of the slot (tile plus halo), ``slots`` pairs a thread, and
-keep their coefficients in registers; shared memory holds only the fields
-neighbours read (dU, dV, U, V for llin4, U, V for elin4: ``n_fields - 9``
-of them), one float32 plane per colour each.
+The plan and the kernel agree on the layout (``LAYOUTS``): a block's
+threads own fixed pairs of pixels of the slot (tile plus halo), ``slots``
+pairs a thread, and keep their coefficients in registers; shared memory
+holds only the fields neighbours read (dU, dV, U, V for llin4 and llin8,
+U, V for elin4, dU, U for disp, X for pde4 and pde8), one float32 plane per
+colour each, two a colour for the relaxed fields of the 8-neighbour
+families.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from pde_tpu_torch.core.grid import replicate_border
 from pde_tpu_torch.kernels import plain_mode, resident_cuda, tiled_cuda
 from pde_tpu_torch.kernels.sweeps import TileAux
 
@@ -51,9 +60,41 @@ RB_RADIUS = 2
 # dynamic shared memory one block of an H100 may take (227 KB)
 SMEM_PER_BLOCK = 232_448
 SM_COUNT = resident_cuda.SM_COUNT  # the plans' default; a card's own where it runs
-# the coefficient planes a pixel keeps in registers (M, Cu, Cv, Du, Dv and
-# the four weights); the other fields are what neighbours read
-COEF_PLANES = 9
+
+
+class Layout(NamedTuple):
+    """A family's layout in the tile kernel (``csrc/tiled_sor.cu``)."""
+
+    index: int      # the kernel's family index
+    fields: int     # fields, the relaxed first (``tiled_cuda.FIELD_NAMES``)
+    n_mut: int      # relaxed fields
+    nbr: int        # fields neighbours read (the relaxed first), in shared memory
+    bufs: int       # buffers a colour of a relaxed field: 2 where a diagonal
+    # neighbour has the pixel's own colour (the 8-neighbour families)
+    fill: int       # 1 where the border is filled after each sweep: a halo pixel more
+    max_batch: int  # systems (disp) or channels (pde4, pde8) a launch
+    double_buffer: bool  # has the double-buffered kernel
+
+    @property
+    def smem_planes(self) -> int:
+        """Float planes of a slot: two colours of each neighbour field, the
+        relaxed fields' ``bufs`` a colour."""
+        return 2 * (self.n_mut * self.bufs + self.nbr - self.n_mut)
+
+    @property
+    def coef_planes(self) -> int:
+        """Fields only the owning pixel reads (into registers)."""
+        return self.fields - self.nbr
+
+
+LAYOUTS = {
+    "flow_llin4": Layout(0, 13, 2, 4, 1, 0, 1, True),
+    "flow_elin4": Layout(1, 11, 2, 2, 1, 0, 1, True),
+    "disp_llin4": Layout(2, 8, 1, 2, 1, 1, 2, False),
+    "pde4": Layout(3, 7, 1, 1, 1, 1, 3, False),
+    "flow_llin8": Layout(4, 17, 2, 4, 2, 0, 1, False),
+    "pde8": Layout(5, 11, 1, 1, 2, 1, 3, False),
+}
 # threads a block at most, by pairs of pixels a thread (the kernel's
 # max_threads: at 2 pairs it is compiled for two blocks an SM)
 MAX_THREADS = {1: 768, 2: 512, 3: 512, 4: 384}
@@ -61,9 +102,12 @@ MAX_THREADS = {1: 768, 2: 512, 3: 512, 4: 384}
 _MAX_ROWS = 254
 _MAX_HALF_COLS = 255
 # the tiles a plan takes (scripts/tiled_plan_sweep.py on the H100,
-# PERF.md): 16x48 measured fastest at every swept shape; the smaller ones
-# give a small level or shard a block an SM
+# PERF.md): 16x48 measured fastest at every swept shape for llin4, elin4
+# and disp; the smaller ones give a small level or shard a block an SM.
+# llin8, pde8 and pde4, whose kernels hold one block an SM at the plan's
+# pairs a thread, measured fastest with one taller tile first (PERF.md)
 TILES = ((16, 48), (16, 24), (8, 24), (8, 16))
+FIRST_TILE = {"flow_llin8": (32, 48), "pde8": (40, 32), "pde4": (32, 32)}
 # threads a block at most in a plan, so that two blocks share an SM (at 64
 # registers a thread): one block's loads and prepare overlap the other's
 # sweeps
@@ -74,31 +118,39 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def _halo_for(k: int) -> int:
-    """Halo of a chunk of ``k`` sweeps. The kernel copies 4-byte words,
-    so no alignment rounding is needed."""
-    return RB_RADIUS * k
+def _fill(family) -> int:
+    """1 for a family that fills the border after each sweep, else 0 (a
+    sweep of no family: none)."""
+    layout = LAYOUTS.get(family)
+    return layout.fill if layout is not None else 0
 
 
-def _slot_dims(k: int, tile_h: int, tile_w: int) -> tuple[int, int]:
+def _halo_for(family: str, k: int) -> int:
+    """Halo of a chunk of ``k`` sweeps of ``family``: 2k, and one pixel
+    more where the border is filled. The kernel copies 4-byte words, so no
+    alignment rounding is needed."""
+    return RB_RADIUS * k + _fill(family)
+
+
+def _slot_dims(family: str, k: int, tile_h: int, tile_w: int) -> tuple[int, int]:
     """A slot's rows and half-columns (pairs a row)."""
-    halo = _halo_for(k)
+    halo = _halo_for(family, k)
     return tile_h + 2 * halo, (tile_w + 2 * halo + 1) // 2
 
 
-def slot_bytes(n_fields: int, k: int, tile_h: int, tile_w: int) -> int:
-    """Shared memory of one slot: two float32 planes (one a colour) of each
-    of the ``n_fields - 9`` fields neighbours read, over the tile and its
-    halo, rounded to 16 bytes (the kernel's ``slot_floats``). Families of
-    fewer fields have no kernel (their tiles run the plain schedule): 0."""
-    rows, hc = _slot_dims(k, tile_h, tile_w)
-    return 4 * _round_up(2 * max(n_fields - COEF_PLANES, 0) * rows * hc, 4)
+def slot_bytes(family: str, k: int, tile_h: int, tile_w: int) -> int:
+    """Shared memory of one slot: the family's float32 planes (a colour
+    each of every field neighbours read, two a colour of an 8-neighbour
+    family's relaxed fields) over the tile and its halo, rounded to 16
+    bytes (the kernel's ``slot_floats``)."""
+    rows, hc = _slot_dims(family, k, tile_h, tile_w)
+    return 4 * _round_up(LAYOUTS[family].smem_planes * rows * hc, 4)
 
 
-def block_threads(k: int, tile_h: int, tile_w: int, slots: int) -> int:
+def block_threads(family: str, k: int, tile_h: int, tile_w: int, slots: int) -> int:
     """Threads a block: every pair of the slot owned, ``slots`` a thread,
     rounded up to a warp (the kernel's ``block_threads``)."""
-    rows, hc = _slot_dims(k, tile_h, tile_w)
+    rows, hc = _slot_dims(family, k, tile_h, tile_w)
     return _round_up(-(-rows * hc // slots), 32)
 
 
@@ -113,77 +165,84 @@ class TilePlan(NamedTuple):
     threads: int  # a block's
 
 
-def make_plan(h: int, w: int, n_fields: int, k: int, tile_h: int, tile_w: int,
+def make_plan(h: int, w: int, family: str, k: int, tile_h: int, tile_w: int,
               slots: int | None = None, double_buffer: bool = False) -> TilePlan | None:
-    """The plan of ``k`` sweeps a chunk over ``tile_h`` x ``tile_w`` tiles
-    of an (h, w) box, ``slots`` pairs a thread (by default the fewest that
-    keep a block within ``MAX_THREADS``); ``None`` if the kernel does not
-    take it."""
-    rows, hc = _slot_dims(k, tile_h, tile_w)
+    """The plan of ``k`` sweeps of ``family`` a chunk over ``tile_h`` x
+    ``tile_w`` tiles of an (h, w) box, ``slots`` pairs a thread (by default
+    the fewest that keep a block within ``MAX_THREADS``); ``None`` if the
+    kernel does not take it."""
+    if double_buffer and not LAYOUTS[family].double_buffer:
+        return None
+    rows, hc = _slot_dims(family, k, tile_h, tile_w)
     if k < 1 or tile_h < 1 or tile_w < 1 or rows > _MAX_ROWS or hc > _MAX_HALF_COLS:
         return None
-    smem = (2 if double_buffer else 1) * slot_bytes(n_fields, k, tile_h, tile_w)
+    smem = (2 if double_buffer else 1) * slot_bytes(family, k, tile_h, tile_w)
     if smem > SMEM_PER_BLOCK:
         return None
     for s in [slots] if slots is not None else sorted(MAX_THREADS):
-        if s in MAX_THREADS and block_threads(k, tile_h, tile_w, s) <= MAX_THREADS[s]:
+        threads = block_threads(family, k, tile_h, tile_w, s) if s in MAX_THREADS else None
+        if threads is not None and threads <= MAX_THREADS[s]:
             return TilePlan(k, tile_h, tile_w, math.ceil(h / tile_h), math.ceil(w / tile_w),
-                            smem, s, block_threads(k, tile_h, tile_w, s))
+                            smem, s, threads)
     return None
 
 
 @functools.lru_cache(maxsize=256)
-def plan_tiles(h: int, w: int, n_fields: int, sweeps: int, k_max: int = 4,
+def plan_tiles(h: int, w: int, family: str, sweeps: int, k_max: int = 4,
                double_buffer: bool = False, exact_k: bool = False,
-               sm_count: int = SM_COUNT):
+               sm_count: int = SM_COUNT, batch: int = 1):
     """Choose the temporal block ``k`` and the 2-D tile for an (h, w)
-    problem of ``n_fields`` fields on a card of ``sm_count`` SMs; ``None``
-    when no plan fits.
+    problem of ``family`` (``LAYOUTS``), ``batch`` systems or channels a
+    launch, on a card of ``sm_count`` SMs; ``None`` when no plan fits.
 
     k is ``min(k_max, sweeps)`` (less only where no tile fits; ``exact_k``,
-    a window's chunk, never less). Each tile of ``TILES`` (cut to the image
-    rounded up to 8) takes the fewest pairs a thread that keep a block
-    within ``PLAN_THREADS``. Among the plans of at least ``sm_count`` tiles,
-    a block an SM (a 240x320 shard, a 1024x1024 level), or among all where
-    the image has too few pixels for that, the plan is the one whose SMs
-    work through the fewest slot pixels (tiles an SM times a tile and its
-    halo): 16x48 at 1024x1024 and 768x768, 16x24 at a 240x320 shard, 8x24
-    or 8x16 at the smaller shards of a mesh frame.
+    a window's chunk, never less). Each tile of ``TILES`` (after the
+    family's ``FIRST_TILE``; each cut to the image rounded up to 8) takes
+    the fewest pairs a thread that keep a block within ``PLAN_THREADS``. Among the plans of at least ``sm_count``
+    blocks (tiles times ``batch``), a block an SM (a 240x320 shard, a
+    1024x1024 level), or among all where the image has too few pixels for
+    that, the plan is the one whose SMs work through the fewest slot pixels
+    (blocks an SM times a tile and its halo): 16x48 at 1024x1024 and
+    768x768 (llin8 32x48, pde8 40x32, pde4 32x32), 16x24 at a 240x320
+    shard, 8x24 or 8x16 at the smaller shards of a mesh frame.
     """
+    if family not in LAYOUTS:
+        raise ValueError(f"no tile layout for {family!r}; there are {sorted(LAYOUTS)}")
     k_top = max(1, min(k_max, sweeps))
     hi_h, hi_w = _round_up(h, 8), _round_up(w, 8)
 
     def slot_pixels_an_sm(p: TilePlan) -> int:
-        rows, hc = _slot_dims(p.k, p.tile_h, p.tile_w)
-        return math.ceil(p.n_tiles_h * p.n_tiles_w / sm_count) * rows * 2 * hc
+        rows, hc = _slot_dims(family, p.k, p.tile_h, p.tile_w)
+        return math.ceil(p.n_tiles_h * p.n_tiles_w * batch / sm_count) * rows * 2 * hc
 
     for k in [k_top] if exact_k else range(k_top, 0, -1):
         plans = []
-        for th, tw in TILES:
+        for th, tw in ((FIRST_TILE[family],) if family in FIRST_TILE else ()) + TILES:
             th, tw = min(th, hi_h), min(tw, hi_w)
             slots = next((s for s in sorted(MAX_THREADS)
-                          if block_threads(k, th, tw, s) <= PLAN_THREADS), None)
-            plan = (make_plan(h, w, n_fields, k, th, tw, slots, double_buffer)
+                          if block_threads(family, k, th, tw, s) <= PLAN_THREADS), None)
+            plan = (make_plan(h, w, family, k, th, tw, slots, double_buffer)
                     if slots is not None else None)
             if plan is not None:
                 plans.append(plan)
         if plans:
-            full = [p for p in plans if p.n_tiles_h * p.n_tiles_w >= sm_count]
+            full = [p for p in plans if p.n_tiles_h * p.n_tiles_w * batch >= sm_count]
             return min(full or plans, key=lambda p: (slot_pixels_an_sm(p), -p.tile_h * p.tile_w))
     return None
 
 
-def bytes_per_pixel_iter(plan: TilePlan, n_fields: int, n_mut: int) -> float:
-    """Device-memory bytes a pixel-iteration moves under ``plan``: the
-    neighbour fields over the slot and the coefficient planes over the
-    pixels the chunk relaxes (the halo re-read by the neighbouring tiles),
-    and the relaxed fields of the interior written, once per k sweeps."""
-    halo = _halo_for(plan.k)
+def bytes_per_pixel_iter(plan: TilePlan, family: str) -> float:
+    """Device-memory bytes a pixel-iteration of one system moves under
+    ``plan``: the neighbour fields over the slot and the coefficient planes
+    over the pixels the chunk relaxes (the halo re-read by the neighbouring
+    tiles), and the relaxed fields of the interior written, once per k
+    sweeps."""
+    layout = LAYOUTS[family]
+    halo = _halo_for(family, plan.k)
     slot = (plan.tile_h + 2 * halo) * (plan.tile_w + 2 * halo)
     live = (plan.tile_h + 2 * halo - 2) * (plan.tile_w + 2 * halo - 2)
-    nbr = n_fields - COEF_PLANES
-    return ((nbr * slot + COEF_PLANES * live) * 4 / (plan.tile_h * plan.tile_w)
-            + n_mut * 4) / plan.k
+    return ((layout.nbr * slot + layout.coef_planes * live) * 4 / (plan.tile_h * plan.tile_w)
+            + layout.n_mut * 4) / plan.k
 
 
 class Window(NamedTuple):
@@ -206,13 +265,14 @@ def whole(h: int, w: int) -> Window:
     return Window(0, 0, h, w, (0, h, 0, w))
 
 
-def check_window(shape, window: Window, k: int) -> None:
+def check_window(shape, window: Window, k: int, family=None) -> None:
     """Raise unless the box lies in the array, the array in the image, and
-    the box keeps ``2 k`` pixels of the array, or the image's edge, on each
-    side (what a chunk of ``k`` sweeps reads)."""
+    the box keeps the halo of a chunk of ``k`` sweeps of ``family`` (2k, or
+    2k + 1 with a border fill) of the array, or the image's edge, on each
+    side (what such a chunk reads)."""
     h, w = shape
     i0, i1, j0, j1 = window.box
-    halo = _halo_for(k)
+    halo = _halo_for(family, k)
     if not (0 <= i0 < i1 <= h and 0 <= j0 < j1 <= w):
         raise ValueError(f"window box {window.box} is not a non-empty box of the {h}x{w} array")
     if not (0 <= window.r0 and window.r0 + h <= window.gh
@@ -237,12 +297,14 @@ def _plain_chunk(mut, const, sweep_fn, prepare_fn, k: int, tile_h: int, tile_w: 
                  window: Window | None = None):
     """One chunk of ``k`` sweeps, tile by tile, as the kernel runs it: the
     tile and its halo cut out (clamped at the array's edge), ``k`` sweeps
-    over regions that shrink by 2 each sweep, the interior kept. Returns
-    the box's part of the relaxed fields."""
+    over regions that shrink by 2 each sweep (reaching one pixel further
+    for a family that fills the border), the interior kept. Returns the
+    box's part of the relaxed fields."""
     h, w = mut[0].shape[-2:]
     r0_img, c0_img, gh, gw, box = window or whole(h, w)
     i0, i1, j0, j1 = box
-    halo = _halo_for(k)
+    family = getattr(sweep_fn, "family", None)
+    fill, halo = _fill(family), _halo_for(family, k)
     dev = mut[0].device
     out = [x.new_empty(x.shape[:-2] + (i1 - i0, j1 - j0)) for x in mut]
     for r0, c0 in tile_origins(h, w, tile_h, tile_w, box):
@@ -266,7 +328,7 @@ def _plain_chunk(mut, const, sweep_fn, prepare_fn, k: int, tile_h: int, tile_w: 
             tc = prepare_fn(tc, aux)
         for s in range(k):
             # colour 0 reaches one pixel further than colour 1, which reads it
-            reach = 2 * (k - 1 - s)
+            reach = 2 * (k - 1 - s) + fill
             grown = [colour[0] & region(reach + 1), colour[1] & region(reach)]
             tm = sweep_fn(tm, tc, aux._replace(maskf0=grown[0], maskf1=grown[1],
                                                mask0=grown[0] & inner, mask1=grown[1] & inner))
@@ -282,17 +344,22 @@ def plain_tiled_relax(fields, sweep_fn, prepare_fn, n_mut: int, iters: int, k: i
     ``window``, one chunk of ``iters <= k`` sweeps over its box, whose part
     of the fields it returns."""
     mut, const = list(fields[:n_mut]), list(fields[n_mut:])
+    family = getattr(sweep_fn, "family", None)
     if window is not None:
         iters = max(int(iters), 0)
         if iters > k:
             raise ValueError(f"a window is one chunk: iters={iters} > k={k}")
-        check_window(mut[0].shape[-2:], window, iters)
+        check_window(mut[0].shape[-2:], window, iters, family)
         if iters == 0:
             i0, i1, j0, j1 = window.box
             return tuple(x[..., i0:i1, j0:j1].clone() for x in mut)
         return tuple(_plain_chunk(mut, const, sweep_fn, prepare_fn, iters, tile_h, tile_w,
                                   window))
     n_full, rem = divmod(max(int(iters), 0), k)
+    if n_full + rem and _fill(family) and min(mut[0].shape[-2:]) == 1:
+        # W4: the plain solvers' border fill empties a 1-px image (as
+        # pde_tpu's replicate_border); the stripe engine's does not
+        return tuple(replicate_border(x) for x in mut)
     for kc in [k] * n_full + ([rem] if rem else []):
         mut = _plain_chunk(mut, const, sweep_fn, prepare_fn, kc, tile_h, tile_w)
     return tuple(mut)
@@ -321,7 +388,12 @@ def tiled_relax(fields: Sequence[torch.Tensor], sweep_fn, n_mut: int, iters: int
     window's box, planned over the box, and returns the box's part of the
     relaxed fields, as the same sweeps over the whole image give it. On the
     card the windowed variant of the kernel runs it.
+
+    The fields of disp_llin4, pde4 and pde8 may be batched, (B, H, W), a
+    field shared by the systems (H, W); the card takes up to
+    ``LAYOUTS[family].max_batch`` systems in one launch.
     """
+    family = getattr(sweep_fn, "family", None)
     h, w = fields[0].shape[-2:]
     if window is not None:
         i0, i1, j0, j1 = window.box
@@ -332,8 +404,9 @@ def tiled_relax(fields: Sequence[torch.Tensor], sweep_fn, n_mut: int, iters: int
         tile_h, tile_w = (tile, tile) if isinstance(tile, int) else tile
         slots = slots[0] if slots else None
     else:
-        plan = plan_tiles(h, w, len(fields), iters, k_max, double_buffer=double_buffer,
-                          exact_k=window is not None, sm_count=_sm_count(fields[0]))
+        batch = max([x.shape[0] for x in fields if x.ndim == 3] or [1])
+        plan = plan_tiles(h, w, family, iters, k_max, double_buffer=double_buffer,
+                          exact_k=window is not None, sm_count=_sm_count(fields[0]), batch=batch)
         if plan is None:
             return None
         k, tile_h, tile_w, slots = plan.k, plan.tile_h, plan.tile_w, plan.slots
@@ -345,18 +418,17 @@ def tiled_relax(fields: Sequence[torch.Tensor], sweep_fn, n_mut: int, iters: int
                                      tile_w)
         return plain_tiled_relax(fields, sweep_fn, prepare_fn, n_mut, iters, k, tile_h,
                                  tile_w, window)
-    family = getattr(sweep_fn, "family", None)
-    if (family not in tiled_cuda.FIELD_NAMES or n_mut != 2
+    if (family not in LAYOUTS or n_mut != LAYOUTS[family].n_mut
             or getattr(prepare_fn, "family", None) != family
             or prepare_fn.omega != sweep_fn.omega):
-        raise ValueError("the tile kernel runs the flow_llin4 and flow_elin4 sweeps of "
-                         "kernels/sweeps.py with their own prepare; got "
-                         f"{getattr(sweep_fn, '__qualname__', sweep_fn)!r}")
+        raise ValueError("the tile kernel runs the sweeps of kernels/sweeps.py (flow_llin4, "
+                         "flow_elin4, disp_llin4, pde4, flow_llin8, pde8) with their own "
+                         f"prepare; got {getattr(sweep_fn, '__qualname__', sweep_fn)!r}")
     if window is None:
-        return tiled_cuda.tiled_flow_sor(family, tuple(fields), iters, sweep_fn.omega, k,
-                                         tile_h, tile_w, double_buffer, slots)
-    return tiled_cuda.tiled_flow_sor_window(family, tuple(fields), iters, sweep_fn.omega,
-                                            window, tile_h, tile_w, double_buffer, slots)
+        return tiled_cuda.tiled_sor(family, tuple(fields), iters, sweep_fn.omega, k, tile_h,
+                                    tile_w, double_buffer, slots)
+    return tiled_cuda.tiled_sor_window(family, tuple(fields), iters, sweep_fn.omega, window,
+                                       tile_h, tile_w, double_buffer, slots)
 
 
 def _sm_count(x: torch.Tensor) -> int:

@@ -7,17 +7,19 @@ tile on its device, and every tile is relaxed on its own device from its
 own data and the halo its neighbours give it (``halo.py``).
 
 Temporal blocking (as ``pde_tpu``): one red-black sweep has dependency
-radius 2, so a 2k-pixel halo, exchanged once, buys k exact local sweeps
+radius 2, so a 2k-pixel halo (2k + 1 where the border is filled after
+each sweep), exchanged once, buys k exact local sweeps
 before the next exchange. A chunk of k sweeps runs on each tile's window
 (``kernels/tiled.Window``: the tile and its halo, clipped to the image;
 colours, the interior and the edges in the image's coordinates) and keeps
 the tile: bit for bit what the same sweeps over the whole image give.
-On CUDA tiles the llin4 and elin4 chunks run the windowed variant of
-``csrc/tiled_sor.cu``, one launch a tile and chunk; llin8, disp and pde4
-run their sweep factories (``kernels/sweeps.py``) as torch ops on the
-tile's device, as ``pde_tpu`` runs its shard bodies as XLA ops. On CPU
-tiles, or under ``dispatch.plain_solvers()``, every family runs that plain
-windowed schedule, over one tile a shard.
+On CUDA tiles the chunks of every sharded family (llin4, elin4, llin8,
+disp llin4 and pde4) run the windowed variant of ``csrc/tiled_sor.cu``,
+one launch a tile and chunk, where ``pde_tpu`` runs its shard bodies as
+XLA ops. On CPU tiles, or under ``dispatch.plain_solvers()``, every
+family runs the plain windowed schedule (its sweep factory of
+``kernels/sweeps.py`` in torch ops), over one tile a shard. The families
+that fill the border take a halo of ``2k + 1`` (``kernels/tiled.py``).
 
 The tiled PCG (``tiled_pcg_flow_llin4``) runs the CG iteration of
 ``solvers/krylov.py`` with halo-exchanged matvecs and dot products summed
@@ -51,7 +53,7 @@ def _shard_chunk(fields, sweep, prepare, n_mut: int, kc: int, window, double_buf
     """``kc`` sweeps on one tile's window; the tile's part of the relaxed
     fields."""
     i0, i1, j0, j1 = window.box
-    if dispatch._plain(fields[0]) or getattr(sweep, "family", None) is None:
+    if dispatch._plain(fields[0]):
         return tiled.plain_tiled_relax(fields, sweep, prepare, n_mut, kc, kc, i1 - i0, j1 - j0,
                                        window)
     out = tiled.tiled_relax(fields, sweep, n_mut, kc, prepare_fn=prepare, window=window,
@@ -69,7 +71,8 @@ def tiled_relax_sharded(mesh: Mesh, sweep_factory, fields, n_mut: int, iters: in
     factory with (H, W) fields sharded over mesh axes ("ty", "tx").
 
     The numbers of the single-device solvers, bit for bit. Halos are
-    exchanged once per ``k`` sweeps (2k px wide), ``k`` cut to the tile's
+    exchanged once per ``k`` sweeps (2k px wide, 2k + 1 for disp llin4 and
+    pde4), ``k`` cut to the tile's
     half-size and to ``iters``, the last chunk the remainder; pass k=1 for
     the classic per-sweep exchange. Returns the ``n_mut`` relaxed fields,
     whole, on the device of ``fields[0]``.
@@ -90,7 +93,7 @@ def tiled_relax_sharded(mesh: Mesh, sweep_factory, fields, n_mut: int, iters: in
     mut, const = tiles[:n_mut], tiles[n_mut:]
     const_ext = {}  # the frozen fields' windows, by chunk length
     for kc in [k_eff] * n_full + ([rem] if rem else []):
-        halo = RB_RADIUS * kc
+        halo = tiled._halo_for(sweep.family, kc)
         if kc not in const_ext:
             const_ext[kc] = [halo_window(x, halo, comm) for x in const]
         ext = [halo_window(x, halo, comm) for x in mut] + const_ext[kc]

@@ -225,7 +225,7 @@ def test_tiled_relax_sharded_multichunk(rng, k):
     _close(got, tuple(want), JAX_TOL)
 
 
-@pytest.mark.parametrize("family", ["flow_llin4", "flow_elin4"])
+@pytest.mark.parametrize("family", ["flow_llin4", "flow_elin4", "flow_llin8", "disp_llin4", "pde4"])
 def test_tiled_relax_sharded_under_the_tile_plan(rng, family, monkeypatch):
     """Each shard's chunk through ``tiled.tiled_relax(..., window=)``, the
     call the card path makes, so that the plain windowed schedule runs at
@@ -236,7 +236,7 @@ def test_tiled_relax_sharded_under_the_tile_plan(rng, family, monkeypatch):
 
     def planned_chunk(fields, sweep, prepare, n_mut, kc, window, double_buffer):
         i0, i1, j0, j1 = window.box
-        plan = tiled.plan_tiles(i1 - i0, j1 - j0, len(fields), kc, kc, exact_k=True)
+        plan = tiled.plan_tiles(i1 - i0, j1 - j0, sweep.family, kc, kc, exact_k=True)
         calls.append((plan.n_tiles_h * plan.n_tiles_w, kc))
         return tiled.tiled_relax(fields, sweep, n_mut, kc, prepare_fn=prepare, window=window,
                                  double_buffer=double_buffer)
@@ -279,6 +279,9 @@ WINDOW_CASES = {
     "1-px shard edge across the image": ((21, 27), (10, 11, 0, 27), 2, (8, 8)),
     "2-px shard edge down the image": ((21, 27), (0, 21, 13, 15), 1, (8, 8)),
     "the image's corner": ((21, 27), (0, 6, 20, 27), 4, (4, 4)),
+    # the border's fill source lies outside the box: the 2k + 1 halo's case
+    "1-px shard on the image's last row": ((21, 27), (20, 21, 0, 27), 2, (8, 8)),
+    "1-px shard on the image's first column": ((21, 27), (0, 21, 0, 1), 1, (8, 8)),
 }
 
 
@@ -297,7 +300,7 @@ def test_windowed_plain_schedule_equals_global(rng, family, case):
     tf = [t[i] for i in order] + t[len(order):]
     factory = getattr(sweeps, f"{family}_sweep")
     prepare, sweep = factory(omega)
-    halo_px = 2 * k
+    halo_px = tiled._halo_for(family, k)  # 2k, and a pixel more with a border fill
     r0, r1 = max(0, R0 - halo_px), min(gh, R1 + halo_px)
     c0, c1 = max(0, C0 - halo_px), min(gw, C1 + halo_px)
     window = tiled.Window(r0, c0, gh, gw, (R0 - r0, R1 - r0, C0 - c0, C1 - c0))
@@ -430,13 +433,14 @@ def test_window_wrapper_refuses_before_building(monkeypatch):
              (meta, tiled.Window(4, 0, 12, 16, (4, 8, 0, 16)), "does not lie"))
     for fields, window, match in cases:
         with pytest.raises(ValueError, match=match):
-            tiled_cuda.tiled_flow_sor_window("flow_elin4", fields, 2, 1.9, window, 8, 8)
+            tiled_cuda.tiled_sor_window("flow_elin4", fields, 2, 1.9, window, 8, 8)
     prepare, sweep = sweeps.flow_elin4_sweep(1.9)
     with pytest.raises(ValueError, match="CUDA"):
         tiled.tiled_relax(meta, sweep, 2, 2, prepare_fn=prepare, window=good)
-    prepare, sweep = sweeps.pde4_sweep(1.75)
+    # pde4's sweep with disp's prepare
+    prepare, sweep = sweeps.disp_llin4_sweep(1.75)[0], sweeps.pde4_sweep(1.75)[1]
     with pytest.raises(ValueError, match="tile kernel runs"):
-        tiled.tiled_relax(meta[:7], sweep, 1, 2, prepare_fn=prepare, window=good)
+        tiled.tiled_relax(meta[:7], sweep, 1, 1, prepare_fn=prepare, window=good)
     assert tiled_cuda.LAUNCHES == before
 
 

@@ -284,10 +284,11 @@ def card_routes(monkeypatch):
 
     def tile_recorder(family, fields, iters, omega, k, tile_h, tile_w, double_buffer=False,
                       slots=None):
-        calls.append((f"tile {family[len('flow_'):]}", (k, tile_h, tile_w, slots), fields))
+        name = {"disp_llin4": "disp"}.get(family, family.removeprefix("flow_"))
+        calls.append((f"tile {name}", (k, tile_h, tile_w, slots), fields))
         return torch.zeros((2, 1)), torch.zeros((2, 1))
 
-    monkeypatch.setattr(tiled_cuda, "tiled_flow_sor", tile_recorder)
+    monkeypatch.setattr(tiled_cuda, "tiled_sor", tile_recorder)
     return calls
 
 
@@ -345,12 +346,13 @@ def test_dispatch_picks_resident_pde4_and_elin4_from_the_shape(card_routes, h, w
 
 
 def test_dispatch_sends_pde4_and_elin4_without_a_plan_to_the_global_kernels(card_routes):
-    """pde4 without a resident plan, and elin4 of a shape that is not
-    (H, W), go to the global kernels. An elin4 (H, W) without a resident
-    plan (1024x1024) now goes to the tile kernel instead, the route that
+    """pde4 that no kernel of a plan takes (no interior, more channels or
+    weights per channel), and elin4 of a shape that is not (H, W), go to
+    the global kernels. An elin4 or pde4 (H, W) without a resident plan
+    (1024x1024) now goes to the tile kernel instead, the route that
     tests/test_torch_tiled.py holds for every such shape."""
     big = torch.zeros((1024, 1024))
-    dispatch.sor_pde4(*([big] * 7), 5, 1.75)                                 # eight slots
+    dispatch.sor_pde4(*([big] * 7), 5, 1.75)                                 # eight slots: tile
     dispatch.sor_pde4(*([torch.zeros((2, 9))] * 7), 5, 1.75)                # no interior
     x4, x = torch.zeros((4, 9, 9)), torch.zeros((9, 9))
     dispatch.sor_pde4(x4, x4, x4, *([x] * 4), 5, 1.75)                      # 4 channels
@@ -361,9 +363,12 @@ def test_dispatch_sends_pde4_and_elin4_without_a_plan_to_the_global_kernels(card
     # kernel's redesign every llin4 and elin4 shape without one takes it)
     dispatch.sor_flow_elin4(*([big] * 11), 20, 1.9)
     dispatch.sor_flow_elin4(*([torch.zeros((2, 5, 5))] * 11), 20, 1.9)     # not (H, W)
-    assert [c[0] for c in card_routes] == ["global pde4"] * 5 + ["tile elin4", "global elin4"]
+    assert [c[0] for c in card_routes] == (["tile pde4"] + ["global pde4"] * 4
+                                           + ["tile elin4", "global elin4"])
     assert all(c[1] is None for c in card_routes if c[0].startswith("global"))
-    plan = tiled.plan_tiles(1024, 1024, 11, 20, 4, sm_count=resident_cuda.SM_COUNT)
+    plan = tiled.plan_tiles(1024, 1024, "pde4", 5, 4, sm_count=resident_cuda.SM_COUNT)
+    assert card_routes[0][1] == (4, plan.tile_h, plan.tile_w, plan.slots)
+    plan = tiled.plan_tiles(1024, 1024, "flow_elin4", 20, 4, sm_count=resident_cuda.SM_COUNT)
     assert card_routes[5][1] == (4, plan.tile_h, plan.tile_w, plan.slots)
 
 

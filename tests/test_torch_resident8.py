@@ -19,7 +19,8 @@ import jax.numpy as jnp
 from pde_tpu.solvers import sor as jsor
 from pde_tpu_torch.core.grid import replicate_border
 from pde_tpu_torch.core.pyramid import pyramid_scales
-from pde_tpu_torch.kernels import build, dispatch, interior_cuda, resident_cuda, sor_cuda
+from pde_tpu_torch.kernels import (build, dispatch, interior_cuda, resident_cuda, sor_cuda, tiled,
+                                   tiled_cuda)
 from pde_tpu_torch.solvers import sor
 
 torch.set_num_threads(1)
@@ -373,7 +374,8 @@ def test_dispatch_cpu_is_plain_builds_nothing_and_is_pde_tpu(rng, monkeypatch, s
 @pytest.fixture
 def card_routes(monkeypatch):
     """Dispatch as for CUDA tensors, with every llin8/pde8 kernel wrapper
-    replaced by a recorder of (wrapper, plan) and nothing built."""
+    (and the tile kernel's) replaced by a recorder of (wrapper, plan) and
+    nothing built."""
     monkeypatch.setattr(build, "load", _no_build)
     monkeypatch.setattr(dispatch, "_plain", lambda x: False)
     monkeypatch.setattr(resident_cuda, "sm_count", lambda index: resident_cuda.SM_COUNT)
@@ -390,6 +392,13 @@ def card_routes(monkeypatch):
     monkeypatch.setattr(resident_cuda, "pde8_sor", recorder("resident pde8", 1))
     monkeypatch.setattr(sor_cuda, "flow_llin8_sor", recorder("global llin8", 2))
     monkeypatch.setattr(interior_cuda, "pde8_sor", recorder("global pde8", 1))
+
+    def tile_recorder(family, fields, iters, omega, k, tile_h, tile_w, double_buffer=False,
+                      slots=None):
+        calls.append((f"tile {family}", (k, tile_h, tile_w, slots)))
+        return tuple(torch.zeros((2, 1)) for _ in range(tiled.LAYOUTS[family].n_mut))
+
+    monkeypatch.setattr(tiled_cuda, "tiled_sor", tile_recorder)
     return calls
 
 
@@ -409,8 +418,11 @@ def test_dispatch_picks_the_resident_kernel_from_the_shape(card_routes, h, w):
 
 
 def test_dispatch_sends_shapes_without_a_plan_to_the_global_kernels(card_routes):
+    """Shapes no kernel of a plan takes go to the global kernels; a llin8
+    (H, W) without a resident plan (1024x1024) goes to the tile kernel,
+    the route tests/test_torch_tiled.py holds for every such shape."""
     big = torch.zeros((1024, 1024))
-    dispatch.sor_flow_llin8(*([big] * 17), 4, 1.9)                           # one band an SM
+    dispatch.sor_flow_llin8(*([big] * 17), 4, 1.9)                           # the tile kernel
     dispatch.sor_flow_llin8(*([torch.zeros((2, 5, 5))] * 17), 4, 1.9)       # not (H, W)
     dispatch.sor_pde8(*([torch.zeros((2, 9))] * 11), 4, 1.75)               # no interior
     x4 = torch.zeros((4, 9, 9))
@@ -418,8 +430,11 @@ def test_dispatch_sends_shapes_without_a_plan_to_the_global_kernels(card_routes)
     x3 = torch.zeros((3, 9, 9))
     dispatch.sor_pde8(*([x3] * 11), 4, 1.75)                                # weights per channel
     dispatch.sor_pde8(torch.zeros((2, 3, 9, 9)), *([torch.zeros((9, 9))] * 10), 4, 1.75)
-    assert [c[0] for c in card_routes] == ["global llin8"] * 2 + ["global pde8"] * 4
-    assert all(c[1] is None for c in card_routes)
+    assert [c[0] for c in card_routes] == (["tile flow_llin8", "global llin8"]
+                                           + ["global pde8"] * 4)
+    plan = tiled.plan_tiles(1024, 1024, "flow_llin8", 4, 4, sm_count=resident_cuda.SM_COUNT)
+    assert card_routes[0][1] == (4, plan.tile_h, plan.tile_w, plan.slots)
+    assert all(c[1] is None for c in card_routes[1:])
 
 
 def test_resident_wrappers_reject_cpu_tensors_before_building(rng, monkeypatch):

@@ -1,11 +1,13 @@
-"""The tile engine (``pde_tpu_torch/kernels/tiled.py``): its plain tile
-schedule held exactly against the port's plain global solvers and within
-``tests/test_kernels.py``'s tolerance against ``pde_tpu``'s Pallas stripe
-engine in interpret mode (serial and double-buffered), also at the tiles
-of the redesigned kernel's plans and through windows; the tile plan (a
-block an SM, the colour-split slot's bytes, threads); the dispatch's route
-from the shape (``kernels/dispatch.sor_route``: resident, tile or global
-kernel); the wrapper's refusals; and the build rule for headers.
+"""The tile engine (``pde_tpu_torch/kernels/tiled.py``) for its six
+families (llin4, elin4, disp llin4, pde4, llin8, pde8): its plain tile
+schedule held exactly against the port's plain global solvers (disp at a
+batch of 2, pde4 and pde8 at 3 channels too) and within a stated
+tolerance against ``pde_tpu``'s Pallas stripe engine in interpret mode
+(serial; llin4 and elin4 double-buffered too), also at the tiles of the
+redesigned kernel's plans and through windows; the tile plan (a block an
+SM, the colour-split slot's bytes, threads); the dispatch's route from the
+shape (``kernels/dispatch.sor_route``: resident, tile or global kernel);
+the wrapper's refusals; and the build rule for headers.
 
 The kernel (``csrc/tiled_sor.cu``) runs only on the card: ``chip_smoke.py``
 holds it against the plain schedule there.
@@ -20,16 +22,19 @@ import jax.numpy as jnp
 
 from pde_tpu.kernels import sweeps as jsweeps
 from pde_tpu.kernels.tiled import tiled_relax as jtiled_relax
-from pde_tpu_torch.kernels import build, dispatch, resident_cuda, sor_cuda, sweeps, tiled, tiled_cuda
+from pde_tpu_torch.kernels import (build, dispatch, interior_cuda, resident_cuda, sor_cuda, sweeps,
+                                   tiled, tiled_cuda)
 from pde_tpu_torch.solvers import sor
 
 torch.set_num_threads(1)
 
-LLIN = ("du", "dv", "u", "v", "m", "cu", "cv", "duc", "dvc", "ww", "wn", "we", "ws")
-ELIN = ("u", "v", "m", "cu", "cv", "duc", "dvc", "ww", "wn", "we", "ws")
-FAMILIES = {"flow_llin4": (LLIN, sweeps.flow_llin4_sweep, jsweeps.flow_llin4_sweep),
-            "flow_elin4": (ELIN, sweeps.flow_elin4_sweep, jsweeps.flow_elin4_sweep)}
-NAN_ALL = ("cu", "cv", "duc", "dvc")
+LLIN = tiled_cuda.FIELD_NAMES["flow_llin4"]
+ELIN = tiled_cuda.FIELD_NAMES["flow_elin4"]
+FAMILIES = {family: (tiled_cuda.FIELD_NAMES[family], getattr(sweeps, f"{family}_sweep"),
+                     getattr(jsweeps, f"{family}_sweep"))
+            for family in tiled.LAYOUTS}
+FLOW4 = ("flow_llin4", "flow_elin4")  # the families with a double-buffered kernel
+NAN_ALL = ("cu", "cv", "duc", "dvc", "trace")
 
 
 def _fields(rng, h, w, names, nan_names=()):
@@ -37,7 +42,7 @@ def _fields(rng, h, w, names, nan_names=()):
     ``nan_names``; numpy float32, in the order of ``names``."""
     out = []
     for n in names:
-        if n in ("duc", "dvc"):
+        if n in ("duc", "dvc", "trace"):
             x = rng.random((h, w)) + 1.0
         elif n == "m":
             x = rng.random((h, w)) * 0.01
@@ -52,10 +57,21 @@ def _fields(rng, h, w, names, nan_names=()):
 
 
 def _plain_global(family, t, iters):
-    if family == "flow_llin4":
+    """The plain global solver of ``family`` on the tile engine's fields;
+    the relaxed fields."""
+    if family in ("flow_llin4", "flow_llin8"):
         du, dv, u, v, *rest = t
-        return sor.sor_flow_llin4(u, v, du, dv, *rest, iters, 1.9)
-    return sor.sor_flow_elin4(*t, iters, 1.9)
+        return getattr(sor, f"sor_{family}")(u, v, du, dv, *rest, iters, 1.9)
+    if family == "flow_elin4":
+        return sor.sor_flow_elin4(*t, iters, 1.9)
+    if family == "disp_llin4":
+        du, u, *rest = t
+        return (sor.sor_disp_llin4(u, du, *rest, iters, 1.9),)
+    return (getattr(sor, f"sor_{family}")(*t, iters, 1.9),)
+
+
+def _n_mut(family):
+    return tiled.LAYOUTS[family].n_mut
 
 
 def _assert_equal(got, want):
@@ -86,23 +102,62 @@ def test_plain_tile_schedule_equals_plain_global_solver(rng, family, case):
     names, factory, _ = FAMILIES[family]
     t = [torch.from_numpy(x) for x in _fields(rng, h, w, names, nan_names)]
     prepare, sweep = factory(1.9)
-    got = tiled.tiled_relax(t, sweep, 2, iters, prepare_fn=prepare, **kw)
+    got = tiled.tiled_relax(t, sweep, _n_mut(family), iters, prepare_fn=prepare, **kw)
     _assert_equal(got, _plain_global(family, t, iters))
 
 
-@pytest.mark.parametrize("double_buffer", [False, True])
-@pytest.mark.parametrize("family", sorted(FAMILIES))
+# (family, systems or channels, TRACE and B shared by the channels): the
+# symmetric disparity pair and the denoisers' colour channels over shared
+# weights
+BATCH_CASES = {"disp_llin4, B = 2": ("disp_llin4", 2, False),
+               "pde4, C = 3, TRACE and B shared": ("pde4", 3, True),
+               "pde4, C = 3, TRACE and B per channel": ("pde4", 3, False),
+               "pde8, C = 3, TRACE and B shared": ("pde8", 3, True),
+               "pde8, C = 3, TRACE and B per channel": ("pde8", 3, False)}
+
+
+@pytest.mark.parametrize("case", sorted(BATCH_CASES))
+def test_plain_tile_schedule_of_a_batch_equals_plain_global_solver(rng, case):
+    """A batch through the tile schedule (the kernel's systems along
+    blockIdx.y), the weights (H, W) planes shared by the channels: 48x65,
+    5 sweeps, k = 2, NaN data, bit for bit."""
+    family, batch, shared = BATCH_CASES[case]
+    names, factory, _ = FAMILIES[family]
+    t = []
+    for i, name in enumerate(names):
+        per_system = i == 0 or family == "disp_llin4" or (name in ("trace", "b") and not shared)
+        planes = [_fields(rng, 48, 65, (name,), NAN_ALL)[0] for _ in range(batch)]
+        t.append(torch.from_numpy(np.stack(planes) if per_system else planes[0]))
+    prepare, sweep = factory(1.9)
+    got = tiled.tiled_relax(t, sweep, 1, 5, prepare_fn=prepare, plan_override=(2, 16))
+    assert got[0].shape == (batch, 48, 65)
+    _assert_equal(got, _plain_global(family, t, 5))
+
+
+# llin4 and elin4 serial and double-buffered, the other families serial
+# (they have no double-buffered kernel)
+STRIPE_CASES = [(family, db) for family in sorted(FAMILIES)
+                for db in ((False, True) if family in FLOW4 else (False,))]
+
+
+@pytest.mark.parametrize("family,double_buffer", STRIPE_CASES)
 def test_tiled_relax_matches_pallas_stripe_engine(rng, family, double_buffer):
     """The shapes of tests/test_kernels.py's multi-stripe cases, NaN in Cu
-    and Du; pde_tpu's kernel in interpret mode, 16-row stripes."""
+    and Du (TRACE for pde4 and pde8); pde_tpu's kernel in interpret mode,
+    16-row stripes. Within tests/test_kernels.py's atol 2e-6, rtol 1e-5:
+    XLA on the CPU does not round the neighbour sums op by op (ROADMAP F3),
+    so the two meet to a few ulps, not bit for bit."""
     names, factory, jfactory = FAMILIES[family]
-    f = _fields(rng, 48, 65, names, ("cu", "duc"))
+    f = _fields(rng, 48, 65, names, ("cu", "duc", "trace"))
     jprep, jsweep = jfactory(1.9)
-    want = jtiled_relax(tuple(jnp.asarray(x) for x in f), jsweep, 2, 5, prepare_fn=jprep,
+    n_mut = _n_mut(family)
+    want = jtiled_relax(tuple(jnp.asarray(x) for x in f), jsweep, n_mut, 5, prepare_fn=jprep,
                         interpret=True, plan_override=(2, 16), double_buffer=double_buffer)
     prepare, sweep = factory(1.9)
-    got = tiled.tiled_relax([torch.from_numpy(x) for x in f], sweep, 2, 5, prepare_fn=prepare,
-                            plan_override=(2, 16), double_buffer=double_buffer)
+    got = tiled.tiled_relax([torch.from_numpy(x) for x in f], sweep, n_mut, 5,
+                            prepare_fn=prepare, plan_override=(2, 16),
+                            double_buffer=double_buffer)
+    assert len(got) == len(want) == n_mut
     for g, w_ in zip(got, want):
         g = g.numpy()
         assert np.isfinite(g).all()
@@ -112,12 +167,17 @@ def test_tiled_relax_matches_pallas_stripe_engine(rng, family, double_buffer):
 @pytest.mark.parametrize("sweeps_", [3, 4096])
 @pytest.mark.parametrize("double_buffer", [False, True])
 @pytest.mark.parametrize("k_max", [1, 4, 8])
-@pytest.mark.parametrize("h,w,n_fields", [(1024, 1024, 13), (480, 640, 13), (481, 641, 11)])
-def test_plan_tiles(h, w, n_fields, k_max, double_buffer, sweeps_):
-    plan = tiled.plan_tiles(h, w, n_fields, sweeps_, k_max, double_buffer=double_buffer)
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("h,w", [(1024, 1024), (480, 640), (481, 641)])
+def test_plan_tiles(h, w, family, k_max, double_buffer, sweeps_):
+    plan = tiled.plan_tiles(h, w, family, sweeps_, k_max, double_buffer=double_buffer)
+    if double_buffer and family not in FLOW4:
+        assert plan is None  # no double-buffered kernel
+        return
     assert 1 <= plan.k <= min(k_max, sweeps_)
-    assert tiled._halo_for(plan.k) == 2 * plan.k
-    slot = tiled.slot_bytes(n_fields, plan.k, plan.tile_h, plan.tile_w)
+    # the families that fill the border read one pixel more
+    assert tiled._halo_for(family, plan.k) == 2 * plan.k + tiled.LAYOUTS[family].fill
+    slot = tiled.slot_bytes(family, plan.k, plan.tile_h, plan.tile_w)
     assert plan.smem_bytes == (2 if double_buffer else 1) * slot <= tiled.SMEM_PER_BLOCK
     # every pixel in exactly one tile
     cover = np.zeros((h, w), np.int32)
@@ -141,49 +201,83 @@ def test_plan_override_and_no_plan(rng, monkeypatch):
     tiled.tiled_relax(t, sweep, 2, 5, prepare_fn=prepare, plan_override=(3, (8, 16)))
     tiled.tiled_relax(t, sweep, 2, 5, prepare_fn=prepare, plan_override=(2, 12))
     assert seen == [(3, 8, 16), (2, 12, 12)]
-    assert tiled.plan_tiles(1024, 1024, 4000, 4) is None
-    assert tiled.tiled_relax(t * 400, sweep, 2, 5, prepare_fn=prepare) is None
+    # a window's chunk keeps its k: 64 sweeps give every tile a slot past 254 rows
+    assert tiled.plan_tiles(1024, 1024, "flow_llin4", 64, 64, exact_k=True) is None
+    assert tiled.tiled_relax(t, sweep, 2, 64, prepare_fn=prepare,
+                             window=tiled.whole(20, 30)) is None
+    with pytest.raises(ValueError, match="no tile layout"):
+        tiled.plan_tiles(1024, 1024, "flow_llin5", 4)
 
 
-def _llin_cpu(rng, dtype=torch.float32, h=8, w=9):
-    return [torch.from_numpy(x).to(dtype) for x in _fields(rng, h, w, LLIN)]
+# (family, what is wrong, the error's words): every refusal comes before a
+# build or a launch
+REFUSALS = {
+    "cpu": ("flow_llin4", "cpu", "CUDA"),
+    "float64": ("flow_llin4", "float64", "float32"),
+    "non-contiguous": ("flow_llin4", "non-contiguous", "contiguous"),
+    "count": ("flow_llin4", "count", "takes 13 fields"),
+    "disp_llin4 cpu": ("disp_llin4", "cpu", "CUDA"),
+    "pde8 float64": ("pde8", "float64", "float32"),
+    "disp_llin4 double-buffered": ("disp_llin4", "double_buffer", "no double-buffered"),
+    "flow_llin8 double-buffered": ("flow_llin8", "double_buffer", "no double-buffered"),
+    "pde4 a 2-px image (W4)": ("pde4", "small", "H, W >= 3"),
+    "pde4 four channels": ("pde4", "batch", "1 to 3 systems"),
+    "disp_llin4 three systems": ("disp_llin4", "batch", "1 to 2 systems"),
+    "flow_llin8 a batch": ("flow_llin8", "batch", "1 to 1 systems"),
+    "pde8 has no window": ("pde8", "window", "no tile kernel window"),
+}
 
 
-@pytest.mark.parametrize("what", ["cpu", "float64", "non-contiguous", "count"])
+@pytest.mark.parametrize("what", sorted(REFUSALS))
 def test_wrapper_refuses_before_building(rng, monkeypatch, what):
     def no_build(*args, **kwargs):
         raise AssertionError("the wrapper must check its inputs before it builds")
 
     monkeypatch.setattr(build, "load", no_build)
-    fields = _llin_cpu(rng, torch.float64 if what == "float64" else torch.float32)
-    if what == "non-contiguous":
+    family, wrong, match = REFUSALS[what]
+    names = FAMILIES[family][0]
+    h, w = (2, 9) if wrong == "small" else (8, 9)
+    dtype = torch.float64 if wrong == "float64" else torch.float32
+    fields = [torch.from_numpy(x).to(dtype) for x in _fields(rng, h, w, names)]
+    if wrong == "non-contiguous":
         fields[5] = torch.from_numpy(_fields(rng, 9, 8, ("cu",))[0]).t()
-    if what == "count":
+    if wrong == "count":
         fields = fields[:-1]
-    match = {"cpu": "CUDA", "float64": "float32", "non-contiguous": "contiguous",
-             "count": "takes 13 fields"}[what]
+    if wrong == "batch":
+        fields[0] = fields[0].expand(tiled.LAYOUTS[family].max_batch + 1, h, w).contiguous()
     before = dict(tiled_cuda.LAUNCHES)
     with pytest.raises(ValueError, match=match):
-        tiled_cuda.tiled_flow_sor("flow_llin4", fields, 4, 1.9, 2, 16, 16)
+        if wrong == "window":
+            tiled_cuda.tiled_sor_window(family, fields, 2, 1.9, tiled.whole(h, w), 8, 8)
+        else:
+            tiled_cuda.tiled_sor(family, fields, 4, 1.9, 2, 16, 16,
+                                 double_buffer=wrong == "double_buffer")
     assert tiled_cuda.LAUNCHES == before
 
 
-def test_off_cpu_goes_to_the_kernel_or_raises(monkeypatch):
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_off_cpu_goes_to_the_kernel_or_raises(monkeypatch, family):
     """A tensor off the CPU never takes the plain schedule: a sweep the
     kernel has goes to the wrapper (which refuses a non-CUDA device), any
     other sweep raises."""
     monkeypatch.setattr(tiled, "plain_tiled_relax", None)
-    meta = [torch.empty((16, 16), device="meta") for _ in LLIN]
-    prepare, sweep = sweeps.flow_llin4_sweep(1.9)
+    names, factory, _ = FAMILIES[family]
+    n_mut = _n_mut(family)
+    meta = [torch.empty((16, 16), device="meta") for _ in names]
+    prepare, sweep = factory(1.9)
     with pytest.raises(ValueError, match="CUDA"):
-        tiled.tiled_relax(meta, sweep, 2, 4, prepare_fn=prepare)
+        tiled.tiled_relax(meta, sweep, n_mut, 4, prepare_fn=prepare)
     with pytest.raises(ValueError, match="tile kernel runs"):
-        tiled.tiled_relax(meta, sweep, 2, 4, prepare_fn=sweeps.flow_llin4_sweep(1.5)[0])
+        tiled.tiled_relax(meta, sweep, n_mut, 4, prepare_fn=factory(1.5)[0])
     with pytest.raises(ValueError, match="tile kernel runs"):
-        tiled.tiled_relax(meta, sweep, 2, 4, prepare_fn=None)
+        tiled.tiled_relax(meta, sweep, n_mut, 4, prepare_fn=None)
+    other = "pde4" if family != "pde4" else "disp_llin4"
+    with pytest.raises(ValueError, match="tile kernel runs"):
+        tiled.tiled_relax(meta, sweep, n_mut, 4, prepare_fn=FAMILIES[other][1](1.9)[0])
 
 
-def test_cpu_path_and_import_build_nothing(rng, monkeypatch, tmp_path):
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_cpu_path_and_import_build_nothing(rng, monkeypatch, tmp_path, family):
     def no_build(*args, **kwargs):
         raise AssertionError("nothing may be built on the CPU path")
 
@@ -193,10 +287,12 @@ def test_cpu_path_and_import_build_nothing(rng, monkeypatch, tmp_path):
     monkeypatch.setattr(build, "load", no_build)
     importlib.reload(tiled)
     before = dict(tiled_cuda.LAUNCHES)
-    t = _llin_cpu(rng, h=20, w=21)
-    prepare, sweep = sweeps.flow_llin4_sweep(1.9)
-    _assert_equal(tiled.tiled_relax(t, sweep, 2, 3, prepare_fn=prepare, plan_override=(2, 8)),
-                  _plain_global("flow_llin4", t, 3))
+    names, factory, _ = FAMILIES[family]
+    t = [torch.from_numpy(x) for x in _fields(rng, 20, 21, names)]
+    prepare, sweep = factory(1.9)
+    _assert_equal(tiled.tiled_relax(t, sweep, _n_mut(family), 3, prepare_fn=prepare,
+                                    plan_override=(2, 8)),
+                  _plain_global(family, t, 3))
     assert tiled_cuda.LAUNCHES == before
     assert tiled_cuda._lib.cache_info().currsize == 0
 
@@ -218,8 +314,11 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
 
 def test_tiled_source_includes_the_shared_arithmetic():
     # the global source's llin8 arithmetic is flow8_update.cuh, which the
-    # resident 8-neighbour kernel shares; it includes flow_update.cuh too
-    for source, headers in ((tiled_cuda.SOURCE, ["flow_update.cuh"]),
+    # resident 8-neighbour kernel shares; it includes flow_update.cuh too.
+    # The tile kernel includes every family's header
+    tile_headers = ["disp_update.cuh", "flow8_update.cuh", "flow_update.cuh", "pde4_update.cuh",
+                    "pde8_update.cuh"]
+    for source, headers in ((tiled_cuda.SOURCE, tile_headers),
                             ("flow_llin4_sor", ["flow8_update.cuh", "flow_update.cuh"])):
         files = build._with_headers(build.CSRC / f"{source}.cu")
         assert [f.name for f in files] == [f"{source}.cu", *headers]
@@ -231,36 +330,50 @@ def test_tiled_source_includes_the_shared_arithmetic():
 # the redesigned kernel's plan and the dispatch's route
 # ---------------------------------------------------------------------------
 
-# (family, (h, w), where the dispatch sends it): phase 16's shapes of
-# chip_smoke.py and the main path's
+# (family, (h, w), systems or channels, where the dispatch sends it): phase
+# 16's shapes of chip_smoke.py and the main path's (PERF.md §7: the shapes
+# without a resident plan)
 ROUTES = {
-    "llin4 1024x1024": ("llin4", (1024, 1024), "tiled"),
-    "llin4 768x768": ("llin4", (768, 768), "tiled"),
-    "elin4 1024x1024": ("elin4", (1024, 1024), "tiled"),
-    "elin4 768x768": ("elin4", (768, 768), "tiled"),
-    "llin4 480x640": ("llin4", (480, 640), "resident"),
-    "elin4 480x640": ("elin4", (480, 640), "resident"),
-    "llin8 1024x1024, no tile kernel": ("llin8", (1024, 1024), "global"),
-    "disp 1024x1024, no tile kernel": ("disp", (1024, 1024), "global"),
+    "llin4 1024x1024": ("llin4", (1024, 1024), 1, "tiled"),
+    "llin4 768x768": ("llin4", (768, 768), 1, "tiled"),
+    "elin4 1024x1024": ("elin4", (1024, 1024), 1, "tiled"),
+    "elin4 768x768": ("elin4", (768, 768), 1, "tiled"),
+    "llin4 480x640": ("llin4", (480, 640), 1, "resident"),
+    "elin4 480x640": ("elin4", (480, 640), 1, "resident"),
+    "llin8 1024x1024": ("llin8", (1024, 1024), 1, "tiled"),
+    "disp 1024x1024": ("disp", (1024, 1024), 1, "tiled"),
+    "disp 1024x1024, the symmetric pair": ("disp", (1024, 1024), 2, "tiled"),
+    "disp 480x640, the symmetric pair": ("disp", (480, 640), 2, "resident"),
+    "pde4 1024x1024, C = 3": ("pde4", (1024, 1024), 3, "tiled"),
+    "pde4 481x641, C = 3": ("pde4", (481, 641), 3, "tiled"),
+    "pde4 576x576, C = 3": ("pde4", (576, 576), 3, "tiled"),
+    "pde4 768x768, C = 3": ("pde4", (768, 768), 3, "tiled"),
+    "pde4 480x640, C = 3": ("pde4", (480, 640), 3, "resident"),
+    "pde8 1024x1024, C = 3": ("pde8", (1024, 1024), 3, "tiled"),
+    "pde8 481x641, C = 3": ("pde8", (481, 641), 3, "tiled"),
+    "pde8 480x640, C = 3": ("pde8", (480, 640), 3, "resident"),
+    # W4: an image under 3 px stays with the global kernels
+    "pde4 2x5000": ("pde4", (2, 5000), 1, "global"),
+    "disp 5000x2, the symmetric pair": ("disp", (5000, 2), 2, "global"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(ROUTES))
 def test_sor_route_from_the_shape(case):
-    family, (h, w), want = ROUTES[case]
-    route, plan = dispatch.sor_route(family, h, w, 1, 4, 132)
+    family, (h, w), batch, want = ROUTES[case]
+    route, plan = dispatch.sor_route(family, h, w, batch, 4, 132)
     assert route == want
     if route == "tiled":
-        n_fields = len(tiled_cuda.FIELD_NAMES[f"flow_{family}"])
-        assert plan == tiled.plan_tiles(h, w, n_fields, 4, 4, sm_count=132)
-        assert plan.k == 4 and plan.n_tiles_h * plan.n_tiles_w >= 132
+        tile_family = dispatch.TILE_FAMILY[family]
+        assert plan == tiled.plan_tiles(h, w, tile_family, 4, 4, sm_count=132, batch=batch)
+        assert plan.k == 4 and plan.n_tiles_h * plan.n_tiles_w * batch >= 132
+        # a batch the kernel does not take goes to the global kernel
+        too_many = tiled.LAYOUTS[tile_family].max_batch + 1
+        assert dispatch.sor_route(family, h, w, too_many, 4, 132)[0] == "global"
     elif route == "resident":
-        assert plan == resident_cuda.plan_resident(h, w, family, 1, 132)
+        assert plan == resident_cuda.plan_resident(h, w, family, batch, 132)
     else:
         assert plan is None
-    # a batch has no tile kernel
-    if route == "tiled":
-        assert dispatch.sor_route(family, h, w, 2, 4, 132)[0] == "global"
 
 
 @pytest.mark.parametrize("family", ["llin4", "elin4"])
@@ -278,7 +391,7 @@ def test_dispatch_sends_a_shape_without_resident_plan_to_the_tile_kernel(monkeyp
         raise AssertionError("the shape has a tile plan: no other kernel may run")
 
     monkeypatch.setattr(resident_cuda, "sm_count", lambda index: 132)
-    monkeypatch.setattr(tiled_cuda, "tiled_flow_sor", tile_spy)
+    monkeypatch.setattr(tiled_cuda, "tiled_sor", tile_spy)
     for mod, name in ((sor_cuda, f"flow_{family}_sor"), (resident_cuda, f"flow_{family}_sor")):
         monkeypatch.setattr(mod, name, refuse)
     names = LLIN if family == "llin4" else ELIN
@@ -293,77 +406,189 @@ def test_dispatch_sends_a_shape_without_resident_plan_to_the_tile_kernel(monkeyp
     assert seen == [(f"flow_{family}", len(names), 9, 4, plan.tile_h, plan.tile_w, plan.slots)]
 
 
-# (the array (h, w), the window's box, or None for the whole array; the
-# plan's tile and pairs a thread)
-PLAN_SHAPES = {
-    "1024x1024": ((1024, 1024), None, (16, 48, 2)),
-    "a 240x320 shard and its 8-px halo (2x2 mesh over 480x640)":
-        ((248, 328), (0, 240, 0, 320), (16, 24, 2)),
-    "a 480x160 shard and its halo (1x4 mesh over 480x640)":
-        ((480, 168), (0, 480, 0, 160), (16, 24, 2)),
-    "a 180x240 shard and its halo (2x2 mesh over 360x480)":
-        ((188, 248), (0, 180, 0, 240), (8, 24, 1)),
+def _meta(names, shape, batched=()):
+    """Meta tensors (no data) of the fields ``names``: (h, w), the names in
+    ``batched`` with a leading dimension of ``shape[0]``."""
+    return [torch.empty(shape if n in batched else shape[-2:], device="meta") for n in names]
+
+
+# (dispatch entry, the tile kernel's family, its fields' shape, the fields
+# with a batch): one shape without a resident plan each
+DISPATCHES = {
+    "sor_flow_llin8": ("flow_llin8", (1024, 1024), ()),
+    "sor_disp_llin4": ("disp_llin4", (1024, 1024), ()),
+    "sor_disp_llin4, a batch of 2": ("disp_llin4", (2, 1024, 1024),
+                                     tiled_cuda.FIELD_NAMES["disp_llin4"]),
+    "sor_pde4": ("pde4", (3, 481, 641), ("x", "trace", "b")),
+    "sor_pde8": ("pde8", (3, 481, 641), ("x",)),
 }
 
 
+@pytest.mark.parametrize("case", sorted(DISPATCHES))
+def test_dispatch_sends_the_other_families_to_the_tile_kernel(monkeypatch, case):
+    """Off the CPU, llin8, disp and pde solves whose shape has no resident
+    plan go to the tile wrapper with the route's plan, their fields in the
+    kernel's order, chosen before any launch; neither the resident nor the
+    global kernel is called."""
+    family, shape, batched = DISPATCHES[case]
+    names = tiled_cuda.FIELD_NAMES[family]
+    seen = []
+
+    def tile_spy(fam, fields, iters, omega, k, tile_h, tile_w, double_buffer=False, slots=None):
+        seen.append((fam, tuple(fields), iters, k, tile_h, tile_w, slots))
+        return tuple(fields[:tiled.LAYOUTS[fam].n_mut])
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the shape has a tile plan: no other kernel may run")
+
+    monkeypatch.setattr(resident_cuda, "sm_count", lambda index: 132)
+    monkeypatch.setattr(tiled_cuda, "tiled_sor", tile_spy)
+    for mod in (sor_cuda, resident_cuda, interior_cuda):
+        for name in ("flow_llin8_sor", "disp_llin4_sor", "pde4_sor", "pde8_sor"):
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, refuse)
+    meta = _meta(names, shape, batched)
+    by_name = dict(zip(names, meta))
+    entry = case.split(",")[0]
+    solver = {"sor_flow_llin8": "llin8", "sor_disp_llin4": "disp", "sor_pde4": "pde4",
+              "sor_pde8": "pde8"}[entry]
+    if entry == "sor_flow_llin8":
+        args = [by_name[n] for n in ("u", "v", "du", "dv")] + meta[4:]
+    elif entry == "sor_disp_llin4":
+        args = [by_name["u"], by_name["du"]] + meta[2:]
+    else:
+        args = meta
+    getattr(dispatch, entry)(*args, 9, 1.9)
+    batch = shape[0] if len(shape) == 3 else 1
+    plan = dispatch.sor_route(solver, *shape[-2:], batch, 9, 132)[1]
+    assert seen == [(family, tuple(meta), 9, 4, plan.tile_h, plan.tile_w, plan.slots)]
+
+
+def test_dispatch_sends_the_symmetric_pair_to_the_tile_kernel_unstacked(monkeypatch):
+    """disparity_sym's pair at 1024x1024 (no resident plan) is one tile
+    launch of two systems, each its own planes: never stacked."""
+    seen = []
+
+    def systems_spy(family, systems, iters, omega, k, tile_h, tile_w, slots=None):
+        seen.append((family, [tuple(s) for s in systems], iters, k, tile_h, tile_w, slots))
+        return [(s[0],) for s in systems]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the pair has a tile plan: no other kernel, and no stack")
+
+    monkeypatch.setattr(resident_cuda, "sm_count", lambda index: 132)
+    monkeypatch.setattr(tiled_cuda, "tiled_sor_systems", systems_spy)
+    for mod, name in ((interior_cuda, "disp_llin4_sor"), (resident_cuda, "disp_llin4_pair"),
+                      (torch, "stack")):
+        monkeypatch.setattr(mod, name, refuse)
+    names = tiled_cuda.FIELD_NAMES["disp_llin4"]
+    pair = [_meta(names, (1024, 1024)) for _ in range(2)]
+    by_name = [dict(zip(names, p)) for p in pair]
+    args = [x for b in by_name for x in [b["u"], b["du"], *[b[n] for n in names[2:]]]]
+    out0, out1 = dispatch.sor_disp_llin_sym4(*args, 9, 1.9)
+    plan = dispatch.sor_route("disp", 1024, 1024, 2, 9, 132)[1]
+    assert seen == [("disp_llin4", [tuple(p) for p in pair], 9, 4, plan.tile_h, plan.tile_w,
+                     plan.slots)]
+    assert out0 is pair[0][0] and out1 is pair[1][0]
+
+
+# (the array (h, w), the window's box, or None for the whole array; the
+# plan's tile and pairs a thread, without and with a border fill, whose
+# 2k + 1 halo gives the 16x48 tile more pairs)
+PLAN_SHAPES = {
+    "1024x1024": ((1024, 1024), None, (16, 48, 2), (16, 48, 3)),
+    "a 240x320 shard and its 8-px halo (2x2 mesh over 480x640)":
+        ((248, 328), (0, 240, 0, 320), (16, 24, 2), (16, 24, 2)),
+    "a 480x160 shard and its halo (1x4 mesh over 480x640)":
+        ((480, 168), (0, 480, 0, 160), (16, 24, 2), (16, 24, 2)),
+    "a 180x240 shard and its halo (2x2 mesh over 360x480)":
+        ((188, 248), (0, 180, 0, 240), (8, 24, 1), (8, 24, 2)),
+}
+# the whole 1024x1024 image's plan of the families that hold one block an
+# SM at 3 pairs a thread: a taller first tile (scripts/tiled_plan_sweep.py, PERF.md)
+PLAN_1024 = {"flow_llin8": (32, 48, 3), "pde8": (40, 32, 3), "pde4": (32, 32, 3)}
+
+
 @pytest.mark.parametrize("double_buffer", [False, True])
-@pytest.mark.parametrize("n_fields", [13, 11])
+@pytest.mark.parametrize("family", sorted(FAMILIES))
 @pytest.mark.parametrize("case", sorted(PLAN_SHAPES))
-def test_plan_fills_the_card(case, n_fields, double_buffer):
-    (h, w), box, want = PLAN_SHAPES[case]
+def test_plan_fills_the_card(case, family, double_buffer):
+    (h, w), box, want, want_fill = PLAN_SHAPES[case]
     bh, bw = (h, w) if box is None else (box[1] - box[0], box[3] - box[2])
-    plan = tiled.plan_tiles(bh, bw, n_fields, 4, 4, double_buffer=double_buffer,
+    plan = tiled.plan_tiles(bh, bw, family, 4, 4, double_buffer=double_buffer,
                             exact_k=box is not None, sm_count=132)
+    if double_buffer and family not in FLOW4:
+        assert plan is None  # no double-buffered kernel
+        return
     assert plan.k == 4
     assert plan.n_tiles_h * plan.n_tiles_w >= 132  # a block an SM at least
     assert plan.smem_bytes == (2 if double_buffer else 1) * tiled.slot_bytes(
-        n_fields, 4, plan.tile_h, plan.tile_w) <= tiled.SMEM_PER_BLOCK
-    assert plan.threads == tiled.block_threads(4, plan.tile_h, plan.tile_w, plan.slots)
+        family, 4, plan.tile_h, plan.tile_w) <= tiled.SMEM_PER_BLOCK
+    assert plan.threads == tiled.block_threads(family, 4, plan.tile_h, plan.tile_w, plan.slots)
     assert plan.threads <= tiled.MAX_THREADS[plan.slots] and plan.threads % 32 == 0
     # 16x48 tiles give a shard fewer blocks than SMs (105, 120, 60)
+    if box is None and family in PLAN_1024:
+        want = PLAN_1024[family]
+    elif tiled.LAYOUTS[family].fill:
+        want = want_fill
     assert (plan.tile_h, plan.tile_w, plan.slots) == want
     assert plan.threads <= tiled.PLAN_THREADS  # two blocks an SM
-    rows, hc = tiled._slot_dims(4, plan.tile_h, plan.tile_w)
+    rows, hc = tiled._slot_dims(family, 4, plan.tile_h, plan.tile_w)
     assert plan.threads * plan.slots >= rows * hc  # every pair of the slot owned
 
 
+@pytest.mark.parametrize("family", sorted(FAMILIES))
 @pytest.mark.parametrize("k", [6, 8, 9])
-def test_plan_of_a_long_window_chunk_takes_smaller_tiles(k):
+def test_plan_of_a_long_window_chunk_takes_smaller_tiles(k, family):
     """A window's chunk of more than 4 sweeps keeps its k (exact_k): its
     halo gives 16x48 tiles more pairs than a block holds, so the plan takes
     a smaller tile or more pairs a thread, which the kernel takes."""
-    plan = tiled.plan_tiles(240, 320, 13, k, k, exact_k=True, sm_count=132)
+    plan = tiled.plan_tiles(240, 320, family, k, k, exact_k=True, sm_count=132)
     assert plan.k == k
     assert (plan.tile_h, plan.tile_w) in tiled.TILES[1:]
     assert plan.threads <= tiled.MAX_THREADS[plan.slots]
-    assert plan == tiled.make_plan(240, 320, 13, k, plan.tile_h, plan.tile_w, plan.slots)
+    assert plan == tiled.make_plan(240, 320, family, k, plan.tile_h, plan.tile_w, plan.slots)
 
 
-# (n_fields, k, tile_h, tile_w, bytes): two float32 planes (one a colour) of
-# each field neighbours read, over the tile and its 2k halo, 16-byte rounded
+# (family, k, tile_h, tile_w, bytes): two float32 planes (one a colour) of
+# each field neighbours read (two a colour of an 8-neighbour family's
+# relaxed fields), over the tile and its 2k halo (2k + 1 with a border
+# fill), 16-byte rounded
 SLOT_BYTES = {
-    "llin4 32x48, k=4": (13, 4, 32, 48, 4 * 2 * 4 * 48 * 32),
-    "elin4 32x48, k=4": (11, 4, 32, 48, 4 * 2 * 2 * 48 * 32),
-    "llin4 odd 7x9, k=3": (13, 3, 7, 9, 4 * 2 * 4 * 19 * 11),
-    "elin4 1x1, k=1": (11, 1, 1, 1, 4 * 2 * 2 * 5 * 3),
+    "llin4 32x48, k=4": ("flow_llin4", 4, 32, 48, 4 * 2 * 4 * 48 * 32),
+    "elin4 32x48, k=4": ("flow_elin4", 4, 32, 48, 4 * 2 * 2 * 48 * 32),
+    "llin4 odd 7x9, k=3": ("flow_llin4", 3, 7, 9, 4 * 2 * 4 * 19 * 11),
+    "elin4 1x1, k=1": ("flow_elin4", 1, 1, 1, 4 * 2 * 2 * 5 * 3),
+    "disp 32x48, k=4 (dU, U)": ("disp_llin4", 4, 32, 48, 4 * 2 * 2 * 50 * 33),
+    "pde4 32x48, k=4 (X)": ("pde4", 4, 32, 48, 4 * 2 * 1 * 50 * 33),
+    "llin8 32x48, k=4 (dU, dV twice, U, V)": ("flow_llin8", 4, 32, 48, 4 * 2 * 6 * 48 * 32),
+    "pde8 32x48, k=4 (X twice)": ("pde8", 4, 32, 48, 4 * 2 * 2 * 50 * 33),
+    "pde8 odd 7x9, k=1, 16-byte rounded": ("pde8", 1, 7, 9, 4 * 4 * 13 * 8),
 }
 
 
 @pytest.mark.parametrize("case", sorted(SLOT_BYTES))
 def test_slot_bytes_of_the_colour_split_layout(case):
-    n_fields, k, th, tw, want = SLOT_BYTES[case]
-    assert tiled.slot_bytes(n_fields, k, th, tw) == want
+    family, k, th, tw, want = SLOT_BYTES[case]
+    assert tiled.slot_bytes(family, k, th, tw) == want
     # the old layout, every field and a flag byte a pixel, took 53 (45) B a pixel
-    px = (th + 4 * k) * (tw + 4 * k)
-    assert tiled.slot_bytes(n_fields, k, th, tw) < (n_fields * 4 + 1) * px
+    halo = tiled._halo_for(family, k)
+    px = (th + 2 * halo) * (tw + 2 * halo)
+    assert tiled.slot_bytes(family, k, th, tw) < (tiled.LAYOUTS[family].fields * 4 + 1) * px
 
 
 def test_plan_refuses_what_the_kernel_does_not_take():
-    assert tiled.make_plan(64, 64, 13, 4, 300, 16) is None          # rows past 254
-    assert tiled.make_plan(64, 64, 13, 4, 16, 600) is None          # half-columns past 255
-    assert tiled.make_plan(64, 64, 13, 4, 64, 96, slots=1) is None  # too many threads
-    plan = tiled.make_plan(64, 64, 13, 4, 16, 24)
-    assert plan.slots == 1 and plan.threads == tiled.block_threads(4, 16, 24, 1)
+    assert tiled.make_plan(64, 64, "flow_llin4", 4, 300, 16) is None          # rows past 254
+    assert tiled.make_plan(64, 64, "flow_llin4", 4, 16, 600) is None          # half-columns past 255
+    assert tiled.make_plan(64, 64, "flow_llin4", 4, 64, 96, slots=1) is None  # too many threads
+    plan = tiled.make_plan(64, 64, "flow_llin4", 4, 16, 24)
+    assert plan.slots == 1 and plan.threads == tiled.block_threads("flow_llin4", 4, 16, 24, 1)
+    # the border fill's halo pixel: 16x24 takes a second pair a thread
+    plan = tiled.make_plan(64, 64, "pde4", 4, 16, 24)
+    assert plan.slots == 1 and plan.threads == tiled.block_threads("pde4", 4, 16, 24, 1) == 736
+    for family in tiled.LAYOUTS:  # only llin4 and elin4 have a double-buffered kernel
+        assert (tiled.make_plan(64, 64, family, 4, 16, 24, double_buffer=True) is None) == (
+            family not in FLOW4)
 
 
 # (h, w, iters, NaN fields, k, tile, slots): the new plans' tile shapes at
@@ -383,8 +608,8 @@ def test_plain_schedule_at_the_new_tiles_equals_plain_global_solver(rng, family,
     names, factory, _ = FAMILIES[family]
     t = [torch.from_numpy(x) for x in _fields(rng, h, w, names, nan_names)]
     prepare, sweep = factory(1.9)
-    for double_buffer in (False, True):
-        got = tiled.tiled_relax(t, sweep, 2, iters, prepare_fn=prepare,
+    for double_buffer in (False, True) if family in FLOW4 else (False,):
+        got = tiled.tiled_relax(t, sweep, _n_mut(family), iters, prepare_fn=prepare,
                                 plan_override=(k, tile, slots), double_buffer=double_buffer)
         _assert_equal(got, _plain_global(family, t, iters))
 
@@ -405,18 +630,18 @@ def test_windowed_schedule_at_the_new_tiles_equals_plain_global_solver(rng, fami
     names, factory, _ = FAMILIES[family]
     t = [torch.from_numpy(x) for x in _fields(rng, gh, gw, names, NAN_ALL)]
     want = _plain_global(family, t, k)
-    halo = 2 * k
+    halo = tiled._halo_for(family, k)
     r0, r1 = max(0, R0 - halo), min(gh, R1 + halo)
     c0, c1 = max(0, C0 - halo), min(gw, C1 + halo)
     window = tiled.Window(r0, c0, gh, gw, (R0 - r0, R1 - r0, C0 - c0, C1 - c0))
     prepare, sweep = factory(1.9)
     kw = {} if tile is None else dict(plan_override=(k, tile))
-    got = tiled.tiled_relax([x[r0:r1, c0:c1] for x in t], sweep, 2, k, prepare_fn=prepare,
-                            window=window, **kw)
+    got = tiled.tiled_relax([x[r0:r1, c0:c1] for x in t], sweep, _n_mut(family), k,
+                            prepare_fn=prepare, window=window, **kw)
     _assert_equal(tuple(got), tuple(x[R0:R1, C0:C1] for x in want))
 
 
-@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("family", FLOW4)
 def test_new_tile_shape_matches_pallas_stripe_engine(rng, family):
     """The port's plain schedule at a tile of the new plans (16x24, k = 4)
     against pde_tpu's kernel in interpret mode (16-row stripes, k = 2), NaN
