@@ -33,14 +33,17 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    through the sharded solver at the shards of a 2x2 and a 1x4 mesh over
    480x640: against the plain windowed schedule on CPU copies, and bit for
    bit against the global kernel; one shard's chunk timed. The tile kernel's
-   other families, serial: disp llin4 (B = 1 and 2), pde4 and pde8 (C = 1
-   and 3, TRACE and B per channel or shared) and llin8, at the solvers'
-   shapes without a resident plan and 1024x1024, with and without NaN data,
-   against the plain tile schedule, bit for bit against the global kernel
-   (disp and pde also against the plain global solver); their windowed
-   variant (llin8, disp, pde4) through the sharded solvers at the shards of
-   the same meshes, k = 1, 2, 4 and 9, bit for bit against the global
-   kernel; a 4-sweep call of each timed beside the global kernel's. The resident kernel (``csrc/resident_sor.cu``, one launch a
+   other families, serial and double-buffered: disp llin4 (B = 1 and 2),
+   pde4 and pde8 (C = 1 and 3, TRACE and B per channel or shared) and
+   llin8, at the solvers' shapes without a resident plan and 1024x1024,
+   with and without NaN data, against the plain tile schedule, bit for bit
+   against the global kernel (disp and pde also against the plain global
+   solver), the double-buffered form bit for bit against the serial one;
+   their windowed variant (llin8, disp, pde4), serial and double-buffered,
+   through the sharded solvers at the shards of the same meshes, k = 1, 2,
+   4 and 9, bit for bit against the global kernel; a 4-sweep call of each
+   timed beside the global kernel's, the double-buffered form at
+   1024x1024 and on the shard beside the serial one, in turns. The resident kernel (``csrc/resident_sor.cu``, one launch a
    solver call), llin4, disp llin4 (B = 1 and 2), pde4 (C = 1 and 3, TRACE
    and B per channel or shared) and elin4, against the global kernels bit
    for bit and the plain version (disp and pde4 bit for bit too), at the
@@ -185,6 +188,18 @@ import torch
 HERE = Path(__file__).resolve().parent
 
 SOR_TOL = 1e-5       # max-abs, kernel vs plain, unit-scale fields (FMA contraction moves ulps)
+# Resident elin4 after flow_hs's 20 sweeps at omega 1.9 is held to this many
+# times the draw's own rounding spread (max |plain float32 - plain float64|
+# on the card), or SOR_TOL where that is larger. scripts/elin4_seed_sweep.py
+# measured on the H100, over 24 seeds and 960 draws at flow_hs's and
+# flow_fmg's levels: the kernel stands as far from the float64 solve as the
+# plain float32 version does (median ratio 1.00, nearer in 59% of the
+# draws), so it computes the plain arithmetic and rounds otherwise (FMA
+# contraction); the spread reaches 7.2e-5 after 20 sweeps, the kernel's
+# distance from plain float32 2.3e-5 (over SOR_TOL in 3 draws), and at most
+# 2.08 spreads wherever the spread exceeds 1e-6. Two float32 roundings of one
+# function may each stand about a spread from it, on either side.
+ELIN4_SPREADS = 3.0
 EXACT_TOL = 1e-6     # max-abs, kernel vs plain: every float op rounded alone in the plain order (0 expected)
 FLOW_TOL = 1e-3      # px, mean |Δflow| between two paths of the whole model
 SHIFT_TOL = 0.3      # px, median interior flow vs the known shift
@@ -253,14 +268,16 @@ FLOPS_PER_PX = {"flow_llin4_sor": 40, "flow_elin4_sor": 30, "disp_llin4_sor": 23
                 "tiled_flow_elin4": 30, "tiled_flow_elin4_db": 30,
                 "tiled_flow_llin4_win": 40, "tiled_flow_llin4_win_db": 40,
                 "tiled_flow_elin4_win": 30, "tiled_flow_elin4_win_db": 30,
-                "tiled_flow_llin8": 64, "tiled_flow_llin8_win": 64,
-                "tiled_disp_llin4": 23, "tiled_disp_llin4_win": 23,
-                "tiled_pde4": 16, "tiled_pde4_win": 16, "tiled_pde8": 28}
+                **{f"tiled_{family}{variant}": n
+                   for family, n in (("flow_llin8", 64), ("disp_llin4", 23), ("pde4", 16),
+                                     ("pde8", 28))
+                   for variant in ("", "_db", "_win", "_win_db")}}
 # the kernels whose every float operation is rounded alone in the plain
 # version's order, held to EXACT_TOL; the others contract to FMA (SOR_TOL)
 EXACT = ("tridiag", "tridiag_long", "tridiag_seg", "tridiag_zebra_pass", "pde8_sor", "resident_disp_llin4",
-         "resident_pde8", "resident_pde4", "tiled_disp_llin4", "tiled_disp_llin4_win", "tiled_pde4",
-         "tiled_pde4_win", "tiled_pde8")
+         "resident_pde8", "resident_pde4",
+         *(f"tiled_{family}{variant}" for family in ("disp_llin4", "pde4", "pde8")
+           for variant in ("", "_db", "_win", "_win_db")))
 # float operations per line element of one whole tridiagonal solve
 TRIDIAG_FLOPS_PER_PX = 8
 # dependent rounded operations a line element adds to a solve's chain (3
@@ -305,15 +322,18 @@ TILED_WIN = {"tiled_flow_llin4_win": ("flow_llin4", False),
              "tiled_flow_llin4_win_db": ("flow_llin4", True),
              "tiled_flow_elin4_win": ("flow_elin4", False),
              "tiled_flow_elin4_win_db": ("flow_elin4", True)}
-# the tile kernel's other families (serial only), with the global kernel's
-# key that served their shapes before; and the windowed variant of those
-# the sharded solvers run
+# the tile kernel's other families, with the global kernel's key that
+# served their shapes before; and the windowed variant of those the sharded
+# solvers run
 TILED_NEW = {"tiled_flow_llin8": ("flow_llin8", "flow_llin8_sor"),
              "tiled_disp_llin4": ("disp_llin4", "disp_llin4_sor"),
              "tiled_pde4": ("pde4", "pde4_sor"),
              "tiled_pde8": ("pde8", "pde8_sor")}
 TILED_WIN_NEW = {"tiled_flow_llin8_win": "flow_llin8", "tiled_disp_llin4_win": "disp_llin4",
                  "tiled_pde4_win": "pde4"}
+# their double-buffered forms (the port of _stripe_kernel_db), which no
+# model frame launches
+TILED_NEW_DB = tuple(f"{name}_db" for name in (*TILED_NEW, *TILED_WIN_NEW))
 # phase 3's cases of the other families: (family, systems or channels,
 # TRACE and B shared by the channels, (h, w)): the solvers' shapes without a
 # resident plan, and 1024x1024
@@ -749,7 +769,7 @@ def main() -> None:
     rng11 = np.random.default_rng(args.seed + 11)
     max_err = {}
 
-    def hold(name, got, want, label):
+    def hold(name, got, want, label, tol=None):
         torch.cuda.synchronize()
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         # a 1x1 system with a NaN Du has a zero divisor: the plain version
@@ -760,7 +780,8 @@ def main() -> None:
                      f"version's at {label}")
         err = max(float(torch.where(torch.isfinite(w_), g - w_, 0.0).abs().max())
                   for g, w_ in zip(got, want))
-        tol = EXACT_TOL if name in EXACT else SOR_TOL
+        if tol is None:
+            tol = EXACT_TOL if name in EXACT else SOR_TOL
         if err > tol:
             fail(f"{name} disagrees with plain at {label}: {err} > {tol}")
         max_err[name] = max(max_err.get(name, 0.0), err)
@@ -928,19 +949,26 @@ def main() -> None:
             print(f"  resident_flow_elin4 {h}x{w}: no plan (the global kernel takes it)",
                   flush=True)
             continue
-        errs = []
+        errs, spreads = [], []
         for iters in iters_all:
             for nan in (False, True):
                 fields = elin_fields(gen, h, w, nan, dev)
                 label = f"{h}x{w} iters={iters} nan={nan}"
                 got = resident_cuda.flow_elin4_sor(*fields, iters, 1.9)
-                errs.append(hold("resident_flow_elin4", got,
-                                 plain_sor.sor_flow_elin4(*fields, iters, 1.9), label))
+                want = plain_sor.sor_flow_elin4(*fields, iters, 1.9)
+                # the draw's rounding spread: the plain arithmetic in float64
+                w64 = plain_sor.sor_flow_elin4(*(x.double() for x in fields), iters, 1.9)
+                spreads.append(max(
+                    float(torch.where(torch.isfinite(b), a.double() - b, 0.0).abs().max())
+                    for a, b in zip(want, w64)))
+                errs.append(hold("resident_flow_elin4", got, want, label,
+                                 tol=max(SOR_TOL, ELIN4_SPREADS * spreads[-1])))
                 if not bit_equal(got, sor_cuda.flow_elin4_sor(*fields, iters, 1.9)):
                     fail(f"resident_flow_elin4 at {label}: not the global kernel's bits")
                 resident_cases += 1
         print(f"  resident_flow_elin4 {h}x{w} ({pl.scope} {pl.blocks}/{pl.slots}): == "
-              f"flow_elin4_sor bit for bit; max_abs_err vs plain {max(errs):.3g}", flush=True)
+              f"flow_elin4_sor bit for bit; max_abs_err vs plain {max(errs):.3g} (plain "
+              f"float32 vs float64 {max(spreads):.3g})", flush=True)
     print(f"  resident kernel: {resident_cases} cases, each bit for bit against the global "
           f"kernel", flush=True)
 
@@ -1014,7 +1042,7 @@ def main() -> None:
     # block's threads, for every family's plans and for odd tiles a
     # plan_override may ask for
     for family, layout in tiled.LAYOUTS.items():
-        for db in (False, True) if layout.double_buffer else (False,):
+        for db in (False, True):
             plan = tiled.plan_tiles(*TIME_SHAPES[-1], family, 4, 4, double_buffer=db)
             slot = tiled_lib.tiled_sor_slot_bytes(layout.index, plan.k, plan.tile_h, plan.tile_w)
             if (2 if db else 1) * slot != plan.smem_bytes:
@@ -1163,7 +1191,12 @@ def main() -> None:
                 label = (f"{'B' if family == 'disp_llin4' else 'C'}={batch}"
                          f"{' shared TRACE, B' if shared else ''} {h}x{w} iters={iters} nan={nan}")
                 got = new_tiled(family, tf, iters, omega)
-                hold(name, got, new_tiled(family, tf, iters, omega, plain=True), label)
+                want = new_tiled(family, tf, iters, omega, plain=True)
+                hold(name, got, want, label)
+                db = new_tiled(family, tf, iters, omega, double_buffer=True)
+                hold(f"{name}_db", db, want, label)
+                if not bit_equal(db, got):
+                    fail(f"{name}_db at {label}: not the serial form's bits")
                 g = as_tuple(glob(*fields, iters, omega))
                 if not bit_equal(got, g):
                     fail(f"{name} at {label}: not the global kernel's bits")
@@ -1171,11 +1204,12 @@ def main() -> None:
                         got, as_tuple(plain_glob(*fields, iters, omega))):
                     fail(f"{name} at {label}: not the plain global solver's bits")
                 new_cases += 1
-        print(f"  {name} {label.split(' iters')[0]}: == {glob.__name__} bit for bit"
+        print(f"  {name} {label.split(' iters')[0]}: serial == double-buffered == "
+              f"{glob.__name__} bit for bit"
               f"{' and the plain global solver' if tiled.LAYOUTS[family].fill else ''}, "
               f"max_abs_err {max_err[name]:.3g} against the plain tile schedule", flush=True)
-    print(f"  the tile kernel's other families: {new_cases} cases, each bit for bit against the "
-          f"global kernel", flush=True)
+    print(f"  the tile kernel's other families: {new_cases} cases, each serial and "
+          f"double-buffered bit for bit against the global kernel", flush=True)
 
     # their windowed variant, through the sharded llin8, disp and pde4
     # solvers at the shards of WIN_MESHES over MAIN_SHAPE's plane: 9 sweeps
@@ -1193,18 +1227,25 @@ def main() -> None:
                 for nan in (False, True):
                     fields = new_fields(family, 1, mh, mw, nan)
                     tf = tile_order(family, fields)
-                    got = ptiled.tiled_relax_sharded(card_mesh, getattr(sweeps, f"{family}_sweep"),
-                                                     tf, layout.n_mut, 9, omega, k=k)
+                    got, db = (ptiled.tiled_relax_sharded(card_mesh,
+                                                          getattr(sweeps, f"{family}_sweep"), tf,
+                                                          layout.n_mut, 9, omega, k=k,
+                                                          double_buffer=d)
+                               for d in (False, True))
                     label = f"{ty}x{tx} mesh over {mh}x{mw} iters=9 k={k} nan={nan}"
-                    hold(f"tiled_{family}_win", got, as_tuple(plain_glob(*fields, 9, omega)), label)
+                    want = as_tuple(plain_glob(*fields, 9, omega))
+                    hold(f"tiled_{family}_win", got, want, label)
+                    hold(f"tiled_{family}_win_db", db, want, label)
+                    if not bit_equal(db, got):
+                        fail(f"tiled_{family}_win_db at {label}: not the serial variant's bits")
                     if not bit_equal(got, as_tuple(glob(*fields, 9, omega))):
                         fail(f"tiled_{family}_win at {label}: not the global kernel's bits")
                     new_win_cases += 1
             got = as_tuple(sharded(card_mesh, *fields, 9, omega))
             if not bit_equal(got, as_tuple(glob(*fields, 9, omega))):
                 fail(f"{sharded.__name__} on a {ty}x{tx} mesh: not the global kernel's bits")
-            print(f"  windowed {family} on a {ty}x{tx} mesh, k = {NEW_WIN_KS}: == "
-                  f"{glob.__name__} bit for bit, max_abs_err "
+            print(f"  windowed {family} on a {ty}x{tx} mesh, k = {NEW_WIN_KS}: serial == "
+                  f"double-buffered == {glob.__name__} bit for bit, max_abs_err "
                   f"{max_err[f'tiled_{family}_win']:.3g} against the plain global solver",
                   flush=True)
     print(f"  windowed other families: {new_win_cases} sharded solves, each bit for bit against "
@@ -1482,8 +1523,14 @@ def main() -> None:
             tf = tile_order(family, fields)
             plain = partial(new_tiled, family, tf, 4, omega, plain=True)
             kern = partial(new_tiled, family, tf, 4, omega)
+            # the double-buffered form at 1024x1024, in turns with the serial
+            db_kern = partial(new_tiled, family, tf, 4, omega, double_buffer=True)
+            with_db = (h, w) == TIME_SHAPES[-1]
             p1 = timed(plain)[1] * 1e3
-            k1, k2 = cuda_ms(kern, 50), cuda_ms(kern, 50)
+            if with_db:
+                k1, d1, d2, k2 = (cuda_ms(f, 50) for f in (kern, db_kern, db_kern, kern))
+            else:
+                k1, k2 = cuda_ms(kern, 50), cuda_ms(kern, 50)
             dev_ms, dev_ops = device_profile(kern, 20)[:2]
             g_ms = cuda_ms(partial(glob, *fields, 4, omega), 50)
             p2 = timed(plain)[1] * 1e3
@@ -1496,6 +1543,13 @@ def main() -> None:
                   f"kernel {k1:.4f} / {k2:.4f} ms (device busy {dev_ms:.4f} ms in {dev_ops:.0f} "
                   f"operations), {glob_key} {g_ms:.4f} ms, plain tile schedule {p1:.1f} / "
                   f"{p2:.1f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+            if with_db:
+                db_ms, db_ops = device_profile(db_kern, 20)[:2]
+                times[(f"{name}_db", h, w)] = ((d1 + d2) / 2, (p1 + p2) / 2)
+                bounds[(f"{name}_db", h, w)] = (b_ms, b_by)
+                print(f"  time {name}_db {h}x{w} iters=4 per call: kernel {d1:.4f} / {d2:.4f} ms "
+                      f"(device busy {db_ms:.4f} ms in {db_ops:.0f} operations) between the "
+                      f"serial's {k1:.4f} / {k2:.4f} ms, {(d1 + d2) / (k1 + k2):.3f}x", flush=True)
     # and their windowed variant over the same shard as llin4's and elin4's,
     # with the family's halo (2k + 1 for disp and pde4)
     for name, family in TILED_WIN_NEW.items():
@@ -1512,19 +1566,25 @@ def main() -> None:
                                          plan_override=(4, (sh_h, sh_w)))
 
         kern = partial(tiled.tiled_relax, tf, sw, n_mut, 4, prepare_fn=prep, window=win)
+        db_kern = partial(kern, double_buffer=True)
         p1 = timed(win_plain)[1] * 1e3
-        k1, k2 = cuda_ms(kern, 50), cuda_ms(kern, 50)
+        k1, d1, d2, k2 = (cuda_ms(f, 50) for f in (kern, db_kern, db_kern, kern))
         dev_ms, dev_ops = device_profile(kern, 20)[:2]
+        db_ms, db_ops = device_profile(db_kern, 20)[:2]
         p2 = timed(win_plain)[1] * 1e3
         relaxed = sh_h * sh_w
         b_ms, b_by = bound(len(tf) * 4 * tf[0].numel() + n_mut * 4 * relaxed,
                            4 * relaxed * FLOPS_PER_PX[name])
         times[(name, "win")] = ((k1 + k2) / 2, (p1 + p2) / 2)
         bounds[(name, "win")] = (b_ms, b_by)
+        times[(f"{name}_db", "win")] = ((d1 + d2) / 2, (p1 + p2) / 2)
+        bounds[(f"{name}_db", "win")] = (b_ms, b_by)
         print(f"  time {name}, a {sh_h}x{sh_w} shard of {MAIN_SHAPE[1]}x{MAIN_SHAPE[2]} and its "
               f"halo, iters=4 per call: kernel {k1:.4f} / {k2:.4f} ms (device busy {dev_ms:.4f} "
               f"ms in {dev_ops:.0f} operations), plain windowed schedule {p1:.1f} / {p2:.1f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"bound {b_ms:.4f} ms ({b_by}); double-buffered {d1:.4f} / {d2:.4f} ms (device "
+              f"busy {db_ms:.4f} ms in {db_ops:.0f} operations), {(d1 + d2) / (k1 + k2):.3f}x",
+              flush=True)
 
     # one whole tridiagonal solve (diffusion4's call) along each axis, one
     # zebra parity solve with a factor, and one fused zebra pass (flow_hs's
@@ -2213,7 +2273,7 @@ def main() -> None:
     # tile kernels (pde_tpu's bench.py alone reaches _stripe_kernel_db), so
     # the kernels line gives them 0; phase 16's frames give the serial ones
     # theirs
-    for name in TILED:
+    for name in (*TILED, *TILED_NEW_DB):
         main_launches[name] = 0
 
     phase(f"16 flow_nd, disparity_nd, flow_ad, tv_denoise8, tv_denoise4 and flow_hs solver=1 "
@@ -2844,9 +2904,11 @@ def main() -> None:
                          "pde_tpu/kernels/tiled.py:" + ("172" if db else "113"))
                   for name, (_, db) in (TILED | TILED_WIN).items()},
                # _stripe_kernel (tiled.py:113) driving the disp, pde4, llin8
-               # and pde8 sweeps
+               # and pde8 sweeps, and _stripe_kernel_db (tiled.py:172)
                **{name: ("pde_tpu_torch/csrc/tiled_sor.cu", "pde_tpu/kernels/tiled.py:113")
-                  for name in (*TILED_NEW, *TILED_WIN_NEW)}}
+                  for name in (*TILED_NEW, *TILED_WIN_NEW)},
+               **{name: ("pde_tpu_torch/csrc/tiled_sor.cu", "pde_tpu/kernels/tiled.py:172")
+                  for name in TILED_NEW_DB}}
     th, tw = TIME_SHAPES[0]
     # the tridiagonal solve is reported whole, the fused pass coupled, along
     # axis -2; a resident kernel without a plan at th x tw (pde8 and pde4 with
@@ -2856,6 +2918,9 @@ def main() -> None:
     key["tridiag_long"] = ("tridiag_long", LONG_TIME[1], *LONG_TIME[0])
     key["tridiag_seg"] = ("tridiag_seg",)
     key.update({name: (name, "win") for name in (*TILED_WIN, *TILED_WIN_NEW)})
+    # the double-buffered forms of the other families: 1024x1024 and the shard
+    key.update({name: (name, "win") if "_win" in name else (name, *TIME_SHAPES[-1])
+                for name in TILED_NEW_DB})
     for name in AT_MAIN:
         if key[name] not in times:
             key[name] = (name, *MAIN_SHAPE[1:])

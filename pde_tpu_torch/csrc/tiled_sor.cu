@@ -10,7 +10,7 @@
 //
 // Replaces the TPU kernels pde_tpu/kernels/tiled.py::_stripe_kernel
 // (tiled.py:113, serial) and ::_stripe_kernel_db (tiled.py:172, the next
-// stripe's DMA under the current one's sweeps; llin4 and elin4 only) driving
+// stripe's DMA under the current one's sweeps) driving
 // pde_tpu/kernels/sweeps.py::flow_llin4_sweep (:66), flow_elin4_sweep
 // (:234), disp_llin4_sweep (:145), pde4_sweep (:174), flow_llin8_sweep
 // (:107) and pde8_sweep (:204). It computes the same function as the global
@@ -86,15 +86,16 @@
 //     disp_update.cuh, pde4_update.cuh, flow8_update.cuh, pde8_update.cuh),
 //     which the global and resident kernels use too, so all round alike
 //     (bit for bit).
-//   * Serial: one block a tile. Double-buffered (the port of
-//     _stripe_kernel_db; llin4 and elin4): persistent blocks, as many as the
-//     card holds at once, walk the tiles with two slots; while a block
-//     sweeps tile t in slot s, cp.async copies the neighbour planes of its
-//     next tile into slot 1 - s (one commit group a tile, waited on before
-//     the tile's sweeps), and the next tile's coefficients are read into
-//     registers after the current tile's store. A barrier after the store
-//     drains the slot before a prefetch refills it. Serial and
-//     double-buffered give the same bits.
+//   * Serial: one block a tile (and system). Double-buffered (the port of
+//     _stripe_kernel_db, every family): persistent blocks, as many as the
+//     card holds at once, walk the tiles (the (tile, system) items of disp,
+//     pde4 and pde8, the system fastest) with two slots; while a block
+//     sweeps item t in slot s, cp.async copies the neighbour planes of its
+//     next item into slot 1 - s (one commit group an item, waited on before
+//     the item's sweeps), and the item's coefficients are read into
+//     registers after that copy is issued. A barrier after the store drains
+//     the slot before a prefetch refills it. Serial and double-buffered give
+//     the same bits.
 //   * The windowed variant (the `_win` entry points) runs one chunk over part
 //     of an image: the arrays are the rectangle [r0, r0 + h) x [c0, c0 + w) of
 //     a gh x gw image (a shard of pde_tpu_torch/parallel/tiled.py with its
@@ -504,6 +505,22 @@ __global__ void __launch_bounds__(max_threads(kSlots), min_blocks(kSlots))
   __pipeline_wait_prior(0);
 }
 
+// The blocks of a persistent launch of `kernel`: as many as the card holds
+// at once, and no more than its `items`.
+template <class Kernel>
+cudaError_t persistent_blocks(Kernel kernel, int threads, int smem, int items, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = std::min(items, sms * per_sm);
+  return cudaSuccess;
+}
+
 template <bool kLate, bool kDouble, int kSlots>
 cudaError_t launch_chunk(const Planes& in, float* out_u, float* out_v, const Geometry& g,
                          int threads, float omega, float one_minus_omega, cudaStream_t stream) {
@@ -513,17 +530,9 @@ cudaError_t launch_chunk(const Planes& in, float* out_u, float* out_v, const Geo
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int blocks = g.n_tiles;
-  if (kDouble) {
-    // persistent: as many blocks as the card holds at once
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-      return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    blocks = std::min(blocks, sms * per_sm);
-  }
+  if (kDouble &&
+      (err = persistent_blocks(kernel, threads, smem, g.n_tiles, &blocks)) != cudaSuccess)
+    return err;
   kernel<<<blocks, threads, smem, stream>>>(in, out_u, out_v, g, omega, one_minus_omega);
   return cudaGetLastError();
 }
@@ -668,8 +677,9 @@ int run_window(const void* const* fields, void* out_u, void* out_v, int h, int w
 
 // ---------------------------------------------------------------------------
 // disp llin4, pde4, llin8 and pde8: one relaxed field (disp, pde) or two
-// (llin8), a batch of systems or channels along blockIdx.y, each system its
-// own planes (a shared plane repeats its pointer). Serial only.
+// (llin8), a batch of systems or channels (serial: along blockIdx.y), each
+// system its own planes (a shared plane repeats its pointer); serial or
+// double-buffered, as llin4 and elin4.
 // ---------------------------------------------------------------------------
 
 // The pointers of a launch: the family's fields and relaxed outputs, by
@@ -1026,72 +1036,140 @@ __device__ __forceinline__ void store_family(const Systems& sys, int sb, const f
   }
 }
 
-template <int kFam, int kSlots>
+// Serial: a block a tile (blockIdx.x) and system (blockIdx.y).
+// Double-buffered: persistent blocks walk the items t * batch + sb (tile t,
+// system or channel sb) in steps of gridDim.x, the system fastest, so that
+// the blocks running at once read the same tile of the planes the systems
+// share (the weights) and L2 serves it once. The prefetch copies what
+// copy_family copies serially (buffer 0 of a relaxed field, the border
+// families' halo pixel included). Buffer 1 of llin8's and pde8's relaxed
+// fields is not copied: a recycled slot still holds an earlier item's
+// values there, and no phase reads a pixel of buffer 1 before this item's
+// sweeps wrote it (the serial kernel's slot starts undefined too), so both
+// forms give the same bits.
+template <int kFam, bool kDouble, int kSlots>
 __global__ void __launch_bounds__(max_threads(kSlots), 1)
-    tiled_family_kernel(Systems sys, Geometry g, float omega, float one_minus_omega) {
+    tiled_family_kernel(Systems sys, Geometry g, int batch, float omega, float one_minus_omega) {
   using F = Fam<kFam>;
   extern __shared__ __align__(16) float smem[];
   uint32_t pos[kSlots], word[kSlots];
   typename F::Px px[2][kSlots];
-  const int sb = blockIdx.y;
   pair_positions(pos, g);
-  const Box b = tile_box(g, blockIdx.x);
-  copy_family<F>(smem, sys, sb, b, g, pos);
-  __pipeline_commit();
-  // the coefficients while the copies are in flight
-  load_family<F>(sys, sb, b, g, pos, px, word);
-  __pipeline_wait_prior(0);
-  __syncthreads();
-  sweep_family<kFam>(smem, b, g, word, px, omega, one_minus_omega);
-  store_family<kFam>(sys, sb, smem, b, g, word);
+  if constexpr (!kDouble) {
+    // the serial form apart: the item loop's live state would cost it
+    // registers, and with them its second block an SM
+    const int sb = blockIdx.y;
+    const Box b = tile_box(g, blockIdx.x);
+    copy_family<F>(smem, sys, sb, b, g, pos);
+    __pipeline_commit();
+    // the coefficients while the copies are in flight
+    load_family<F>(sys, sb, b, g, pos, px, word);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    sweep_family<kFam>(smem, b, g, word, px, omega, one_minus_omega);
+    store_family<kFam>(sys, sb, smem, b, g, word);
+  } else {
+    const int n_items = g.n_tiles * batch;
+    int item = blockIdx.x;
+    int s = 0;  // the slot of the current item
+    if (item < n_items) copy_family<F>(smem, sys, item % batch, tile_box(g, item / batch), g, pos);
+    __pipeline_commit();
+    for (; item < n_items; item += gridDim.x) {
+      const int sb = item % batch;
+      const Box b = tile_box(g, item / batch);
+      float* slot = smem + s * g.slot_floats;
+      // the neighbour planes of the block's next item into the other slot
+      const int next = item + gridDim.x;
+      if (next < n_items)
+        copy_family<F>(smem + (s ^ 1) * g.slot_floats, sys, next % batch,
+                       tile_box(g, next / batch), g, pos);
+      __pipeline_commit();
+      // this item's coefficients while the copies are in flight
+      load_family<F>(sys, sb, b, g, pos, px, word);
+      // this item's group: all but the newest
+      __pipeline_wait_prior(1);
+      __syncthreads();
+      sweep_family<kFam>(slot, b, g, word, px, omega, one_minus_omega);
+      store_family<kFam>(sys, sb, slot, b, g, word);
+      // drain: every thread has stored from this slot before the next
+      // item's prefetch refills it
+      __syncthreads();
+      s ^= 1;
+    }
+    __pipeline_wait_prior(0);
+  }
 }
 
-template <int kFam, int kSlots>
+template <int kFam, bool kDouble, int kSlots>
 cudaError_t launch_family(const Systems& sys, int batch, const Geometry& g, int threads,
                           float omega, float one_minus_omega, cudaStream_t stream) {
-  const auto kernel = tiled_family_kernel<kFam, kSlots>;
-  const int smem = g.slot_floats * static_cast<int>(sizeof(float));
+  const auto kernel = tiled_family_kernel<kFam, kDouble, kSlots>;
+  const int smem = (kDouble ? 2 : 1) * g.slot_floats * static_cast<int>(sizeof(float));
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(g.n_tiles, batch), threads, smem, stream>>>(sys, g, omega, one_minus_omega);
+  dim3 grid(g.n_tiles, batch);
+  if (kDouble) {
+    // persistent, over every (tile, system) item
+    int blocks = 0;
+    if ((err = persistent_blocks(kernel, threads, smem, g.n_tiles * batch, &blocks)) !=
+        cudaSuccess)
+      return err;
+    grid = dim3(blocks, 1);
+  }
+  kernel<<<grid, threads, smem, stream>>>(sys, g, batch, omega, one_minus_omega);
   return cudaGetLastError();
 }
 
-template <int kFam>
+template <int kFam, bool kDouble>
 cudaError_t family_slots(int slots, const Systems& sys, int batch, const Geometry& g,
                          float omega, float one_minus_omega, cudaStream_t stream) {
-  const cudaError_t bad = check_plan(kFam, g, slots, 0);
-  if (bad != cudaSuccess) return bad;
   const int threads = block_threads(kFam, g.k, g.tile_h, g.tile_w, slots);
   switch (slots) {
     case 1:
-      return launch_family<kFam, 1>(sys, batch, g, threads, omega, one_minus_omega, stream);
+      return launch_family<kFam, kDouble, 1>(sys, batch, g, threads, omega, one_minus_omega,
+                                             stream);
     case 2:
-      return launch_family<kFam, 2>(sys, batch, g, threads, omega, one_minus_omega, stream);
+      return launch_family<kFam, kDouble, 2>(sys, batch, g, threads, omega, one_minus_omega,
+                                             stream);
     case 3:
-      return launch_family<kFam, 3>(sys, batch, g, threads, omega, one_minus_omega, stream);
+      return launch_family<kFam, kDouble, 3>(sys, batch, g, threads, omega, one_minus_omega,
+                                             stream);
     default:
-      return launch_family<kFam, 4>(sys, batch, g, threads, omega, one_minus_omega, stream);
+      return launch_family<kFam, kDouble, 4>(sys, batch, g, threads, omega, one_minus_omega,
+                                             stream);
   }
+}
+
+// One family's launch, serial or double-buffered; refuses a plan the kernel
+// does not take.
+template <int kFam>
+cudaError_t family_form(int slots, int double_buffer, const Systems& sys, int batch,
+                        const Geometry& g, float omega, float one_minus_omega,
+                        cudaStream_t stream) {
+  const cudaError_t bad = check_plan(kFam, g, slots, double_buffer);
+  if (bad != cudaSuccess) return bad;
+  return double_buffer
+             ? family_slots<kFam, true>(slots, sys, batch, g, omega, one_minus_omega, stream)
+             : family_slots<kFam, false>(slots, sys, batch, g, omega, one_minus_omega, stream);
 }
 
 // One launch of a chunk of `family` (disp, pde4, llin8 or pde8).
 cudaError_t family_chunk(int family, const Systems& sys, int batch, Geometry g, int slots,
-                         float omega, float one_minus_omega, void* stream) {
+                         int double_buffer, float omega, float one_minus_omega, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = fields_of(family);
   g.vec2 = 1;
   for (int b = 0; b < batch; ++b) g.vec2 &= aligned8(sys.in[b], n);
   switch (family) {
     case kDisp:
-      return family_slots<kDisp>(slots, sys, batch, g, omega, one_minus_omega, s);
+      return family_form<kDisp>(slots, double_buffer, sys, batch, g, omega, one_minus_omega, s);
     case kPde4:
-      return family_slots<kPde4>(slots, sys, batch, g, omega, one_minus_omega, s);
+      return family_form<kPde4>(slots, double_buffer, sys, batch, g, omega, one_minus_omega, s);
     case kLlin8:
-      return family_slots<kLlin8>(slots, sys, batch, g, omega, one_minus_omega, s);
+      return family_form<kLlin8>(slots, double_buffer, sys, batch, g, omega, one_minus_omega, s);
     case kPde8:
-      return family_slots<kPde8>(slots, sys, batch, g, omega, one_minus_omega, s);
+      return family_form<kPde8>(slots, double_buffer, sys, batch, g, omega, one_minus_omega, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1186,17 +1264,18 @@ int tiled_flow_elin4_win(const void* u, const void* v, const void* m, const void
                            tile_h, tile_w, slots, double_buffer, omega, one_minus_omega, stream);
 }
 
-// disp llin4 (2), pde4 (3), llin8 (4) or pde8 (5), serial: `fields` holds
+// disp llin4 (2), pde4 (3), llin8 (4) or pde8 (5): `fields` holds
 // batch x fields_of(family) pointers (each system's fields in the order of
 // kernels/tiled_cuda.py::FIELD_NAMES; a plane shared by the systems repeats
 // its pointer), `out` and `tmp` batch x the relaxed fields (tmp unused, and
 // may hold nulls, when iters <= k). All are contiguous float32 (H, W) arrays
 // on the current device, H, W >= 3 for the families that fill the border.
-// Launches ceil(iters / k) kernels on `stream`, a block a tile and system;
-// `slots` pairs of pixels a thread (1 to 4).
+// Launches ceil(iters / k) kernels on `stream`, a block a tile and system,
+// or persistent blocks if `double_buffer` is not 0; `slots` pairs of pixels a
+// thread (1 to 4).
 int tiled_sor_family(int family, const void* const* fields, void* const* out, void* const* tmp,
                      int batch, int h, int w, int iters, int k, int tile_h, int tile_w, int slots,
-                     float omega, float one_minus_omega, void* stream) {
+                     int double_buffer, float omega, float one_minus_omega, void* stream) {
   Systems sys, next;
   if (!family_systems(family, fields, out, batch, &sys) || h < 1 || w < 1 || k < 1 ||
       tile_h < 1 || tile_w < 1 || (fill_of(family) && (h < 3 || w < 3)))
@@ -1212,8 +1291,8 @@ int tiled_sor_family(int family, const void* const* fields, void* const* out, vo
     for (int b = 0; b < batch; ++b)
       for (int f = 0; f < m; ++f)
         run.out[b][f] = (n_chunks - 1 - c) % 2 == 0 ? sys.out[b][f] : next.out[b][f];
-    const cudaError_t err = family_chunk(family, run, batch, g, slots, omega, one_minus_omega,
-                                         stream);
+    const cudaError_t err = family_chunk(family, run, batch, g, slots, double_buffer, omega,
+                                         one_minus_omega, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
     for (int b = 0; b < batch; ++b)
       for (int f = 0; f < m; ++f) sys.in[b][f] = run.out[b][f];
@@ -1224,12 +1303,13 @@ int tiled_sor_family(int family, const void* const* fields, void* const* out, vo
 // The windowed variant of disp llin4, pde4 and llin8 (and pde8): the fields
 // are h x w arrays at (r0, c0) of a gh x gw image; one launch of k sweeps
 // over the tiles of the box (bi0, bj0) + bh x bw writes the box into `out`
-// (bh x bw arrays). The caller keeps 2k pixels of the arrays (2k + 1 for
-// the families that fill the border), or the image's edge, around the box.
+// (bh x bw arrays), double-buffered if `double_buffer` is not 0. The caller
+// keeps 2k pixels of the arrays (2k + 1 for the families that fill the
+// border), or the image's edge, around the box.
 int tiled_sor_family_win(int family, const void* const* fields, void* const* out, int batch,
                          int h, int w, int r0, int c0, int gh, int gw, int bi0, int bj0, int bh,
-                         int bw, int k, int tile_h, int tile_w, int slots, float omega,
-                         float one_minus_omega, void* stream) {
+                         int bw, int k, int tile_h, int tile_w, int slots, int double_buffer,
+                         float omega, float one_minus_omega, void* stream) {
   Systems sys;
   if (!family_systems(family, fields, out, batch, &sys) || h < 1 || w < 1 || k < 1 ||
       tile_h < 1 || tile_w < 1 || r0 < 0 || c0 < 0 || r0 + h > gh || c0 + w > gw || bi0 < 0 ||
@@ -1238,8 +1318,8 @@ int tiled_sor_family_win(int family, const void* const* fields, void* const* out
     return cudaErrorInvalidValue;
   const Geometry g =
       geometry(family, h, w, r0, c0, gh, gw, bi0, bj0, bh, bw, k, tile_h, tile_w);
-  return static_cast<int>(family_chunk(family, sys, batch, g, slots, omega, one_minus_omega,
-                                       stream));
+  return static_cast<int>(family_chunk(family, sys, batch, g, slots, double_buffer, omega,
+                                       one_minus_omega, stream));
 }
 
 const char* tiled_sor_error_string(int code) {

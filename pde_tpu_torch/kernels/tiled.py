@@ -13,9 +13,9 @@ On the card, ``tiled_relax`` runs the kernel of ``csrc/tiled_sor.cu``
 (``kernels/tiled_cuda.py``) for the six sweep families of
 ``kernels/sweeps.py``, ``LAYOUTS``: flow_llin4, flow_elin4, disp_llin4,
 pde4, flow_llin8 and pde8. One launch a chunk, one block a tile (and
-system or channel), serial, or for llin4 and elin4 also double-buffered
-(persistent blocks that copy the next tile's neighbour planes in under the
-current one's sweeps). ``kernels/dispatch.py`` sends it every solve whose
+system or channel), serial, or double-buffered (persistent blocks that
+copy the next tile's neighbour planes in under the current one's
+sweeps). ``kernels/dispatch.py`` sends it every solve whose
 shape has no resident plan and that ``plan_tiles`` plans at
 ``k_max = 4``. On CPU tensors, or under ``dispatch.plain_solvers()``, it
 runs the same tile schedule in torch ops: the plain version, which
@@ -73,7 +73,6 @@ class Layout(NamedTuple):
     # neighbour has the pixel's own colour (the 8-neighbour families)
     fill: int       # 1 where the border is filled after each sweep: a halo pixel more
     max_batch: int  # systems (disp) or channels (pde4, pde8) a launch
-    double_buffer: bool  # has the double-buffered kernel
 
     @property
     def smem_planes(self) -> int:
@@ -88,12 +87,12 @@ class Layout(NamedTuple):
 
 
 LAYOUTS = {
-    "flow_llin4": Layout(0, 13, 2, 4, 1, 0, 1, True),
-    "flow_elin4": Layout(1, 11, 2, 2, 1, 0, 1, True),
-    "disp_llin4": Layout(2, 8, 1, 2, 1, 1, 2, False),
-    "pde4": Layout(3, 7, 1, 1, 1, 1, 3, False),
-    "flow_llin8": Layout(4, 17, 2, 4, 2, 0, 1, False),
-    "pde8": Layout(5, 11, 1, 1, 2, 1, 3, False),
+    "flow_llin4": Layout(0, 13, 2, 4, 1, 0, 1),
+    "flow_elin4": Layout(1, 11, 2, 2, 1, 0, 1),
+    "disp_llin4": Layout(2, 8, 1, 2, 1, 1, 2),
+    "pde4": Layout(3, 7, 1, 1, 1, 1, 3),
+    "flow_llin8": Layout(4, 17, 2, 4, 2, 0, 1),
+    "pde8": Layout(5, 11, 1, 1, 2, 1, 3),
 }
 # threads a block at most, by pairs of pixels a thread (the kernel's
 # max_threads: at 2 pairs it is compiled for two blocks an SM)
@@ -169,10 +168,8 @@ def make_plan(h: int, w: int, family: str, k: int, tile_h: int, tile_w: int,
               slots: int | None = None, double_buffer: bool = False) -> TilePlan | None:
     """The plan of ``k`` sweeps of ``family`` a chunk over ``tile_h`` x
     ``tile_w`` tiles of an (h, w) box, ``slots`` pairs a thread (by default
-    the fewest that keep a block within ``MAX_THREADS``); ``None`` if the
-    kernel does not take it."""
-    if double_buffer and not LAYOUTS[family].double_buffer:
-        return None
+    the fewest that keep a block within ``MAX_THREADS``), one slot or, when
+    ``double_buffer``, two; ``None`` if the kernel does not take it."""
     rows, hc = _slot_dims(family, k, tile_h, tile_w)
     if k < 1 or tile_h < 1 or tile_w < 1 or rows > _MAX_ROWS or hc > _MAX_HALF_COLS:
         return None
@@ -380,8 +377,9 @@ def tiled_relax(fields: Sequence[torch.Tensor], sweep_fn, n_mut: int, iters: int
     the kernel's pairs of pixels a thread (by default the fewest that fit).
 
     double_buffer=True runs the two-slot kernel on the card (the port of
-    ``_stripe_kernel_db``): the same numbers, bit for bit. On CPU tensors
-    both run the plain tile schedule.
+    ``_stripe_kernel_db``, every family), planned with two slots a block:
+    the same numbers, bit for bit. On CPU tensors both run the plain tile
+    schedule.
 
     window: the fields are part of an image (``Window``, a shard and its
     exchanged halo); one chunk of ``iters`` sweeps relaxes the tiles of the

@@ -1,6 +1,6 @@
 """ctypes wrapper of the temporally blocked tile kernel
 (``csrc/tiled_sor.cu``): the six families of ``kernels/tiled.LAYOUTS``,
-serial (and for llin4 and elin4 double-buffered), a plan of k sweeps a
+serial or double-buffered, a plan of k sweeps a
 chunk, a tile and ``slots`` pairs of pixels a thread (``kernels/tiled.py``'s
 ``TilePlan``). disp llin4 takes a batch of 1 or 2 systems, pde4 and pde8
 up to 3 channels, in one launch; each system has its own planes, and a
@@ -11,15 +11,14 @@ plain tile schedule for CPU tensors is ``kernels/tiled.py``'s. The library
 is built and loaded at the first call, never at import.
 
 ``LAUNCHES`` counts the kernel launches this wrapper has made, per family
-and variant (``"tiled_flow_llin4"``, ``"tiled_flow_llin4_db"``, ...,
-``"tiled_disp_llin4"``, ``"tiled_pde4"``, ``"tiled_flow_llin8"``,
-``"tiled_pde8"``): ``ceil(iters / k)`` per call, one a chunk (the prepare
-runs inside each chunk, every system of the batch in the same launch),
-none for ``iters <= 0``. The windowed variant (``tiled_sor_window``, one
-chunk over a box of part of an image: a shard of ``parallel/tiled.py`` and
-its halo) counts one a call under ``"tiled_<family>_win"`` (and
-``"_win_db"`` for llin4 and elin4), for every family the sharded solvers
-run (all but pde8).
+and variant (``"tiled_<family>"`` serial, ``"tiled_<family>_db"``
+double-buffered, for every family): ``ceil(iters / k)`` per call, one a
+chunk (the prepare runs inside each chunk, every system of the batch in
+the same launch), none for ``iters <= 0``. The windowed variant
+(``tiled_sor_window``, one chunk over a box of part of an image: a shard
+of ``parallel/tiled.py`` and its halo) counts one a call under
+``"tiled_<family>_win"`` (``"_win_db"`` double-buffered), for every family
+the sharded solvers run (all but pde8).
 """
 
 from __future__ import annotations
@@ -42,14 +41,13 @@ FIELD_NAMES = {
                    "ww", "wnw", "wn", "wne", "we", "wse", "ws", "wsw"),
     "pde8": ("x", "trace", "b", "ww", "wnw", "wn", "wne", "we", "wse", "ws", "wsw"),
 }
-# the families of the first kernel (named entry points, double-buffered too)
+# the families of the first kernel (named entry points)
 FLOW4 = ("flow_llin4", "flow_elin4")
 # the families the windowed variant runs for the sharded solvers
 WINDOWED = ("flow_llin4", "flow_elin4", "disp_llin4", "pde4", "flow_llin8")
 LAUNCHES = {f"tiled_{family}{variant}": 0 for family in FIELD_NAMES
             for variant in ("", "_db", "_win", "_win_db")
-            if (family in FLOW4 or "_db" not in variant)
-            and (family in WINDOWED or "_win" not in variant)}
+            if family in WINDOWED or "_win" not in variant}
 
 
 @functools.cache
@@ -64,9 +62,9 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, f"tiled_{family}_win")
         fn.argtypes = [p] * (len(names) + 2) + [i] * 15 + [f, f, p]
         fn.restype = i
-    lib.tiled_sor_family.argtypes = [i, p, p, p] + [i] * 8 + [f, f, p]
+    lib.tiled_sor_family.argtypes = [i, p, p, p] + [i] * 9 + [f, f, p]
     lib.tiled_sor_family.restype = i
-    lib.tiled_sor_family_win.argtypes = [i, p, p] + [i] * 15 + [f, f, p]
+    lib.tiled_sor_family_win.argtypes = [i, p, p] + [i] * 16 + [f, f, p]
     lib.tiled_sor_family_win.restype = i
     lib.tiled_sor_slot_bytes.argtypes = [i, i, i, i]
     lib.tiled_sor_slot_bytes.restype = i
@@ -146,8 +144,6 @@ def _slots(family: str, k: int, tile_h: int, tile_w: int, slots, double_buffer: 
     is None); raises where the kernel does not take the plan."""
     from pde_tpu_torch.kernels import tiled
 
-    if double_buffer and not tiled.LAYOUTS[family].double_buffer:
-        raise ValueError(f"tiled_{family} has no double-buffered kernel")
     if k < 1 or tile_h < 1 or tile_w < 1:
         raise ValueError(f"tile plan k={k}, tile {tile_h}x{tile_w}: each must be >= 1")
     plan = tiled.make_plan(tile_h, tile_w, family, k, tile_h, tile_w, slots, double_buffer)
@@ -241,8 +237,8 @@ def _run(family, systems, outs, iters, omega, k, tile_h, tile_w, double_buffer, 
             err = lib.tiled_sor_family(
                 layout.index, _ptrs([x for s in systems for x in s]),
                 _ptrs([o for out in outs for o in out]), _ptrs([t for tm in tmp for t in tm]),
-                len(systems), h, w, iters, k, tile_h, tile_w, slots, float(omega),
-                1.0 - float(omega), stream)
+                len(systems), h, w, iters, k, tile_h, tile_w, slots, int(bool(double_buffer)),
+                float(omega), 1.0 - float(omega), stream)
     _raise(lib, f"{entry} ({family})", err)
     LAUNCHES[f"tiled_{family}" + ("_db" if double_buffer else "")] += n_chunks
 
@@ -281,7 +277,7 @@ def tiled_sor_window(family: str, fields, iters: int, omega: float, window, tile
             err = lib.tiled_sor_family_win(
                 layout.index, _ptrs([x for s in systems for x in s]),
                 _ptrs([o for view in views for o in view]), len(systems), *geometry,
-                float(omega), 1.0 - float(omega), stream)
+                int(bool(double_buffer)), float(omega), 1.0 - float(omega), stream)
     _raise(lib, f"{entry} ({family})", err)
     LAUNCHES[f"tiled_{family}_win" + ("_db" if double_buffer else "")] += 1
     return tuple(outs)

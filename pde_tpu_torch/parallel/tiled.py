@@ -79,8 +79,8 @@ def tiled_relax_sharded(mesh: Mesh, sweep_factory, fields, n_mut: int, iters: in
 
     comm=False pads the tiles with their own strips in place of the
     exchange (``halo.halo_window``): WRONG at tile seams, benchmark-only,
-    the communication-free floor. double_buffer=True runs the llin4 and
-    elin4 chunks on the double-buffered kernel (the same bits)."""
+    the communication-free floor. double_buffer=True runs the chunks on
+    the double-buffered windowed kernel (the same bits)."""
     prepare, sweep = sweep_factory(float(omega))
     out_device = fields[0].device
     nty, ntx = mesh.shape["ty"], mesh.shape["tx"]

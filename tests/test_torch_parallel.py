@@ -225,26 +225,37 @@ def test_tiled_relax_sharded_multichunk(rng, k):
     _close(got, tuple(want), JAX_TOL)
 
 
+@pytest.mark.parametrize("double_buffer", [False, True])
 @pytest.mark.parametrize("family", ["flow_llin4", "flow_elin4", "flow_llin8", "disp_llin4", "pde4"])
-def test_tiled_relax_sharded_under_the_tile_plan(rng, family, monkeypatch):
+def test_tiled_relax_sharded_under_the_tile_plan(rng, family, double_buffer, monkeypatch):
     """Each shard's chunk through ``tiled.tiled_relax(..., window=)``, the
     call the card path makes, so that the plain windowed schedule runs at
     the tiles of the kernel's default plan (several a shard) rather than one
-    tile a shard: 9 sweeps on a 2x2 CPU mesh, NaN data, bit for bit with the
-    plain global solver."""
+    tile a shard, and with ``double_buffer`` at the two-slot plan of the
+    double-buffered windowed kernel: 9 sweeps on a 2x2 CPU mesh, NaN data,
+    bit for bit with the plain global solver."""
     calls = []
 
     def planned_chunk(fields, sweep, prepare, n_mut, kc, window, double_buffer):
         i0, i1, j0, j1 = window.box
-        plan = tiled.plan_tiles(i1 - i0, j1 - j0, sweep.family, kc, kc, exact_k=True)
+        plan = tiled.plan_tiles(i1 - i0, j1 - j0, sweep.family, kc, kc,
+                                double_buffer=double_buffer, exact_k=True)
+        assert plan.smem_bytes == (2 if double_buffer else 1) * tiled.slot_bytes(
+            sweep.family, kc, plan.tile_h, plan.tile_w)
         calls.append((plan.n_tiles_h * plan.n_tiles_w, kc))
         return tiled.tiled_relax(fields, sweep, n_mut, kc, prepare_fn=prepare, window=window,
                                  double_buffer=double_buffer)
 
     monkeypatch.setattr(ptiled, "_shard_chunk", planned_chunk)
-    names, nan_name, omega, port_sharded, port_global, _ = FAMILIES[family]
+    names, nan_name, omega, _, port_global, _ = FAMILIES[family]
     t = [torch.from_numpy(x) for x in _family_fields(rng, names, nan_name, (64, 96))]
-    got = port_sharded(_cpu_mesh(2, 2), *t, 9, omega)
+    # the sweeps' field order: the relaxed fields first
+    order = {"flow_llin4": [2, 3, 0, 1], "flow_llin8": [2, 3, 0, 1], "disp_llin4": [1, 0]}.get(
+        family, [])
+    tf = [t[i] for i in order] + t[len(order):]
+    got = ptiled.tiled_relax_sharded(_cpu_mesh(2, 2), getattr(sweeps, f"{family}_sweep"), tf,
+                                     tiled.LAYOUTS[family].n_mut, 9, omega,
+                                     double_buffer=double_buffer)
     _assert_equal(got, port_global(*t, 9, omega))
     # 4 shards x 3 chunks (4, 4, 1 sweeps), each of several tiles
     assert len(calls) == 12 and all(n > 1 for n, _ in calls)

@@ -3,7 +3,7 @@ families (llin4, elin4, disp llin4, pde4, llin8, pde8): its plain tile
 schedule held exactly against the port's plain global solvers (disp at a
 batch of 2, pde4 and pde8 at 3 channels too) and within a stated
 tolerance against ``pde_tpu``'s Pallas stripe engine in interpret mode
-(serial; llin4 and elin4 double-buffered too), also at the tiles of the
+(serial and double-buffered), also at the tiles of the
 redesigned kernel's plans and through windows; the tile plan (a block an
 SM, the colour-split slot's bytes, threads); the dispatch's route from the
 shape (``kernels/dispatch.sor_route``: resident, tile or global kernel);
@@ -33,7 +33,6 @@ ELIN = tiled_cuda.FIELD_NAMES["flow_elin4"]
 FAMILIES = {family: (tiled_cuda.FIELD_NAMES[family], getattr(sweeps, f"{family}_sweep"),
                      getattr(jsweeps, f"{family}_sweep"))
             for family in tiled.LAYOUTS}
-FLOW4 = ("flow_llin4", "flow_elin4")  # the families with a double-buffered kernel
 NAN_ALL = ("cu", "cv", "duc", "dvc", "trace")
 
 
@@ -134,10 +133,8 @@ def test_plain_tile_schedule_of_a_batch_equals_plain_global_solver(rng, case):
     _assert_equal(got, _plain_global(family, t, 5))
 
 
-# llin4 and elin4 serial and double-buffered, the other families serial
-# (they have no double-buffered kernel)
-STRIPE_CASES = [(family, db) for family in sorted(FAMILIES)
-                for db in ((False, True) if family in FLOW4 else (False,))]
+# every family, serial and double-buffered
+STRIPE_CASES = [(family, db) for family in sorted(FAMILIES) for db in (False, True)]
 
 
 @pytest.mark.parametrize("family,double_buffer", STRIPE_CASES)
@@ -164,6 +161,31 @@ def test_tiled_relax_matches_pallas_stripe_engine(rng, family, double_buffer):
         np.testing.assert_allclose(g, np.asarray(w_), atol=2e-6, rtol=1e-5)
 
 
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_default_plan_double_buffered_matches_pallas_stripe_engine(rng, family):
+    """``double_buffer=True`` at the default plan, 48x65, 5 sweeps, NaN in
+    Cu and Du (TRACE for pde4 and pde8): the relaxed fields in every
+    family, as ``pde_tpu``'s ``_stripe_kernel_db`` in interpret mode gives
+    them, the serial form's bits, and within tests/test_kernels.py's atol
+    2e-6, rtol 1e-5 of pde_tpu's (ROADMAP F3)."""
+    names, factory, jfactory = FAMILIES[family]
+    f = _fields(rng, 48, 65, names, ("cu", "duc", "trace"))
+    jprep, jsweep = jfactory(1.9)
+    n_mut = _n_mut(family)
+    want = jtiled_relax(tuple(jnp.asarray(x) for x in f), jsweep, n_mut, 5, prepare_fn=jprep,
+                        interpret=True, double_buffer=True)
+    assert want is not None
+    prepare, sweep = factory(1.9)
+    t = [torch.from_numpy(x) for x in f]
+    got = tiled.tiled_relax(t, sweep, n_mut, 5, prepare_fn=prepare, double_buffer=True)
+    assert got is not None and len(got) == len(want) == n_mut
+    _assert_equal(got, tiled.tiled_relax(t, sweep, n_mut, 5, prepare_fn=prepare))
+    for g, w_ in zip(got, want):
+        g = g.numpy()
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, np.asarray(w_), atol=2e-6, rtol=1e-5)
+
+
 @pytest.mark.parametrize("sweeps_", [3, 4096])
 @pytest.mark.parametrize("double_buffer", [False, True])
 @pytest.mark.parametrize("k_max", [1, 4, 8])
@@ -171,9 +193,6 @@ def test_tiled_relax_matches_pallas_stripe_engine(rng, family, double_buffer):
 @pytest.mark.parametrize("h,w", [(1024, 1024), (480, 640), (481, 641)])
 def test_plan_tiles(h, w, family, k_max, double_buffer, sweeps_):
     plan = tiled.plan_tiles(h, w, family, sweeps_, k_max, double_buffer=double_buffer)
-    if double_buffer and family not in FLOW4:
-        assert plan is None  # no double-buffered kernel
-        return
     assert 1 <= plan.k <= min(k_max, sweeps_)
     # the families that fill the border read one pixel more
     assert tiled._halo_for(family, plan.k) == 2 * plan.k + tiled.LAYOUTS[family].fill
@@ -218,8 +237,8 @@ REFUSALS = {
     "count": ("flow_llin4", "count", "takes 13 fields"),
     "disp_llin4 cpu": ("disp_llin4", "cpu", "CUDA"),
     "pde8 float64": ("pde8", "float64", "float32"),
-    "disp_llin4 double-buffered": ("disp_llin4", "double_buffer", "no double-buffered"),
-    "flow_llin8 double-buffered": ("flow_llin8", "double_buffer", "no double-buffered"),
+    "flow_llin8 two slots over 227 KB": ("flow_llin8", "two slots", "double_buffer=True"),
+    "disp_llin4 double-buffered, three systems": ("disp_llin4", "batch db", "1 to 2 systems"),
     "pde4 a 2-px image (W4)": ("pde4", "small", "H, W >= 3"),
     "pde4 four channels": ("pde4", "batch", "1 to 3 systems"),
     "disp_llin4 three systems": ("disp_llin4", "batch", "1 to 2 systems"),
@@ -243,15 +262,17 @@ def test_wrapper_refuses_before_building(rng, monkeypatch, what):
         fields[5] = torch.from_numpy(_fields(rng, 9, 8, ("cu",))[0]).t()
     if wrong == "count":
         fields = fields[:-1]
-    if wrong == "batch":
+    if wrong.startswith("batch"):
         fields[0] = fields[0].expand(tiled.LAYOUTS[family].max_batch + 1, h, w).contiguous()
+    # k = 4 over 64x96 tiles: a slot of 215,040 bytes, two over the block's 232,448
+    plan = (4, 64, 96) if wrong == "two slots" else (2, 16, 16)
     before = dict(tiled_cuda.LAUNCHES)
     with pytest.raises(ValueError, match=match):
         if wrong == "window":
             tiled_cuda.tiled_sor_window(family, fields, 2, 1.9, tiled.whole(h, w), 8, 8)
         else:
-            tiled_cuda.tiled_sor(family, fields, 4, 1.9, 2, 16, 16,
-                                 double_buffer=wrong == "double_buffer")
+            tiled_cuda.tiled_sor(family, fields, 4, 1.9, *plan,
+                                 double_buffer=wrong in ("two slots", "batch db"))
     assert tiled_cuda.LAUNCHES == before
 
 
@@ -517,9 +538,6 @@ def test_plan_fills_the_card(case, family, double_buffer):
     bh, bw = (h, w) if box is None else (box[1] - box[0], box[3] - box[2])
     plan = tiled.plan_tiles(bh, bw, family, 4, 4, double_buffer=double_buffer,
                             exact_k=box is not None, sm_count=132)
-    if double_buffer and family not in FLOW4:
-        assert plan is None  # no double-buffered kernel
-        return
     assert plan.k == 4
     assert plan.n_tiles_h * plan.n_tiles_w >= 132  # a block an SM at least
     assert plan.smem_bytes == (2 if double_buffer else 1) * tiled.slot_bytes(
@@ -586,9 +604,15 @@ def test_plan_refuses_what_the_kernel_does_not_take():
     # the border fill's halo pixel: 16x24 takes a second pair a thread
     plan = tiled.make_plan(64, 64, "pde4", 4, 16, 24)
     assert plan.slots == 1 and plan.threads == tiled.block_threads("pde4", 4, 16, 24, 1) == 736
-    for family in tiled.LAYOUTS:  # only llin4 and elin4 have a double-buffered kernel
-        assert (tiled.make_plan(64, 64, family, 4, 16, 24, double_buffer=True) is None) == (
-            family not in FLOW4)
+    for family in tiled.LAYOUTS:  # every family has the two-slot kernel
+        plan = tiled.make_plan(64, 64, family, 4, 16, 24, double_buffer=True)
+        slot = tiled.slot_bytes(family, 4, 16, 24)
+        assert plan == tiled.make_plan(64, 64, family, 4, 16, 24)._replace(smem_bytes=2 * slot)
+        assert plan.smem_bytes == 2 * slot <= tiled.SMEM_PER_BLOCK
+    # two slots over a block's shared memory, where one fits
+    slot = tiled.slot_bytes("flow_llin8", 4, 64, 96)
+    assert slot <= tiled.SMEM_PER_BLOCK < 2 * slot
+    assert tiled.make_plan(64, 64, "flow_llin8", 4, 64, 96, slots=4, double_buffer=True) is None
 
 
 # (h, w, iters, NaN fields, k, tile, slots): the new plans' tile shapes at
@@ -608,7 +632,7 @@ def test_plain_schedule_at_the_new_tiles_equals_plain_global_solver(rng, family,
     names, factory, _ = FAMILIES[family]
     t = [torch.from_numpy(x) for x in _fields(rng, h, w, names, nan_names)]
     prepare, sweep = factory(1.9)
-    for double_buffer in (False, True) if family in FLOW4 else (False,):
+    for double_buffer in (False, True):
         got = tiled.tiled_relax(t, sweep, _n_mut(family), iters, prepare_fn=prepare,
                                 plan_override=(k, tile, slots), double_buffer=double_buffer)
         _assert_equal(got, _plain_global(family, t, iters))
@@ -641,7 +665,7 @@ def test_windowed_schedule_at_the_new_tiles_equals_plain_global_solver(rng, fami
     _assert_equal(tuple(got), tuple(x[R0:R1, C0:C1] for x in want))
 
 
-@pytest.mark.parametrize("family", FLOW4)
+@pytest.mark.parametrize("family", ["flow_llin4", "flow_elin4"])
 def test_new_tile_shape_matches_pallas_stripe_engine(rng, family):
     """The port's plain schedule at a tile of the new plans (16x24, k = 4)
     against pde_tpu's kernel in interpret mode (16-row stripes, k = 2), NaN
