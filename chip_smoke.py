@@ -159,6 +159,20 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
     port's kernels' device ms of each profiled mesh frame beside the
     unsharded frame's. With two cards or more, a 1x2 mesh over two cards
     against one card.
+21. The fused frames (``models/_graph.py``): first one call of each CUDA
+    entry point captured into a CUDA graph and replayed, bit for bit
+    against the eager call (the resident kernel in every scope its plans
+    pick at 3x480x640's levels, the global kernels, the tile kernel serial
+    and double-buffered at 1024x1024, the line solves whole, global-rows,
+    factored and as the zebra pass); then every ``*_fused`` entry point
+    and ``flow_nd_sequence`` at default parameters on the earlier phases'
+    inputs (``flow_nd_fused`` also at 3x1024x1024, ``flow_fmg_fused`` with
+    both solvers): the first call launches twice the pinned eager counts
+    (the warm-up and the capture), a replay none, the replayed result
+    equals the eager frame bit for bit; the replayed and eager warm frames
+    timed in turns, one replay profiled, the first call's time beyond a
+    replay (the warm-up and the capture) and the memory it leaves reserved
+    (the graph's pool). Each graph is released after its check.
 
 Every phase from 4 on sets every kernel's launch count to 0 just before it
 drives its entry point and reads all counts just after, and profiles one
@@ -695,17 +709,21 @@ def main() -> None:
     from pde_tpu_torch.core.pyramid import pyramid_scales
     from pde_tpu_torch.kernels import (build, dispatch, interior_cuda, resident_cuda, sor_cuda,
                                        sweeps, tdma_cuda, tiled, tiled_cuda)
-    from pde_tpu_torch.models.disparity import DisparityParams, disparity_nd
-    from pde_tpu_torch.models.disparity_sym import DisparitySymParams, disparity_sym
+    from pde_tpu_torch.models.disparity import DisparityParams, disparity_nd, disparity_nd_fused
+    from pde_tpu_torch.models.disparity_sym import (DisparitySymParams, disparity_sym,
+                                                    disparity_sym_fused)
     from pde_tpu_torch.models.diffusion import Diffusion4Params, diffusion4
-    from pde_tpu_torch.models.flow_ad import FlowADParams, flow_ad
-    from pde_tpu_torch.models.flow_fmg import FlowFMGParams, flow_fmg
-    from pde_tpu_torch.models.gac import GACParams, gac_a, gac_b
+    from pde_tpu_torch.models.flow_ad import FlowADParams, flow_ad, flow_ad_fused
+    from pde_tpu_torch.models.flow_fmg import FlowFMGParams, flow_fmg, flow_fmg_fused
+    from pde_tpu_torch.models.gac import GACParams, gac_a, gac_a_fused, gac_b, gac_b_fused
     from pde_tpu_torch.models import segmentation as seg_mod
     from pde_tpu_torch.models.flow_hs import FlowHSParams, flow_hs
-    from pde_tpu_torch.models.flow_nd import FlowNDParams, flow_nd, flow_nd_sequence
+    from pde_tpu_torch.models.flow_nd import (FlowNDParams, flow_nd, flow_nd_fused,
+                                              flow_nd_sequence)
+    from pde_tpu_torch.models._graph import release_graphs
     from pde_tpu_torch.models.tv_denoise import (TVDenoise4Params, TVDenoise8Params,
-                                                 tv_denoise4, tv_denoise8)
+                                                 tv_denoise4, tv_denoise4_fused, tv_denoise8,
+                                                 tv_denoise8_fused)
     from pde_tpu_torch.parallel import mesh as pmesh, tiled as ptiled
     from pde_tpu_torch.solvers import aos as aos_mod
     from pde_tpu_torch.solvers import sor as plain_sor
@@ -1769,8 +1787,13 @@ def main() -> None:
     reset_counts()
     us, vs = flow_nd_sequence(clip, "grad", "gradmag")
     torch.cuda.synchronize()
-    check_counts("flow_nd_sequence", sor_launches(
-        SEQ_SHAPE, p.scl_factor, 20, p.scales, 2 * p.firstLoop * p.secondLoop, "llin4", 1,
+    # every pair is a flow_nd_fused call: the first captures one pair's
+    # frame (models/_graph.py runs it twice, the warm-up and the capture),
+    # the others replay it and count nothing. So the clip counts twice one
+    # pair's launches, whatever its length
+    pair_calls = p.firstLoop * p.secondLoop
+    check_counts("flow_nd_sequence (one capture)", sor_launches(
+        SEQ_SHAPE, p.scl_factor, 20, p.scales, 2 * pair_calls, "llin4", 1,
         "flow_llin4_sor", 1 + 2 * p.iter, p.iter))
     if us.shape != (2,) + SEQ_SHAPE[1:]:
         fail(f"sequence flow of shape {tuple(us.shape)}")
@@ -1781,6 +1804,7 @@ def main() -> None:
     print(f"  max |dflow| vs per-pair flow_nd {seq_err:.3g} px", flush=True)
     if not seq_err <= FLOW_TOL:
         fail(f"flow_nd_sequence differs from per-pair flow_nd by {seq_err} px")
+    release_graphs()
 
     phase(f"6 disparity_nd {MAIN_SHAPE}, default parameters")
     dp = DisparityParams()
@@ -2863,6 +2887,222 @@ def main() -> None:
     else:
         print(f"  {torch.cuda.device_count()} card: the copies between two cards went "
               f"unexercised", flush=True)
+
+    phase("21 fused frames: the *_fused entry points and flow_nd_sequence as CUDA-graph replays")
+    graph_mod = importlib.import_module("pde_tpu_torch.models._graph")
+    release_graphs()
+
+    def launched():
+        return {k: n for k, n in counts().items() if n}
+
+    # (a) one captured call of each CUDA entry point, replayed, bit for bit
+    # against the eager call on the same inputs (made before the capture:
+    # a copy from the host cannot be captured)
+    def capture_launch(what, call):
+        reset_counts()
+        want = as_tuple(call())
+        torch.cuda.synchronize()
+        eager = launched()
+        graph = torch.cuda.CUDAGraph()
+        reset_counts()
+        with torch.cuda.graph(graph):
+            got = as_tuple(call())
+        at_capture = launched()
+        if at_capture != eager or not eager:
+            fail(f"captured {what}: launches {at_capture}, the eager call's {eager}")
+        reset_counts()
+        graph.replay()
+        torch.cuda.synchronize()
+        if launched():
+            fail(f"a replay of {what} counted launches {launched()}")
+        if not bit_equal(got, want):
+            fail(f"captured {what}: the replay is not the eager call's bits")
+        graph.reset()
+        print(f"  captured {what}: {at_capture}, replayed bit for bit", flush=True)
+
+    def fields_call(make, run):
+        """A call of ``run`` on fields ``make()`` made now."""
+        fields = make()
+        return lambda: run(*fields)
+
+    t21 = time.time()
+    # the resident kernel in every scope plan_resident picks at MAIN_SHAPE's
+    # levels, for every family and batch the models launch
+    resident_cases = (
+        ("llin4", 1, flow_levels, lambda h, w: fields_call(
+            lambda: sor_fields(rng, h, w, True, dev),
+            lambda *f: resident_cuda.flow_llin4_sor(*f, p.iter, p.omega))),
+        ("disp", 1, stereo_levels, lambda h, w: fields_call(
+            lambda: disp_fields(rng, 1, h, w, True, dev),
+            lambda *f: resident_cuda.disp_llin4_sor(*f, dp.iter, dp.omega))),
+        ("disp", 2, stereo_levels, lambda h, w: fields_call(
+            lambda: (disp_fields(rng, 1, h, w, True, dev), disp_fields(rng, 1, h, w, True, dev)),
+            lambda f0, f1: torch.stack(resident_cuda.disp_llin4_pair(f0, f1, sp.iter,
+                                                                     sp.omega)))),
+        ("pde4", 3, tv4_levels_hw, lambda h, w: fields_call(
+            lambda: pde4_fields(rng, 3, h, w, True, dev),
+            lambda *f: resident_cuda.pde4_sor(*f, tp4_.inner_iter, tp4_.omega))),
+        ("elin4", 1, fmg_levels(MAIN_SHAPE), lambda h, w: fields_call(
+            lambda: elin_fields(rng, h, w, True, dev),
+            lambda *f: resident_cuda.flow_elin4_sor(*f, fp_.iter, fp_.omega))),
+        ("llin8", 1, ad_levels_hw, lambda h, w: fields_call(
+            lambda: llin8_fields(rng, h, w, True, dev),
+            lambda *f: resident_cuda.flow_llin8_sor(*f, ap_.iter, ap_.omega))),
+        ("pde8", 3, tv8_levels_hw, lambda h, w: fields_call(
+            lambda: pde8_fields(rng, 3, h, w, True, dev),
+            lambda *f: resident_cuda.pde8_sor(*f, tp8.inner_iter, tp8.omega))))
+    for family, batch, levels, case in resident_cases:
+        scopes = {}
+        for h, w in levels:
+            plan = resident_cuda.plan_resident(h, w, family, batch, sms)
+            if plan is not None and plan.scope not in scopes:
+                scopes[plan.scope] = (h, w)
+        for scope, (h, w) in scopes.items():
+            capture_launch(f"resident {family} B={batch} {h}x{w} ({scope} scope)", case(h, w))
+    # the global kernels, at a shape with no resident plan
+    gh_, gw_ = TIME_SHAPES[0]
+    for what, make, run in (
+            ("flow_llin4_sor", lambda: sor_fields(rng, gh_, gw_, True, dev),
+             lambda *f: sor_cuda.flow_llin4_sor(*f, 4, 1.9)),
+            ("flow_elin4_sor", lambda: elin_fields(rng, gh_, gw_, True, dev),
+             lambda *f: sor_cuda.flow_elin4_sor(*f, 4, 1.9)),
+            ("flow_llin8_sor", lambda: llin8_fields(rng, gh_, gw_, True, dev),
+             lambda *f: sor_cuda.flow_llin8_sor(*f, 4, 1.9)),
+            ("disp_llin4_sor B=2", lambda: disp_fields(rng, 2, gh_, gw_, True, dev),
+             lambda *f: interior_cuda.disp_llin4_sor(*f, 4, 1.9)),
+            ("pde4_sor C=3", lambda: pde4_fields(rng, 3, gh_, gw_, True, dev),
+             lambda *f: interior_cuda.pde4_sor(*f, 5, 1.75)),
+            ("pde8_sor C=3", lambda: pde8_fields(rng, 3, gh_, gw_, True, dev),
+             lambda *f: interior_cuda.pde8_sor(*f, 4, 1.75))):
+        capture_launch(f"{what} {gh_}x{gw_}", fields_call(make, run))
+    # the tile kernel at 1024x1024, serial and double-buffered, and a solve
+    # the dispatch sends to it (pde4, C = 3, as tv_denoise4's finest level)
+    th_, tw_ = TIME_SHAPES[-1]
+    for db in (False, True):
+        prep, sw = sweeps.flow_llin4_sweep(1.9)
+        capture_launch(f"tiled_relax llin4 {th_}x{tw_} double_buffer={db}", fields_call(
+            lambda: tile_order("flow_llin4", sor_fields(rng, th_, tw_, True, dev)),
+            lambda *f, db=db, prep=prep, sw=sw: tiled.tiled_relax(
+                f, sw, 2, 9, k_max=4, prepare_fn=prep, double_buffer=db)))
+    capture_launch(f"dispatch.sor_pde4 C=3 {th_}x{tw_}", fields_call(
+        lambda: pde4_fields(rng, 3, th_, tw_, True, dev),
+        lambda *f: dispatch.sor_pde4(*f, 5, 1.75)))
+    # the line solves: whole (staged and global-rows), factor and solve, the
+    # fused zebra pass
+    ta, tb, tc, td = tridiag_fields(rng, MAIN_SHAPE, dev)
+    for axis in (-2, -1):
+        capture_launch(f"tridiag_thomas {MAIN_SHAPE} axis={axis}",
+                       lambda axis=axis: tdma_cuda.thomas_solve(ta, tb, tc, td, axis))
+        capture_launch(f"tridiag_factor + tridiag_solve {MAIN_SHAPE} axis={axis}",
+                       lambda axis=axis: tdma_cuda.tridiag_solve(
+                           tdma_cuda.tridiag_factor(ta, tb, tc, axis), td))
+    la, lb, lc, ld = tridiag_fields(rng, LONG_TIME[0], dev)
+    capture_launch(f"tridiag_thomas {LONG_TIME[0]} axis={LONG_TIME[1]} (global rows)",
+                   lambda: tdma_cuda.thomas_solve(la, lb, lc, ld, LONG_TIME[1]))
+    zfac = tdma_cuda.tridiag_factor(ta, tb, tc, -2)
+    zz, zrhs, zo, zm, zlo, zhi, *zd = zebra_fields(rng, MAIN_SHAPE, dev)
+    for par in (0, 1):
+        capture_launch(f"tridiag_zebra_pass {MAIN_SHAPE} parity={par}, coupled, 8 neighbours",
+                       lambda par=par: tdma_cuda.zebra_pass(
+                           zfac, zz.clone(), zrhs, zlo, zhi, par, z_o=zo, m=zm,
+                           w_diag=tuple(zd)))
+    print(f"  single launches: {time.time() - t21:.1f} s", flush=True)
+
+    # (b) each fused entry point at default parameters on the earlier phases'
+    # inputs: the capture's launches (the first call runs the eager frame
+    # once as the warm-up, then captures: twice the pinned eager counts), a
+    # replay's (none), the replayed result against the eager frame bit for
+    # bit, warm frames in turns, one replay profiled, the first call's time
+    # beyond a replay, and the reserve it leaves once the allocator's free
+    # blocks are returned: the graph's pool (and the small returned outputs)
+    fused_rows = []
+
+    def fused_check(what, fused, eager, pinned):
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        reset_counts()
+        cold_s = timed(fused)[1]
+        torch.cuda.empty_cache()
+        pool_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
+        got = counts()
+        if got != {k: 2 * pinned.get(k, 0) for k in got}:
+            fail(f"{what}: the first call launched {launched()}, not twice the eager frame's "
+                 f"{ {k: n for k, n in pinned.items() if n} } (warm-up and capture)")
+        if len(graph_mod._FRAMES) != 1:
+            fail(f"{what}: {len(graph_mod._FRAMES)} captured frames, expected 1")
+        reset_counts()
+        out, _ = timed(fused)
+        if launched():
+            fail(f"{what}: a replay counted launches {launched()}")
+        fused_s, eager_s, ref = [], [], None
+        for turn in "effeef":
+            if turn == "e":
+                res, sec = timed(eager)
+                eager_s.append(sec)
+                ref = res if ref is None else ref
+            else:
+                fused_s.append(timed(fused)[1])
+        if not bit_equal(as_tuple(out), as_tuple(ref)):
+            again = eager()
+            diff = max(float(torch.nan_to_num(a - b).abs().max())
+                       for a, b in zip(as_tuple(out), as_tuple(ref)))
+            fail(f"{what}: the replayed frame is not the eager frame's bits (max |d| {diff}); "
+                 f"eager against eager: "
+                 f"{'the same bits' if bit_equal(as_tuple(again), as_tuple(ref)) else 'differs'}")
+        busy_ms, n_ops, own_ms, top = device_profile(fused)
+        setup_s = cold_s - min(fused_s)
+        row = {"path": what, "replay_s": fused_s, "eager_s": eager_s, "cold_s": cold_s,
+               "setup_s": setup_s, "pool_mib": pool_mib, "busy_ms": busy_ms,
+               "device_ops": n_ops, "own_ms": own_ms,
+               "launches": {k: n for k, n in pinned.items() if n}}
+        fused_rows.append(row)
+        print(f"  {what}: launches at capture {row['launches']} (+ the warm-up's), none at a "
+              f"replay; replayed == eager bit for bit; warm frame replayed "
+              f"{min(fused_s):.4f} s ({', '.join(f'{s:.4f}' for s in fused_s)}), eager "
+              f"{min(eager_s):.4f} s ({', '.join(f'{s:.4f}' for s in eager_s)}); first call "
+              f"{cold_s:.3f} s ({setup_s:.3f} s beyond a replay: the warm-up and the capture); "
+              f"graph pool {pool_mib:.1f} MiB", flush=True)
+        print_profile(f"{what} replayed", min(fused_s), (busy_ms, n_ops, own_ms, top))
+        if own_ms == 0:
+            print(f"  {what}: the profiler shows none of the port's kernels inside the graph; "
+                  f"its launches are the capture's", flush=True)
+        release_graphs()
+
+    nd_pinned = sor_launches(MAIN_SHAPE, p.scl_factor, 20, p.scales, p.firstLoop * p.secondLoop,
+                             "llin4", 1, "flow_llin4_sor", 1 + 2 * p.iter, p.iter)
+    t21b = time.time()
+    fused_check(f"flow_nd_fused {MAIN_SHAPE}", lambda: flow_nd_fused(it0, it1),
+                lambda: flow_nd(it0, it1), nd_pinned)
+    fused_check(f"flow_nd_fused {LARGE_SHAPE}", lambda: flow_nd_fused(big0, big1),
+                lambda: flow_nd(big0, big1),
+                sor_launches(LARGE_SHAPE, p.scl_factor, 20, p.scales, p.firstLoop * p.secondLoop,
+                             "llin4", 1, "flow_llin4_sor", 1 + 2 * p.iter, p.iter))
+    fused_check(f"flow_nd_sequence 3 x {SEQ_SHAPE}", lambda: flow_nd_sequence(clip),
+                lambda: tuple(torch.stack(f) for f in zip(
+                    *(flow_nd(clip[t], clip[t + 1]) for t in range(clip.shape[0] - 1)))),
+                sor_launches(SEQ_SHAPE, p.scl_factor, 20, p.scales, p.firstLoop * p.secondLoop,
+                             "llin4", 1, "flow_llin4_sor", 1 + 2 * p.iter, p.iter))
+    fused_check(f"disparity_nd_fused {MAIN_SHAPE}", lambda: disparity_nd_fused(il, ir),
+                lambda: disparity_nd(il, ir), d_expected)
+    fused_check(f"disparity_sym_fused {MAIN_SHAPE}", lambda: disparity_sym_fused(il, ir),
+                lambda: disparity_sym(il, ir), s_expected)
+    fused_check(f"flow_ad_fused {MAIN_SHAPE}", lambda: flow_ad_fused(it0, it1),
+                lambda: flow_ad(it0, it1), ad_expected)
+    fused_check(f"tv_denoise4_fused {MAIN_SHAPE}", lambda: tv_denoise4_fused(noisy),
+                lambda: tv_denoise4(noisy), tv_expected)
+    fused_check(f"tv_denoise8_fused {MAIN_SHAPE}", lambda: tv_denoise8_fused(noisy),
+                lambda: tv_denoise8(noisy), tv8_expected)
+    for name, fused_fn, eager_fn in (("gac_a", gac_a_fused, gac_a), ("gac_b", gac_b_fused, gac_b)):
+        fused_check(f"{name}_fused {tuple(gimg.shape)}", lambda: fused_fn(gimg, phi0_d),
+                    lambda: eager_fn(gimg, phi0_d), {"tridiag_thomas": 2 * gp.ITER})
+    for solver in (2, 1):
+        fp_s = FlowFMGParams(solver=solver)
+        fused_check(f"flow_fmg_fused {MAIN_SHAPE} solver={solver}",
+                    lambda: flow_fmg_fused(f0, f1, fp_s), lambda: flow_fmg(f0, f1, fp_s),
+                    fmg_expected(MAIN_SHAPE, solver, 1, fp_))
+    print(f"  fused frames: {time.time() - t21b:.1f} s; phase 21 {time.time() - t21:.1f} s",
+          flush=True)
+    print("fused frames " + json.dumps(fused_rows), flush=True)
 
     sources = {"flow_llin4_sor": ("pde_tpu_torch/csrc/flow_llin4_sor.cu",
                                   "pde_tpu/kernels/sor_pallas.py:71"),

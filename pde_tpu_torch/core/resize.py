@@ -64,10 +64,12 @@ def resize_matrix(
     return mat.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=256)
+@functools.lru_cache(maxsize=None)
 def _device_matrix(in_size: int, out_size: int, kernel: str, device: torch.device) -> torch.Tensor:
     """``resize_matrix`` on ``device``, copied there once (a copy from the
-    host waits for the card)."""
+    host waits for the card, and cannot be captured into a CUDA graph).
+    Never evicted: a captured frame (``models/_graph.py``) reads these
+    tensors at every replay."""
     return torch.from_numpy(resize_matrix(in_size, out_size, True, kernel)).to(device)
 
 

@@ -29,6 +29,7 @@ from pde_tpu_torch.core.pyramid import build_pyramid
 from pde_tpu_torch.core.resize import imresize
 from pde_tpu_torch.kernels.dispatch import sor_disp_llin4
 from pde_tpu_torch.models._device import as_tensor, input_device
+from pde_tpu_torch.models._graph import replay
 from pde_tpu_torch.models.flow_nd import check_solver
 from pde_tpu_torch.ops.derivatives import fst_derivatives5, snd_derivatives5, rgb2grad
 from pde_tpu_torch.ops.warp import bilinear_warp, identity_grid, warp_x_window
@@ -198,9 +199,11 @@ def disparity_nd(il, ir, fst_term: str = "grad", snd_term: str = "gradmag",
 
 def disparity_nd_fused(il, ir, fst_term: str = "grad", snd_term: str = "gradmag",
                        params: DisparityParams | None = None, device=None):
-    """Whole-frame entry point of ``pde_tpu`` (one jitted program there).
-    Here it is the same eager path as ``disparity_nd``."""
-    return disparity_nd(il, ir, fst_term, snd_term, params, device=device)
+    """``disparity_nd`` as one replayed CUDA graph a frame on the card,
+    as ``flow_nd_fused`` (``models/_graph.py``); on the CPU it is
+    ``disparity_nd``. ``pde_tpu``'s TPU workaround here (its XLA solvers
+    and warning) has no counterpart: the graph runs the CUDA kernels."""
+    return replay(disparity_nd, (fst_term, snd_term, params), (il, ir), device)
 
 
 def disparity_nd_split(il, ir, fst_term: str = "grad", snd_term: str = "gradmag",

@@ -33,6 +33,7 @@ from pde_tpu_torch.core.pyramid import build_pyramid
 from pde_tpu_torch.core.resize import imresize
 from pde_tpu_torch.kernels.dispatch import sor_disp_llin_sym4
 from pde_tpu_torch.models._device import as_tensor, input_device
+from pde_tpu_torch.models._graph import replay
 from pde_tpu_torch.models.disparity import warp_x
 from pde_tpu_torch.models.flow_nd import check_solver
 from pde_tpu_torch.ops.derivatives import (
@@ -185,6 +186,7 @@ def disparity_sym(il, ir, params: DisparitySymParams | None = None,
 
 
 def disparity_sym_fused(il, ir, params: DisparitySymParams | None = None, device=None):
-    """Whole-frame entry point of ``pde_tpu`` (one jitted program there).
-    Here it is the same eager path as ``disparity_sym``."""
-    return disparity_sym(il, ir, params, device=device)
+    """``disparity_sym`` as one replayed CUDA graph a frame on the card,
+    as ``flow_nd_fused`` (``models/_graph.py``); on the CPU it is
+    ``disparity_sym``."""
+    return replay(disparity_sym, (params,), (il, ir), device)

@@ -27,6 +27,7 @@ import torch
 from pde_tpu_torch.config import with_overrides
 from pde_tpu_torch.core.median import medfilt2_3x3
 from pde_tpu_torch.kernels.dispatch import sor_flow_llin8
+from pde_tpu_torch.models._graph import replay
 from pde_tpu_torch.models.flow_nd import (_coarse_to_fine, _fst_tensors, _robust_terms,
                                           _snd_tensors, check_solver)
 from pde_tpu_torch.ops.warp import warp_by_flow
@@ -117,6 +118,7 @@ def flow_ad(it0, it1, fst_term: str = "grad", snd_term: str = "gradmag",
 
 def flow_ad_fused(it0, it1, fst_term: str = "grad", snd_term: str = "gradmag",
                   params: FlowADParams | None = None, device=None):
-    """Whole-frame entry point of ``pde_tpu`` (one jitted program there).
-    Here it is the same eager path as ``flow_ad``."""
-    return flow_ad(it0, it1, fst_term, snd_term, params, device=device)
+    """``flow_ad`` as one replayed CUDA graph a frame on the card, as
+    ``flow_nd_fused`` (``models/_graph.py``); on the CPU it is
+    ``flow_ad``."""
+    return replay(flow_ad, (fst_term, snd_term, params), (it0, it1), device)

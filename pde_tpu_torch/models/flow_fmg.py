@@ -54,6 +54,7 @@ from pde_tpu_torch.core.conv import (
 from pde_tpu_torch.core.resize import imresize
 from pde_tpu_torch.kernels.dispatch import sor_flow_elin4
 from pde_tpu_torch.models._device import as_tensor, input_device
+from pde_tpu_torch.models._graph import replay
 from pde_tpu_torch.models.flow_nd import check_solver
 from pde_tpu_torch.ops.derivatives import FST_DERIVATOR5, SMOOTHER5, SND_DERIVATOR5
 from pde_tpu_torch.ops.weights import diffusion_weights_4
@@ -277,7 +278,7 @@ def flow_fmg(it0, it1, params: FlowFMGParams | None = None, collect: list | None
 
 
 def flow_fmg_fused(it0, it1, params: FlowFMGParams | None = None, device=None):
-    """Whole-frame entry point of ``pde_tpu`` (one jitted program there).
-    Here it is the same eager path as ``flow_fmg``; one CUDA-graph replay
-    per frame is later work."""
-    return flow_fmg(it0, it1, params, device=device)
+    """``flow_fmg`` (pyramid, tensors and every FAS cycle) as one replayed
+    CUDA graph a frame on the card, as ``flow_nd_fused``
+    (``models/_graph.py``); on the CPU it is ``flow_fmg``."""
+    return replay(flow_fmg, (params,), (it0, it1), device)

@@ -37,6 +37,7 @@ from pde_tpu_torch.ops.warp import warp_by_flow, warp_window
 from pde_tpu_torch.ops.weights import diffusion_weights_4
 from pde_tpu_torch.kernels.dispatch import sor_flow_llin4
 from pde_tpu_torch.models._device import as_tensor, input_device
+from pde_tpu_torch.models._graph import replay
 from pde_tpu_torch.parallel.mesh import mesh_device
 from pde_tpu_torch.parallel.model import mesh_nd_level
 from pde_tpu_torch.solvers.krylov import pcg_flow_llin4
@@ -267,10 +268,12 @@ def flow_nd(it0, it1, fst_term: str = "grad", snd_term: str = "gradmag",
 
 def flow_nd_fused(it0, it1, fst_term: str = "grad", snd_term: str = "gradmag",
                   params: FlowNDParams | None = None, device=None):
-    """Whole-frame entry point of ``pde_tpu`` (one jitted program there).
-    Here it is the same eager path as ``flow_nd``; one CUDA-graph replay
-    per frame is later work."""
-    return flow_nd(it0, it1, fst_term, snd_term, params, device=device)
+    """``flow_nd`` as one device program a frame, as ``pde_tpu``'s jitted
+    whole frame: on the card, the frame is captured into a CUDA graph at
+    the first call of its signature (the terms, ``params``, the images'
+    shapes) and replayed at every call (``models/_graph.py``); on the CPU
+    it is ``flow_nd``. Returns new (U, V) tensors."""
+    return replay(flow_nd, (fst_term, snd_term, params), (it0, it1), device)
 
 
 def flow_nd_sequence(frames, fst_term: str = "grad", snd_term: str = "gradmag",
@@ -278,7 +281,11 @@ def flow_nd_sequence(frames, fst_term: str = "grad", snd_term: str = "gradmag",
     """Flow for a video clip. frames: (T, H, W) or (T, C, H, W)
     uint8-range, on the device rule of ``flow_nd``. Returns (U, V) of
     shape (T-1, H, W): the flow of each consecutive pair, as ``flow_nd``
-    computes it."""
+    computes it. Every pair is a call of ``flow_nd_fused``: on the card a
+    replay of the graph of one (C, H, W) pair, queued with no host sync
+    between pairs, as ``pde_tpu``'s ``lax.scan`` makes the clip one
+    dispatch."""
     a = as_tensor(frames, input_device(frames, device))
-    pairs = [flow_nd(a[t], a[t + 1], fst_term, snd_term, params) for t in range(a.shape[0] - 1)]
+    pairs = [flow_nd_fused(a[t], a[t + 1], fst_term, snd_term, params)
+             for t in range(a.shape[0] - 1)]
     return torch.stack([u for u, _ in pairs]), torch.stack([v for _, v in pairs])

@@ -37,6 +37,7 @@ from pde_tpu_torch.config import with_overrides
 from pde_tpu_torch.core.conv import gaussian_kernel_2d, imfilter_replicate
 from pde_tpu_torch.core.grid import shift_e, shift_n, shift_s, shift_w
 from pde_tpu_torch.models._device import as_tensor, input_device
+from pde_tpu_torch.models._graph import replay
 from pde_tpu_torch.solvers.aos import ac_aos_step
 from pde_tpu_torch.solvers.reinit import reinit
 
@@ -194,12 +195,13 @@ def gac_b(img, phi, params: GACParams | None = None, collect=None, collect_every
 
 
 def gac_a_fused(img, phi, params: GACParams | None = None, device=None):
-    """Whole-evolution entry point of ``pde_tpu`` (one jitted program
-    there). Here it is the same eager path as ``gac_a``; one CUDA-graph
-    replay is later work."""
-    return gac_a(img, phi, params, device=device)
+    """``gac_a`` (the initial reinit, the stopping function and every AOS
+    step) as one replayed CUDA graph on the card, as ``flow_nd_fused``
+    (``models/_graph.py``), with ``img`` and ``phi`` its inputs; on the
+    CPU it is ``gac_a``."""
+    return replay(gac_a, (params,), (img, phi), device)
 
 
 def gac_b_fused(img, phi, params: GACParams | None = None, device=None):
     """As ``gac_a_fused``, for model "b"."""
-    return gac_b(img, phi, params, device=device)
+    return replay(gac_b, (params,), (img, phi), device)

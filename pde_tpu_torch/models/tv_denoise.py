@@ -34,6 +34,7 @@ from pde_tpu_torch.core.conv import gaussian_kernel_2d, imfilter_replicate
 from pde_tpu_torch.core.resize import imresize, imresize_scale
 from pde_tpu_torch.kernels.dispatch import sor_pde4, sor_pde8
 from pde_tpu_torch.models._device import as_tensor, input_device
+from pde_tpu_torch.models._graph import replay
 from pde_tpu_torch.models.flow_nd import check_solver
 from pde_tpu_torch.ops.weights import diffusion_weights_4, tensor_diffusion_weights_8
 from pde_tpu_torch.solvers.krylov import pcg_pde4, pcg_pde8
@@ -150,9 +151,10 @@ def tv_denoise4(img, params: TVDenoise4Params | None = None, device=None, **over
 
 
 def tv_denoise4_fused(img, params: TVDenoise4Params | None = None, device=None):
-    """Whole-image entry point of ``pde_tpu`` (one jitted program there).
-    Here it is the same eager path as ``tv_denoise4``."""
-    return tv_denoise4(img, params, device=device)
+    """``tv_denoise4`` as one replayed CUDA graph an image on the card, as
+    ``flow_nd_fused`` (``models/_graph.py``); on the CPU it is
+    ``tv_denoise4``."""
+    return replay(tv_denoise4, (params,), (img,), device)
 
 
 def _tv8_level(iout, f, alpha, omega, quantile, outer_iter, inner_iter, solver=1,
@@ -192,6 +194,7 @@ def tv_denoise8(img, params: TVDenoise8Params | None = None, device=None, **over
 
 
 def tv_denoise8_fused(img, params: TVDenoise8Params | None = None, device=None):
-    """Whole-image entry point of ``pde_tpu`` (one jitted program there).
-    Here it is the same eager path as ``tv_denoise8``."""
-    return tv_denoise8(img, params, device=device)
+    """``tv_denoise8`` as one replayed CUDA graph an image on the card, as
+    ``flow_nd_fused`` (``models/_graph.py``); on the CPU it is
+    ``tv_denoise8``."""
+    return replay(tv_denoise8, (params,), (img,), device)

@@ -112,7 +112,8 @@ def _quantile_nonzero(nrm: torch.Tensor, quantile: float) -> torch.Tensor:
     nz = (flat > 0).sum()
     # 0-based rank among all entries (the zeros take the first n - nz)
     k = (n - nz) + torch.round(nz.to(torch.float32) * quantile).to(torch.int64) - 1
-    val = torch.sort(flat).values[k.clamp(0, n - 1)]
+    # a gather, not ``values[k]``: a 0-d index tensor is read on the host
+    val = torch.sort(flat).values.gather(0, k.clamp(0, n - 1).reshape(1)).reshape(())
     return torch.where(nz > 0, val, torch.ones_like(val))
 
 
