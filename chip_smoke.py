@@ -34,14 +34,15 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    480x640: against the plain windowed schedule on CPU copies, and bit for
    bit against the global kernel; one shard's chunk timed. The tile kernel's
    other families, serial and double-buffered: disp llin4 (B = 1 and 2),
-   pde4 and pde8 (C = 1 and 3, TRACE and B per channel or shared) and
-   llin8, at the solvers' shapes without a resident plan and 1024x1024,
+   pde4 and pde8 (C = 1, 2 and 3 in one block, TRACE and B per channel or
+   shared) and llin8, at the solvers' shapes without a resident plan and 1024x1024,
    with and without NaN data, against the plain tile schedule, bit for bit
    against the global kernel (disp and pde also against the plain global
    solver), the double-buffered form bit for bit against the serial one;
    their windowed variant (llin8, disp, pde4), serial and double-buffered,
    through the sharded solvers at the shards of the same meshes, k = 1, 2,
-   4 and 9, bit for bit against the global kernel; a 4-sweep call of each
+   4 and 9, bit for bit against the global kernel, and pde4's over 1 to 3
+   channels bit for bit against the serial tile kernel; a 4-sweep call of each
    timed beside the global kernel's, the double-buffered form at
    1024x1024 and on the shard beside the serial one, in turns. The resident kernel (``csrc/resident_sor.cu``, one launch a
    solver call), llin4, disp llin4 (B = 1 and 2), pde4 (C = 1 and 3, TRACE
@@ -185,6 +186,7 @@ from __future__ import annotations
 
 import argparse
 import importlib
+import itertools
 import json
 import re
 import subprocess
@@ -325,7 +327,7 @@ GLOBAL_BYTES_PER_PX_SWEEP = {"flow_llin4_sor": 2 * ((10 * 4 + 1) + 4 * 4 + 2 * 4
 # the __global__ functions of pde_tpu_torch/csrc/*.cu
 OWN_KERNELS = {"prepare_kernel", "sweep_kernel", "prepare8_kernel", "sweep8_kernel",
                "disp_color_kernel", "pde4_color_kernel", "pde8_color_kernel", "border_kernel",
-               "border_small_kernel", "lines_kernel", "tiled_sweep_kernel",
+               "border_small_kernel", "lines_kernel", "tiled_sweep_kernel", "tiled_family_kernel",
                "resident_llin4_kernel", "resident_disp_kernel", "resident_llin8_kernel",
                "resident_pde8_kernel", "resident_flow4_kernel", "resident_pde4_kernel"}
 # the tile kernel's entries: (family, double-buffered)
@@ -359,6 +361,14 @@ NEW_TILE_CASES = (("flow_llin8", 1, False, (37, 53)), ("flow_llin8", 1, False, (
                   ("pde4", 3, False, (481, 641)), ("pde4", 3, False, (1024, 1024)),
                   ("pde8", 1, False, (37, 53)), ("pde8", 3, True, (481, 641)),
                   ("pde8", 3, False, (481, 641)), ("pde8", 3, False, (1024, 1024)))
+# and two channels in a block (drawn from a generator of their own, so that
+# the other checks keep their inputs)
+CHANNEL_CASES = (("pde4", 2, True, (37, 53)), ("pde4", 2, False, (481, 641)),
+                 ("pde8", 2, False, (37, 53)), ("pde8", 2, True, (481, 641)))
+# pde4's windowed variant over 1 to 3 channels (TRACE and B shared or per
+# channel): boxes of 481x641 (R0, R1, C0, C1), an odd origin inside and the
+# image's corner, one chunk of 4 sweeps
+CHANNEL_WINDOWS = ((37, 229, 101, 420), (0, 160, 481, 641))
 NEW_WIN_KS = (1, 2, 4, 9)  # the windowed variant's k through the sharded solvers (9 sweeps)
 FMG_SHIFT = (0.0, 1.0)  # early linearisation recovers only small shifts
 FMG_ULP_FACTOR = 3.0  # kernel vs plain at full size, in units of the one-ulp sensitivity
@@ -432,14 +442,11 @@ def in_turns(kern, plain, reps: int = 50, plain_reps: int | None = None):
     return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
 
 
-def device_profile(fn, calls: int = 1, tries: int = 3):
-    """What ``calls`` calls of ``fn`` keep the card busy with, from
-    ``torch.profiler``: (device ms per call, device operations per call,
-    device ms per call in the port's own kernels, [(name, device ms per
-    call)] of the five largest). Device time is the self time of every
-    kernel and copy, so gaps between them do not count. A window in which
-    the profiler recorded no device activity at all is taken again, up to
-    ``tries`` times."""
+def device_events(fn, calls: int = 1, tries: int = 3):
+    """The device's kernels and copies in ``calls`` calls of ``fn`` under
+    ``torch.profiler`` (``key_averages()`` with device self time), the
+    largest first. A window in which the profiler recorded no device
+    activity at all is taken again, up to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -456,13 +463,27 @@ def device_profile(fn, calls: int = 1, tries: int = 3):
                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         if events:
             break
-    events.sort(key=lambda e: -e.self_device_time_total)
+    return sorted(events, key=lambda e: -e.self_device_time_total)
+
+
+def own_kernel(key: str):
+    """The name of the port's own __global__ function an event's key names,
+    or None."""
+    m = re.search(r"\(anonymous namespace\)::(\w+)", key)
+    return m.group(1) if m and m.group(1) in OWN_KERNELS else None
+
+
+def device_profile(fn, calls: int = 1, tries: int = 3):
+    """What ``calls`` calls of ``fn`` keep the card busy with, from
+    ``torch.profiler`` (``device_events``): (device ms per call, device
+    operations per call, device ms per call in the port's own kernels,
+    [(name, device ms per call)] of the five largest). Device time is the
+    self time of every kernel and copy, so gaps between them do not
+    count."""
+    events = device_events(fn, calls, tries)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / calls
     n_ops = sum(e.count for e in events) / calls
-    own = [e for e in events
-           if (m := re.search(r"\(anonymous namespace\)::(\w+)", e.key))
-           and m.group(1) in OWN_KERNELS]
-    own_ms = sum(e.self_device_time_total for e in own) / 1e3 / calls
+    own_ms = sum(e.self_device_time_total for e in events if own_kernel(e.key)) / 1e3 / calls
     top = [(e.key, e.self_device_time_total / 1e3 / calls) for e in events[:5]]
     return busy_ms, n_ops, own_ms, top
 
@@ -785,6 +806,8 @@ def main() -> None:
     # the long-line, big-batch and flow_fmg-level checks draw from a
     # generator of their own, so that every other check keeps its inputs
     rng11 = np.random.default_rng(args.seed + 11)
+    # and the tile kernel's channel cases theirs
+    rng18 = np.random.default_rng(args.seed + 18)
     max_err = {}
 
     def hold(name, got, want, label, tol=None):
@@ -1056,28 +1079,31 @@ def main() -> None:
     print(f"  resident 8-neighbour kernel: {resident8_cases} cases, each bit for bit against "
           f"the global kernel", flush=True)
 
-    # the tile kernel: the plan and the kernel agree on a slot's bytes and a
-    # block's threads, for every family's plans and for odd tiles a
-    # plan_override may ask for
+    # the tile kernel: the plan and the kernel agree on a slot's bytes (a
+    # set of planes a channel where a block holds them all) and a block's
+    # threads, for every family's plans at each batch it takes and for odd
+    # tiles a plan_override may ask for
     for family, layout in tiled.LAYOUTS.items():
-        for db in (False, True):
-            plan = tiled.plan_tiles(*TIME_SHAPES[-1], family, 4, 4, double_buffer=db)
-            slot = tiled_lib.tiled_sor_slot_bytes(layout.index, plan.k, plan.tile_h, plan.tile_w)
+        for db, batch in itertools.product((False, True), range(1, layout.max_batch + 1)):
+            plan = tiled.plan_tiles(*TIME_SHAPES[-1], family, 4, 4, double_buffer=db, batch=batch)
+            slot = tiled_lib.tiled_sor_slot_bytes(layout.index, plan.k, plan.tile_h, plan.tile_w,
+                                                  batch)
             if (2 if db else 1) * slot != plan.smem_bytes:
                 fail(f"tile plan {plan} and the kernel's slot of {slot} bytes disagree")
-            print(f"  tile plan {family} double_buffer={db}: {plan}", flush=True)
-        for args in ((3, 7, 9), (1, 1, 1), (2, 16, 5), (4, 16, 48)):
-            if tiled_lib.tiled_sor_slot_bytes(layout.index, *args) != tiled.slot_bytes(family,
-                                                                                      *args):
-                fail(f"slot bytes of {family} {args}: kernel "
-                     f"{tiled_lib.tiled_sor_slot_bytes(layout.index, *args)}, "
-                     f"plan {tiled.slot_bytes(family, *args)}")
-        for args in ((4, 32, 32, 2), (3, 7, 9, 1), (4, 24, 48, 4), (1, 1, 1, 3), (4, 16, 48, 3)):
-            if tiled_lib.tiled_sor_threads(layout.index, *args) != tiled.block_threads(family,
-                                                                                       *args):
-                fail(f"threads of {family} {args}: kernel "
-                     f"{tiled_lib.tiled_sor_threads(layout.index, *args)}, "
-                     f"plan {tiled.block_threads(family, *args)}")
+            print(f"  tile plan {family} double_buffer={db} batch={batch}: {plan}", flush=True)
+        for tile, batch in itertools.product(((3, 7, 9), (1, 1, 1), (2, 16, 5), (4, 16, 48)),
+                                             range(1, layout.max_batch + 1)):
+            kernel_bytes = tiled_lib.tiled_sor_slot_bytes(layout.index, *tile, batch)
+            if kernel_bytes != tiled.slot_bytes(family, *tile, batch):
+                fail(f"slot bytes of {family} {tile} batch={batch}: kernel {kernel_bytes}, "
+                     f"plan {tiled.slot_bytes(family, *tile, batch)}")
+        for plan_args in ((4, 32, 32, 2), (3, 7, 9, 1), (4, 24, 48, 4), (1, 1, 1, 3),
+                          (4, 16, 48, 3)):
+            if tiled_lib.tiled_sor_threads(layout.index, *plan_args) != tiled.block_threads(
+                    family, *plan_args):
+                fail(f"threads of {family} {plan_args}: kernel "
+                     f"{tiled_lib.tiled_sor_threads(layout.index, *plan_args)}, "
+                     f"plan {tiled.block_threads(family, *plan_args)}")
 
     def tiled_run(name, fields, iters, k_max, plain=False):
         family, db = TILED[name]
@@ -1169,13 +1195,15 @@ def main() -> None:
     # size: the schedule is exact whatever its tiles), bit for bit against
     # the global kernel that served the shape before, and disp and pde bit
     # for bit against the plain global solver too
-    def new_fields(family, batch, h, w, nan, shared=False):
-        """The solver's fields of ``family`` (its global kernel's order)."""
+    def new_fields(family, batch, h, w, nan, shared=False, gen=None):
+        """The solver's fields of ``family`` (its global kernel's order),
+        drawn from ``gen`` (by default ``rng``)."""
+        gen = rng if gen is None else gen
         if family == "flow_llin8":
-            return llin8_fields(rng, h, w, nan, dev)
+            return llin8_fields(gen, h, w, nan, dev)
         if family == "disp_llin4":
-            return disp_fields(rng, batch, h, w, nan, dev)
-        return (pde4_fields if family == "pde4" else pde8_fields)(rng, batch, h, w, nan, dev,
+            return disp_fields(gen, batch, h, w, nan, dev)
+        return (pde4_fields if family == "pde4" else pde8_fields)(gen, batch, h, w, nan, dev,
                                                                   shared)
 
     new_global = {"flow_llin8": (sor_cuda.flow_llin8_sor, plain_sor.sor_flow_llin8, 1.9),
@@ -1199,12 +1227,13 @@ def main() -> None:
         return x if isinstance(x, tuple) else (x,)
 
     new_cases = 0
-    for family, batch, shared, (h, w) in NEW_TILE_CASES:
+    for (family, batch, shared, (h, w)), gen in ([(c, rng) for c in NEW_TILE_CASES]
+                                                 + [(c, rng18) for c in CHANNEL_CASES]):
         glob, plain_glob, omega = new_global[family]
         name = f"tiled_{family}"
         for iters in (4, 5):
             for nan in (False, True):
-                fields = new_fields(family, batch, h, w, nan, shared)
+                fields = new_fields(family, batch, h, w, nan, shared, gen)
                 tf = tile_order(family, fields)
                 label = (f"{'B' if family == 'disp_llin4' else 'C'}={batch}"
                          f"{' shared TRACE, B' if shared else ''} {h}x{w} iters={iters} nan={nan}")
@@ -1268,6 +1297,36 @@ def main() -> None:
                   flush=True)
     print(f"  windowed other families: {new_win_cases} sharded solves, each bit for bit against "
           f"the global kernel", flush=True)
+
+    # pde4's windowed variant over a batch of channels (a block holds them
+    # all), serial and double-buffered: against the plain global solver,
+    # and bit for bit against the serial tile kernel's chunk over the whole
+    # image
+    prep4, sw4 = sweeps.pde4_sweep(1.75)
+    halo4 = tiled._halo_for("pde4", 4)
+    win_channel_cases = 0
+    for c, shared in ((1, False), (2, True), (2, False), (3, True), (3, False)):
+        fields = new_fields("pde4", c, 481, 641, True, shared, rng18)
+        serial = new_tiled("pde4", fields, 4, 1.75)
+        want = as_tuple(plain_sor.sor_pde4(*fields, 4, 1.75))
+        for R0, R1, C0, C1 in CHANNEL_WINDOWS:
+            r0, r1 = max(0, R0 - halo4), min(481, R1 + halo4)
+            c0, c1 = max(0, C0 - halo4), min(641, C1 + halo4)
+            sub = [x[..., r0:r1, c0:c1].contiguous() for x in fields]
+            win = tiled.Window(r0, c0, 481, 641, (R0 - r0, R1 - r0, C0 - c0, C1 - c0))
+            label = (f"C={c}{' shared TRACE, B' if shared else ''} box {(R0, R1, C0, C1)} of "
+                     f"481x641 iters=4")
+            for db in (False, True):
+                name = "tiled_pde4_win" + ("_db" if db else "")
+                got = tiled.tiled_relax(sub, sw4, 1, 4, prepare_fn=prep4, window=win,
+                                        double_buffer=db)
+                hold(name, got, tuple(x[..., R0:R1, C0:C1] for x in want), label)
+                if not bit_equal(got, tuple(x[..., R0:R1, C0:C1] for x in serial)):
+                    fail(f"{name} at {label}: not the serial tile kernel's bits")
+                win_channel_cases += 1
+    print(f"  windowed pde4 over 1 to 3 channels: {win_channel_cases} chunks, serial and "
+          f"double-buffered each bit for bit against the serial tile kernel, max_abs_err "
+          f"{max_err['tiled_pde4_win']:.3g} against the plain global solver", flush=True)
 
     def hold_tridiag(a, b, c, d, label):
         """Whole solves, zebra parity solves and fused zebra passes along
@@ -2349,6 +2408,15 @@ def main() -> None:
                               if k == key or k in TILED or k in TILED_NEW})
         print(f"  {name}: frame {sec:.3f} s (cold), finite; launches "
               f"{ {k: n for k, n in want.items() if n} }", flush=True)
+        if name.startswith("tv_denoise"):
+            # a warm frame's device ms in each of the port's kernels (the
+            # tile kernel's is tiled_family_kernel)
+            own = {}
+            for e in device_events(run):
+                if kernel := own_kernel(e.key):
+                    own[kernel] = own.get(kernel, 0.0) + e.self_device_time_total / 1e3
+            print(f"  {name}: a warm frame's kernels under torch.profiler: "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(own.items())), flush=True)
 
     phase(f"17 flow_fmg {MAIN_SHAPE}, default parameters (V-cycle; solver=2 and solver=1)")
     fp_ = FlowFMGParams()

@@ -29,13 +29,17 @@
 //   * A block takes a tile (kernels/tiled.py::plan_tiles sizes it) plus a
 //     halo of 2k on every side (2k + 1 for the families that fill the
 //     border, below), clamped at the arrays' edge: its slot; blockIdx.y is
-//     the system (disp) or channel (pde4, pde8). Each thread owns fixed
+//     disp's system. A pde4 or pde8 block relaxes every channel (C <= 3) of
+//     its tile: the channels share the weights, which its threads read once
+//     a tile, as resident_sor.cu's pde4 does. Each thread owns fixed
 //     pixels of the slot, `slots` pairs of horizontally neighbouring pixels
 //     (one of each colour): pair j of thread t is pair p = t + j * threads,
 //     local row p / hc, columns 2 (p % hc) and 2 (p % hc) + 1, hc = the
 //     slot's half-columns. The map is fixed for the launch.
 //   * A pixel's coefficients (the family's prepare of the shared headers,
-//     with the image's edges) are read from device memory straight into the
+//     with the image's edges; pde4 and pde8: the weights and their sum once,
+//     then each channel's 1/TRACE and B, TRACE and B read once where the
+//     channels share them) are read from device memory straight into the
 //     owning thread's registers, 8 bytes a pair where the row allows it,
 //     with the NaN flags, the edge bits and a live bit packed in one word a
 //     pair. They stay there for the chunk's k sweeps and never touch shared
@@ -43,7 +47,10 @@
 //     word (kept live, they took the registers the coefficients need).
 //   * Shared memory holds only what neighbours read, each field split into
 //     a plane per colour: dU, dV, U, V (llin4, llin8), U, V (elin4), dU, U
-//     (disp), X (pde4, pde8). A pixel of colour c sits in plane c at row *
+//     (disp), X (pde4, pde8: a set of planes a channel). A colour phase of
+//     pde4 or pde8 reads every channel's neighbours of a pixel first, then
+//     updates and stores each channel: the reads overlap, and one barrier
+//     serves all channels. A pixel of colour c sits in plane c at row *
 //     hc + column / 2; a neighbour (di, dj) of the pixel in column 2x + e is
 //     at row + di, half-column x + ((e + dj) >> 1), in the other plane when
 //     di + dj is odd. A colour phase reads the other plane at consecutive
@@ -86,16 +93,16 @@
 //     disp_update.cuh, pde4_update.cuh, flow8_update.cuh, pde8_update.cuh),
 //     which the global and resident kernels use too, so all round alike
 //     (bit for bit).
-//   * Serial: one block a tile (and system). Double-buffered (the port of
-//     _stripe_kernel_db, every family): persistent blocks, as many as the
+//   * Serial: one block a tile (and disp system). Double-buffered (the port
+//     of _stripe_kernel_db, every family): persistent blocks, as many as the
 //     card holds at once, walk the tiles (the (tile, system) items of disp,
-//     pde4 and pde8, the system fastest) with two slots; while a block
-//     sweeps item t in slot s, cp.async copies the neighbour planes of its
-//     next item into slot 1 - s (one commit group an item, waited on before
-//     the item's sweeps), and the item's coefficients are read into
-//     registers after that copy is issued. A barrier after the store drains
-//     the slot before a prefetch refills it. Serial and double-buffered give
-//     the same bits.
+//     the system fastest; pde4's and pde8's every channel of a tile) with
+//     two slots; while a block sweeps item t in slot s, cp.async copies the
+//     neighbour planes of its next item into slot 1 - s (one commit group an
+//     item, waited on before the item's sweeps), and the item's coefficients
+//     are read into registers after that copy is issued. A barrier after the
+//     store drains the slot before a prefetch refills it. Serial and
+//     double-buffered give the same bits.
 //   * The windowed variant (the `_win` entry points) runs one chunk over part
 //     of an image: the arrays are the rectangle [r0, r0 + h) x [c0, c0 + w) of
 //     a gh x gw image (a shard of pde_tpu_torch/parallel/tiled.py with its
@@ -113,11 +120,14 @@
 // the relaxed fields once, but a tile reads its halo again from L2, so a
 // slot moves slot / interior times the planes (about 2x at the plans'
 // tiles). Registers bound the slot: a llin4 pixel keeps 9 coefficients, a
-// llin8 pixel 14, pde8 10, disp 7, pde4 6, plus the pair's word. On the
-// H100 neither bytes nor flops bound it but the latency of a tile's serial
-// steps: the coefficient loads, the prepare (divisions) and the 2k colour
-// phases with a barrier each. So llin4 and elin4 at 2 pairs a thread are
-// held to 64 registers, two blocks of up to 512 threads an SM, and one
+// llin8 pixel 14, disp 7, pde4 4 + 2C and pde8 8 + 2C (C channels), plus
+// the pair's word. On the H100 neither bytes nor flops bound it but the
+// latency of a tile's serial steps: the coefficient loads, the prepare
+// (divisions) and the 2k colour phases with a barrier each. So a pde4 or
+// pde8 block takes all C channels of its tile: one set of weight loads and
+// sums, and 2k barriered phases, for C channels, where a block a channel
+// would pay C of each. llin4 and elin4 at 2 pairs a thread are held to 64
+// registers, two blocks of up to 512 threads an SM, and one
 // block's loads and prepare overlap the other's phases (measured 7-17%
 // faster at 1024x1024 than one larger block an SM; PERF.md). The other
 // families keep more coefficients and are compiled for one block an SM.
@@ -184,6 +194,12 @@ __host__ __device__ constexpr int max_batch(int f) {
   return f == kDisp ? 2 : f == kPde4 || f == kPde8 ? 3 : 1;
 }
 __host__ __device__ constexpr int halo_of(int f, int k) { return 2 * k + fill_of(f); }
+// the diagonal form (pde4, pde8): a block holds every channel of its tile
+// over weights the channels share
+__host__ __device__ constexpr bool diag_of(int f) { return f == kPde4 || f == kPde8; }
+// the planes' sets a slot holds: a channel's each for pde4 and pde8, one
+// system's for the others
+__host__ __device__ constexpr int slot_sets(int f, int batch) { return diag_of(f) ? batch : 1; }
 
 // the fields, in the order of the C entry points: the two relaxed first,
 // then (llin4) the frozen flow, then the nine coefficient planes
@@ -200,8 +216,9 @@ struct Geometry {
   int k, fill, halo;     // this chunk's sweeps, the border fill's pixel, halo (2k + fill)
   int hc;                // a slot's half-columns: ceil((tile_w + 2 halo) / 2)
   int plane;             // one colour plane of one field: (tile_h + 2 halo) x hc floats
-  int slot_floats;       // one slot: the family's planes, rounded to 16 bytes
+  int slot_floats;       // one slot: the family's planes (a set a channel), rounded to 16 bytes
   int vec2;              // every input is 8-byte aligned: pairs load as float2
+  int shared;            // pde4, pde8: TRACE and B one plane the channels share
 };
 
 // a tile's interior and its slot (the interior and halo), clipped to the
@@ -229,10 +246,12 @@ __device__ __forceinline__ int pair_col(uint32_t wd) { return (wd >> 8) & 0xff; 
 __host__ __device__ int slot_rows(int halo, int tile_h) { return tile_h + 2 * halo; }
 __host__ __device__ int slot_half_cols(int halo, int tile_w) { return (tile_w + 2 * halo + 1) / 2; }
 
-__host__ __device__ int slot_floats(int family, int k, int tile_h, int tile_w) {
+__host__ __device__ int slot_floats(int family, int k, int tile_h, int tile_w, int batch) {
   const int halo = halo_of(family, k);
-  return (smem_planes(family) * slot_rows(halo, tile_h) * slot_half_cols(halo, tile_w) + 3) / 4 *
-         4;
+  return (smem_planes(family) * slot_sets(family, batch) * slot_rows(halo, tile_h) *
+              slot_half_cols(halo, tile_w) +
+          3) /
+         4 * 4;
 }
 
 __host__ __device__ int block_threads(int family, int k, int tile_h, int tile_w, int slots) {
@@ -560,10 +579,11 @@ cudaError_t launch_slots(int slots, const Planes& in, float* out_u, float* out_v
 }
 
 // A chunk of k sweeps of `family` over the tiles of the box (bi0, bj0, bh,
-// bw) of h x w arrays lying at (r0, c0) in a gh x gw image; vec2 is left to
-// the caller, which knows the pointers.
+// bw) of h x w arrays lying at (r0, c0) in a gh x gw image, `batch` systems
+// or channels; vec2 and shared are left to the caller, which knows the
+// pointers.
 Geometry geometry(int family, int h, int w, int r0, int c0, int gh, int gw, int bi0, int bj0,
-                  int bh, int bw, int k, int tile_h, int tile_w) {
+                  int bh, int bw, int k, int tile_h, int tile_w, int batch = 1) {
   Geometry g{};
   g.h = h;
   g.w = w;
@@ -584,7 +604,7 @@ Geometry geometry(int family, int h, int w, int r0, int c0, int gh, int gw, int 
   g.halo = halo_of(family, k);
   g.hc = slot_half_cols(g.halo, tile_w);
   g.plane = slot_rows(g.halo, tile_h) * g.hc;
-  g.slot_floats = slot_floats(family, k, tile_h, tile_w);
+  g.slot_floats = slot_floats(family, k, tile_h, tile_w, batch);
   g.vec2 = 1;
   return g;
 }
@@ -677,9 +697,10 @@ int run_window(const void* const* fields, void* out_u, void* out_v, int h, int w
 
 // ---------------------------------------------------------------------------
 // disp llin4, pde4, llin8 and pde8: one relaxed field (disp, pde) or two
-// (llin8), a batch of systems or channels (serial: along blockIdx.y), each
-// system its own planes (a shared plane repeats its pointer); serial or
-// double-buffered, as llin4 and elin4.
+// (llin8), each system its own planes (a shared plane repeats its pointer);
+// serial or double-buffered, as llin4 and elin4. disp's systems lie along
+// the grid (blockIdx.y, or the items of the double-buffered form); a block
+// of pde4 or pde8 holds every channel of its tile over weights read once.
 // ---------------------------------------------------------------------------
 
 // The pointers of a launch: the family's fields and relaxed outputs, by
@@ -689,18 +710,56 @@ struct Systems {
   float* out[kMaxBatch][2];
 };
 
-// What a family keeps of a pixel in registers, its prepare from the
-// coefficient fields [kCoef0, kFields) at image pixel (gi, gj) of a gh x gw
-// image, and its NaN flags (bits 0-1); kFill: the border is filled after
-// each sweep (fill_of), not relaxed.
-template <int kFam>
+// The pointer of field f of system b (a select, so that the parameter
+// space is indexed by constants only).
+__device__ __forceinline__ const float* in_ptr(const Systems& sys, int b, int f) {
+  return b == 0 ? sys.in[0][f] : b == 1 ? sys.in[1][f] : sys.in[2][f];
+}
+__device__ __forceinline__ float* out_ptr(const Systems& sys, int b, int f) {
+  return b == 0 ? sys.out[0][f] : b == 1 ? sys.out[1][f] : sys.out[2][f];
+}
+
+// What a family keeps of a pixel in registers and how it reads a pair's
+// coefficients (the fields [kCoef0, kFields)) into them; kFill: the border
+// is filled after each sweep (fill_of), not relaxed; kDiag: the diagonal
+// form (pde4, pde8), whose kCh channels share a block and the weights (the
+// others: one system a block); kPlanes shared-memory planes a channel
+// (smem_planes).
+template <int kFam, int kCh = 1>
 struct Fam;
 
+// A pair of pixels of a plane: one 8-byte load where `vec`, else each live
+// pixel alone (0 for one that is not).
+__device__ __forceinline__ float2 load_pair(const float* p, bool vec, bool live0, bool live1) {
+  if (vec) return __ldg(reinterpret_cast<const float2*>(p));
+  return make_float2(live0 ? __ldg(p) : 0.0f, live1 ? __ldg(p + 1) : 0.0f);
+}
+
+// disp and llin8: the coefficient planes of system sb at src, then the
+// family's prepare of each pixel (gi, gj + e) and its NaN flags.
+template <class F>
+__device__ __forceinline__ void read_coefficients(const Systems& sys, int sb, size_t src,
+                                                  bool vec, bool live0, bool live1, int gi, int gj,
+                                                  const Geometry& g, typename F::Px (&two)[2],
+                                                  uint32_t (&nan)[2]) {
+  constexpr int kCoefs = F::kFields - F::kCoef0;
+  float v[2][kCoefs];
+#pragma unroll
+  for (int f = 0; f < kCoefs; ++f) {
+    const float2 t = load_pair(in_ptr(sys, sb, F::kCoef0 + f) + src, vec, live0, live1);
+    v[0][f] = t.x;
+    v[1][f] = t.y;
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) two[e] = F::prepare(v[e], gi, gj + e, g.gh, g.gw, nan[e]);
+}
+
 template <>
-struct Fam<kDisp> {
+struct Fam<kDisp, 1> {
   // du | u, cu, duc, ww, wn, we, ws; neighbours read du and u
-  static constexpr int kFields = 8, kMut = 1, kNbr = 2, kBufs = 1, kCoef0 = 1;
-  static constexpr bool kFill = true;
+  static constexpr int kFields = 8, kMut = 1, kNbr = 2, kBufs = 1, kCoef0 = 1, kCh = 1;
+  static constexpr int kPlanes = smem_planes(kDisp);
+  static constexpr bool kFill = true, kDiag = false;
   struct Px {
     float a, b, c, d, uw, cu0, inv;
   };
@@ -712,27 +771,12 @@ struct Fam<kDisp> {
 };
 
 template <>
-struct Fam<kPde4> {
-  // x | trace, b, ww, wn, we, ws
-  static constexpr int kFields = 7, kMut = 1, kNbr = 1, kBufs = 1, kCoef0 = 1;
-  static constexpr bool kFill = true;
-  struct Px {
-    pde4_sor::Weights wt;
-    float2 inv_b;
-  };
-  __device__ static __forceinline__ Px prepare(const float* v, int, int, int, int, uint32_t& nan) {
-    const pde4_sor::Weights wt{v[2], v[3], v[4], v[5]};
-    nan = 0;
-    return {wt, pde4_sor::diagonal(v[0], v[1], pde4_sor::weight_sum(wt))};
-  }
-};
-
-template <>
-struct Fam<kLlin8> {
+struct Fam<kLlin8, 1> {
   // du, dv | u, v, m, cu, cv, duc, dvc, ww, wnw, wn, wne, we, wse, ws, wsw;
   // neighbours read du, dv, u, v
-  static constexpr int kFields = 17, kMut = 2, kNbr = 4, kBufs = 2, kCoef0 = 4;
-  static constexpr bool kFill = false;
+  static constexpr int kFields = 17, kMut = 2, kNbr = 4, kBufs = 2, kCoef0 = 4, kCh = 1;
+  static constexpr int kPlanes = smem_planes(kLlin8);
+  static constexpr bool kFill = false, kDiag = false;
   struct Px {
     float c[8];
     float wsum, inv_u, inv_v, m0, cu0, cv0;
@@ -756,40 +800,100 @@ struct Fam<kLlin8> {
   }
 };
 
-template <>
-struct Fam<kPde8> {
-  // x | trace, b, ww, wnw, wn, wne, we, wse, ws, wsw
-  static constexpr int kFields = 11, kMut = 1, kNbr = 1, kBufs = 2, kCoef0 = 1;
-  static constexpr bool kFill = true;
+// pde4 and pde8: a pixel's weights (shared by the channels) and each
+// channel's (1/TRACE, B) from pde*_sor::diagonal over the weights' sum, as
+// resident_sor.cu's pde4_load keeps them.
+template <int kCh_>
+struct Fam<kPde4, kCh_> {
+  // x | trace, b, ww, wn, we, ws
+  static constexpr int kFields = 7, kMut = 1, kNbr = 1, kBufs = 1, kCoef0 = 1, kCh = kCh_;
+  static constexpr int kPlanes = smem_planes(kPde4);
+  static constexpr bool kFill = true, kDiag = true;
+  using Weights = pde4_sor::Weights;
   struct Px {
-    pde8_sor::Weights wt;
-    float2 inv_b;
+    Weights wt;
+    float2 inv_b[kCh];
   };
-  __device__ static __forceinline__ Px prepare(const float* v, int, int, int, int, uint32_t& nan) {
-    const pde8_sor::Weights wt{v[2], v[3], v[4], v[5], v[6], v[7], v[8], v[9]};
-    nan = 0;
-    return {wt, pde8_sor::diagonal(v[0], v[1], pde8_sor::weight_sum(wt))};
+  __device__ static __forceinline__ Weights weights(const float* v) {
+    return {v[0], v[1], v[2], v[3]};
+  }
+  __device__ static __forceinline__ float weight_sum(const Weights& k) {
+    return pde4_sor::weight_sum(k);
+  }
+  __device__ static __forceinline__ float2 diagonal(float trace, float b, float wsum) {
+    return pde4_sor::diagonal(trace, b, wsum);
   }
 };
 
-// The plane of field f, local colour lc and buffer buf in a slot: a relaxed
+template <int kCh_>
+struct Fam<kPde8, kCh_> {
+  // x | trace, b, ww, wnw, wn, wne, we, wse, ws, wsw
+  static constexpr int kFields = 11, kMut = 1, kNbr = 1, kBufs = 2, kCoef0 = 1, kCh = kCh_;
+  static constexpr int kPlanes = smem_planes(kPde8);
+  static constexpr bool kFill = true, kDiag = true;
+  using Weights = pde8_sor::Weights;
+  struct Px {
+    Weights wt;
+    float2 inv_b[kCh];
+  };
+  __device__ static __forceinline__ Weights weights(const float* v) {
+    return {v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7]};
+  }
+  __device__ static __forceinline__ float weight_sum(const Weights& k) {
+    return pde8_sor::weight_sum(k);
+  }
+  __device__ static __forceinline__ float2 diagonal(float trace, float b, float wsum) {
+    return pde8_sor::diagonal(trace, b, wsum);
+  }
+};
+
+// pde4 and pde8: the weights of the pair at src, read once (channel 0's
+// planes: the channels share them), their sum, and each channel's
+// (1/TRACE, B); TRACE and B read once where the channels share them (the
+// same bits: a shared plane gives every channel the same diagonal).
+template <class F>
+__device__ __forceinline__ void read_diagonal(const Systems& sys, size_t src, bool vec, bool live0,
+                                              bool live1, int shared, typename F::Px (&two)[2]) {
+  constexpr int kW = F::kFields - 3;  // the weights follow x, trace, b
+  float v[2][kW];
+#pragma unroll
+  for (int f = 0; f < kW; ++f) {
+    const float2 t = load_pair(sys.in[0][3 + f] + src, vec, live0, live1);
+    v[0][f] = t.x;
+    v[1][f] = t.y;
+  }
+  float wsum[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    two[e].wt = F::weights(v[e]);
+    wsum[e] = F::weight_sum(two[e].wt);
+  }
+#pragma unroll
+  for (int c = 0; c < F::kCh; ++c) {
+    if (c > 0 && shared) {
+      two[0].inv_b[c] = two[0].inv_b[0];
+      two[1].inv_b[c] = two[1].inv_b[0];
+      continue;
+    }
+    const float2 tr = load_pair(in_ptr(sys, c, 1) + src, vec, live0, live1);
+    const float2 b = load_pair(in_ptr(sys, c, 2) + src, vec, live0, live1);
+    two[0].inv_b[c] = F::diagonal(tr.x, b.x, wsum[0]);
+    two[1].inv_b[c] = F::diagonal(tr.y, b.y, wsum[1]);
+  }
+}
+
+// The plane of field f, local colour lc and buffer buf of channel ch in a
+// slot: a channel's planes together (kPlanes of them), in it a relaxed
 // field's buffers of a colour side by side, then the frozen fields' colours.
 template <class F>
-__device__ __forceinline__ int plane_of(int f, int lc, int buf) {
-  return f < F::kMut ? (2 * f + lc) * F::kBufs + buf : 2 * F::kMut * F::kBufs + 2 * (f - F::kMut) + lc;
+__device__ __forceinline__ int plane_of(int f, int lc, int buf, int ch = 0) {
+  return ch * F::kPlanes + (f < F::kMut ? (2 * f + lc) * F::kBufs + buf
+                                        : 2 * F::kMut * F::kBufs + 2 * (f - F::kMut) + lc);
 }
 
-// The pointer of field f of system b (a select, so that the parameter
-// space is indexed by constants only).
-__device__ __forceinline__ const float* in_ptr(const Systems& sys, int b, int f) {
-  return b == 0 ? sys.in[0][f] : b == 1 ? sys.in[1][f] : sys.in[2][f];
-}
-__device__ __forceinline__ float* out_ptr(const Systems& sys, int b, int f) {
-  return b == 0 ? sys.out[0][f] : b == 1 ? sys.out[1][f] : sys.out[2][f];
-}
-
-// The 4-byte copies of this thread's pixels of the neighbour fields of
-// system `sb`'s tile b into the slot (buffer 0 of a relaxed field).
+// The 4-byte copies of this thread's pixels of the neighbour fields of tile
+// b into the slot (buffer 0 of a relaxed field): system sb's, or every
+// channel's where a block holds them (sb = 0).
 template <class F, int kSlots>
 __device__ __forceinline__ void copy_family(float* slot, const Systems& sys, int sb, const Box& b,
                                             const Geometry& g, const uint32_t (&pos)[kSlots]) {
@@ -805,24 +909,26 @@ __device__ __forceinline__ void copy_family(float* slot, const Systems& sys, int
       if (2 * x + e >= cols) break;
       const int lc = (li + e) & 1;
 #pragma unroll
-      for (int f = 0; f < F::kNbr; ++f)
-        __pipeline_memcpy_async(slot + plane_of<F>(f, lc, 0) * g.plane + q,
-                                in_ptr(sys, sb, f) + src + e, sizeof(float));
+      for (int ch = 0; ch < F::kCh; ++ch)
+#pragma unroll
+        for (int f = 0; f < F::kNbr; ++f)
+          __pipeline_memcpy_async(slot + plane_of<F>(f, lc, 0, ch) * g.plane + q,
+                                  in_ptr(sys, sb + ch, f) + src + e, sizeof(float));
     }
   }
 }
 
-// The coefficients of this thread's live pixels of system sb's tile b, from
-// device memory into registers, and the pairs' words. A pixel is live if
-// colour 0 of the first sweep reaches it (2k - 1 + fill around the tile,
-// within the slot) and, for the families that fill the border, it lies in
-// the image's interior.
+// The coefficients of this thread's live pixels of tile b (system sb's, or
+// for pde4 and pde8 the weights and every channel's diagonal), from device
+// memory into registers, and the pairs' words. A pixel is live if colour 0
+// of the first sweep reaches it (2k - 1 + fill around the tile, within the
+// slot) and, for the families that fill the border, it lies in the image's
+// interior.
 template <class F, int kSlots>
 __device__ __forceinline__ void load_family(const Systems& sys, int sb, const Box& b,
                                             const Geometry& g, const uint32_t (&pos)[kSlots],
                                             typename F::Px (&px)[2][kSlots],
                                             uint32_t (&word)[kSlots]) {
-  constexpr int kCoefs = F::kFields - F::kCoef0;
   const int reach = 2 * g.k - 1 + g.fill;
   const int i0 = max(b.r0 - reach, b.gr0) - b.gr0, i1 = min(b.r1 + reach, b.gr1) - b.gr0;
   const int j0 = max(b.c0 - reach, b.gc0) - b.gc0, j1 = min(b.c1 + reach, b.gc1) - b.gc0;
@@ -840,31 +946,21 @@ __device__ __forceinline__ void load_family(const Systems& sys, int sb, const Bo
     if (live0 || live1) {
       const size_t src = static_cast<size_t>(b.gr0 + li) * g.w + b.gc0 + 2 * x;
       const bool vec = live0 && live1 && g.vec2 && (src & 1) == 0;
-      float v[2][kCoefs];
-#pragma unroll
-      for (int f = 0; f < kCoefs; ++f) {
-        const float* p = in_ptr(sys, sb, F::kCoef0 + f) + src;
-        if (vec) {
-          const float2 t = __ldg(reinterpret_cast<const float2*>(p));
-          v[0][f] = t.x;
-          v[1][f] = t.y;
-        } else {
-          v[0][f] = live0 ? __ldg(p) : 0.0f;
-          v[1][f] = live1 ? __ldg(p + 1) : 0.0f;
-        }
-      }
       typename F::Px two[2];
+      uint32_t nan[2] = {0, 0};
+      if constexpr (F::kDiag)
+        read_diagonal<F>(sys, src, vec, live0, live1, g.shared, two);
+      else
+        read_coefficients<F>(sys, sb, src, vec, live0, live1, gi, gj, g, two, nan);
       uint32_t bits[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int pj = gj + e;
-        uint32_t nan = 0;
-        two[e] = F::prepare(v[e], gi, pj, g.gh, g.gw, nan);
         // the edge bits (kClampW ... kClampS): llin8, the neighbour is off
         // the image and clamped; the others, it lies on the image's border
         // and is filled
         const int f = g.fill;
-        bits[e] = ((e ? live1 : live0) ? kLive : 0u) | (nan << 1) |
+        bits[e] = ((e ? live1 : live0) ? kLive : 0u) | (nan[e] << 1) |
                   (pj - f == 0 ? kClampW : 0u) | (pj + f == g.gw - 1 ? kClampE : 0u) |
                   (gi - f == 0 ? kClampN : 0u) | (gi + f == g.gh - 1 ? kClampS : 0u);
       }
@@ -906,14 +1002,16 @@ __device__ __forceinline__ At neighbour_at(int di, int dj, uint32_t bits, int s,
 }
 
 // One colour phase of image colour `color` in sweep s: every live pixel of
-// local colour kLc whose position lies in [i0, i1) x [j0, j1) relaxed.
-template <int kFam, int kLc, int kSlots>
+// local colour kLc whose position lies in [i0, i1) x [j0, j1) relaxed, pde4
+// and pde8 every channel of it: first every channel's reads (independent
+// of each other, so that they overlap), then each channel's update and
+// store.
+template <class F, int kLc, int kSlots>
 __device__ __forceinline__ void family_phase(float* slot, const Geometry& g,
                                              const uint32_t (&word)[kSlots],
-                                             const typename Fam<kFam>::Px (&px)[2][kSlots], int i0,
+                                             const typename F::Px (&px)[2][kSlots], int i0,
                                              int i1, int j0, int j1, int s, int color, float omega,
                                              float one_minus_omega) {
-  using F = Fam<kFam>;
   // a relaxed field's buffers: its own colour's state before the phase, where
   // the phase writes, and the other colour's (its count of relaxations)
   const int rb = F::kBufs == 2 ? s & 1 : 0, wb = F::kBufs == 2 ? (s + 1) & 1 : 0;
@@ -929,34 +1027,53 @@ __device__ __forceinline__ void family_phase(float* slot, const Geometry& g,
     if (!(bits & kLive) || li < i0 || li >= i1 || lj < j0 || lj >= j1) continue;
     const int q = li * g.hc + x;
     const typename F::Px& c = px[kLc][j];
-    // field f's value at the neighbour (di, dj), read as neighbour_at says
-    auto nbr = [&](int f, int di, int dj) {
+    // field f of channel ch at the neighbour (di, dj), read as neighbour_at
+    // says
+    auto nbr = [&](int f, int di, int dj, int ch = 0) {
       const At a = neighbour_at<F>(di, dj, bits, s, rb, ob);
       const int lc = kLc ^ ((a.di + a.dj) & 1);
       const int buf = f < F::kMut && F::kBufs == 2 ? a.buf : 0;
-      return slot[plane_of<F>(f, lc, buf) * g.plane + q + a.di * g.hc + ((e + a.dj) >> 1)];
+      return slot[plane_of<F>(f, lc, buf, ch) * g.plane + q + a.di * g.hc + ((e + a.dj) >> 1)];
     };
     // a frozen field's value at the neighbour itself (disp's U is not filled)
     auto frozen = [&](int f, int di, int dj) {
       const int lc = kLc ^ ((di + dj) & 1);
       return slot[plane_of<F>(f, lc, 0) * g.plane + q + di * g.hc + ((e + dj) >> 1)];
     };
-    if constexpr (kFam == kDisp) {
+    if constexpr (F::kDiag && F::kBufs == 1) {  // pde4
+      float xc[F::kCh], xw[F::kCh], xe[F::kCh], xn[F::kCh], xs[F::kCh];
+#pragma unroll
+      for (int ch = 0; ch < F::kCh; ++ch) {
+        xc[ch] = slot[plane_of<F>(0, kLc, 0, ch) * g.plane + q];
+        xw[ch] = nbr(0, 0, -1, ch);
+        xe[ch] = nbr(0, 0, 1, ch);
+        xn[ch] = nbr(0, -1, 0, ch);
+        xs[ch] = nbr(0, 1, 0, ch);
+      }
+#pragma unroll
+      for (int ch = 0; ch < F::kCh; ++ch)
+        slot[plane_of<F>(0, kLc, 0, ch) * g.plane + q] =
+            pde4_sor::update(xc[ch], xw[ch], xe[ch], xn[ch], xs[ch], c.wt, c.inv_b[ch], omega,
+                             one_minus_omega);
+    } else if constexpr (F::kDiag) {  // pde8
+      float xc[F::kCh];
+      pde8_sor::Nbr n[F::kCh];
+#pragma unroll
+      for (int ch = 0; ch < F::kCh; ++ch) {
+        xc[ch] = slot[plane_of<F>(0, kLc, rb, ch) * g.plane + q];
+        n[ch] = {nbr(0, 0, -1, ch),  nbr(0, 0, 1, ch),  nbr(0, -1, 0, ch), nbr(0, 1, 0, ch),
+                 nbr(0, -1, -1, ch), nbr(0, -1, 1, ch), nbr(0, 1, -1, ch), nbr(0, 1, 1, ch)};
+      }
+#pragma unroll
+      for (int ch = 0; ch < F::kCh; ++ch)
+        slot[plane_of<F>(0, kLc, wb, ch) * g.plane + q] =
+            pde8_sor::update(xc[ch], n[ch], c.wt, c.inv_b[ch], omega, one_minus_omega);
+    } else if constexpr (F::kNbr == 2) {  // disp
       float* du = slot + plane_of<F>(0, kLc, 0) * g.plane + q;
       const disp_sor::Coef k{c.a, c.b, c.c, c.d, c.uw, c.cu0, c.inv, (bits & 2) != 0};
       *du = disp_sor::update(*du, nbr(0, 0, -1), frozen(1, 0, -1), nbr(0, 0, 1), frozen(1, 0, 1),
                              nbr(0, -1, 0), frozen(1, -1, 0), nbr(0, 1, 0), frozen(1, 1, 0), k,
                              omega, one_minus_omega);
-    } else if constexpr (kFam == kPde4) {
-      float* xc = slot + plane_of<F>(0, kLc, 0) * g.plane + q;
-      *xc = pde4_sor::update(*xc, nbr(0, 0, -1), nbr(0, 0, 1), nbr(0, -1, 0), nbr(0, 1, 0), c.wt,
-                             c.inv_b, omega, one_minus_omega);
-    } else if constexpr (kFam == kPde8) {
-      const float xc = slot[plane_of<F>(0, kLc, rb) * g.plane + q];
-      const pde8_sor::Nbr n{nbr(0, 0, -1),  nbr(0, 0, 1),  nbr(0, -1, 0), nbr(0, 1, 0),
-                            nbr(0, -1, -1), nbr(0, -1, 1), nbr(0, 1, -1), nbr(0, 1, 1)};
-      slot[plane_of<F>(0, kLc, wb) * g.plane + q] =
-          pde8_sor::update(xc, n, c.wt, c.inv_b, omega, one_minus_omega);
     } else {  // llin8
       constexpr int kDi[8] = {0, 0, -1, 1, -1, -1, 1, 1};
       constexpr int kDj[8] = {-1, 1, 0, 0, -1, 1, -1, 1};
@@ -981,10 +1098,10 @@ __device__ __forceinline__ void family_phase(float* slot, const Geometry& g,
 
 // g.k red-black sweeps over the slot, each colour over the region the kept
 // interior (and, for the border families, its fill sources) depends on.
-template <int kFam, int kSlots>
+template <class F, int kSlots>
 __device__ __forceinline__ void sweep_family(float* slot, const Box& b, const Geometry& g,
                                              const uint32_t (&word)[kSlots],
-                                             const typename Fam<kFam>::Px (&px)[2][kSlots],
+                                             const typename F::Px (&px)[2][kSlots],
                                              float omega, float one_minus_omega) {
   const int rows = b.gr1 - b.gr0, cols = b.gc1 - b.gc0;
   const int tr0 = b.r0 - b.gr0, tr1 = b.r1 - b.gr0, tc0 = b.c0 - b.gc0, tc1 = b.c1 - b.gc0;
@@ -995,24 +1112,22 @@ __device__ __forceinline__ void sweep_family(float* slot, const Box& b, const Ge
       const int i0 = max(tr0 - reach, 0), i1 = min(tr1 + reach, rows);
       const int j0 = max(tc0 - reach, 0), j1 = min(tc1 + reach, cols);
       if ((color ^ par) == 0)
-        family_phase<kFam, 0>(slot, g, word, px, i0, i1, j0, j1, s, color, omega,
-                              one_minus_omega);
+        family_phase<F, 0>(slot, g, word, px, i0, i1, j0, j1, s, color, omega, one_minus_omega);
       else
-        family_phase<kFam, 1>(slot, g, word, px, i0, i1, j0, j1, s, color, omega,
-                              one_minus_omega);
+        family_phase<F, 1>(slot, g, word, px, i0, i1, j0, j1, s, color, omega, one_minus_omega);
       __syncthreads();
     }
   }
 }
 
-// This thread's pixels of the tile's interior, from the slot, to system
-// sb's box-sized outputs; a pixel on the image's border (the border
-// families) takes its fill source's value.
-template <int kFam, int kSlots>
+// This thread's pixels of the tile's interior, from the slot, to the
+// box-sized outputs of system sb (every channel where a block holds them);
+// a pixel on the image's border (the border families) takes its fill
+// source's value.
+template <class F, int kSlots>
 __device__ __forceinline__ void store_family(const Systems& sys, int sb, const float* slot,
                                              const Box& b, const Geometry& g,
                                              const uint32_t (&word)[kSlots]) {
-  using F = Fam<kFam>;
   const int tr0 = b.r0 - b.gr0, tr1 = b.r1 - b.gr0, tc0 = b.c0 - b.gc0, tc1 = b.c1 - b.gc0;
   const int buf = F::kBufs == 2 ? g.k & 1 : 0;
 #pragma unroll
@@ -1030,27 +1145,32 @@ __device__ __forceinline__ void store_family(const Systems& sys, int sb, const f
       const int sj = lj + (g.fill && gj == 0 ? 1 : 0) - (g.fill && gj == g.gw - 1 ? 1 : 0);
       const int at = si * g.hc + (sj >> 1);
 #pragma unroll
-      for (int f = 0; f < F::kMut; ++f)
-        out_ptr(sys, sb, f)[row + lj] = slot[plane_of<F>(f, (si + sj) & 1, buf) * g.plane + at];
+      for (int ch = 0; ch < F::kCh; ++ch)
+#pragma unroll
+        for (int f = 0; f < F::kMut; ++f)
+          out_ptr(sys, sb + ch, f)[row + lj] =
+              slot[plane_of<F>(f, (si + sj) & 1, buf, ch) * g.plane + at];
     }
   }
 }
 
-// Serial: a block a tile (blockIdx.x) and system (blockIdx.y).
+// Serial: a block a tile (blockIdx.x) and, for disp, system (blockIdx.y);
+// a pde4 or pde8 block relaxes all kCh channels of its tile.
 // Double-buffered: persistent blocks walk the items t * batch + sb (tile t,
-// system or channel sb) in steps of gridDim.x, the system fastest, so that
-// the blocks running at once read the same tile of the planes the systems
-// share (the weights) and L2 serves it once. The prefetch copies what
-// copy_family copies serially (buffer 0 of a relaxed field, the border
+// system sb of the `batch` along the grid: disp's; pde4's and pde8's items
+// are their tiles) in steps of gridDim.x, the system fastest, so that the
+// blocks running at once read the same tile of the planes the systems share
+// and L2 serves it once. The prefetch copies what copy_family copies
+// serially (buffer 0 of a relaxed field, every channel's, the border
 // families' halo pixel included). Buffer 1 of llin8's and pde8's relaxed
 // fields is not copied: a recycled slot still holds an earlier item's
 // values there, and no phase reads a pixel of buffer 1 before this item's
 // sweeps wrote it (the serial kernel's slot starts undefined too), so both
 // forms give the same bits.
-template <int kFam, bool kDouble, int kSlots>
+template <int kFam, int kCh, bool kDouble, int kSlots>
 __global__ void __launch_bounds__(max_threads(kSlots), 1)
     tiled_family_kernel(Systems sys, Geometry g, int batch, float omega, float one_minus_omega) {
-  using F = Fam<kFam>;
+  using F = Fam<kFam, kCh>;
   extern __shared__ __align__(16) float smem[];
   uint32_t pos[kSlots], word[kSlots];
   typename F::Px px[2][kSlots];
@@ -1058,7 +1178,7 @@ __global__ void __launch_bounds__(max_threads(kSlots), 1)
   if constexpr (!kDouble) {
     // the serial form apart: the item loop's live state would cost it
     // registers, and with them its second block an SM
-    const int sb = blockIdx.y;
+    const int sb = F::kDiag ? 0 : blockIdx.y;
     const Box b = tile_box(g, blockIdx.x);
     copy_family<F>(smem, sys, sb, b, g, pos);
     __pipeline_commit();
@@ -1066,9 +1186,10 @@ __global__ void __launch_bounds__(max_threads(kSlots), 1)
     load_family<F>(sys, sb, b, g, pos, px, word);
     __pipeline_wait_prior(0);
     __syncthreads();
-    sweep_family<kFam>(smem, b, g, word, px, omega, one_minus_omega);
-    store_family<kFam>(sys, sb, smem, b, g, word);
+    sweep_family<F>(smem, b, g, word, px, omega, one_minus_omega);
+    store_family<F>(sys, sb, smem, b, g, word);
   } else {
+    batch = F::kDiag ? 1 : batch;  // a constant where the block holds the channels
     const int n_items = g.n_tiles * batch;
     int item = blockIdx.x;
     int s = 0;  // the slot of the current item
@@ -1089,8 +1210,8 @@ __global__ void __launch_bounds__(max_threads(kSlots), 1)
       // this item's group: all but the newest
       __pipeline_wait_prior(1);
       __syncthreads();
-      sweep_family<kFam>(slot, b, g, word, px, omega, one_minus_omega);
-      store_family<kFam>(sys, sb, slot, b, g, word);
+      sweep_family<F>(slot, b, g, word, px, omega, one_minus_omega);
+      store_family<F>(sys, sb, slot, b, g, word);
       // drain: every thread has stored from this slot before the next
       // item's prefetch refills it
       __syncthreads();
@@ -1100,10 +1221,12 @@ __global__ void __launch_bounds__(max_threads(kSlots), 1)
   }
 }
 
-template <int kFam, bool kDouble, int kSlots>
+// `batch` the systems along the grid: disp's, 1 for the families whose
+// block holds its channels.
+template <int kFam, int kCh, bool kDouble, int kSlots>
 cudaError_t launch_family(const Systems& sys, int batch, const Geometry& g, int threads,
                           float omega, float one_minus_omega, cudaStream_t stream) {
-  const auto kernel = tiled_family_kernel<kFam, kDouble, kSlots>;
+  const auto kernel = tiled_family_kernel<kFam, kCh, kDouble, kSlots>;
   const int smem = (kDouble ? 2 : 1) * g.slot_floats * static_cast<int>(sizeof(float));
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1121,37 +1244,55 @@ cudaError_t launch_family(const Systems& sys, int batch, const Geometry& g, int 
   return cudaGetLastError();
 }
 
-template <int kFam, bool kDouble>
+template <int kFam, int kCh, bool kDouble>
 cudaError_t family_slots(int slots, const Systems& sys, int batch, const Geometry& g,
                          float omega, float one_minus_omega, cudaStream_t stream) {
   const int threads = block_threads(kFam, g.k, g.tile_h, g.tile_w, slots);
   switch (slots) {
     case 1:
-      return launch_family<kFam, kDouble, 1>(sys, batch, g, threads, omega, one_minus_omega,
-                                             stream);
+      return launch_family<kFam, kCh, kDouble, 1>(sys, batch, g, threads, omega,
+                                                  one_minus_omega, stream);
     case 2:
-      return launch_family<kFam, kDouble, 2>(sys, batch, g, threads, omega, one_minus_omega,
-                                             stream);
+      return launch_family<kFam, kCh, kDouble, 2>(sys, batch, g, threads, omega,
+                                                  one_minus_omega, stream);
     case 3:
-      return launch_family<kFam, kDouble, 3>(sys, batch, g, threads, omega, one_minus_omega,
-                                             stream);
+      return launch_family<kFam, kCh, kDouble, 3>(sys, batch, g, threads, omega,
+                                                  one_minus_omega, stream);
     default:
-      return launch_family<kFam, kDouble, 4>(sys, batch, g, threads, omega, one_minus_omega,
-                                             stream);
+      return launch_family<kFam, kCh, kDouble, 4>(sys, batch, g, threads, omega,
+                                                  one_minus_omega, stream);
   }
 }
 
-// One family's launch, serial or double-buffered; refuses a plan the kernel
-// does not take.
-template <int kFam>
+// One family's launch, serial or double-buffered, kCh channels a block;
+// refuses a plan the kernel does not take.
+template <int kFam, int kCh = 1>
 cudaError_t family_form(int slots, int double_buffer, const Systems& sys, int batch,
                         const Geometry& g, float omega, float one_minus_omega,
                         cudaStream_t stream) {
   const cudaError_t bad = check_plan(kFam, g, slots, double_buffer);
   if (bad != cudaSuccess) return bad;
   return double_buffer
-             ? family_slots<kFam, true>(slots, sys, batch, g, omega, one_minus_omega, stream)
-             : family_slots<kFam, false>(slots, sys, batch, g, omega, one_minus_omega, stream);
+             ? family_slots<kFam, kCh, true>(slots, sys, batch, g, omega, one_minus_omega, stream)
+             : family_slots<kFam, kCh, false>(slots, sys, batch, g, omega, one_minus_omega,
+                                              stream);
+}
+
+// pde4 or pde8 over its `batch` channels, all in a block.
+template <int kFam>
+cudaError_t diag_form(int slots, int double_buffer, const Systems& sys, int batch,
+                      const Geometry& g, float omega, float one_minus_omega, cudaStream_t stream) {
+  switch (batch) {
+    case 1:
+      return family_form<kFam, 1>(slots, double_buffer, sys, 1, g, omega, one_minus_omega,
+                                  stream);
+    case 2:
+      return family_form<kFam, 2>(slots, double_buffer, sys, 1, g, omega, one_minus_omega,
+                                  stream);
+    default:
+      return family_form<kFam, 3>(slots, double_buffer, sys, 1, g, omega, one_minus_omega,
+                                  stream);
+  }
 }
 
 // One launch of a chunk of `family` (disp, pde4, llin8 or pde8).
@@ -1160,23 +1301,30 @@ cudaError_t family_chunk(int family, const Systems& sys, int batch, Geometry g, 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = fields_of(family);
   g.vec2 = 1;
-  for (int b = 0; b < batch; ++b) g.vec2 &= aligned8(sys.in[b], n);
+  g.shared = 1;
+  for (int b = 0; b < batch; ++b) {
+    g.vec2 &= aligned8(sys.in[b], n);
+    // pde4, pde8: TRACE and B one plane the channels share
+    g.shared &= sys.in[b][1] == sys.in[0][1] && sys.in[b][2] == sys.in[0][2];
+  }
   switch (family) {
     case kDisp:
       return family_form<kDisp>(slots, double_buffer, sys, batch, g, omega, one_minus_omega, s);
     case kPde4:
-      return family_form<kPde4>(slots, double_buffer, sys, batch, g, omega, one_minus_omega, s);
+      return diag_form<kPde4>(slots, double_buffer, sys, batch, g, omega, one_minus_omega, s);
     case kLlin8:
       return family_form<kLlin8>(slots, double_buffer, sys, batch, g, omega, one_minus_omega, s);
     case kPde8:
-      return family_form<kPde8>(slots, double_buffer, sys, batch, g, omega, one_minus_omega, s);
+      return diag_form<kPde8>(slots, double_buffer, sys, batch, g, omega, one_minus_omega, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 // The systems of a launch from the caller's arrays: `fields` batch x
-// fields_of(family) pointers, `out` batch x mut_of(family).
+// fields_of(family) pointers, `out` batch x mut_of(family); false for what
+// the kernel does not take, pde4's and pde8's weights not one plane the
+// channels share among it.
 bool family_systems(int family, const void* const* fields, void* const* out, int batch,
                     Systems* sys) {
   if (family < kDisp || family >= kFamilies || batch < 1 || batch > max_batch(family))
@@ -1186,6 +1334,9 @@ bool family_systems(int family, const void* const* fields, void* const* out, int
   for (int b = 0; b < batch; ++b) {
     for (int f = 0; f < n; ++f) sys->in[b][f] = static_cast<const float*>(fields[b * n + f]);
     for (int f = 0; f < m; ++f) sys->out[b][f] = static_cast<float*>(out[b * m + f]);
+    if (diag_of(family))
+      for (int f = 3; f < n; ++f)
+        if (sys->in[b][f] != sys->in[0][f]) return false;
   }
   return true;
 }
@@ -1196,10 +1347,11 @@ extern "C" {
 
 // Shared memory of one slot of `family` (0 llin4, 1 elin4, 2 disp llin4,
 // 3 pde4, 4 llin8, 5 pde8: kernels/tiled.py::LAYOUTS' order) for the plan's
-// `k` and tile; tiled.py::slot_bytes computes the same.
-int tiled_sor_slot_bytes(int family, int k, int tile_h, int tile_w) {
-  if (family < 0 || family >= kFamilies) return -1;
-  return slot_floats(family, k, tile_h, tile_w) * static_cast<int>(sizeof(float));
+// `k` and tile and a launch of `batch` systems or channels;
+// tiled.py::slot_bytes computes the same.
+int tiled_sor_slot_bytes(int family, int k, int tile_h, int tile_w, int batch) {
+  if (family < 0 || family >= kFamilies || batch < 1 || batch > max_batch(family)) return -1;
+  return slot_floats(family, k, tile_h, tile_w, batch) * static_cast<int>(sizeof(float));
 }
 
 // Threads a block of `family` for the plan's k, tile and slots a thread;
@@ -1267,12 +1419,13 @@ int tiled_flow_elin4_win(const void* u, const void* v, const void* m, const void
 // disp llin4 (2), pde4 (3), llin8 (4) or pde8 (5): `fields` holds
 // batch x fields_of(family) pointers (each system's fields in the order of
 // kernels/tiled_cuda.py::FIELD_NAMES; a plane shared by the systems repeats
-// its pointer), `out` and `tmp` batch x the relaxed fields (tmp unused, and
-// may hold nulls, when iters <= k). All are contiguous float32 (H, W) arrays
-// on the current device, H, W >= 3 for the families that fill the border.
-// Launches ceil(iters / k) kernels on `stream`, a block a tile and system,
-// or persistent blocks if `double_buffer` is not 0; `slots` pairs of pixels a
-// thread (1 to 4).
+// its pointer; pde4's and pde8's weights must be one plane the channels
+// share), `out` and `tmp` batch x the relaxed fields (tmp unused, and may
+// hold nulls, when iters <= k). All are contiguous float32 (H, W) arrays on
+// the current device, H, W >= 3 for the families that fill the border.
+// Launches ceil(iters / k) kernels on `stream`, a block a tile (and disp
+// system; a pde4 or pde8 block takes every channel), or persistent blocks if
+// `double_buffer` is not 0; `slots` pairs of pixels a thread (1 to 4).
 int tiled_sor_family(int family, const void* const* fields, void* const* out, void* const* tmp,
                      int batch, int h, int w, int iters, int k, int tile_h, int tile_w, int slots,
                      int double_buffer, float omega, float one_minus_omega, void* stream) {
@@ -1285,7 +1438,8 @@ int tiled_sor_family(int family, const void* const* fields, void* const* out, vo
   const int n_full = iters / k, rem = iters % k, n_chunks = n_full + (rem > 0 ? 1 : 0);
   for (int c = 0; c < n_chunks; ++c) {
     const int kc = c < n_full ? k : rem;
-    const Geometry g = geometry(family, h, w, 0, 0, h, w, 0, 0, h, w, kc, tile_h, tile_w);
+    const Geometry g =
+        geometry(family, h, w, 0, 0, h, w, 0, 0, h, w, kc, tile_h, tile_w, batch);
     // chunk c writes out or tmp so that the last one writes out
     Systems run = sys;
     for (int b = 0; b < batch; ++b)
@@ -1317,7 +1471,7 @@ int tiled_sor_family_win(int family, const void* const* fields, void* const* out
       (fill_of(family) && (gh < 3 || gw < 3)))
     return cudaErrorInvalidValue;
   const Geometry g =
-      geometry(family, h, w, r0, c0, gh, gw, bi0, bj0, bh, bw, k, tile_h, tile_w);
+      geometry(family, h, w, r0, c0, gh, gw, bi0, bj0, bh, bw, k, tile_h, tile_w, batch);
   return static_cast<int>(family_chunk(family, sys, batch, g, slots, double_buffer, omega,
                                        one_minus_omega, stream));
 }

@@ -13,7 +13,8 @@ On the card, ``tiled_relax`` runs the kernel of ``csrc/tiled_sor.cu``
 (``kernels/tiled_cuda.py``) for the six sweep families of
 ``kernels/sweeps.py``, ``LAYOUTS``: flow_llin4, flow_elin4, disp_llin4,
 pde4, flow_llin8 and pde8. One launch a chunk, one block a tile (and
-system or channel), serial, or double-buffered (persistent blocks that
+disp system; a pde4 or pde8 block relaxes every channel of its tile over
+weights it reads once), serial, or double-buffered (persistent blocks that
 copy the next tile's neighbour planes in under the current one's
 sweeps). ``kernels/dispatch.py`` sends it every solve whose
 shape has no resident plan and that ``plan_tiles`` plans at
@@ -40,7 +41,9 @@ pairs a thread, and keep their coefficients in registers; shared memory
 holds only the fields neighbours read (dU, dV, U, V for llin4 and llin8,
 U, V for elin4, dU, U for disp, X for pde4 and pde8), one float32 plane per
 colour each, two a colour for the relaxed fields of the 8-neighbour
-families.
+families; pde4 and pde8 keep a set of planes a channel, so a slot, and a
+plan's shared memory, grow with the channels (``slot_bytes(..., batch)``),
+and a plan's blocks are its tiles.
 """
 
 from __future__ import annotations
@@ -73,12 +76,24 @@ class Layout(NamedTuple):
     # neighbour has the pixel's own colour (the 8-neighbour families)
     fill: int       # 1 where the border is filled after each sweep: a halo pixel more
     max_batch: int  # systems (disp) or channels (pde4, pde8) a launch
+    block_batch: bool = False  # a block holds every channel of its tile (pde4,
+    # pde8, over weights the channels share), else one system (disp's along the grid)
 
     @property
     def smem_planes(self) -> int:
-        """Float planes of a slot: two colours of each neighbour field, the
-        relaxed fields' ``bufs`` a colour."""
+        """Float planes of a slot for one system or channel: two colours of
+        each neighbour field, the relaxed fields' ``bufs`` a colour."""
         return 2 * (self.n_mut * self.bufs + self.nbr - self.n_mut)
+
+    def slot_sets(self, batch: int) -> int:
+        """Sets of ``smem_planes`` a slot holds for a launch of ``batch``
+        systems or channels: one a channel where a block holds them all."""
+        return batch if self.block_batch else 1
+
+    def blocks(self, tiles: int, batch: int) -> int:
+        """Blocks of a launch of ``batch`` systems over ``tiles`` tiles
+        (the items of the double-buffered form)."""
+        return tiles if self.block_batch else tiles * batch
 
     @property
     def coef_planes(self) -> int:
@@ -90,9 +105,9 @@ LAYOUTS = {
     "flow_llin4": Layout(0, 13, 2, 4, 1, 0, 1),
     "flow_elin4": Layout(1, 11, 2, 2, 1, 0, 1),
     "disp_llin4": Layout(2, 8, 1, 2, 1, 1, 2),
-    "pde4": Layout(3, 7, 1, 1, 1, 1, 3),
+    "pde4": Layout(3, 7, 1, 1, 1, 1, 3, True),
     "flow_llin8": Layout(4, 17, 2, 4, 2, 0, 1),
-    "pde8": Layout(5, 11, 1, 1, 2, 1, 3),
+    "pde8": Layout(5, 11, 1, 1, 2, 1, 3, True),
 }
 # threads a block at most, by pairs of pixels a thread (the kernel's
 # max_threads: at 2 pairs it is compiled for two blocks an SM)
@@ -104,9 +119,16 @@ _MAX_HALF_COLS = 255
 # PERF.md): 16x48 measured fastest at every swept shape for llin4, elin4
 # and disp; the smaller ones give a small level or shard a block an SM.
 # llin8, pde8 and pde4, whose kernels hold one block an SM at the plan's
-# pairs a thread, measured fastest with one taller tile first (PERF.md)
+# pairs a thread, measured fastest with one taller tile first (PERF.md);
+# a pde4 block of several channels with a taller one still
 TILES = ((16, 48), (16, 24), (8, 24), (8, 16))
 FIRST_TILE = {"flow_llin8": (32, 48), "pde8": (40, 32), "pde4": (32, 32)}
+FIRST_TILE_CHANNELS = {"pde4": (40, 32)}
+# the kernels that spill registers, by the compiler's report on the H100
+# (scripts/tiled_plan_sweep.py prints it first): (family, channels a block,
+# double-buffered, pairs a thread). A plan that chooses its pairs a thread
+# takes more there; an explicit ``slots`` is taken as asked.
+SPILLS = {("pde8", 3, True, 3)}
 # threads a block at most in a plan, so that two blocks share an SM (at 64
 # registers a thread): one block's loads and prepare overlap the other's
 # sweeps
@@ -131,19 +153,28 @@ def _halo_for(family: str, k: int) -> int:
     return RB_RADIUS * k + _fill(family)
 
 
+def _pairs_to_choose(family: str, batch: int, double_buffer: bool) -> list[int]:
+    """The pairs a thread a plan may choose: those whose kernel does not
+    spill (``SPILLS``)."""
+    channels = LAYOUTS[family].slot_sets(batch)
+    return [s for s in sorted(MAX_THREADS) if (family, channels, double_buffer, s) not in SPILLS]
+
+
 def _slot_dims(family: str, k: int, tile_h: int, tile_w: int) -> tuple[int, int]:
     """A slot's rows and half-columns (pairs a row)."""
     halo = _halo_for(family, k)
     return tile_h + 2 * halo, (tile_w + 2 * halo + 1) // 2
 
 
-def slot_bytes(family: str, k: int, tile_h: int, tile_w: int) -> int:
-    """Shared memory of one slot: the family's float32 planes (a colour
-    each of every field neighbours read, two a colour of an 8-neighbour
-    family's relaxed fields) over the tile and its halo, rounded to 16
-    bytes (the kernel's ``slot_floats``)."""
+def slot_bytes(family: str, k: int, tile_h: int, tile_w: int, batch: int = 1) -> int:
+    """Shared memory of one slot of a launch of ``batch`` systems or
+    channels: the family's float32 planes (a colour each of every field
+    neighbours read, two a colour of an 8-neighbour family's relaxed
+    fields; pde4 and pde8 a set a channel) over the tile and its halo,
+    rounded to 16 bytes (the kernel's ``slot_floats``)."""
     rows, hc = _slot_dims(family, k, tile_h, tile_w)
-    return 4 * _round_up(LAYOUTS[family].smem_planes * rows * hc, 4)
+    layout = LAYOUTS[family]
+    return 4 * _round_up(layout.smem_planes * layout.slot_sets(batch) * rows * hc, 4)
 
 
 def block_threads(family: str, k: int, tile_h: int, tile_w: int, slots: int) -> int:
@@ -165,18 +196,20 @@ class TilePlan(NamedTuple):
 
 
 def make_plan(h: int, w: int, family: str, k: int, tile_h: int, tile_w: int,
-              slots: int | None = None, double_buffer: bool = False) -> TilePlan | None:
+              slots: int | None = None, double_buffer: bool = False,
+              batch: int = 1) -> TilePlan | None:
     """The plan of ``k`` sweeps of ``family`` a chunk over ``tile_h`` x
-    ``tile_w`` tiles of an (h, w) box, ``slots`` pairs a thread (by default
-    the fewest that keep a block within ``MAX_THREADS``), one slot or, when
+    ``tile_w`` tiles of an (h, w) box for ``batch`` systems or channels,
+    ``slots`` pairs a thread (by default the fewest that keep a block within
+    ``MAX_THREADS`` and whose kernel does not spill), one slot or, when
     ``double_buffer``, two; ``None`` if the kernel does not take it."""
     rows, hc = _slot_dims(family, k, tile_h, tile_w)
     if k < 1 or tile_h < 1 or tile_w < 1 or rows > _MAX_ROWS or hc > _MAX_HALF_COLS:
         return None
-    smem = (2 if double_buffer else 1) * slot_bytes(family, k, tile_h, tile_w)
+    smem = (2 if double_buffer else 1) * slot_bytes(family, k, tile_h, tile_w, batch)
     if smem > SMEM_PER_BLOCK:
         return None
-    for s in [slots] if slots is not None else sorted(MAX_THREADS):
+    for s in [slots] if slots is not None else _pairs_to_choose(family, batch, double_buffer):
         threads = block_threads(family, k, tile_h, tile_w, s) if s in MAX_THREADS else None
         if threads is not None and threads <= MAX_THREADS[s]:
             return TilePlan(k, tile_h, tile_w, math.ceil(h / tile_h), math.ceil(w / tile_w),
@@ -194,36 +227,47 @@ def plan_tiles(h: int, w: int, family: str, sweeps: int, k_max: int = 4,
 
     k is ``min(k_max, sweeps)`` (less only where no tile fits; ``exact_k``,
     a window's chunk, never less). Each tile of ``TILES`` (after the
-    family's ``FIRST_TILE``; each cut to the image rounded up to 8) takes
-    the fewest pairs a thread that keep a block within ``PLAN_THREADS``. Among the plans of at least ``sm_count``
-    blocks (tiles times ``batch``), a block an SM (a 240x320 shard, a
-    1024x1024 level), or among all where the image has too few pixels for
-    that, the plan is the one whose SMs work through the fewest slot pixels
-    (blocks an SM times a tile and its halo): 16x48 at 1024x1024 and
-    768x768 (llin8 32x48, pde8 40x32, pde4 32x32), 16x24 at a 240x320
-    shard, 8x24 or 8x16 at the smaller shards of a mesh frame.
+    family's ``FIRST_TILE``, or for a batch of channels its
+    ``FIRST_TILE_CHANNELS``; each cut to the image rounded up to 8) takes
+    the fewest pairs a thread that keep a block within ``PLAN_THREADS``
+    (and whose kernel does not spill, ``SPILLS``).
+    Among the plans of at least ``sm_count`` blocks (``Layout.blocks``:
+    tiles times ``batch`` for disp, the tiles for pde4 and pde8, whose block
+    holds every channel), a block an SM (a 240x320 shard, a 1024x1024
+    level), or among all where the image has too few pixels for that, the
+    plan is the one whose SMs work through the fewest slot pixels (blocks
+    an SM times a tile and its halo): 16x48 at 1024x1024 and 768x768
+    (llin8 32x48, pde8 40x32, pde4 32x32, or 40x32 for 2 or 3 channels),
+    16x24 at a 240x320 shard, 8x24 or 8x16 at the smaller shards of a mesh
+    frame.
     """
     if family not in LAYOUTS:
         raise ValueError(f"no tile layout for {family!r}; there are {sorted(LAYOUTS)}")
+    layout = LAYOUTS[family]
     k_top = max(1, min(k_max, sweeps))
     hi_h, hi_w = _round_up(h, 8), _round_up(w, 8)
 
+    def blocks(p: TilePlan) -> int:
+        return layout.blocks(p.n_tiles_h * p.n_tiles_w, batch)
+
     def slot_pixels_an_sm(p: TilePlan) -> int:
         rows, hc = _slot_dims(family, p.k, p.tile_h, p.tile_w)
-        return math.ceil(p.n_tiles_h * p.n_tiles_w * batch / sm_count) * rows * 2 * hc
+        return math.ceil(blocks(p) / sm_count) * rows * 2 * hc
 
     for k in [k_top] if exact_k else range(k_top, 0, -1):
         plans = []
-        for th, tw in ((FIRST_TILE[family],) if family in FIRST_TILE else ()) + TILES:
+        first = FIRST_TILE_CHANNELS.get(family) if batch > 1 else None
+        first = first or FIRST_TILE.get(family)
+        for th, tw in ((first,) if first else ()) + TILES:
             th, tw = min(th, hi_h), min(tw, hi_w)
-            slots = next((s for s in sorted(MAX_THREADS)
+            slots = next((s for s in _pairs_to_choose(family, batch, double_buffer)
                           if block_threads(family, k, th, tw, s) <= PLAN_THREADS), None)
-            plan = (make_plan(h, w, family, k, th, tw, slots, double_buffer)
+            plan = (make_plan(h, w, family, k, th, tw, slots, double_buffer, batch)
                     if slots is not None else None)
             if plan is not None:
                 plans.append(plan)
         if plans:
-            full = [p for p in plans if p.n_tiles_h * p.n_tiles_w * batch >= sm_count]
+            full = [p for p in plans if blocks(p) >= sm_count]
             return min(full or plans, key=lambda p: (slot_pixels_an_sm(p), -p.tile_h * p.tile_w))
     return None
 

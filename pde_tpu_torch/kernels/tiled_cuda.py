@@ -4,7 +4,9 @@ serial or double-buffered, a plan of k sweeps a
 chunk, a tile and ``slots`` pairs of pixels a thread (``kernels/tiled.py``'s
 ``TilePlan``). disp llin4 takes a batch of 1 or 2 systems, pde4 and pde8
 up to 3 channels, in one launch; each system has its own planes, and a
-plane the systems share is passed once.
+plane the systems share is passed once. A pde4 or pde8 block relaxes every
+channel of its tile, whose weights must be (H, W) planes the channels
+share; TRACE and B may be either.
 
 Takes CUDA tensors only and raises on anything else: the choice of the
 plain tile schedule for CPU tensors is ``kernels/tiled.py``'s. The library
@@ -66,7 +68,7 @@ def _lib() -> ctypes.CDLL:
     lib.tiled_sor_family.restype = i
     lib.tiled_sor_family_win.argtypes = [i, p, p] + [i] * 16 + [f, f, p]
     lib.tiled_sor_family_win.restype = i
-    lib.tiled_sor_slot_bytes.argtypes = [i, i, i, i]
+    lib.tiled_sor_slot_bytes.argtypes = [i, i, i, i, i]
     lib.tiled_sor_slot_bytes.restype = i
     lib.tiled_sor_threads.argtypes = [i, i, i, i, i]
     lib.tiled_sor_threads.restype = i
@@ -129,6 +131,10 @@ def _check(family: str, systems, window=None, k: int = 0) -> tuple[int, int]:
 
         check_window(shape, window, k, family)
     image = (window.gh, window.gw) if window is not None else tuple(shape)
+    if layout.block_batch and any(s[f].data_ptr() != systems[0][f].data_ptr()
+                                  for s in systems[1:] for f in range(3, len(names))):
+        raise ValueError(f"tiled_{family} relaxes the channels over shared weights: "
+                         f"{', '.join(names[3:])} must be (H, W)")
     if layout.fill and min(image) < 3:
         # W4: the border fill of a 1- or 2-px image is not the stripe
         # engine's; the global kernels take those shapes
@@ -139,17 +145,20 @@ def _check(family: str, systems, window=None, k: int = 0) -> tuple[int, int]:
     return shape[0], shape[1]
 
 
-def _slots(family: str, k: int, tile_h: int, tile_w: int, slots, double_buffer: bool) -> int:
-    """The pairs a thread of the plan (the fewest that fit where ``slots``
-    is None); raises where the kernel does not take the plan."""
+def _slots(family: str, k: int, tile_h: int, tile_w: int, slots, double_buffer: bool,
+           batch: int) -> int:
+    """The pairs a thread of the plan for ``batch`` systems (the fewest that
+    fit where ``slots`` is None); raises where the kernel does not take the
+    plan."""
     from pde_tpu_torch.kernels import tiled
 
     if k < 1 or tile_h < 1 or tile_w < 1:
         raise ValueError(f"tile plan k={k}, tile {tile_h}x{tile_w}: each must be >= 1")
-    plan = tiled.make_plan(tile_h, tile_w, family, k, tile_h, tile_w, slots, double_buffer)
+    plan = tiled.make_plan(tile_h, tile_w, family, k, tile_h, tile_w, slots, double_buffer,
+                           batch)
     if plan is None:
         raise ValueError(f"tiled_{family} takes no plan of k={k}, tile {tile_h}x{tile_w}, "
-                         f"slots={slots} (double_buffer={double_buffer})")
+                         f"slots={slots} for {batch} systems (double_buffer={double_buffer})")
     return plan.slots
 
 
@@ -182,8 +191,8 @@ def tiled_sor(family: str, fields, iters: int, omega: float, k: int, tile_h: int
     pde4 and pde8, (B, H, W) with fields the systems share (H, W). Returns
     the relaxed fields, shaped as given."""
     n_mut = _layout(family).n_mut
-    slots = _slots(family, k, tile_h, tile_w, slots, double_buffer)
     systems = _systems(family, fields)
+    slots = _slots(family, k, tile_h, tile_w, slots, double_buffer, len(systems))
     h, w = _check(family, systems)
     iters = max(int(iters), 0)  # as the plain loop: no sweep for iters <= 0
     if iters == 0:
@@ -202,7 +211,7 @@ def tiled_sor_systems(family: str, systems, iters: int, omega: float, k: int, ti
     layout = _layout(family)
     systems = [tuple(s) for s in systems]
     h, w = _check(family, systems)
-    slots = _slots(family, k, tile_h, tile_w, slots, False)
+    slots = _slots(family, k, tile_h, tile_w, slots, False, len(systems))
     iters = max(int(iters), 0)
     if iters == 0:
         return [tuple(s[f].clone() for f in range(layout.n_mut)) for s in systems]
@@ -254,8 +263,8 @@ def tiled_sor_window(family: str, fields, iters: int, omega: float, window, tile
     if tile_h < 1 or tile_w < 1:
         raise ValueError(f"tile {tile_h}x{tile_w}: each side must be >= 1")
     iters = max(int(iters), 0)
-    slots = _slots(family, max(iters, 1), tile_h, tile_w, slots, double_buffer)
     systems = _systems(family, fields)
+    slots = _slots(family, max(iters, 1), tile_h, tile_w, slots, double_buffer, len(systems))
     h, w = _check(family, systems, window, iters)
     i0, i1, j0, j1 = window.box
     if iters == 0:

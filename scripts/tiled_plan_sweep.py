@@ -3,32 +3,39 @@
 its plans, on one CUDA card.
 
     python3 scripts/tiled_plan_sweep.py [--out FILE] [--check-only]
-        [--families F ...]
+        [--families F ...] [--shapes NAME ...] [--default-only] [--no-check]
+        [--root DIR]
 
 First a check: the kernel of each family (``kernels/tiled.LAYOUTS``),
 serial and double-buffered, at every slot count,
 against the global kernel (``csrc/flow_llin4_sor.cu``,
 ``csrc/interior_sor.cu``) bit for bit, with and without NaN data, at small
 and full shapes, several chunks, disp at a batch of 1 and 2, pde4 and pde8
-at 1 and 3 channels with TRACE and B per channel and shared; and through
+at 1, 2 and 3 channels with TRACE and B per channel and shared; and through
 the sharded solvers (the windowed variant) on virtual 2x2 and 1x4 meshes
 of the card. Then, unless ``--check-only``, for each shape of ``SHAPES``
-(1024x1024, 768x768, 481x641 with 3 channels for pde4 and pde8, and the
+(1024x1024, 768x768, and 1024x1024, 768x768, 576x576 and 481x641 with 3
+channels for pde4 and pde8, TRACE and B a plane a channel, and the
 top-left shard and halo of a 2x2 and a 1x4 mesh over 480x640, a window's
-chunk, for the sharded families), each family, every plan of
-``kernels/tiled.py`` (k = 4, a tile of ``TILES``, 1 to 4 pairs of pixels a
-thread) that the kernel takes: the device time of one 4-sweep call
-(``REPS`` calls queued behind a ``torch.cuda._sleep``, between two CUDA
-events, so the host's per-call cost is not counted), the blocks it
+chunk, for the sharded families; ``--shapes`` picks some), each family,
+every plan of ``kernels/tiled.py`` (k = 4, a tile of ``TILES``, 1 to 4
+pairs of pixels a thread; only the default plan with ``--default-only``)
+that the kernel takes: the device time of one 4-sweep
+call (``REPS`` calls queued behind a ``torch.cuda._sleep``, between two
+CUDA events, so the host's per-call cost is not counted), the blocks it
 launches, and the default plan (``plan_tiles``) marked; and the global
 kernel's time for the same 4 sweeps. The compiler's report (registers,
-spills) is printed first. Exits non-zero without a CUDA card; prints the
-card's name and power limit and, last, one JSON object of every time.
+spills) is printed first. ``--root DIR`` times the package of another
+checkout (an earlier commit unpacked with ``git archive``), so that two
+versions can be timed in turns on one card. Exits non-zero without a CUDA
+card; prints the card's name and power limit and, last, one JSON object of
+every time.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -37,13 +44,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-
 # (name, box (i0, i1, j0, j1) of the image's top-left shard or None for the
 # whole image, image (gh, gw), systems or channels); a shard's array is the
 # box and the family's halo below and to the right, clipped to the image
 SHAPES = (("1024x1024", None, (1024, 1024), 1),
           ("768x768", None, (768, 768), 1),
+          ("3x1024x1024", None, (1024, 1024), 3),
+          ("3x768x768", None, (768, 768), 3),
+          ("3x576x576", None, (576, 576), 3),
           ("3x481x641", None, (481, 641), 3),
           ("2x2 shard", (0, 240, 0, 320), (480, 640), 1),
           ("1x4 shard", (0, 480, 0, 160), (480, 640), 1))
@@ -137,7 +145,7 @@ def check(rng, dev, families) -> int:
             prep, sw = getattr(sweeps, f"{family}_sweep")(1.9)
             batches = [(1, True)] + ([(layout.max_batch, True)] if layout.max_batch > 1 else [])
             if family in ("pde4", "pde8") and (h, w) in ((37, 53), (481, 641)):
-                batches.append((3, False))
+                batches += [(2, True), (2, False), (3, False)]
             for batch, shared in batches:
                 for nan in (True, False):
                     for iters in (4, 5):
@@ -193,16 +201,31 @@ def check(rng, dev, families) -> int:
     return cases
 
 
-def main() -> None:
-    from pde_tpu_torch.kernels import tiled
+def make_plan(tiled, *args, batch: int):
+    """``tiled.make_plan`` for ``batch`` systems (an earlier checkout's
+    plan, whose slot held one system's planes, takes no batch)."""
+    if "batch" in inspect.signature(tiled.make_plan).parameters:
+        return tiled.make_plan(*args, batch=batch)
+    return tiled.make_plan(*args)
 
+
+def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, help="write the JSON object here too")
     ap.add_argument("--check-only", action="store_true")
-    ap.add_argument("--families", nargs="+", default=list(tiled.LAYOUTS),
-                    choices=list(tiled.LAYOUTS))
+    ap.add_argument("--no-check", action="store_true", help="time without the check first")
+    ap.add_argument("--families", nargs="+")
+    ap.add_argument("--shapes", nargs="+", choices=[s[0] for s in SHAPES])
+    ap.add_argument("--default-only", action="store_true",
+                    help="time each shape's default plan only")
+    ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent.parent,
+                    help="the checkout whose pde_tpu_torch to time (default: this one)")
     args = ap.parse_args()
+    sys.path.insert(0, str(args.root.resolve()))
+    from pde_tpu_torch.kernels import tiled
+
+    args.families = args.families or list(tiled.LAYOUTS)
     if not torch.cuda.is_available():
         sys.exit("no CUDA card: the tile kernel runs only on the card")
     from pde_tpu_torch.kernels import build, interior_cuda, sor_cuda, tiled_cuda
@@ -213,11 +236,13 @@ def main() -> None:
     for source in (sor_cuda.SOURCE, interior_cuda.SOURCE):
         build.build(source)
     rng = np.random.default_rng(args.seed)
-    cases = check(rng, dev, args.families)
+    cases = 0 if args.no_check else check(rng, dev, args.families)
     print(f"check: {cases} cases bit for bit", flush=True)
     results = []
     if not args.check_only:
         for name, box, image, batch in SHAPES:
+            if args.shapes and name not in args.shapes:
+                continue
             bh, bw = image if box is None else (box[1] - box[0], box[3] - box[2])
             window = None if box is None else tiled.Window(0, 0, *image, box)
             for family in args.families:
@@ -226,16 +251,25 @@ def main() -> None:
                         window is not None and family not in tiled_cuda.WINDOWED):
                     continue
                 halo = 0 if box is None else tiled._halo_for(family, 4)
+                # TRACE and B a plane a channel, as tv_denoise4/8 hand them over
                 tf = make_fields(rng, family, min(bh + halo, image[0]), min(bw + halo, image[1]),
-                                 dev, False, batch)
+                                 dev, False, batch, shared=False)
                 for db in (False, True):
                     default = tiled.plan_tiles(bh, bw, family, 4, 4, double_buffer=db,
                                                exact_k=box is not None, sm_count=sms,
                                                batch=batch)
-                    for (th, tw), s in [(t, s) for t in TILES for s in (1, 2, 3, 4)]:
-                        plan = tiled.make_plan(bh, bw, family, 4, th, tw, s, db)
+                    if default is None:
+                        continue
+                    candidates = ([((default.tile_h, default.tile_w), default.slots)]
+                                  if args.default_only else
+                                  [(t, s) for t in TILES for s in (1, 2, 3, 4)])
+                    for (th, tw), s in candidates:
+                        plan = make_plan(tiled, bh, bw, family, 4, th, tw, s, db, batch=batch)
                         if plan is None:
                             continue
+                        tiles = plan.n_tiles_h * plan.n_tiles_w
+                        blocks = (layout.blocks(tiles, batch) if hasattr(layout, "blocks")
+                                  else tiles * batch)
                         if window is None:
                             def fn():
                                 return tiled_cuda.tiled_sor(family, tf, 4, 1.9, 4, th, tw, db, s)
@@ -246,7 +280,7 @@ def main() -> None:
                         ms = device_ms(fn)
                         row = {"shape": name, "family": family, "double_buffer": db, "k": 4,
                                "tile": [th, tw], "slots": s, "threads": plan.threads,
-                               "blocks": plan.n_tiles_h * plan.n_tiles_w * batch,
+                               "blocks": blocks,
                                "smem_bytes": plan.smem_bytes, "device_ms": ms,
                                "default": (plan.tile_h, plan.tile_w, plan.slots)
                                == (default.tile_h, default.tile_w, default.slots)}
@@ -263,7 +297,7 @@ def main() -> None:
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     report = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi.stdout.strip(),
-              "check_cases": cases, "plans": results}
+              "root": str(args.root), "check_cases": cases, "plans": results}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report))

@@ -109,28 +109,59 @@ def test_plain_tile_schedule_equals_plain_global_solver(rng, family, case):
 # symmetric disparity pair and the denoisers' colour channels over shared
 # weights
 BATCH_CASES = {"disp_llin4, B = 2": ("disp_llin4", 2, False),
-               "pde4, C = 3, TRACE and B shared": ("pde4", 3, True),
-               "pde4, C = 3, TRACE and B per channel": ("pde4", 3, False),
-               "pde8, C = 3, TRACE and B shared": ("pde8", 3, True),
-               "pde8, C = 3, TRACE and B per channel": ("pde8", 3, False)}
+               **{f"{family}, C = {c}, TRACE and B {'shared' if shared else 'per channel'}":
+                  (family, c, shared)
+                  for family in ("pde4", "pde8") for c in (2, 3) for shared in (True, False)}}
+
+
+def _batch_fields(rng, family, batch, shared, h=48, w=65, nan_names=NAN_ALL):
+    """numpy fields of a batch: a plane a system for the relaxed field (every
+    field of disp, TRACE and B of pde unless ``shared``), the others (H, W)
+    planes the systems share."""
+    out = []
+    for i, name in enumerate(FAMILIES[family][0]):
+        per_system = i == 0 or family == "disp_llin4" or (name in ("trace", "b") and not shared)
+        planes = [_fields(rng, h, w, (name,), nan_names)[0] for _ in range(batch)]
+        out.append(np.stack(planes) if per_system else planes[0])
+    return out
 
 
 @pytest.mark.parametrize("case", sorted(BATCH_CASES))
 def test_plain_tile_schedule_of_a_batch_equals_plain_global_solver(rng, case):
-    """A batch through the tile schedule (the kernel's systems along
-    blockIdx.y), the weights (H, W) planes shared by the channels: 48x65,
-    5 sweeps, k = 2, NaN data, bit for bit."""
+    """A batch through the tile schedule (disp's systems along the kernel's
+    grid, the pde channels in one block), the weights (H, W) planes shared
+    by the channels: 48x65, 5 sweeps, k = 2, NaN data, bit for bit."""
     family, batch, shared = BATCH_CASES[case]
     names, factory, _ = FAMILIES[family]
-    t = []
-    for i, name in enumerate(names):
-        per_system = i == 0 or family == "disp_llin4" or (name in ("trace", "b") and not shared)
-        planes = [_fields(rng, 48, 65, (name,), NAN_ALL)[0] for _ in range(batch)]
-        t.append(torch.from_numpy(np.stack(planes) if per_system else planes[0]))
+    t = [torch.from_numpy(x) for x in _batch_fields(rng, family, batch, shared)]
     prepare, sweep = factory(1.9)
     got = tiled.tiled_relax(t, sweep, 1, 5, prepare_fn=prepare, plan_override=(2, 16))
     assert got[0].shape == (batch, 48, 65)
     _assert_equal(got, _plain_global(family, t, 5))
+
+
+@pytest.mark.parametrize("double_buffer", [False, True])
+@pytest.mark.parametrize("shared", [True, False], ids=["TRACE, B shared", "TRACE, B per channel"])
+@pytest.mark.parametrize("family", ["pde4", "pde8"])
+def test_channels_of_a_block_match_pallas_stripe_engine(rng, family, shared, double_buffer):
+    """C = 2 channels over shared weights (the kernel's one block a tile
+    for every channel), NaN in TRACE, through the port's plain schedule at
+    the 40x32 tile of the multi-channel plans, against pde_tpu's stripe
+    engine in interpret mode run channel by channel (its kernels take (H,
+    W) fields), 16-row stripes, k = 2; within tests/test_kernels.py's atol
+    2e-6, rtol 1e-5 (ROADMAP F3)."""
+    names, factory, jfactory = FAMILIES[family]
+    f = _batch_fields(rng, family, 2, shared, nan_names=("trace",))
+    jprep, jsweep = jfactory(1.9)
+    want = [jtiled_relax(tuple(jnp.asarray(x[c] if x.ndim == 3 else x) for x in f), jsweep, 1, 5,
+                         prepare_fn=jprep, interpret=True, plan_override=(2, 16),
+                         double_buffer=double_buffer)[0] for c in range(2)]
+    prepare, sweep = factory(1.9)
+    (got,) = tiled.tiled_relax([torch.from_numpy(x) for x in f], sweep, 1, 5, prepare_fn=prepare,
+                               plan_override=(4, (40, 32), 3), double_buffer=double_buffer)
+    assert got.shape == (2, 48, 65) and np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.stack([np.asarray(w_) for w_ in want]),
+                               atol=2e-6, rtol=1e-5)
 
 
 # every family, serial and double-buffered
@@ -244,6 +275,8 @@ REFUSALS = {
     "disp_llin4 three systems": ("disp_llin4", "batch", "1 to 2 systems"),
     "flow_llin8 a batch": ("flow_llin8", "batch", "1 to 1 systems"),
     "pde8 has no window": ("pde8", "window", "no tile kernel window"),
+    "pde4 weights a plane a channel": ("pde4", "batch weights", "shared weights"),
+    "pde8 weights a plane a channel": ("pde8", "batch weights", "shared weights"),
 }
 
 
@@ -262,7 +295,10 @@ def test_wrapper_refuses_before_building(rng, monkeypatch, what):
         fields[5] = torch.from_numpy(_fields(rng, 9, 8, ("cu",))[0]).t()
     if wrong == "count":
         fields = fields[:-1]
-    if wrong.startswith("batch"):
+    if wrong == "batch weights":  # two channels, each its own weights
+        fields = [x.expand(2, h, w).contiguous() if i in (0, 3) else x
+                  for i, x in enumerate(fields)]
+    elif wrong.startswith("batch"):
         fields[0] = fields[0].expand(tiled.LAYOUTS[family].max_batch + 1, h, w).contiguous()
     # k = 4 over 64x96 tiles: a slot of 215,040 bytes, two over the block's 232,448
     plan = (4, 64, 96) if wrong == "two slots" else (2, 16, 16)
@@ -370,9 +406,16 @@ ROUTES = {
     "pde4 576x576, C = 3": ("pde4", (576, 576), 3, "tiled"),
     "pde4 768x768, C = 3": ("pde4", (768, 768), 3, "tiled"),
     "pde4 480x640, C = 3": ("pde4", (480, 640), 3, "resident"),
+    "pde4 1024x1024, C = 1": ("pde4", (1024, 1024), 1, "tiled"),
+    "pde4 481x641, C = 2": ("pde4", (481, 641), 2, "tiled"),
     "pde8 1024x1024, C = 3": ("pde8", (1024, 1024), 3, "tiled"),
+    "pde8 768x768, C = 3": ("pde8", (768, 768), 3, "tiled"),
+    "pde8 576x576, C = 3": ("pde8", (576, 576), 3, "resident"),
+    # the tile kernel measured faster than the global one there (PERF.md)
     "pde8 481x641, C = 3": ("pde8", (481, 641), 3, "tiled"),
     "pde8 480x640, C = 3": ("pde8", (480, 640), 3, "resident"),
+    "pde8 1024x1024, C = 1": ("pde8", (1024, 1024), 1, "tiled"),
+    "pde8 481x641, C = 2": ("pde8", (481, 641), 2, "tiled"),
     # W4: an image under 3 px stays with the global kernels
     "pde4 2x5000": ("pde4", (2, 5000), 1, "global"),
     "disp 5000x2, the symmetric pair": ("disp", (5000, 2), 2, "global"),
@@ -387,7 +430,9 @@ def test_sor_route_from_the_shape(case):
     if route == "tiled":
         tile_family = dispatch.TILE_FAMILY[family]
         assert plan == tiled.plan_tiles(h, w, tile_family, 4, 4, sm_count=132, batch=batch)
-        assert plan.k == 4 and plan.n_tiles_h * plan.n_tiles_w * batch >= 132
+        layout = tiled.LAYOUTS[tile_family]
+        # a pde block holds every channel of its tile: its blocks are the tiles
+        assert plan.k == 4 and layout.blocks(plan.n_tiles_h * plan.n_tiles_w, batch) >= 132
         # a batch the kernel does not take goes to the global kernel
         too_many = tiled.LAYOUTS[tile_family].max_batch + 1
         assert dispatch.sor_route(family, h, w, too_many, 4, 132)[0] == "global"
@@ -526,27 +571,39 @@ PLAN_SHAPES = {
         ((188, 248), (0, 180, 0, 240), (8, 24, 1), (8, 24, 2)),
 }
 # the whole 1024x1024 image's plan of the families that hold one block an
-# SM at 3 pairs a thread: a taller first tile (scripts/tiled_plan_sweep.py, PERF.md)
-PLAN_1024 = {"flow_llin8": (32, 48, 3), "pde8": (40, 32, 3), "pde4": (32, 32, 3)}
+# SM at 3 pairs a thread, by channels a block: a taller first tile, for a
+# pde4 block of 2 or 3 channels a taller one still (scripts/tiled_plan_sweep.py,
+# PERF.md)
+PLAN_1024 = {"flow_llin8": {1: (32, 48, 3)}, "pde8": dict.fromkeys((1, 2, 3), (40, 32, 3)),
+             "pde4": {1: (32, 32, 3), 2: (40, 32, 3), 3: (40, 32, 3)}}
+# the families, and pde4 and pde8 with a batch of channels (one block a tile
+# for all of them: the plan's blocks are its tiles)
+PLAN_FAMILIES = sorted(FAMILIES) + [f"{f} C={c}" for f in ("pde4", "pde8") for c in (2, 3)]
 
 
 @pytest.mark.parametrize("double_buffer", [False, True])
-@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("family", PLAN_FAMILIES)
 @pytest.mark.parametrize("case", sorted(PLAN_SHAPES))
 def test_plan_fills_the_card(case, family, double_buffer):
     (h, w), box, want, want_fill = PLAN_SHAPES[case]
+    family, _, channels = family.partition(" C=")
+    batch = int(channels or 1)
     bh, bw = (h, w) if box is None else (box[1] - box[0], box[3] - box[2])
     plan = tiled.plan_tiles(bh, bw, family, 4, 4, double_buffer=double_buffer,
-                            exact_k=box is not None, sm_count=132)
+                            exact_k=box is not None, sm_count=132, batch=batch)
     assert plan.k == 4
     assert plan.n_tiles_h * plan.n_tiles_w >= 132  # a block an SM at least
+    assert tiled.LAYOUTS[family].blocks(plan.n_tiles_h * plan.n_tiles_w, batch) == (
+        plan.n_tiles_h * plan.n_tiles_w)
     assert plan.smem_bytes == (2 if double_buffer else 1) * tiled.slot_bytes(
-        family, 4, plan.tile_h, plan.tile_w) <= tiled.SMEM_PER_BLOCK
+        family, 4, plan.tile_h, plan.tile_w, batch) <= tiled.SMEM_PER_BLOCK
     assert plan.threads == tiled.block_threads(family, 4, plan.tile_h, plan.tile_w, plan.slots)
     assert plan.threads <= tiled.MAX_THREADS[plan.slots] and plan.threads % 32 == 0
     # 16x48 tiles give a shard fewer blocks than SMs (105, 120, 60)
     if box is None and family in PLAN_1024:
-        want = PLAN_1024[family]
+        want = PLAN_1024[family][batch]
+        if (family, batch, double_buffer, want[2]) in tiled.SPILLS:
+            want = want[:2] + (want[2] + 1,)  # the next pairs a thread, whose kernel does not spill
     elif tiled.LAYOUTS[family].fill:
         want = want_fill
     assert (plan.tile_h, plan.tile_w, plan.slots) == want
@@ -568,10 +625,10 @@ def test_plan_of_a_long_window_chunk_takes_smaller_tiles(k, family):
     assert plan == tiled.make_plan(240, 320, family, k, plan.tile_h, plan.tile_w, plan.slots)
 
 
-# (family, k, tile_h, tile_w, bytes): two float32 planes (one a colour) of
-# each field neighbours read (two a colour of an 8-neighbour family's
-# relaxed fields), over the tile and its 2k halo (2k + 1 with a border
-# fill), 16-byte rounded
+# (family, k, tile_h, tile_w, bytes[, channels]): two float32 planes (one a
+# colour) of each field neighbours read (two a colour of an 8-neighbour
+# family's relaxed fields), over the tile and its 2k halo (2k + 1 with a
+# border fill), 16-byte rounded; pde4 and pde8 a set of them a channel
 SLOT_BYTES = {
     "llin4 32x48, k=4": ("flow_llin4", 4, 32, 48, 4 * 2 * 4 * 48 * 32),
     "elin4 32x48, k=4": ("flow_elin4", 4, 32, 48, 4 * 2 * 2 * 48 * 32),
@@ -582,17 +639,43 @@ SLOT_BYTES = {
     "llin8 32x48, k=4 (dU, dV twice, U, V)": ("flow_llin8", 4, 32, 48, 4 * 2 * 6 * 48 * 32),
     "pde8 32x48, k=4 (X twice)": ("pde8", 4, 32, 48, 4 * 2 * 2 * 50 * 33),
     "pde8 odd 7x9, k=1, 16-byte rounded": ("pde8", 1, 7, 9, 4 * 4 * 13 * 8),
+    "disp 32x48, k=4, B = 2 (a system a block)": ("disp_llin4", 4, 32, 48, 4 * 2 * 2 * 50 * 33, 2),
+    **{f"{family} 32x48, k=4, C = {c}": (family, 4, 32, 48, 4 * 2 * bufs * 50 * 33 * c, c)
+       for family, bufs in (("pde4", 1), ("pde8", 2)) for c in (2, 3)},
+    "pde8 odd 7x9, k=1, C = 3": ("pde8", 1, 7, 9, 4 * 3 * 4 * 13 * 8, 3),
+    "pde4 odd 7x7, k=1, C = 3, 16-byte rounded": ("pde4", 1, 7, 7, 4 * 548, 3),  # 6 x 13 x 7
 }
 
 
 @pytest.mark.parametrize("case", sorted(SLOT_BYTES))
 def test_slot_bytes_of_the_colour_split_layout(case):
-    family, k, th, tw, want = SLOT_BYTES[case]
-    assert tiled.slot_bytes(family, k, th, tw) == want
+    family, k, th, tw, want, *batch = SLOT_BYTES[case]
+    batch = batch[0] if batch else 1
+    assert tiled.slot_bytes(family, k, th, tw, batch) == want
+    if batch == 1:
+        assert tiled.slot_bytes(family, k, th, tw) == want
     # the old layout, every field and a flag byte a pixel, took 53 (45) B a pixel
     halo = tiled._halo_for(family, k)
     px = (th + 2 * halo) * (tw + 2 * halo)
-    assert tiled.slot_bytes(family, k, th, tw) < (tiled.LAYOUTS[family].fields * 4 + 1) * px
+    assert tiled.slot_bytes(family, k, th, tw, batch) < (
+        tiled.LAYOUTS[family].fields * 4 + 1) * px * batch
+
+
+@pytest.mark.parametrize("double_buffer", [False, True])
+@pytest.mark.parametrize("batch", [1, 2, 3])
+def test_plan_takes_no_kernel_that_spills(batch, double_buffer):
+    """pde8's double-buffered kernel with 3 channels at 3 pairs a thread
+    spills registers (the compiler's report on the H100): a plan of its own
+    choice takes 4 pairs there, and the serial form and fewer channels keep
+    3; a plan asked for 3 pairs gets them."""
+    plan = tiled.plan_tiles(1024, 1024, "pde8", 4, 4, double_buffer=double_buffer,
+                            sm_count=132, batch=batch)
+    spills = ("pde8", batch, double_buffer, 3) in tiled.SPILLS
+    assert spills == (batch == 3 and double_buffer)
+    assert (plan.tile_h, plan.tile_w, plan.slots) == (40, 32, 4 if spills else 3)
+    assert tiled.make_plan(1024, 1024, "pde8", 4, 40, 32, double_buffer=double_buffer,
+                           batch=batch).slots == plan.slots
+    assert tiled.make_plan(1024, 1024, "pde8", 4, 40, 32, 3, double_buffer, batch).slots == 3
 
 
 def test_plan_refuses_what_the_kernel_does_not_take():
