@@ -81,24 +81,24 @@ __device__ __forceinline__ Coef prepare(int i, int j, int h, int w, float ww, fl
   return k;
 }
 
-// The new (dU, dV) of a pixel. `nbr(k)` gives the k-th neighbour's (dU, dV,
-// U, V) as a float4 and `weight(k)` its weight, in the order W, E, N, S, NW,
-// NE, SW, SE; (fu, fv) are the pixel's own increments, (uc, vc) its frozen
-// flow. The diffusion term is Σ w_k (dU_k + U_k) - U_c Σw, each term added
-// by one fma.
-template <class Nbr, class Wt>
-__device__ __forceinline__ float2 update(Nbr nbr, Wt weight, float fu, float fv, float uc,
-                                         float vc, float wsum, uint32_t flags, float m0,
-                                         float cu0, float cv0, float inv_u, float inv_v,
-                                         float omega, float one_minus_omega) {
+// The new (dU, dV) of a pixel from its neighbours' pre-added sums: `sum(k)`
+// gives (fl(dU_k + U_k), fl(dV_k + V_k)) of the k-th neighbour as a float2
+// and `weight(k)` its weight, in the order W, E, N, S, NW, NE, SW, SE; (fu,
+// fv) are the pixel's own increments, (uc, vc) its frozen flow. The
+// diffusion term is sum_k w_k (dU_k + U_k) - U_c sum w, each term added by
+// one fma. The tile kernel (tiled_sor.cu) keeps the sums in shared memory.
+template <class Sum, class Wt>
+__device__ __forceinline__ float2 update_sums(Sum sum, Wt weight, float fu, float fv, float uc,
+                                              float vc, float wsum, uint32_t flags, float m0,
+                                              float cu0, float cv0, float inv_u, float inv_v,
+                                              float omega, float one_minus_omega) {
   float su = 0.0f, sv = 0.0f;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const float c = weight(k);
-    const float4 n = nbr(k);
-    const float fu_k = __fadd_rn(n.x, n.z), fv_k = __fadd_rn(n.y, n.w);
-    su = k == 0 ? __fmul_rn(fu_k, c) : __fmaf_rn(fu_k, c, su);
-    sv = k == 0 ? __fmul_rn(fv_k, c) : __fmaf_rn(fv_k, c, sv);
+    const float2 f = sum(k);
+    su = k == 0 ? __fmul_rn(f.x, c) : __fmaf_rn(f.x, c, su);
+    sv = k == 0 ? __fmul_rn(f.y, c) : __fmaf_rn(f.y, c, sv);
   }
   su = __fmaf_rn(-uc, wsum, su);
   sv = __fmaf_rn(-vc, wsum, sv);
@@ -107,6 +107,21 @@ __device__ __forceinline__ float2 update(Nbr nbr, Wt weight, float fu, float fv,
   const float num_v = (flags & 2) ? sv : __fmaf_rn(-m0, nu, __fadd_rn(sv, cv0));
   const float nv = __fmaf_rn(one_minus_omega, fv, __fmul_rn(__fmul_rn(omega, num_v), inv_v));
   return make_float2(nu, nv);
+}
+
+// The same from the neighbours' fields: `nbr(k)` gives the k-th neighbour's
+// (dU, dV, U, V) as a float4, added here (fl(dU_k + U_k), fl(dV_k + V_k)).
+template <class Nbr, class Wt>
+__device__ __forceinline__ float2 update(Nbr nbr, Wt weight, float fu, float fv, float uc,
+                                         float vc, float wsum, uint32_t flags, float m0,
+                                         float cu0, float cv0, float inv_u, float inv_v,
+                                         float omega, float one_minus_omega) {
+  return update_sums(
+      [&](int k) {
+        const float4 n = nbr(k);
+        return make_float2(__fadd_rn(n.x, n.z), __fadd_rn(n.y, n.w));
+      },
+      weight, fu, fv, uc, vc, wsum, flags, m0, cu0, cv0, inv_u, inv_v, omega, one_minus_omega);
 }
 
 }  // namespace flow_sor8

@@ -46,21 +46,31 @@
 //     memory. A pair's indices are recomputed each colour phase from the
 //     word (kept live, they took the registers the coefficients need).
 //   * Shared memory holds only what neighbours read, each field split into
-//     a plane per colour: dU, dV, U, V (llin4, llin8), U, V (elin4), dU, U
-//     (disp), X (pde4, pde8: a set of planes a channel). A colour phase of
-//     pde4 or pde8 reads every channel's neighbours of a pixel first, then
-//     updates and stores each channel: the reads overlap, and one barrier
-//     serves all channels. A pixel of colour c sits in plane c at row *
-//     hc + column / 2; a neighbour (di, dj) of the pixel in column 2x + e is
-//     at row + di, half-column x + ((e + dj) >> 1), in the other plane when
-//     di + dj is odd. A colour phase reads the other plane at consecutive
-//     addresses across a warp: no bank conflicts.
+//     a plane per colour: dU, dV, U, V (llin4), U, V (elin4), dU, U (disp),
+//     X (pde4, pde8: a set of planes a channel); llin8 keeps dU, dV, U, V
+//     for the pixel itself and, for its neighbours, each relaxed field
+//     pre-added to its frozen field, Wu = fl(dU + U), Wv = fl(dV + V): the
+//     float each neighbour term of the plain version starts from
+//     (sweeps.py's fl(df + u) before the neighbours are taken), so the bits
+//     stay those of the global kernels. A llin8 pixel reads 16 neighbour
+//     values a phase, not 32, adds nothing before the fma chain, and writes
+//     its new fields and their sums. (The same sums measured 3-4% slower
+//     for disp, whose pixel reads only 8 values: PERF.md.) A colour phase of
+//     pde4 or pde8 reads every channel's neighbours of a
+//     pixel first, then updates and stores each channel: the reads overlap,
+//     and one barrier serves all channels. A pixel of colour c sits in plane
+//     c at row * hc + column / 2; a neighbour (di, dj) of the pixel in
+//     column 2x + e is at row + di, half-column x + ((e + dj) >> 1), in the
+//     other plane when di + dj is odd. A colour phase reads the other plane
+//     at consecutive addresses across a warp: no bank conflicts.
 //   * The 8-neighbour families: a diagonal neighbour has the pixel's own
 //     colour and the plain version computes a colour from the state before
-//     its half-sweep, so each relaxed field keeps two buffers a colour, as
-//     resident8_sor.cu: the phase of image colour C in sweep s reads its own
-//     colour from buffer s & 1, writes buffer (s + 1) & 1, and reads the
-//     other colour from buffer (s + C) & 1, its count of relaxations.
+//     its half-sweep, so what neighbours read of a relaxed field (pde8's X,
+//     llin8's sums) keeps two buffers a colour, as resident8_sor.cu: the
+//     phase of image colour C in sweep s reads its own colour from buffer
+//     s & 1, writes buffer (s + 1) & 1, and reads the other colour from
+//     buffer (s + C) & 1, its count of relaxations. llin8's dU and dV, which
+//     only the pixel itself reads, are relaxed in place.
 //   * Edges. llin4, elin4 and llin8 relax every pixel with the out-facing
 //     weights zeroed; a neighbour off the image is clamped to the image, row
 //     and column alone (the weight is zero there; an inf still meets the
@@ -76,10 +86,19 @@
 //     families' halo is 2k + 1 and every colour phase reaches one pixel
 //     further (without it a tile one pixel wide at the image's edge would
 //     fill its border from a stale source).
+//   * A llin8 or disp pixel with no edge bit (all but the image's outer ring
+//     for llin8, the ring inside the border for disp) reads its neighbours
+//     at offsets fixed for the phase; only a pixel with one runs the clamp
+//     and fill logic (relax_pixel<kEdge>). llin8's double-buffered form runs
+//     every pixel on that path, which measured faster there (PERF.md).
 //   * The neighbour planes are copied in with 4-byte cp.async, each thread
 //     its own pixels: a pixel's destination plane differs from its
 //     horizontal neighbour's, so a wider copy could not land it without a
-//     raw staging area and a second pass through shared memory. Such a
+//     raw staging area and a second pass through shared memory. llin8's sums
+//     are then formed by the thread that copied the pixel, from its own
+//     copies once it has waited for them (fill_sums), before the barrier
+//     the sweeps need anyway: the copies still overlap the coefficient
+//     loads, and no barrier is added. Such a
 //     staging of the coefficient planes (16-byte cp.async, then 8-byte reads
 //     into registers) measured 1.4-1.7x slower than the 8-byte loads
 //     straight into registers on the H100 (PERF.md).
@@ -123,14 +142,19 @@
 // llin8 pixel 14, disp 7, pde4 4 + 2C and pde8 8 + 2C (C channels), plus
 // the pair's word. On the H100 neither bytes nor flops bound it but the
 // latency of a tile's serial steps: the coefficient loads, the prepare
-// (divisions) and the 2k colour phases with a barrier each. So a pde4 or
-// pde8 block takes all C channels of its tile: one set of weight loads and
-// sums, and 2k barriered phases, for C channels, where a block a channel
-// would pay C of each. llin4 and elin4 at 2 pairs a thread are held to 64
-// registers, two blocks of up to 512 threads an SM, and one
+// (divisions) and the 2k colour phases with a barrier each; in a phase, the
+// integer work of the neighbours' addresses more than the arithmetic
+// (scripts/tiled_phase_clocks.py splits a launch's cycles and counts a
+// phase's instructions). So a pde4 or pde8 block takes all C channels of its
+// tile: one set of weight loads and sums, and 2k barriered phases, for C
+// channels, where a block a channel would pay C of each; llin8 reads one
+// sum a neighbour, and llin8 and disp read at fixed offsets. llin4 and elin4 at 2 pairs a thread
+// are held to 64 registers, two blocks of up to 512 threads an SM, and one
 // block's loads and prepare overlap the other's phases (measured 7-17%
-// faster at 1024x1024 than one larger block an SM; PERF.md). The other
-// families keep more coefficients and are compiled for one block an SM.
+// faster at 1024x1024 than one larger block an SM; PERF.md); disp is held
+// to two blocks an SM at 2 to 4 pairs (80 registers within 384 threads at 3
+// and 4). The other families keep more coefficients and are compiled for
+// one block an SM.
 // The plan (kernels/tiled.py, measured by scripts/tiled_plan_sweep.py)
 // trades tile size against blocks enough to fill the card's 132 SMs.
 // PERF.md has the times beside the byte bound.
@@ -166,21 +190,27 @@ constexpr int kMaxFields = 17;  // llin8's
 constexpr int kMaxRows = 254;
 constexpr int kMaxHalfCols = 255;
 
-// threads a block at most, by slots a thread: the register budget of a
-// thread (65,536 / threads) has to hold ~20 registers a slot. At 2 slots
-// the kernel is compiled for two blocks an SM (64 registers a thread), so
-// that one block's loads and prepare overlap the other's colour phases.
-__host__ __device__ constexpr int max_threads(int slots) {
-  return slots == 1 ? 768 : slots == 2 ? 512 : slots == 3 ? 512 : 384;
+// threads a block at most, by family and slots a thread: the register
+// budget of a thread (65,536 / threads) has to hold ~20 registers a slot.
+// Where a family's kernel is compiled for two blocks an SM (llin4 and elin4
+// at 2 slots, 64 registers a thread; disp at 2 slots, and at 3 and 4 with
+// at most 384 threads, 80 registers), one block's loads and prepare overlap
+// the other's colour phases.
+__host__ __device__ constexpr int max_threads(int f, int slots) {
+  return f == kDisp && slots >= 3 ? 384
+                                  : slots == 1 ? 768 : slots == 2 ? 512 : slots == 3 ? 512 : 384;
 }
-__host__ __device__ constexpr int min_blocks(int slots) { return slots == 2 ? 2 : 1; }
+__host__ __device__ constexpr int min_blocks(int f, int slots) {
+  return f == kDisp ? (slots >= 2 ? 2 : 1) : f == kLlin4 || f == kElin4 ? (slots == 2 ? 2 : 1) : 1;
+}
 
 // A family's shared-memory planes of one slot (two colours of each field
 // neighbours read, two buffers a colour of the 8-neighbour families' relaxed
-// fields), its fields, relaxed fields and systems a launch at most, and the
-// halo's extra pixel of the families that fill the border.
+// fields; llin8: two colours of each field and two buffers a colour of its
+// pre-added sums), its fields, relaxed fields and systems a launch at most,
+// and the halo's extra pixel of the families that fill the border.
 __host__ __device__ constexpr int smem_planes(int f) {
-  return f == kLlin4 ? 8 : f == kElin4 ? 4 : f == kDisp ? 4 : f == kPde4 ? 2 : f == kLlin8 ? 12 : 4;
+  return f == kLlin4 ? 8 : f == kElin4 ? 4 : f == kDisp ? 4 : f == kPde4 ? 2 : f == kLlin8 ? 16 : 4;
 }
 __host__ __device__ constexpr int fill_of(int f) {
   return f == kDisp || f == kPde4 || f == kPde8 ? 1 : 0;
@@ -478,7 +508,8 @@ __device__ __forceinline__ void store_tile(float* out_u, float* out_v, const flo
 }
 
 template <bool kLate, bool kDouble, int kSlots>
-__global__ void __launch_bounds__(max_threads(kSlots), min_blocks(kSlots))
+__global__ void __launch_bounds__(max_threads(kLate ? kLlin4 : kElin4, kSlots),
+                                  min_blocks(kLate ? kLlin4 : kElin4, kSlots))
     tiled_sweep_kernel(Planes in, float* __restrict__ out_u, float* __restrict__ out_v, Geometry g,
                        float omega, float one_minus_omega) {
   constexpr int kNbr = kLate ? 4 : 2;
@@ -623,7 +654,7 @@ cudaError_t check_plan(int family, const Geometry& g, int slots, int double_buff
   if (slots < 1 || slots > kMaxSlots || slot_rows(g.halo, g.tile_h) > kMaxRows ||
       g.hc > kMaxHalfCols)
     return cudaErrorInvalidValue;
-  if (block_threads(family, g.k, g.tile_h, g.tile_w, slots) > max_threads(slots) ||
+  if (block_threads(family, g.k, g.tile_h, g.tile_w, slots) > max_threads(family, slots) ||
       static_cast<size_t>((double_buffer ? 2 : 1) * g.slot_floats) * sizeof(float) > 232448)
     return cudaErrorInvalidConfiguration;
   return cudaSuccess;
@@ -723,8 +754,10 @@ __device__ __forceinline__ float* out_ptr(const Systems& sys, int b, int f) {
 // coefficients (the fields [kCoef0, kFields)) into them; kFill: the border
 // is filled after each sweep (fill_of), not relaxed; kDiag: the diagonal
 // form (pde4, pde8), whose kCh channels share a block and the weights (the
-// others: one system a block); kPlanes shared-memory planes a channel
-// (smem_planes).
+// others: one system a block); kPre: neighbours read each relaxed field
+// pre-added to its frozen field, fl(dU + U) (llin8; the float each neighbour
+// term of the plain version starts from); kPlanes shared-memory planes a
+// channel (smem_planes).
 template <int kFam, int kCh = 1>
 struct Fam;
 
@@ -759,7 +792,7 @@ struct Fam<kDisp, 1> {
   // du | u, cu, duc, ww, wn, we, ws; neighbours read du and u
   static constexpr int kFields = 8, kMut = 1, kNbr = 2, kBufs = 1, kCoef0 = 1, kCh = 1;
   static constexpr int kPlanes = smem_planes(kDisp);
-  static constexpr bool kFill = true, kDiag = false;
+  static constexpr bool kFill = true, kDiag = false, kPre = false;
   struct Px {
     float a, b, c, d, uw, cu0, inv;
   };
@@ -773,10 +806,10 @@ struct Fam<kDisp, 1> {
 template <>
 struct Fam<kLlin8, 1> {
   // du, dv | u, v, m, cu, cv, duc, dvc, ww, wnw, wn, wne, we, wse, ws, wsw;
-  // neighbours read du, dv, u, v
+  // neighbours read fl(du + u), fl(dv + v)
   static constexpr int kFields = 17, kMut = 2, kNbr = 4, kBufs = 2, kCoef0 = 4, kCh = 1;
   static constexpr int kPlanes = smem_planes(kLlin8);
-  static constexpr bool kFill = false, kDiag = false;
+  static constexpr bool kFill = false, kDiag = false, kPre = true;
   struct Px {
     float c[8];
     float wsum, inv_u, inv_v, m0, cu0, cv0;
@@ -808,7 +841,7 @@ struct Fam<kPde4, kCh_> {
   // x | trace, b, ww, wn, we, ws
   static constexpr int kFields = 7, kMut = 1, kNbr = 1, kBufs = 1, kCoef0 = 1, kCh = kCh_;
   static constexpr int kPlanes = smem_planes(kPde4);
-  static constexpr bool kFill = true, kDiag = true;
+  static constexpr bool kFill = true, kDiag = true, kPre = false;
   using Weights = pde4_sor::Weights;
   struct Px {
     Weights wt;
@@ -830,7 +863,7 @@ struct Fam<kPde8, kCh_> {
   // x | trace, b, ww, wnw, wn, wne, we, wse, ws, wsw
   static constexpr int kFields = 11, kMut = 1, kNbr = 1, kBufs = 2, kCoef0 = 1, kCh = kCh_;
   static constexpr int kPlanes = smem_planes(kPde8);
-  static constexpr bool kFill = true, kDiag = true;
+  static constexpr bool kFill = true, kDiag = true, kPre = false;
   using Weights = pde8_sor::Weights;
   struct Px {
     Weights wt;
@@ -891,6 +924,23 @@ __device__ __forceinline__ int plane_of(int f, int lc, int buf, int ch = 0) {
                                         : 2 * F::kMut * F::kBufs + 2 * (f - F::kMut) + lc);
 }
 
+// llin8 (kPre): the pre-added sum of relaxed field f (its buffers of a
+// colour side by side), then every field one plane a colour.
+template <class F>
+__device__ __forceinline__ int sum_plane(int f, int lc, int buf) {
+  return (2 * f + lc) * F::kBufs + buf;
+}
+
+// The plane the slot fill copies field f of local colour lc into, and the
+// store reads a relaxed field from (buffer 0 where it has two).
+template <class F>
+__device__ __forceinline__ int value_plane(int f, int lc, int ch = 0) {
+  if constexpr (F::kPre)
+    return 2 * F::kMut * F::kBufs + 2 * f + lc;
+  else
+    return plane_of<F>(f, lc, 0, ch);
+}
+
 // The 4-byte copies of this thread's pixels of the neighbour fields of tile
 // b into the slot (buffer 0 of a relaxed field): system sb's, or every
 // channel's where a block holds them (sb = 0).
@@ -912,8 +962,35 @@ __device__ __forceinline__ void copy_family(float* slot, const Systems& sys, int
       for (int ch = 0; ch < F::kCh; ++ch)
 #pragma unroll
         for (int f = 0; f < F::kNbr; ++f)
-          __pipeline_memcpy_async(slot + plane_of<F>(f, lc, 0, ch) * g.plane + q,
+          __pipeline_memcpy_async(slot + value_plane<F>(f, lc, ch) * g.plane + q,
                                   in_ptr(sys, sb + ch, f) + src + e, sizeof(float));
+    }
+  }
+}
+
+// llin8: the pre-added sums fl(dU + U) and fl(dV + V) of this thread's
+// pixels of the slot, into buffer 0, from the planes it copied in (its own
+// copies, which it has waited for, so no barrier comes first).
+template <class F, int kSlots>
+__device__ __forceinline__ void fill_sums(float* slot, const Box& b, const Geometry& g,
+                                          const uint32_t (&pos)[kSlots]) {
+  if constexpr (F::kPre) {
+    const int rows = b.gr1 - b.gr0, cols = b.gc1 - b.gc0;
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      const int li = pair_row(pos[j]), x = pair_col(pos[j]);
+      if (li >= rows) continue;
+      const int q = li * g.hc + x;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (2 * x + e >= cols) break;
+        const int lc = (li + e) & 1;
+#pragma unroll
+        for (int f = 0; f < F::kMut; ++f)
+          slot[sum_plane<F>(f, lc, 0) * g.plane + q] =
+              __fadd_rn(slot[value_plane<F>(f, lc) * g.plane + q],
+                        slot[value_plane<F>(F::kMut + f, lc) * g.plane + q]);
+      }
     }
   }
 }
@@ -984,11 +1061,19 @@ struct At {
   int di, dj, buf;
 };
 
+constexpr uint32_t kEdges = kClampW | kClampE | kClampN | kClampS;
+
+__device__ __forceinline__ bool past_row(int di, uint32_t bits) {
+  return (di < 0 && (bits & kClampN)) || (di > 0 && (bits & kClampS));
+}
+__device__ __forceinline__ bool past_col(int dj, uint32_t bits) {
+  return (dj < 0 && (bits & kClampW)) || (dj > 0 && (bits & kClampE));
+}
+
 template <class F>
 __device__ __forceinline__ At neighbour_at(int di, int dj, uint32_t bits, int s, int own_buf,
                                            int other_buf) {
-  const bool row = (di < 0 && (bits & kClampN)) || (di > 0 && (bits & kClampS));
-  const bool col = (dj < 0 && (bits & kClampW)) || (dj > 0 && (bits & kClampE));
+  const bool row = past_row(di, bits), col = past_col(dj, bits);
   At a{di, dj, 0};
   if (!F::kFill || ((row || col) && s > 0)) {
     if (row) a.di = 0;
@@ -1001,12 +1086,67 @@ __device__ __forceinline__ At neighbour_at(int di, int dj, uint32_t bits, int s,
   return a;
 }
 
+// One pixel of llin8 or disp relaxed: local colour kLc, column e of its
+// pair, at q of its colour's planes, in sweep s (buffers as family_phase
+// says). llin8 reads its neighbours' pre-added sums, one value a neighbour
+// and field (16, where the fields would take 32), and writes its new fields
+// and their sums; disp reads dU and U of its 4 neighbours. kEdge: the pixel
+// has an edge bit, and its neighbours are read as neighbour_at says (llin8:
+// clamped to the image, the clamped pixel's sum; disp: a border neighbour
+// after sweep 0 holds this pixel's dU, its fill source, beside the border's
+// own U); else at fixed offsets, which is every pixel but the image's outer
+// ring (llin8) or the ring inside the border (disp).
+template <class F, int kLc, bool kEdge>
+__device__ __forceinline__ void relax_pixel(float* slot, const Geometry& g,
+                                            const typename F::Px& c, uint32_t bits, int q, int e,
+                                            int s, int rb, int wb, int ob, float omega,
+                                            float one_minus_omega) {
+  // field f's value at the pixel itself
+  auto own = [&](int f) -> float& { return slot[value_plane<F>(f, kLc) * g.plane + q]; };
+  if constexpr (F::kMut == 1) {  // disp
+    const float du = own(0);
+    // field f of the neighbour (di, dj), which has the other colour
+    auto at = [&](int f, int di, int dj) {
+      return slot[value_plane<F>(f, kLc ^ 1) * g.plane + q + di * g.hc + ((e + dj) >> 1)];
+    };
+    // its dU: this pixel's own where it lies on the border, after sweep 0
+    auto dn = [&](int di, int dj) {
+      return kEdge && s > 0 && (past_row(di, bits) || past_col(dj, bits)) ? du : at(0, di, dj);
+    };
+    const disp_sor::Coef k{c.a, c.b, c.c, c.d, c.uw, c.cu0, c.inv, (bits & 2) != 0};
+    own(0) = disp_sor::update(du, dn(0, -1), at(1, 0, -1), dn(0, 1), at(1, 0, 1), dn(-1, 0),
+                              at(1, -1, 0), dn(1, 0), at(1, 1, 0), k, omega, one_minus_omega);
+  } else {  // llin8
+    constexpr int kDi[8] = {0, 0, -1, 1, -1, -1, 1, 1};
+    constexpr int kDj[8] = {-1, 1, 0, 0, -1, 1, -1, 1};
+    // relaxed field f's sum at the neighbour (di, dj)
+    auto sum = [&](int f, int di, int dj) {
+      const At a = neighbour_at<F>(di, dj, kEdge ? bits : 0u, s, rb, ob);
+      const int lc = kLc ^ ((a.di + a.dj) & 1);
+      return slot[sum_plane<F>(f, lc, a.buf) * g.plane + q + a.di * g.hc + ((e + a.dj) >> 1)];
+    };
+    float2 nb[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) nb[n] = make_float2(sum(0, kDi[n], kDj[n]), sum(1, kDi[n], kDj[n]));
+    const float fu = own(0), fv = own(1), uc = own(2), vc = own(3);
+    const float2 r = flow_sor8::update_sums(
+        [&](int n) { return nb[n]; }, [&](int n) { return c.c[flow_sor8::weight_of(n)]; }, fu, fv,
+        uc, vc, c.wsum, (bits >> 1) & 3, c.m0, c.cu0, c.cv0, c.inv_u, c.inv_v, omega,
+        one_minus_omega);
+    own(0) = r.x;
+    own(1) = r.y;
+    slot[sum_plane<F>(0, kLc, wb) * g.plane + q] = __fadd_rn(r.x, uc);
+    slot[sum_plane<F>(1, kLc, wb) * g.plane + q] = __fadd_rn(r.y, vc);
+  }
+}
+
 // One colour phase of image colour `color` in sweep s: every live pixel of
-// local colour kLc whose position lies in [i0, i1) x [j0, j1) relaxed, pde4
-// and pde8 every channel of it: first every channel's reads (independent
-// of each other, so that they overlap), then each channel's update and
-// store.
-template <class F, int kLc, int kSlots>
+// local colour kLc whose position lies in [i0, i1) x [j0, j1) relaxed
+// (llin8 and disp by relax_pixel, a pixel without an edge bit at fixed
+// offsets where kFast), pde4 and pde8 every channel of it: first every
+// channel's reads (independent of each other, so that they overlap), then
+// each channel's update and store.
+template <class F, int kLc, bool kFast, int kSlots>
 __device__ __forceinline__ void family_phase(float* slot, const Geometry& g,
                                              const uint32_t (&word)[kSlots],
                                              const typename F::Px (&px)[2][kSlots], int i0,
@@ -1027,78 +1167,57 @@ __device__ __forceinline__ void family_phase(float* slot, const Geometry& g,
     if (!(bits & kLive) || li < i0 || li >= i1 || lj < j0 || lj >= j1) continue;
     const int q = li * g.hc + x;
     const typename F::Px& c = px[kLc][j];
-    // field f of channel ch at the neighbour (di, dj), read as neighbour_at
-    // says
-    auto nbr = [&](int f, int di, int dj, int ch = 0) {
-      const At a = neighbour_at<F>(di, dj, bits, s, rb, ob);
-      const int lc = kLc ^ ((a.di + a.dj) & 1);
-      const int buf = f < F::kMut && F::kBufs == 2 ? a.buf : 0;
-      return slot[plane_of<F>(f, lc, buf, ch) * g.plane + q + a.di * g.hc + ((e + a.dj) >> 1)];
-    };
-    // a frozen field's value at the neighbour itself (disp's U is not filled)
-    auto frozen = [&](int f, int di, int dj) {
-      const int lc = kLc ^ ((di + dj) & 1);
-      return slot[plane_of<F>(f, lc, 0) * g.plane + q + di * g.hc + ((e + dj) >> 1)];
-    };
-    if constexpr (F::kDiag && F::kBufs == 1) {  // pde4
-      float xc[F::kCh], xw[F::kCh], xe[F::kCh], xn[F::kCh], xs[F::kCh];
+    if constexpr (!F::kDiag) {
+      if (kFast && !(bits & kEdges))
+        relax_pixel<F, kLc, false>(slot, g, c, bits, q, e, s, rb, wb, ob, omega, one_minus_omega);
+      else
+        relax_pixel<F, kLc, true>(slot, g, c, bits, q, e, s, rb, wb, ob, omega, one_minus_omega);
+    } else {
+      // field f of channel ch at the neighbour (di, dj), read as neighbour_at
+      // says
+      auto nbr = [&](int f, int di, int dj, int ch = 0) {
+        const At a = neighbour_at<F>(di, dj, bits, s, rb, ob);
+        const int lc = kLc ^ ((a.di + a.dj) & 1);
+        const int buf = f < F::kMut && F::kBufs == 2 ? a.buf : 0;
+        return slot[plane_of<F>(f, lc, buf, ch) * g.plane + q + a.di * g.hc +
+                    ((e + a.dj) >> 1)];
+      };
+      if constexpr (F::kBufs == 1) {  // pde4
+        float xc[F::kCh], xw[F::kCh], xe[F::kCh], xn[F::kCh], xs[F::kCh];
 #pragma unroll
-      for (int ch = 0; ch < F::kCh; ++ch) {
-        xc[ch] = slot[plane_of<F>(0, kLc, 0, ch) * g.plane + q];
-        xw[ch] = nbr(0, 0, -1, ch);
-        xe[ch] = nbr(0, 0, 1, ch);
-        xn[ch] = nbr(0, -1, 0, ch);
-        xs[ch] = nbr(0, 1, 0, ch);
+        for (int ch = 0; ch < F::kCh; ++ch) {
+          xc[ch] = slot[plane_of<F>(0, kLc, 0, ch) * g.plane + q];
+          xw[ch] = nbr(0, 0, -1, ch);
+          xe[ch] = nbr(0, 0, 1, ch);
+          xn[ch] = nbr(0, -1, 0, ch);
+          xs[ch] = nbr(0, 1, 0, ch);
+        }
+#pragma unroll
+        for (int ch = 0; ch < F::kCh; ++ch)
+          slot[plane_of<F>(0, kLc, 0, ch) * g.plane + q] =
+              pde4_sor::update(xc[ch], xw[ch], xe[ch], xn[ch], xs[ch], c.wt, c.inv_b[ch], omega,
+                               one_minus_omega);
+      } else {  // pde8
+        float xc[F::kCh];
+        pde8_sor::Nbr n[F::kCh];
+#pragma unroll
+        for (int ch = 0; ch < F::kCh; ++ch) {
+          xc[ch] = slot[plane_of<F>(0, kLc, rb, ch) * g.plane + q];
+          n[ch] = {nbr(0, 0, -1, ch),  nbr(0, 0, 1, ch),  nbr(0, -1, 0, ch), nbr(0, 1, 0, ch),
+                   nbr(0, -1, -1, ch), nbr(0, -1, 1, ch), nbr(0, 1, -1, ch), nbr(0, 1, 1, ch)};
+        }
+#pragma unroll
+        for (int ch = 0; ch < F::kCh; ++ch)
+          slot[plane_of<F>(0, kLc, wb, ch) * g.plane + q] =
+              pde8_sor::update(xc[ch], n[ch], c.wt, c.inv_b[ch], omega, one_minus_omega);
       }
-#pragma unroll
-      for (int ch = 0; ch < F::kCh; ++ch)
-        slot[plane_of<F>(0, kLc, 0, ch) * g.plane + q] =
-            pde4_sor::update(xc[ch], xw[ch], xe[ch], xn[ch], xs[ch], c.wt, c.inv_b[ch], omega,
-                             one_minus_omega);
-    } else if constexpr (F::kDiag) {  // pde8
-      float xc[F::kCh];
-      pde8_sor::Nbr n[F::kCh];
-#pragma unroll
-      for (int ch = 0; ch < F::kCh; ++ch) {
-        xc[ch] = slot[plane_of<F>(0, kLc, rb, ch) * g.plane + q];
-        n[ch] = {nbr(0, 0, -1, ch),  nbr(0, 0, 1, ch),  nbr(0, -1, 0, ch), nbr(0, 1, 0, ch),
-                 nbr(0, -1, -1, ch), nbr(0, -1, 1, ch), nbr(0, 1, -1, ch), nbr(0, 1, 1, ch)};
-      }
-#pragma unroll
-      for (int ch = 0; ch < F::kCh; ++ch)
-        slot[plane_of<F>(0, kLc, wb, ch) * g.plane + q] =
-            pde8_sor::update(xc[ch], n[ch], c.wt, c.inv_b[ch], omega, one_minus_omega);
-    } else if constexpr (F::kNbr == 2) {  // disp
-      float* du = slot + plane_of<F>(0, kLc, 0) * g.plane + q;
-      const disp_sor::Coef k{c.a, c.b, c.c, c.d, c.uw, c.cu0, c.inv, (bits & 2) != 0};
-      *du = disp_sor::update(*du, nbr(0, 0, -1), frozen(1, 0, -1), nbr(0, 0, 1), frozen(1, 0, 1),
-                             nbr(0, -1, 0), frozen(1, -1, 0), nbr(0, 1, 0), frozen(1, 1, 0), k,
-                             omega, one_minus_omega);
-    } else {  // llin8
-      constexpr int kDi[8] = {0, 0, -1, 1, -1, -1, 1, 1};
-      constexpr int kDj[8] = {-1, 1, 0, 0, -1, 1, -1, 1};
-      float4 nb[8];
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        nb[n] = make_float4(nbr(0, kDi[n], kDj[n]), nbr(1, kDi[n], kDj[n]),
-                            nbr(2, kDi[n], kDj[n]), nbr(3, kDi[n], kDj[n]));
-      const float fu = slot[plane_of<F>(0, kLc, rb) * g.plane + q];
-      const float fv = slot[plane_of<F>(1, kLc, rb) * g.plane + q];
-      const float uc = slot[plane_of<F>(2, kLc, 0) * g.plane + q];
-      const float vc = slot[plane_of<F>(3, kLc, 0) * g.plane + q];
-      const float2 r = flow_sor8::update(
-          [&](int n) { return nb[n]; }, [&](int n) { return c.c[flow_sor8::weight_of(n)]; }, fu,
-          fv, uc, vc, c.wsum, (bits >> 1) & 3, c.m0, c.cu0, c.cv0, c.inv_u, c.inv_v, omega,
-          one_minus_omega);
-      slot[plane_of<F>(0, kLc, wb) * g.plane + q] = r.x;
-      slot[plane_of<F>(1, kLc, wb) * g.plane + q] = r.y;
     }
   }
 }
 
 // g.k red-black sweeps over the slot, each colour over the region the kept
 // interior (and, for the border families, its fill sources) depends on.
-template <class F, int kSlots>
+template <class F, bool kFast, int kSlots>
 __device__ __forceinline__ void sweep_family(float* slot, const Box& b, const Geometry& g,
                                              const uint32_t (&word)[kSlots],
                                              const typename F::Px (&px)[2][kSlots],
@@ -1112,9 +1231,11 @@ __device__ __forceinline__ void sweep_family(float* slot, const Box& b, const Ge
       const int i0 = max(tr0 - reach, 0), i1 = min(tr1 + reach, rows);
       const int j0 = max(tc0 - reach, 0), j1 = min(tc1 + reach, cols);
       if ((color ^ par) == 0)
-        family_phase<F, 0>(slot, g, word, px, i0, i1, j0, j1, s, color, omega, one_minus_omega);
+        family_phase<F, 0, kFast>(slot, g, word, px, i0, i1, j0, j1, s, color, omega,
+                                  one_minus_omega);
       else
-        family_phase<F, 1>(slot, g, word, px, i0, i1, j0, j1, s, color, omega, one_minus_omega);
+        family_phase<F, 1, kFast>(slot, g, word, px, i0, i1, j0, j1, s, color, omega,
+                                  one_minus_omega);
       __syncthreads();
     }
   }
@@ -1149,7 +1270,10 @@ __device__ __forceinline__ void store_family(const Systems& sys, int sb, const f
 #pragma unroll
         for (int f = 0; f < F::kMut; ++f)
           out_ptr(sys, sb + ch, f)[row + lj] =
-              slot[plane_of<F>(f, (si + sj) & 1, buf, ch) * g.plane + at];
+              slot[(F::kPre ? value_plane<F>(f, (si + sj) & 1)
+                            : plane_of<F>(f, (si + sj) & 1, buf, ch)) *
+                       g.plane +
+                   at];
     }
   }
 }
@@ -1168,9 +1292,12 @@ __device__ __forceinline__ void store_family(const Systems& sys, int sb, const f
 // sweeps wrote it (the serial kernel's slot starts undefined too), so both
 // forms give the same bits.
 template <int kFam, int kCh, bool kDouble, int kSlots>
-__global__ void __launch_bounds__(max_threads(kSlots), 1)
+__global__ void __launch_bounds__(max_threads(kFam, kSlots), min_blocks(kFam, kSlots))
     tiled_family_kernel(Systems sys, Geometry g, int batch, float omega, float one_minus_omega) {
   using F = Fam<kFam, kCh>;
+  // llin8's double-buffered form runs every pixel on the edge path: the
+  // fixed-offset path measured 13% slower there at 1024x1024 (PERF.md)
+  constexpr bool kFast = !(kDouble && kFam == kLlin8);
   extern __shared__ __align__(16) float smem[];
   uint32_t pos[kSlots], word[kSlots];
   typename F::Px px[2][kSlots];
@@ -1185,8 +1312,9 @@ __global__ void __launch_bounds__(max_threads(kSlots), 1)
     // the coefficients while the copies are in flight
     load_family<F>(sys, sb, b, g, pos, px, word);
     __pipeline_wait_prior(0);
+    fill_sums<F>(smem, b, g, pos);
     __syncthreads();
-    sweep_family<F>(smem, b, g, word, px, omega, one_minus_omega);
+    sweep_family<F, kFast>(smem, b, g, word, px, omega, one_minus_omega);
     store_family<F>(sys, sb, smem, b, g, word);
   } else {
     batch = F::kDiag ? 1 : batch;  // a constant where the block holds the channels
@@ -1209,8 +1337,9 @@ __global__ void __launch_bounds__(max_threads(kSlots), 1)
       load_family<F>(sys, sb, b, g, pos, px, word);
       // this item's group: all but the newest
       __pipeline_wait_prior(1);
+      fill_sums<F>(slot, b, g, pos);
       __syncthreads();
-      sweep_family<F>(slot, b, g, word, px, omega, one_minus_omega);
+      sweep_family<F, kFast>(slot, b, g, word, px, omega, one_minus_omega);
       store_family<F>(sys, sb, slot, b, g, word);
       // drain: every thread has stored from this slot before the next
       // item's prefetch refills it

@@ -38,12 +38,16 @@ of the same kernel.
 The plan and the kernel agree on the layout (``LAYOUTS``): a block's
 threads own fixed pairs of pixels of the slot (tile plus halo), ``slots``
 pairs a thread, and keep their coefficients in registers; shared memory
-holds only the fields neighbours read (dU, dV, U, V for llin4 and llin8,
-U, V for elin4, dU, U for disp, X for pde4 and pde8), one float32 plane per
-colour each, two a colour for the relaxed fields of the 8-neighbour
-families; pde4 and pde8 keep a set of planes a channel, so a slot, and a
-plan's shared memory, grow with the channels (``slot_bytes(..., batch)``),
-and a plan's blocks are its tiles.
+holds only the fields neighbours read (dU, dV, U, V for llin4, U, V for
+elin4, dU, U for disp, X for pde4 and pde8), one float32 plane per colour
+each, two a colour for pde8's X (a diagonal neighbour has the pixel's own
+colour). llin8 keeps dU, dV, U, V a plane a colour and, for the
+neighbours, two a colour of each relaxed field's sum with its frozen field,
+fl(dU + U) and fl(dV + V), which the plain sweep's neighbour terms start
+from: a neighbour is one read, not two (``Layout.pre``). pde4
+and pde8 keep a set of planes a channel, so a slot, and a plan's shared
+memory, grow with the channels (``slot_bytes(..., batch)``), and a plan's
+blocks are its tiles.
 """
 
 from __future__ import annotations
@@ -78,11 +82,17 @@ class Layout(NamedTuple):
     max_batch: int  # systems (disp) or channels (pde4, pde8) a launch
     block_batch: bool = False  # a block holds every channel of its tile (pde4,
     # pde8, over weights the channels share), else one system (disp's along the grid)
+    pre: bool = False  # neighbours read each relaxed field pre-added to its
+    # frozen field, fl(dU + U) (llin8), kept beside the fields themselves
 
     @property
     def smem_planes(self) -> int:
         """Float planes of a slot for one system or channel: two colours of
-        each neighbour field, the relaxed fields' ``bufs`` a colour."""
+        each neighbour field, the relaxed fields' ``bufs`` a colour; with
+        ``pre``, two colours of every field and ``bufs`` a colour of each
+        relaxed field's sum."""
+        if self.pre:
+            return 2 * (self.n_mut * self.bufs + self.nbr)
         return 2 * (self.n_mut * self.bufs + self.nbr - self.n_mut)
 
     def slot_sets(self, batch: int) -> int:
@@ -106,24 +116,33 @@ LAYOUTS = {
     "flow_elin4": Layout(1, 11, 2, 2, 1, 0, 1),
     "disp_llin4": Layout(2, 8, 1, 2, 1, 1, 2),
     "pde4": Layout(3, 7, 1, 1, 1, 1, 3, True),
-    "flow_llin8": Layout(4, 17, 2, 4, 2, 0, 1),
+    "flow_llin8": Layout(4, 17, 2, 4, 2, 0, 1, pre=True),
     "pde8": Layout(5, 11, 1, 1, 2, 1, 3, True),
 }
 # threads a block at most, by pairs of pixels a thread (the kernel's
-# max_threads: at 2 pairs it is compiled for two blocks an SM)
+# max_threads: llin4 and elin4 at 2 pairs are compiled for two blocks an SM,
+# disp at 2 to 4 pairs, within 384 threads at 3 and 4 pairs)
 MAX_THREADS = {1: 768, 2: 512, 3: 512, 4: 384}
+FAMILY_MAX_THREADS = {"disp_llin4": {1: 768, 2: 512, 3: 384, 4: 384}}
 # a slot's rows and half-columns at most (8 bits each in the kernel's word)
 _MAX_ROWS = 254
 _MAX_HALF_COLS = 255
 # the tiles a plan takes (scripts/tiled_plan_sweep.py on the H100,
-# PERF.md): 16x48 measured fastest at every swept shape for llin4, elin4
-# and disp; the smaller ones give a small level or shard a block an SM.
+# PERF.md): 16x48 measured fastest at every swept shape for llin4 and
+# elin4; the smaller ones give a small level or shard a block an SM.
 # llin8, pde8 and pde4, whose kernels hold one block an SM at the plan's
-# pairs a thread, measured fastest with one taller tile first (PERF.md);
-# a pde4 block of several channels with a taller one still
+# pairs a thread, measured fastest with taller tiles first, and so did disp
+# at 4 pairs, two blocks an SM (PERF.md); a pde4 block of several channels
+# with a taller one still
 TILES = ((16, 48), (16, 24), (8, 24), (8, 16))
-FIRST_TILE = {"flow_llin8": (32, 48), "pde8": (40, 32), "pde4": (32, 32)}
-FIRST_TILE_CHANNELS = {"pde4": (40, 32)}
+FIRST_TILES = {"flow_llin8": ((32, 48), (24, 32)), "disp_llin4": ((40, 32),),
+               "pde8": ((40, 32),), "pde4": ((32, 32),)}
+FIRST_TILES_CHANNELS = {"pde4": ((40, 32),)}
+# the families planned among all their plans, not only those of a block an
+# SM at least: llin8's blocks hold an SM each, so a 240x320 shard's 100
+# tiles of 24x32 take one round of the card where 210 of 16x24 take two
+# (measured 0.68x the time; PERF.md)
+ANY_BLOCKS = {"flow_llin8"}
 # the kernels that spill registers, by the compiler's report on the H100
 # (scripts/tiled_plan_sweep.py prints it first): (family, channels a block,
 # double-buffered, pairs a thread). A plan that chooses its pairs a thread
@@ -151,6 +170,12 @@ def _halo_for(family: str, k: int) -> int:
     more where the border is filled. The kernel copies 4-byte words, so no
     alignment rounding is needed."""
     return RB_RADIUS * k + _fill(family)
+
+
+def max_threads(family: str, slots: int) -> int | None:
+    """Threads a block of ``family`` at ``slots`` pairs a thread at most;
+    ``None`` for pairs the kernel does not take."""
+    return FAMILY_MAX_THREADS.get(family, MAX_THREADS).get(slots)
 
 
 def _pairs_to_choose(family: str, batch: int, double_buffer: bool) -> list[int]:
@@ -201,7 +226,7 @@ def make_plan(h: int, w: int, family: str, k: int, tile_h: int, tile_w: int,
     """The plan of ``k`` sweeps of ``family`` a chunk over ``tile_h`` x
     ``tile_w`` tiles of an (h, w) box for ``batch`` systems or channels,
     ``slots`` pairs a thread (by default the fewest that keep a block within
-    ``MAX_THREADS`` and whose kernel does not spill), one slot or, when
+    ``max_threads`` and whose kernel does not spill), one slot or, when
     ``double_buffer``, two; ``None`` if the kernel does not take it."""
     rows, hc = _slot_dims(family, k, tile_h, tile_w)
     if k < 1 or tile_h < 1 or tile_w < 1 or rows > _MAX_ROWS or hc > _MAX_HALF_COLS:
@@ -210,8 +235,9 @@ def make_plan(h: int, w: int, family: str, k: int, tile_h: int, tile_w: int,
     if smem > SMEM_PER_BLOCK:
         return None
     for s in [slots] if slots is not None else _pairs_to_choose(family, batch, double_buffer):
-        threads = block_threads(family, k, tile_h, tile_w, s) if s in MAX_THREADS else None
-        if threads is not None and threads <= MAX_THREADS[s]:
+        limit = max_threads(family, s)
+        threads = block_threads(family, k, tile_h, tile_w, s) if limit else None
+        if threads is not None and threads <= limit:
             return TilePlan(k, tile_h, tile_w, math.ceil(h / tile_h), math.ceil(w / tile_w),
                             smem, s, threads)
     return None
@@ -227,18 +253,20 @@ def plan_tiles(h: int, w: int, family: str, sweeps: int, k_max: int = 4,
 
     k is ``min(k_max, sweeps)`` (less only where no tile fits; ``exact_k``,
     a window's chunk, never less). Each tile of ``TILES`` (after the
-    family's ``FIRST_TILE``, or for a batch of channels its
-    ``FIRST_TILE_CHANNELS``; each cut to the image rounded up to 8) takes
+    family's ``FIRST_TILES``, or for a batch of channels its
+    ``FIRST_TILES_CHANNELS``; each cut to the image rounded up to 8) takes
     the fewest pairs a thread that keep a block within ``PLAN_THREADS``
-    (and whose kernel does not spill, ``SPILLS``).
+    and the kernel's ``max_threads`` (and whose kernel does not spill,
+    ``SPILLS``).
     Among the plans of at least ``sm_count`` blocks (``Layout.blocks``:
     tiles times ``batch`` for disp, the tiles for pde4 and pde8, whose block
     holds every channel), a block an SM (a 240x320 shard, a 1024x1024
-    level), or among all where the image has too few pixels for that, the
-    plan is the one whose SMs work through the fewest slot pixels (blocks
-    an SM times a tile and its halo): 16x48 at 1024x1024 and 768x768
-    (llin8 32x48, pde8 40x32, pde4 32x32, or 40x32 for 2 or 3 channels),
-    16x24 at a 240x320 shard, 8x24 or 8x16 at the smaller shards of a mesh
+    level), or among all where the image has too few pixels for that or the
+    family is in ``ANY_BLOCKS``, the plan is the one whose SMs work through
+    the fewest slot pixels (blocks an SM times a tile and its halo): 16x48
+    at 1024x1024 and 768x768 (llin8 32x48, disp 40x32 at 4 pairs, pde8
+    40x32, pde4 32x32, or 40x32 for 2 or 3 channels), 16x24 at a 240x320
+    shard (llin8 24x32), 8x24 or 8x16 at the smaller shards of a mesh
     frame.
     """
     if family not in LAYOUTS:
@@ -256,18 +284,18 @@ def plan_tiles(h: int, w: int, family: str, sweeps: int, k_max: int = 4,
 
     for k in [k_top] if exact_k else range(k_top, 0, -1):
         plans = []
-        first = FIRST_TILE_CHANNELS.get(family) if batch > 1 else None
-        first = first or FIRST_TILE.get(family)
-        for th, tw in ((first,) if first else ()) + TILES:
+        first = FIRST_TILES_CHANNELS.get(family) if batch > 1 else None
+        for th, tw in (first or FIRST_TILES.get(family, ())) + TILES:
             th, tw = min(th, hi_h), min(tw, hi_w)
             slots = next((s for s in _pairs_to_choose(family, batch, double_buffer)
-                          if block_threads(family, k, th, tw, s) <= PLAN_THREADS), None)
+                          if block_threads(family, k, th, tw, s)
+                          <= min(PLAN_THREADS, max_threads(family, s))), None)
             plan = (make_plan(h, w, family, k, th, tw, slots, double_buffer, batch)
                     if slots is not None else None)
             if plan is not None:
                 plans.append(plan)
         if plans:
-            full = [p for p in plans if blocks(p) >= sm_count]
+            full = [p for p in plans if blocks(p) >= sm_count and family not in ANY_BLOCKS]
             return min(full or plans, key=lambda p: (slot_pixels_an_sm(p), -p.tile_h * p.tile_w))
     return None
 

@@ -14,8 +14,8 @@ and full shapes, several chunks, disp at a batch of 1 and 2, pde4 and pde8
 at 1, 2 and 3 channels with TRACE and B per channel and shared; and through
 the sharded solvers (the windowed variant) on virtual 2x2 and 1x4 meshes
 of the card. Then, unless ``--check-only``, for each shape of ``SHAPES``
-(1024x1024, 768x768, and 1024x1024, 768x768, 576x576 and 481x641 with 3
-channels for pde4 and pde8, TRACE and B a plane a channel, and the
+(1024x1024, 768x768, 1024x1024 with 2 systems or channels, and 1024x1024,
+768x768, 576x576 and 481x641 with 3 channels for pde4 and pde8, TRACE and B a plane a channel, and the
 top-left shard and halo of a 2x2 and a 1x4 mesh over 480x640, a window's
 chunk, for the sharded families; ``--shapes`` picks some), each family,
 every plan of ``kernels/tiled.py`` (k = 4, a tile of ``TILES``, 1 to 4
@@ -49,6 +49,7 @@ import torch
 # box and the family's halo below and to the right, clipped to the image
 SHAPES = (("1024x1024", None, (1024, 1024), 1),
           ("768x768", None, (768, 768), 1),
+          ("2x1024x1024", None, (1024, 1024), 2),
           ("3x1024x1024", None, (1024, 1024), 3),
           ("3x768x768", None, (768, 768), 3),
           ("3x576x576", None, (576, 576), 3),

@@ -4,8 +4,10 @@ schedule held exactly against the port's plain global solvers (disp at a
 batch of 2, pde4 and pde8 at 3 channels too) and within a stated
 tolerance against ``pde_tpu``'s Pallas stripe engine in interpret mode
 (serial and double-buffered), also at the tiles of the
-redesigned kernel's plans and through windows; the tile plan (a block an
-SM, the colour-split slot's bytes, threads); the dispatch's route from the
+redesigned kernel's plans and through windows; the kernel's llin8 and disp
+phase order from the neighbours' pre-added sums fl(dU + U), emulated in
+torch ops, bit for bit against both; the tile plan (a block an SM, the
+colour-split slot's bytes, threads); the dispatch's route from the
 shape (``kernels/dispatch.sor_route``: resident, tile or global kernel);
 the wrapper's refusals; and the build rule for headers.
 
@@ -217,6 +219,191 @@ def test_default_plan_double_buffered_matches_pallas_stripe_engine(rng, family):
         np.testing.assert_allclose(g, np.asarray(w_), atol=2e-6, rtol=1e-5)
 
 
+# ---------------------------------------------------------------------------
+# llin8's and disp's colour phases in the kernel's order, from the
+# neighbours' pre-added sums fl(dU + U) (fl(dV + V)): llin8's kernel keeps
+# them in shared memory; disp's forms each as it reads dU and U (the kept
+# sums measured slower there), the same floats
+# ---------------------------------------------------------------------------
+
+_NBR8 = ((0, -1), (0, 1), (-1, 0), (1, 0), (-1, -1), (-1, 1), (1, -1), (1, 1))
+_NBR4 = _NBR8[:4]
+
+
+def _pre_added_chunk(family, mut, const, k, tile_h, tile_w):
+    """One chunk of ``k`` sweeps of flow_llin8 or disp_llin4 (one system,
+    (H, W) fields), tile by tile, as ``csrc/tiled_sor.cu`` runs it: a slot
+    (the tile and its halo) keeps each relaxed field and, for the
+    neighbours, its sum with the frozen field, in two buffers (llin8: a
+    diagonal neighbour has the pixel's own colour; buffer 1 starts as NaN,
+    so that a read before a write shows) or one (disp). The phase of image
+    colour ``c`` in sweep ``s`` reads a neighbour of its own colour from
+    buffer ``s & 1``, of the other from ``(s + c) & 1``, and writes the new
+    fields in place and their sums into ``(s + 1) & 1``. llin8 reads a
+    neighbour off the image as the clamped pixel's sum; disp reads a border
+    neighbour after sweep 0 as fl(dU of this pixel + U of the border pixel),
+    what the plain fill leaves there. The arithmetic is the plain version's
+    (``solvers/sor.py``), from the sums on."""
+    eight = family == "flow_llin8"
+    n_mut = len(mut)
+    h, w = mut[0].shape
+    fill = 0 if eight else 1
+    halo = 2 * k + fill
+    prepare, _ = FAMILIES[family][1](1.9)
+    out = [x.clone() for x in mut]
+    for r0, c0 in tiled.tile_origins(h, w, tile_h, tile_w):
+        r1, c1 = min(r0 + tile_h, h), min(c0 + tile_w, w)
+        gr0, gr1, gc0, gc1 = max(r0 - halo, 0), min(r1 + halo, h), max(c0 - halo, 0), min(c1 + halo, w)
+        rows, cols = gr1 - gr0, gc1 - gc0
+        gi = torch.arange(gr0, gr1)[:, None].expand(rows, cols)
+        gj = torch.arange(gc0, gc1)[None, :].expand(rows, cols)
+        colour = (gi + gj) % 2
+        inner = (gi >= 1) & (gi <= h - 2) & (gj >= 1) & (gj <= w - 2)
+        aux = sweeps.TileAux(colour == 0, colour == 1, gj == 0, gi == 0, gj == w - 1, gi == h - 1)
+        frozen, co = (lambda t: (t[:-1], t[-1]))(
+            prepare([x[gr0:gr1, gc0:gc1] for x in const], aux))
+        vals = [x[gr0:gr1, gc0:gc1].clone() for x in mut]
+        bufs = [[d + u for d, u in zip(vals, frozen)],
+                [torch.full_like(d, float("nan")) for d in vals]]
+        for s in range(k):
+            for c in (0, 1):
+                reach = 2 * (k - 1 - s) + 1 - c + fill
+                mask = ((colour == c) & (gi >= r0 - reach) & (gi < r1 + reach)
+                        & (gj >= c0 - reach) & (gj < c1 + reach))
+                if not eight:
+                    mask &= inner
+                rb, ob, wb = (s & 1, (s + c) & 1, (s + 1) & 1) if eight else (0, 0, 0)
+                terms = []
+                for di, dj in (_NBR8 if eight else _NBR4):
+                    ni = (gi + di).clamp(0, h - 1).clamp(gr0, gr1 - 1) - gr0
+                    nj = (gj + dj).clamp(0, w - 1).clamp(gc0, gc1 - 1) - gc0
+                    same = colour[ni, nj] == c
+                    t = [torch.where(same, bufs[rb][f][ni, nj], bufs[ob][f][ni, nj])
+                         for f in range(n_mut)]
+                    if not eight and s > 0:
+                        on_border = ~inner[ni, nj]
+                        t = [torch.where(on_border, vals[0] + frozen[0][ni, nj], t[0])]
+                    terms.append(t)
+                new = _phase_from_sums(eight, vals, frozen, terms, co, mask)
+                for f in range(n_mut):
+                    vals[f] = new[f]
+                    bufs[wb][f] = torch.where(mask, new[f] + frozen[f], bufs[wb][f])
+        # the tile's interior; disp's border pixels take their fill source
+        ii = torch.arange(r0, r1)[:, None].expand(r1 - r0, c1 - c0)
+        jj = torch.arange(c0, c1)[None, :].expand(r1 - r0, c1 - c0)
+        if not eight:
+            ii, jj = ii.clamp(1, h - 2), jj.clamp(1, w - 2)
+        for o, v in zip(out, vals):
+            o[r0:r1, c0:c1] = v[ii - gr0, jj - gc0]
+    return out
+
+
+def _phase_from_sums(eight, vals, frozen, terms, co, mask):
+    """One colour of the plain half-sweep (``flow_half_sweep`` with eight
+    weights, ``disp_half_sweep``) from the neighbours' sums ``terms``, in
+    the plain sum's order W, E, N, S (NW, NE, SW, SE)."""
+    if eight:
+        ww, wnw, wn, wne, we, wse, ws, wsw = co.weights
+        order = (ww, we, wn, ws, wnw, wne, wsw, wse)
+    else:
+        ww, wn, we, ws = co.weights
+        order = (ww, we, wn, ws)
+    sums = []
+    for f in range(len(vals)):
+        acc = terms[0][f] * order[0]
+        for t, wt in zip(terms[1:], order[1:]):
+            acc = acc + t[f] * wt
+        sums.append(acc - frozen[f] * co.wsum)
+    if not eight:
+        (df,), (s,) = vals, sums
+        num = torch.where(co.cu_nan, s, s + co.cu0)
+        return [torch.where(mask, (1.0 - 1.9) * df + 1.9 * num * co.inv, df)]
+    (fu, fv), (su, sv) = vals, sums
+    num_u = torch.where(co.cu_nan, su, su + co.cu0 - co.m0 * fv)
+    new_u = torch.where(mask, (1.0 - 1.9) * fu + 1.9 * num_u * co.inv_u, fu)
+    num_v = torch.where(co.cv_nan, sv, sv + co.cv0 - co.m0 * new_u)
+    new_v = torch.where(mask, (1.0 - 1.9) * fv + 1.9 * num_v * co.inv_v, fv)
+    return [new_u, new_v]
+
+
+def _pre_added_relax(family, t, iters, k, tile_h, tile_w):
+    """``iters`` sweeps in chunks of ``k`` through ``_pre_added_chunk``, each
+    system of a batch (disp's, (B, H, W) fields) on its own."""
+    n_mut = _n_mut(family)
+    batch = max([x.shape[0] for x in t if x.ndim == 3] or [1])
+    systems = [[x[b] if x.ndim == 3 else x for x in t] for b in range(batch)]
+    outs = []
+    for fields in systems:
+        mut, const = fields[:n_mut], fields[n_mut:]
+        n_full, rem = divmod(iters, k)
+        for kc in [k] * n_full + ([rem] if rem else []):
+            mut = _pre_added_chunk(family, mut, const, kc, tile_h, tile_w)
+        outs.append(mut)
+    if batch == 1 and t[0].ndim == 2:
+        return tuple(outs[0])
+    return tuple(torch.stack([o[f] for o in outs]) for f in range(n_mut))
+
+
+# EXACT_CASES (the kernel takes disp at H, W >= 3 only), 1-px edge tiles
+# along both axes (F10: their border pixels fill from sources in the next
+# tile), and disparity_sym's pair
+PRE_ADDED_CASES = {
+    **{(family, case): EXACT_CASES[case] for family in ("flow_llin8", "disp_llin4")
+       for case in EXACT_CASES if family == "flow_llin8" or min(EXACT_CASES[case][:2]) >= 3},
+    **{(family, "1-px edge tiles, both axes"): (49, 65, 5, NAN_ALL, dict(plan_override=(2, 16)))
+       for family in ("flow_llin8", "disp_llin4")},
+    ("disp_llin4", "B = 2, NaN data"): (48, 65, 5, NAN_ALL, dict(plan_override=(2, 16))),
+}
+
+
+def _plan_of(family, h, w, iters, kw):
+    if "plan_override" in kw:
+        k, tile = kw["plan_override"]
+        return (k, *((tile, tile) if isinstance(tile, int) else tile))
+    plan = tiled.plan_tiles(h, w, family, iters, kw["k_max"])
+    return plan.k, plan.tile_h, plan.tile_w
+
+
+@pytest.mark.parametrize("family,case", sorted(PRE_ADDED_CASES), ids=" / ".join)
+def test_pre_added_sums_give_the_plain_bits(rng, family, case):
+    """The kernel's llin8 and disp phases read the neighbours' pre-added
+    sums, fl(dU + U), in place of dU and U: the float each neighbour term of
+    the plain version starts from, so the emulation of that order equals
+    the plain tile schedule and the plain global solver bit for bit."""
+    h, w, iters, nan_names, kw = PRE_ADDED_CASES[family, case]
+    if case.startswith("B = 2"):
+        t = [torch.from_numpy(x) for x in _batch_fields(rng, family, 2, False)]
+    else:
+        t = [torch.from_numpy(x) for x in _fields(rng, h, w, FAMILIES[family][0], nan_names)]
+    k, tile_h, tile_w = _plan_of(family, h, w, iters, kw)
+    got = _pre_added_relax(family, t, iters, k, tile_h, tile_w)
+    prepare, sweep = FAMILIES[family][1](1.9)
+    _assert_equal(got, tiled.tiled_relax(t, sweep, _n_mut(family), iters, prepare_fn=prepare,
+                                         plan_override=(k, (tile_h, tile_w))))
+    _assert_equal(got, _plain_global(family, t, iters))
+
+
+@pytest.mark.parametrize("family", ["disp_llin4", "flow_llin8"])
+def test_pre_added_sums_match_pallas_stripe_engine(rng, family):
+    """The same emulation against pde_tpu's stripe engine in interpret mode
+    (its sweeps add the frozen field before they take the neighbours,
+    ``sweeps.py:129, :162``), 48x65, NaN in Cu and Du, 16-row stripes,
+    k = 2; within tests/test_kernels.py's atol 2e-6, rtol 1e-5 (ROADMAP
+    F3)."""
+    names, _, jfactory = FAMILIES[family]
+    f = _fields(rng, 48, 65, names, ("cu", "duc"))
+    jprep, jsweep = jfactory(1.9)
+    n_mut = _n_mut(family)
+    want = jtiled_relax(tuple(jnp.asarray(x) for x in f), jsweep, n_mut, 5, prepare_fn=jprep,
+                        interpret=True, plan_override=(2, 16))
+    got = _pre_added_relax(family, [torch.from_numpy(x) for x in f], 5, 4, 16, 24)
+    assert len(got) == len(want) == n_mut
+    for g, w_ in zip(got, want):
+        g = g.numpy()
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, np.asarray(w_), atol=2e-6, rtol=1e-5)
+
+
 @pytest.mark.parametrize("sweeps_", [3, 4096])
 @pytest.mark.parametrize("double_buffer", [False, True])
 @pytest.mark.parametrize("k_max", [1, 4, 8])
@@ -300,7 +487,7 @@ def test_wrapper_refuses_before_building(rng, monkeypatch, what):
                   for i, x in enumerate(fields)]
     elif wrong.startswith("batch"):
         fields[0] = fields[0].expand(tiled.LAYOUTS[family].max_batch + 1, h, w).contiguous()
-    # k = 4 over 64x96 tiles: a slot of 215,040 bytes, two over the block's 232,448
+    # k = 4 over 64x96 tiles: over the block's 232,448 bytes (llin8: one slot already)
     plan = (4, 64, 96) if wrong == "two slots" else (2, 16, 16)
     before = dict(tiled_cuda.LAUNCHES)
     with pytest.raises(ValueError, match=match):
@@ -572,10 +759,16 @@ PLAN_SHAPES = {
 }
 # the whole 1024x1024 image's plan of the families that hold one block an
 # SM at 3 pairs a thread, by channels a block: a taller first tile, for a
-# pde4 block of 2 or 3 channels a taller one still (scripts/tiled_plan_sweep.py,
-# PERF.md)
+# pde4 block of 2 or 3 channels a taller one still; disp's 40x32 at 4 pairs,
+# two blocks an SM (scripts/tiled_plan_sweep.py, PERF.md)
 PLAN_1024 = {"flow_llin8": {1: (32, 48, 3)}, "pde8": dict.fromkeys((1, 2, 3), (40, 32, 3)),
-             "pde4": {1: (32, 32, 3), 2: (40, 32, 3), 3: (40, 32, 3)}}
+             "pde4": {1: (32, 32, 3), 2: (40, 32, 3), 3: (40, 32, 3)},
+             "disp_llin4": {1: (40, 32, 4)}}
+# llin8 at the shards, planned among all its plans (tiled.ANY_BLOCKS): one
+# round of the card's SMs of the fewest slot pixels, under a block an SM
+PLAN_SHARDS_LLIN8 = {"a 240x320 shard and its 8-px halo (2x2 mesh over 480x640)": (24, 32, 2),
+                     "a 480x160 shard and its halo (1x4 mesh over 480x640)": (24, 32, 2),
+                     "a 180x240 shard and its halo (2x2 mesh over 360x480)": (16, 24, 2)}
 # the families, and pde4 and pde8 with a batch of channels (one block a tile
 # for all of them: the plan's blocks are its tiles)
 PLAN_FAMILIES = sorted(FAMILIES) + [f"{f} C={c}" for f in ("pde4", "pde8") for c in (2, 3)]
@@ -592,18 +785,21 @@ def test_plan_fills_the_card(case, family, double_buffer):
     plan = tiled.plan_tiles(bh, bw, family, 4, 4, double_buffer=double_buffer,
                             exact_k=box is not None, sm_count=132, batch=batch)
     assert plan.k == 4
-    assert plan.n_tiles_h * plan.n_tiles_w >= 132  # a block an SM at least
+    if family not in tiled.ANY_BLOCKS:
+        assert plan.n_tiles_h * plan.n_tiles_w >= 132  # a block an SM at least
     assert tiled.LAYOUTS[family].blocks(plan.n_tiles_h * plan.n_tiles_w, batch) == (
         plan.n_tiles_h * plan.n_tiles_w)
     assert plan.smem_bytes == (2 if double_buffer else 1) * tiled.slot_bytes(
         family, 4, plan.tile_h, plan.tile_w, batch) <= tiled.SMEM_PER_BLOCK
     assert plan.threads == tiled.block_threads(family, 4, plan.tile_h, plan.tile_w, plan.slots)
-    assert plan.threads <= tiled.MAX_THREADS[plan.slots] and plan.threads % 32 == 0
+    assert plan.threads <= tiled.max_threads(family, plan.slots) and plan.threads % 32 == 0
     # 16x48 tiles give a shard fewer blocks than SMs (105, 120, 60)
     if box is None and family in PLAN_1024:
         want = PLAN_1024[family][batch]
         if (family, batch, double_buffer, want[2]) in tiled.SPILLS:
             want = want[:2] + (want[2] + 1,)  # the next pairs a thread, whose kernel does not spill
+    elif family == "flow_llin8":
+        want = PLAN_SHARDS_LLIN8[case]
     elif tiled.LAYOUTS[family].fill:
         want = want_fill
     assert (plan.tile_h, plan.tile_w, plan.slots) == want
@@ -620,15 +816,18 @@ def test_plan_of_a_long_window_chunk_takes_smaller_tiles(k, family):
     a smaller tile or more pairs a thread, which the kernel takes."""
     plan = tiled.plan_tiles(240, 320, family, k, k, exact_k=True, sm_count=132)
     assert plan.k == k
-    assert (plan.tile_h, plan.tile_w) in tiled.TILES[1:]
-    assert plan.threads <= tiled.MAX_THREADS[plan.slots]
+    # llin8: its own 24x32 (tiled.FIRST_TILES) while its slot fits a block
+    assert (plan.tile_h, plan.tile_w) in tiled.TILES[1:] + tiled.FIRST_TILES.get(family, ())[1:]
+    assert plan.threads <= tiled.max_threads(family, plan.slots)
     assert plan == tiled.make_plan(240, 320, family, k, plan.tile_h, plan.tile_w, plan.slots)
 
 
 # (family, k, tile_h, tile_w, bytes[, channels]): two float32 planes (one a
 # colour) of each field neighbours read (two a colour of an 8-neighbour
 # family's relaxed fields), over the tile and its 2k halo (2k + 1 with a
-# border fill), 16-byte rounded; pde4 and pde8 a set of them a channel
+# border fill), 16-byte rounded; pde4 and pde8 a set of them a channel;
+# llin8 two of each field and four of each relaxed field's sum with its
+# frozen field, which the neighbours read
 SLOT_BYTES = {
     "llin4 32x48, k=4": ("flow_llin4", 4, 32, 48, 4 * 2 * 4 * 48 * 32),
     "elin4 32x48, k=4": ("flow_elin4", 4, 32, 48, 4 * 2 * 2 * 48 * 32),
@@ -636,7 +835,7 @@ SLOT_BYTES = {
     "elin4 1x1, k=1": ("flow_elin4", 1, 1, 1, 4 * 2 * 2 * 5 * 3),
     "disp 32x48, k=4 (dU, U)": ("disp_llin4", 4, 32, 48, 4 * 2 * 2 * 50 * 33),
     "pde4 32x48, k=4 (X)": ("pde4", 4, 32, 48, 4 * 2 * 1 * 50 * 33),
-    "llin8 32x48, k=4 (dU, dV twice, U, V)": ("flow_llin8", 4, 32, 48, 4 * 2 * 6 * 48 * 32),
+    "llin8 32x48, k=4 (dU, dV twice, U, V)": ("flow_llin8", 4, 32, 48, 4 * 2 * 8 * 48 * 32),
     "pde8 32x48, k=4 (X twice)": ("pde8", 4, 32, 48, 4 * 2 * 2 * 50 * 33),
     "pde8 odd 7x9, k=1, 16-byte rounded": ("pde8", 1, 7, 9, 4 * 4 * 13 * 8),
     "disp 32x48, k=4, B = 2 (a system a block)": ("disp_llin4", 4, 32, 48, 4 * 2 * 2 * 50 * 33, 2),
@@ -693,9 +892,12 @@ def test_plan_refuses_what_the_kernel_does_not_take():
         assert plan == tiled.make_plan(64, 64, family, 4, 16, 24)._replace(smem_bytes=2 * slot)
         assert plan.smem_bytes == 2 * slot <= tiled.SMEM_PER_BLOCK
     # two slots over a block's shared memory, where one fits
-    slot = tiled.slot_bytes("flow_llin8", 4, 64, 96)
+    slot = tiled.slot_bytes("flow_llin8", 4, 48, 64)
     assert slot <= tiled.SMEM_PER_BLOCK < 2 * slot
-    assert tiled.make_plan(64, 64, "flow_llin8", 4, 64, 96, slots=4, double_buffer=True) is None
+    assert tiled.make_plan(64, 64, "flow_llin8", 4, 48, 64, slots=4, double_buffer=True) is None
+    # disp holds two blocks an SM at 3 and 4 pairs within 384 threads
+    assert tiled.make_plan(64, 64, "disp_llin4", 4, 32, 32, slots=3) is None
+    assert tiled.make_plan(64, 64, "disp_llin4", 4, 32, 32, slots=4).threads == 320
 
 
 # (h, w, iters, NaN fields, k, tile, slots): the new plans' tile shapes at
