@@ -7,7 +7,9 @@ with quotes (``#include "x.cuh"``, found beside the file that includes it)
 and of the flags, so an edited source or header is rebuilt and a stale
 library is never loaded. The library is
 loaded with ``ctypes``. Nothing here runs at import time; a missing
-``nvcc`` raises.
+``nvcc`` raises. ``utils/observe.py`` counts the ``nvcc`` runs
+(``kernels.built``) and the libraries loaded (``kernels.loaded``) and
+times both (the spans ``kernels.build`` and ``kernels.load``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+from pde_tpu_torch.utils import observe
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -71,9 +75,16 @@ def build(name: str, verbose: bool = False, force: bool = False) -> Path:
     """Compile ``csrc/<name>.cu`` unless the library for its current hash
     exists (or ``force``); returns the library's path. ``verbose`` adds
     ``-Xptxas -v`` and prints the compiler's report (registers, spills)."""
-    out = library_path(name)
-    if out.exists() and not force:
-        return out
+    with observe.timed("kernels.build"):
+        out = library_path(name)
+        if out.exists() and not force:
+            return out
+        observe.count("kernels.built")
+        _compile(name, out, verbose)
+    return out
+
+
+def _compile(name: str, out: Path, verbose: bool) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # compile to a private name, then rename: a concurrent process never
     # sees a half-written library
@@ -92,10 +103,12 @@ def build(name: str, verbose: bool = False, force: bool = False) -> Path:
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    return out
 
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; one handle per process."""
-    return ctypes.CDLL(str(build(name)))
+    path = build(name)
+    with observe.timed("kernels.load"):
+        observe.count("kernels.loaded")
+        return ctypes.CDLL(str(path))

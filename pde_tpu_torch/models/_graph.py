@@ -35,7 +35,14 @@ graph launch instead of tens of thousands of host-side launches.
 On the card there is no fallback: a capture or replay that fails raises
 with the CUDA error and never runs the eager path in its place. The
 kernels' launch counters (``LAUNCHES`` of the wrappers) count the
-warm-up and the capture, never a replay.
+warm-up and the capture, never a replay; ``utils/observe.py``'s record
+counts a signature's replays and captures, times its warm-up and capture,
+and keeps the capture's node count and label table (the spans of the
+frame's stages noted as node ranges). The host's steps of a call are the
+``observe.timed`` spans ``frame.load`` (with the spans ``frame.cast`` and
+``frame.copy_in``), ``frame.launch`` and ``frame.clone``, and on a
+signature's first call ``frame.warmup`` and ``frame.capture``: the record
+holds their host-clock seconds and calls, every request's.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import torch
 
 from pde_tpu_torch.kernels.plain_mode import _FORCE_PLAIN
 from pde_tpu_torch.models._device import input_device
+from pde_tpu_torch.utils import observe
 
 _FRAMES: dict = {}
 _STREAMS: dict = {}
@@ -64,10 +72,13 @@ class Frame:
     def load(self, inputs) -> None:
         """Copy ``inputs`` (tensors or arrays) into the static inputs, on
         the current stream."""
-        for buf, x in zip(self.inputs, inputs):
-            if not torch.is_tensor(x):
-                x = torch.from_numpy(np.asarray(x, dtype=np.float32))
-            buf.copy_(x)
+        with observe.timed("frame.load"):
+            for buf, x in zip(self.inputs, inputs):
+                if not torch.is_tensor(x):
+                    with observe.span("frame.cast"):
+                        x = torch.from_numpy(np.asarray(x, dtype=np.float32))
+                with observe.span("frame.copy_in"):
+                    buf.copy_(x)
 
 
 def _shape(x) -> tuple:
@@ -88,6 +99,14 @@ def graph_key(fn, static: tuple, inputs, device) -> tuple:
             _FORCE_PLAIN.get())
 
 
+def describe(key: tuple) -> str:
+    """A signature as text: the entry point, the input shapes, the device,
+    ``plain`` where ``plain_solvers()`` is on, and the static arguments."""
+    fn, static, shapes, device, plain = key
+    return (f"{fn.__module__}.{fn.__qualname__}{list(shapes)} {device}{' plain' if plain else ''} "
+            f"{static!r}")
+
+
 def _clone(out):
     return tuple(o.clone() for o in out) if isinstance(out, tuple) else out.clone()
 
@@ -99,17 +118,29 @@ def _stream(device: torch.device) -> torch.cuda.Stream:
     return _STREAMS[device]
 
 
-def _capture(fn, static: tuple, inputs, device: torch.device) -> Frame:
+def _capture(fn, static: tuple, inputs, device: torch.device, rec) -> Frame:
+    """The warm-up on ``inputs``, then the capture, labelled into ``rec``
+    (an ``observe.GraphRecord``). The warm-up ends in a sync of its
+    stream, which the capture's start would wait for anyway."""
     bufs = tuple(torch.empty(_shape(x), dtype=torch.float32, device=device) for x in inputs)
     new = Frame(torch.cuda.CUDAGraph(), bufs, None)
     new.load(inputs)
     stream = _stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(stream), torch.no_grad():
-        fn(*bufs, *static)
+    with observe.timed("frame.warmup") as warm:
+        with torch.cuda.stream(stream), torch.no_grad():
+            fn(*bufs, *static)
+        tail = observe.GraphTail(stream)
+        stream.synchronize()
     torch.cuda.current_stream(device).wait_stream(stream)
-    with torch.cuda.device(device), torch.no_grad(), torch.cuda.graph(new.graph, stream=stream):
-        new.outputs = fn(*bufs, *static)
+    with observe.timed("frame.capture") as cap:
+        with torch.cuda.device(device), torch.no_grad(), torch.cuda.graph(new.graph, stream=stream):
+            with observe.capture(rec, tail.mark, tail.resolve):
+                new.outputs = fn(*bufs, *static)
+    rec.warmup_s += warm.seconds
+    rec.capture_s += cap.seconds
+    rec.inputs = len(bufs)
+    rec.outputs = len(new.outputs) if isinstance(new.outputs, tuple) else 1
     return new
 
 
@@ -125,19 +156,27 @@ def replay(fn, static: tuple, inputs, device=None):
         return fn(*inputs, *static, device=device)
     device = _card(device)
     key = graph_key(fn, static, inputs, device)
+    rec = observe.graph(key, describe)
     found = _FRAMES.get(key)
     if found is None:
-        found = _FRAMES[key] = _capture(fn, static, inputs, device)
+        found = _FRAMES[key] = _capture(fn, static, inputs, device, rec)
+        rec.captures += 1
     else:
         found.load(inputs)
-    found.graph.replay()
-    return _clone(found.outputs)
+    with observe.timed("frame.launch"):
+        found.graph.replay()
+    rec.replays += 1
+    with observe.timed("frame.clone"):
+        return _clone(found.outputs)
 
 
 def release_graphs() -> None:
-    """Drop every captured frame and return its graph's pool to the card."""
+    """Drop every captured frame and return its graph's pool to the card;
+    ``observe``'s record keeps the signatures' counters and drops their
+    label tables."""
     for found in _FRAMES.values():
         found.graph.reset()
     _FRAMES.clear()
+    observe.drop_labels()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()

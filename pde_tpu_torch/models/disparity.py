@@ -35,6 +35,7 @@ from pde_tpu_torch.ops.derivatives import fst_derivatives5, snd_derivatives5, rg
 from pde_tpu_torch.ops.warp import bilinear_warp, identity_grid, warp_x_window
 from pde_tpu_torch.ops.weights import diffusion_weights_4
 from pde_tpu_torch.solvers.krylov import pcg_disp_llin4
+from pde_tpu_torch.utils.observe import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,50 +88,55 @@ def _disp_first_iter(u, i1t0, i1t1, i2t0, i2t1, us_ap, as_diff,
     has_snd = i2t1 is not None
     has_us = us_ap is not None
 
-    i1t1w = warp_x(i1t1, u, p.warp_window)
-    i1dt, i1dx, _ = fst_derivatives5(i1t0, i1t1w)
-    cu1 = i1dt * i1dx
-    du1 = i1dx * i1dx
-    if has_snd:
-        i2t1w = warp_x(i2t1, u, p.warp_window)
-        if snd_is_gradmag:
-            i2dxt, i2dyt, i2dxx, _, i2dxy = snd_derivatives5(i2t0, i2t1w)
-            cu2 = i2dxt * i2dxx + i2dyt * i2dxy
-            du2 = i2dxx * i2dxx + i2dxy * i2dxy
-        else:
-            i2dt, i2dx, _ = fst_derivatives5(i2t0, i2t1w)
-            cu2 = i2dt * i2dx
-            du2 = i2dx * i2dx
-
-    du_f = torch.zeros_like(u)
-    for _second in range(p.secondLoop):
-        op1 = (i1dt - i1dx * du_f) ** 2
-        gd1 = p.b1 / (p.alpha * torch.sqrt(op1 + 1e-5))
-        cu_parts = [cu1 * gd1]
-        du_parts = [du1 * gd1]
+    with span("warp"):
+        i1t1w = warp_x(i1t1, u, p.warp_window)
+        i1dt, i1dx, _ = fst_derivatives5(i1t0, i1t1w)
+        cu1 = i1dt * i1dx
+        du1 = i1dx * i1dx
         if has_snd:
+            i2t1w = warp_x(i2t1, u, p.warp_window)
             if snd_is_gradmag:
-                op2 = (i2dxt - i2dxx * du_f) ** 2 + (i2dyt - i2dxy * du_f) ** 2
+                i2dxt, i2dyt, i2dxx, _, i2dxy = snd_derivatives5(i2t0, i2t1w)
+                cu2 = i2dxt * i2dxx + i2dyt * i2dxy
+                du2 = i2dxx * i2dxx + i2dxy * i2dxy
             else:
-                op2 = (i2dt - i2dx * du_f) ** 2
-            gd2 = p.b2 / (p.alpha * torch.sqrt(op2 + 1e-5))
-            cu_parts.append(cu2 * gd2)
-            du_parts.append(du2 * gd2)
-        if has_us:
-            ap_norm = (us_ap - u - du_f) ** 2
-            gs = (p.gammaS / p.alpha) * torch.exp(-ap_norm / as_diff**2)
-            cu_parts.append(((us_ap - u) * gs)[None])
-            du_parts.append(gs[None])
+                i2dt, i2dx, _ = fst_derivatives5(i2t0, i2t1w)
+                cu2 = i2dt * i2dx
+                du2 = i2dx * i2dx
 
-        # plain sum over channels: NaN propagates (reference :289-293)
-        cu_gd = sum(torch.sum(x, dim=0) for x in cu_parts)
-        du_gd = sum(torch.sum(x, dim=0) for x in du_parts)
+        du_f = torch.zeros_like(u)
+    for _second in range(p.secondLoop):
+        with span("robust"):
+            op1 = (i1dt - i1dx * du_f) ** 2
+            gd1 = p.b1 / (p.alpha * torch.sqrt(op1 + 1e-5))
+            cu_parts = [cu1 * gd1]
+            du_parts = [du1 * gd1]
+            if has_snd:
+                if snd_is_gradmag:
+                    op2 = (i2dxt - i2dxx * du_f) ** 2 + (i2dyt - i2dxy * du_f) ** 2
+                else:
+                    op2 = (i2dt - i2dx * du_f) ** 2
+                gd2 = p.b2 / (p.alpha * torch.sqrt(op2 + 1e-5))
+                cu_parts.append(cu2 * gd2)
+                du_parts.append(du2 * gd2)
+            if has_us:
+                ap_norm = (us_ap - u - du_f) ** 2
+                gs = (p.gammaS / p.alpha) * torch.exp(-ap_norm / as_diff**2)
+                cu_parts.append(((us_ap - u) * gs)[None])
+                du_parts.append(gs[None])
 
-        ww, wn, we, ws = diffusion_weights_4(u + du_f, eps=1e-5, combine="max",
-                                             zero_borders=True)
+            # plain sum over channels: NaN propagates (reference :289-293)
+            cu_gd = sum(torch.sum(x, dim=0) for x in cu_parts)
+            du_gd = sum(torch.sum(x, dim=0) for x in du_parts)
+
+        with span("weights"):
+            ww, wn, we, ws = diffusion_weights_4(u + du_f, eps=1e-5, combine="max",
+                                                 zero_borders=True)
         solve = pcg_disp_llin4 if p.solver == 2 else sor_disp_llin4
-        du_f = solve(u, du_f, cu_gd, du_gd, ww, wn, we, ws, p.iter, p.omega)
-    return medfilt2_3x3(u + du_f)
+        with span("solve"):
+            du_f = solve(u, du_f, cu_gd, du_gd, ww, wn, we, ws, p.iter, p.omega)
+    with span("median"):
+        return medfilt2_3x3(u + du_f)
 
 
 def _disp_level(u, i1t0, i1t1, i2t0, i2t1, us_ap, as_diff, p: DisparityParams,
@@ -158,13 +164,6 @@ def disparity_nd(il, ir, fst_term: str = "grad", snd_term: str = "gradmag",
     fst_term = fst_term.lower()
     snd_term = snd_term.lower()
     device = input_device(il, device)
-    a = as_tensor(il, device) / 255.0
-    b = as_tensor(ir, device) / 255.0
-    if a.ndim == 2:
-        a, b = a[None], b[None]
-
-    levels = build_pyramid([a, b], p.scl_factor, 10, 5, 1.25, p.scales)
-    n = len(levels)
 
     def fst_img(img):
         return rgb2grad(img) if fst_term == "grad" else img
@@ -172,28 +171,41 @@ def disparity_nd(il, ir, fst_term: str = "grad", snd_term: str = "gradmag",
     def snd_img(img):
         return None if snd_term == "none" else img
 
-    us_lv = [None] * n
-    if us is not None:
-        cur = torch.nan_to_num(as_tensor(us, device))
-        us_lv = [cur]
-        for lvl in range(1, n):
-            cur = imresize(cur * p.scl_factor, levels[lvl][0].shape[-2:], "bilinear")
-            us_lv.append(cur)
+    with span("pyramid"):
+        a = as_tensor(il, device) / 255.0
+        b = as_tensor(ir, device) / 255.0
+        if a.ndim == 2:
+            a, b = a[None], b[None]
+
+        levels = build_pyramid([a, b], p.scl_factor, 10, 5, 1.25, p.scales)
+        n = len(levels)
+
+        us_lv = [None] * n
+        if us is not None:
+            cur = torch.nan_to_num(as_tensor(us, device))
+            us_lv = [cur]
+            for lvl in range(1, n):
+                cur = imresize(cur * p.scl_factor, levels[lvl][0].shape[-2:], "bilinear")
+                us_lv.append(cur)
 
     u = None
     for lvl in range(n - 1, -1, -1):
         l0, l1 = levels[lvl]
         h, w = l0.shape[-2:]
-        if u is None:
-            u = torch.zeros((h, w), dtype=torch.float32, device=device)
-        as_diff = 1.75 * p.scl_factor**lvl  # DispEminND_llin_2D.m:186
-        u = _disp_level(u, fst_img(l0), fst_img(l1), snd_img(l0), snd_img(l1),
-                        us_lv[lvl], as_diff, p, snd_term == "gradmag")
-        if collect is not None:
-            collect.append(u)
-        if lvl > 0:
-            nh, nw = levels[lvl - 1][0].shape[-2:]
-            u = imresize(u / p.scl_factor, (nh, nw), "bilinear")
+        with span("level", index=lvl, shape=(h, w)):
+            with span("pyramid"):
+                if u is None:
+                    u = torch.zeros((h, w), dtype=torch.float32, device=device)
+                i1t0, i1t1 = fst_img(l0), fst_img(l1)
+            as_diff = 1.75 * p.scl_factor**lvl  # DispEminND_llin_2D.m:186
+            u = _disp_level(u, i1t0, i1t1, snd_img(l0), snd_img(l1),
+                            us_lv[lvl], as_diff, p, snd_term == "gradmag")
+            if collect is not None:
+                collect.append(u)
+            if lvl > 0:
+                nh, nw = levels[lvl - 1][0].shape[-2:]
+                with span("pyramid"):
+                    u = imresize(u / p.scl_factor, (nh, nw), "bilinear")
     return u
 
 

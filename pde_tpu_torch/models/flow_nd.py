@@ -41,6 +41,7 @@ from pde_tpu_torch.models._graph import replay
 from pde_tpu_torch.parallel.mesh import mesh_device
 from pde_tpu_torch.parallel.model import mesh_nd_level
 from pde_tpu_torch.solvers.krylov import pcg_flow_llin4
+from pde_tpu_torch.utils.observe import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,28 +156,33 @@ def _nd_level(u, v, it0, i1t0, i1t1, i2t0, i2t1, us_ap, vs_ap, as_diff, p: FlowN
     warp = partial(warp_window, r=p.warp_window) if p.warp_window > 0 else warp_by_flow
 
     for _first in range(p.firstLoop):
-        i1t1w = warp(i1t1, u, v)
-        t1 = _fst_tensors(i1t0, i1t1w)
-        t2 = None
-        if i2t1 is not None:
-            i2t1w = warp(i2t1, u, v)
-            t2 = _snd_tensors(i2t0, i2t1w) if snd_is_gradmag else _fst_tensors(i2t0, i2t1w)
+        with span("warp"):
+            i1t1w = warp(i1t1, u, v)
+            t1 = _fst_tensors(i1t0, i1t1w)
+            t2 = None
+            if i2t1 is not None:
+                i2t1w = warp(i2t1, u, v)
+                t2 = _snd_tensors(i2t0, i2t1w) if snd_is_gradmag else _fst_tensors(i2t0, i2t1w)
 
-        du = torch.zeros_like(u)
-        dv = torch.zeros_like(v)
+            du = torch.zeros_like(u)
+            dv = torch.zeros_like(v)
 
         for _second in range(p.secondLoop):
-            m_gd, cu_gd, cv_gd, du_gd, dv_gd = _robust_terms(
-                t1, t2, u, v, du, dv, us_ap, vs_ap, as_diff, p, snd_is_gradmag)
-            ww, wn, we, ws = diffusion_weights_4(
-                torch.stack([u + du, v + dv]), eps=1e-5, combine="sum"
-            )
+            with span("robust"):
+                m_gd, cu_gd, cv_gd, du_gd, dv_gd = _robust_terms(
+                    t1, t2, u, v, du, dv, us_ap, vs_ap, as_diff, p, snd_is_gradmag)
+            with span("weights"):
+                ww, wn, we, ws = diffusion_weights_4(
+                    torch.stack([u + du, v + dv]), eps=1e-5, combine="sum"
+                )
             solve = pcg_flow_llin4 if p.solver == 2 else sor
-            du, dv = solve(u, v, du, dv, m_gd, cu_gd, cv_gd, du_gd, dv_gd,
-                           ww, wn, we, ws, p.iter, p.omega)
+            with span("solve"):
+                du, dv = solve(u, v, du, dv, m_gd, cu_gd, cv_gd, du_gd, dv_gd,
+                               ww, wn, we, ws, p.iter, p.omega)
 
-        u = medfilt2_3x3(u + du)
-        v = medfilt2_3x3(v + dv)
+        with span("median"):
+            u = medfilt2_3x3(u + du)
+            v = medfilt2_3x3(v + dv)
     return u, v
 
 
@@ -190,13 +196,6 @@ def _coarse_to_fine(it0, it1, fst_term: str, snd_term: str, p, us, vs, collect, 
     fst_term = fst_term.lower()
     snd_term = snd_term.lower()
     device = input_device(it0, device)
-    a = as_tensor(it0, device) / 255.0
-    b = as_tensor(it1, device) / 255.0
-    if a.ndim == 2:
-        a, b = a[None], b[None]
-
-    levels = build_pyramid([a, b], p.scl_factor, 20, 5, 1.25, p.scales)
-    n = len(levels)
 
     def fst_img(img):
         return rgb2grad(img) if fst_term == "grad" else img
@@ -214,26 +213,39 @@ def _coarse_to_fine(it0, it1, fst_term: str, snd_term: str, p, us, vs, collect, 
             out.append(cur)
         return out
 
-    # spatial prior pyramid: flow scaled by scl_factor at each level (:176)
-    us_lv = prior_pyramid(us)
-    vs_lv = prior_pyramid(vs)
+    with span("pyramid"):
+        a = as_tensor(it0, device) / 255.0
+        b = as_tensor(it1, device) / 255.0
+        if a.ndim == 2:
+            a, b = a[None], b[None]
+
+        levels = build_pyramid([a, b], p.scl_factor, 20, 5, 1.25, p.scales)
+        n = len(levels)
+        # spatial prior pyramid: flow scaled by scl_factor at each level (:176)
+        us_lv = prior_pyramid(us)
+        vs_lv = prior_pyramid(vs)
 
     u = v = None
     for lvl in range(n - 1, -1, -1):
         l0, l1 = levels[lvl]
         h, w = l0.shape[-2:]
-        if u is None:
-            u = us_lv[lvl] if us_lv[lvl] is not None else torch.zeros((h, w), device=device)
-            v = vs_lv[lvl] if vs_lv[lvl] is not None else torch.zeros((h, w), device=device)
-        as_diff = 2.0 * (1.0 / p.scl_factor) ** (-(lvl))  # ASdiff at this level (:197)
-        u, v = level_fn(u, v, l0, fst_img(l0), fst_img(l1), snd_img(l0), snd_img(l1),
-                        us_lv[lvl], vs_lv[lvl], as_diff, p, snd_term == "gradmag")
-        if collect is not None:
-            collect.append((u, v))
-        if lvl > 0:
-            nh, nw = levels[lvl - 1][0].shape[-2:]
-            u = imresize(u / p.scl_factor, (nh, nw), "triangle")
-            v = imresize(v / p.scl_factor, (nh, nw), "triangle")
+        with span("level", index=lvl, shape=(h, w)):
+            with span("pyramid"):
+                if u is None:
+                    zero = partial(torch.zeros, (h, w), device=device)
+                    u = us_lv[lvl] if us_lv[lvl] is not None else zero()
+                    v = vs_lv[lvl] if vs_lv[lvl] is not None else zero()
+                i1t0, i1t1 = fst_img(l0), fst_img(l1)
+            as_diff = 2.0 * (1.0 / p.scl_factor) ** (-(lvl))  # ASdiff at this level (:197)
+            u, v = level_fn(u, v, l0, i1t0, i1t1, snd_img(l0), snd_img(l1),
+                            us_lv[lvl], vs_lv[lvl], as_diff, p, snd_term == "gradmag")
+            if collect is not None:
+                collect.append((u, v))
+            if lvl > 0:
+                nh, nw = levels[lvl - 1][0].shape[-2:]
+                with span("pyramid"):
+                    u = imresize(u / p.scl_factor, (nh, nw), "triangle")
+                    v = imresize(v / p.scl_factor, (nh, nw), "triangle")
     return u, v
 
 

@@ -130,7 +130,7 @@ def stand_in(monkeypatch):
     CPU were a card; yields the list of captures."""
     captures = []
 
-    def capture(fn, static, inputs, device):
+    def capture(fn, static, inputs, device, rec):
         bufs = tuple(torch.empty(_graph._shape(x), dtype=torch.float32) for x in inputs)
         new = _graph.Frame(None, bufs, None)
         new.load(inputs)
