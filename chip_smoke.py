@@ -174,6 +174,21 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
     timed in turns, one replay profiled, the first call's time beyond a
     replay (the warm-up and the capture) and the memory it leaves reserved
     (the graph's pool). Each graph is released after its check.
+22. The reweighting kernels (``csrc/reweight.cu``) at the benchmark
+    cells' finest levels (flow 436x1024: the robust terms of the
+    grad/gradmag terms, the weights of (U + dU, V + dV); stereo 375x1242:
+    the disparity's robust terms, the zero-bordered max weights of U + dU),
+    with NaN where a warp leaves the image: bit for bit against the plain
+    version on the card; each timed with CUDA events in turns with the
+    plain chain and by ``torch.profiler``, beside its byte bound; then
+    the cells' replayed frames (3x436x1024 flow, 3x375x1242 stereo),
+    whose capture must count 384 and 720 reweighting kernels and no plain
+    reweighting, whose first call must launch 192 robust_flow and 192
+    weights4 (flow), 360 robust_disp and 360 weights4 (stereo) kernels in
+    the warm-up and as many in the capture, and whose replays launch none,
+    with their node counts and busy time. The report's ``kernels`` list
+    takes the three kernels with phase 22's readings.
+    ``--reweight-only`` runs phases 1, 2 and 22 alone.
 
 Every phase from 4 on sets every kernel's launch count to 0 just before it
 drives its entry point and reads all counts just after, and profiles one
@@ -329,7 +344,8 @@ OWN_KERNELS = {"prepare_kernel", "sweep_kernel", "prepare8_kernel", "sweep8_kern
                "disp_color_kernel", "pde4_color_kernel", "pde8_color_kernel", "border_kernel",
                "border_small_kernel", "lines_kernel", "tiled_sweep_kernel", "tiled_family_kernel",
                "resident_llin4_kernel", "resident_disp_kernel", "resident_llin8_kernel",
-               "resident_pde8_kernel", "resident_flow4_kernel", "resident_pde4_kernel"}
+               "resident_pde8_kernel", "resident_flow4_kernel", "resident_pde4_kernel",
+               "reweight_flow_kernel", "reweight_disp_kernel", "weights4_kernel"}
 # the tile kernel's entries: (family, double-buffered)
 TILED = {"tiled_flow_llin4": ("flow_llin4", False), "tiled_flow_llin4_db": ("flow_llin4", True),
          "tiled_flow_elin4": ("flow_elin4", False), "tiled_flow_elin4_db": ("flow_elin4", True)}
@@ -686,6 +702,31 @@ def fmg_smooth_calls(n, cycle_index):
     return calls
 
 
+def fmg_weights4(n, cycle_index, first_loop):
+    """weights4 launches of a flow_fmg call over n levels
+    (``models/flow_fmg.py``): ``first_loop`` a smoothing, one more a
+    smoothing's residual pass and one a coarse level's operator, in every
+    FAS cycle as ``fmg_smooth_calls`` walks them."""
+    def cycle(lvl):
+        if lvl == n - 1:
+            return first_loop
+        return cycle_index * (first_loop + 2 + cycle(lvl + 1)) + first_loop
+
+    return sum(cycle(top) for top in range(n))
+
+
+def reweight_launches(levels: int, calls: int, robust: str | None, weights: int = 1) -> dict:
+    """Launches of the reweighting kernels (``csrc/reweight.cu``, as
+    ``reweight_cuda.LAUNCHES`` counts them) of ``calls`` reweightings at each
+    of ``levels`` levels: one ``robust`` launch ("robust_flow" or
+    "robust_disp"; None where the model forms its own terms) and ``weights``
+    weights4 launches a reweighting."""
+    want = {"weights4": levels * calls * weights} if weights else {}
+    if robust is not None:
+        want[robust] = levels * calls
+    return want
+
+
 def bit_equal(got, want) -> bool:
     """The same bits in every element of each pair (NaN payloads included)."""
     return all(torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want))
@@ -715,9 +756,134 @@ def timed(fn):
     return out, time.time() - t0
 
 
+# phase 22: the benchmark cells' frames and finest levels, the terms they
+# run (grad and gradmag: 6 and 3 channels of a 3-channel image), their
+# robust kernel and the frame's reweightings (flow 12 levels x 4 warps x 4,
+# stereo 15 x 4 x 6), each one robust and one weights4 launch
+REWEIGHT_CELLS = {"flow_nd.sintel": ((3, 436, 1024), "robust_flow", 192),
+                  "disparity_nd.kitti": ((3, 375, 1242), "robust_disp", 360)}
+# float32 planes each reweighting kernel reads and writes a pixel at those
+# terms (each read once, each written once): flow's robust terms dt, dx, dy
+# x 6, dxt, dyt, dxx, dyy, dxy x 3, dU, dV in, 5 out; the disparity's dt, dx
+# x 6, dxt, dyt, dxx, dxy x 3, dU in, 2 out; the weights U, dU, V, dV (flow),
+# U, dU (stereo) in, 4 out
+REWEIGHT_PLANES = {"robust_flow": 35 + 5, "robust_disp": 25 + 2, "weights4_flow": 4 + 4,
+                   "weights4_disp": 2 + 4}
+
+
+def reweight_phase(seed: int) -> dict:
+    """Phase 22 (module docstring); returns its readings by case and cell."""
+    from pde_tpu_torch.kernels import dispatch, reweight_cuda
+    from pde_tpu_torch.kernels.plain_mode import plain_solvers
+    from pde_tpu_torch.models import _graph
+    from pde_tpu_torch.models.disparity import DisparityParams, disparity_nd_fused
+    from pde_tpu_torch.models.flow_nd import FlowNDParams, flow_nd_fused
+    from pde_tpu_torch.utils import observe
+
+    phase("22 reweighting kernels: robust terms and diffusion weights at the cells' finest levels")
+    rng = np.random.default_rng(seed + 22)
+    dev = card_device()
+
+    def planes(keys, c, hw):
+        out = {}
+        for k in keys:
+            x = rng.standard_normal((c, *hw)).astype(np.float32)
+            x[0, : hw[0] // 6, : hw[1] // 8] = np.nan  # where a warp leaves the image
+            out[k] = torch.from_numpy(x).to(dev)
+        return out
+
+    def field(hw, scale):
+        return torch.from_numpy((rng.standard_normal(hw) * scale).astype(np.float32)).to(dev)
+
+    fh, fw = REWEIGHT_CELLS["flow_nd.sintel"][0][1:]
+    dh, dw = REWEIGHT_CELLS["disparity_nd.kitti"][0][1:]
+    fp, dp = FlowNDParams(), DisparityParams()
+    t1 = planes(("dt", "dx", "dy"), 6, (fh, fw))
+    t2 = planes(("dxt", "dyt", "dxx", "dyy", "dxy"), 3, (fh, fw))
+    u, v, du, dv = (field((fh, fw), s) for s in (2.0, 2.0, 0.3, 0.3))
+    d1 = planes(("dt", "dx"), 6, (dh, dw))
+    d2 = planes(("dxt", "dyt", "dxx", "dxy"), 3, (dh, dw))
+    ud, dud = field((dh, dw), 4.0), field((dh, dw), 0.3)
+    cases = {
+        "robust_flow": ((fh, fw), lambda: dispatch.robust_flow(t1, t2, u, v, du, dv, None, None,
+                                                               1.0, fp, True)),
+        "robust_disp": ((dh, dw), lambda: dispatch.robust_disp(d1, d2, ud, dud, None, 1.75, dp,
+                                                               True)),
+        "weights4_flow": ((fh, fw), lambda: dispatch.diffusion_weights_4(
+            (u, v), 1e-5, "sum", increments=(du, dv))),
+        "weights4_disp": ((dh, dw), lambda: dispatch.diffusion_weights_4(
+            ud, 1e-5, "max", True, increments=dud)),
+    }
+    rows = {}
+    for name, ((h, w), run) in cases.items():
+        got = run()
+
+        def plain(run=run):
+            with plain_solvers():
+                return run()
+
+        want = plain()
+        diff = max(float(torch.nan_to_num((a - b).abs(), 0.0).max()) for a, b in zip(got, want))
+        if not bit_equal(got, want):
+            fail(f"{name} {h}x{w}: the kernel is not the plain version's bits (max |d| {diff})")
+        k_ms, p_ms, turns = in_turns(run, plain, reps=50, plain_reps=10)
+        busy_ms, n_ops, own_ms, _ = device_profile(run, calls=10)
+        p_busy, p_ops, _, _ = device_profile(plain, calls=3)
+        bytes_px = 4 * REWEIGHT_PLANES[name]
+        bound_ms = bytes_px * h * w / HBM_BYTES_PER_S * 1e3
+        rows[name] = {"shape": [h, w], "max_abs_err": diff, "events_ms": k_ms,
+                      "device_ms": own_ms,
+                      "plain_events_ms": p_ms, "plain_device_ms": p_busy,
+                      "plain_device_ops": p_ops, "bytes_per_px": bytes_px, "bound_ms": bound_ms,
+                      "turns": turns}
+        # the profiler of a long run now and then records none of a window's launches
+        share = (f"{100 * bound_ms / own_ms:.1f}% of it" if own_ms > 0 else
+                 "the profiler recorded none of its launches")
+        print(f"  {name} {h}x{w}: == plain bit for bit; kernel {k_ms:.4f} ms by events, "
+              f"{own_ms:.4f} ms device ({n_ops:.0f} op); plain {p_ms:.4f} ms, {p_busy:.4f} ms "
+              f"device in {p_ops:.0f} ops; bound {bound_ms:.4f} ms ({bytes_px} B/px), {share}",
+              flush=True)
+
+    for cell, (shape, robust, calls) in REWEIGHT_CELLS.items():
+        fused = flow_nd_fused if cell.startswith("flow") else disparity_nd_fused
+        a = (rng.random(shape) * 255).astype(np.float32)
+        b = np.roll(a, (1, 2), axis=(-2, -1))
+        _graph.release_graphs()
+        observe.reset()
+        for k in reweight_cuda.LAUNCHES:
+            reweight_cuda.LAUNCHES[k] = 0
+        _, cold_s = timed(lambda: fused(a, b))
+        (rec,) = observe.record()["graphs"]
+        if rec["counters"] != {"reweight.kernel": 2 * calls}:
+            fail(f"{cell}: the capture counted {rec['counters']}, expected "
+                 f"{{'reweight.kernel': {2 * calls}}}")
+        # the first call runs the frame eagerly (the warm-up), then captures it
+        launched = {k: n for k, n in reweight_cuda.LAUNCHES.items() if n}
+        if launched != {robust: 2 * calls, "weights4": 2 * calls}:
+            fail(f"{cell}: the first call launched {launched}, expected {calls} {robust} and "
+                 f"{calls} weights4 launches in the warm-up and as many in the capture")
+        warm = [timed(lambda: fused(a, b))[1] for _ in range(5)]
+        if any(reweight_cuda.LAUNCHES[k] != n for k, n in launched.items()):
+            fail(f"{cell}: a replay launched {reweight_cuda.LAUNCHES}")
+        busy_ms, n_ops, own_ms, _ = device_profile(lambda: fused(a, b), calls=3)
+        rows[cell] = {"nodes": rec["nodes"], "counters": rec["counters"], "launches": launched,
+                      "cold_s": cold_s, "warm_s": warm, "busy_ms": busy_ms, "device_ops": n_ops,
+                      "own_ms": own_ms}
+        print(f"  {cell} {shape}: capture counted {rec['counters']}; launches {launched} "
+              f"(warm-up and capture), none a replay; {rec['nodes']} graph "
+              f"nodes; first call {cold_s:.3f} s, warm {min(warm) * 1e3:.2f} ms "
+              f"({', '.join(f'{x * 1e3:.2f}' for x in warm)}); device busy {busy_ms:.3f} ms in "
+              f"{n_ops:.0f} operations, the port's kernels {own_ms:.3f} ms", flush=True)
+        _graph.release_graphs()
+    print("reweight " + json.dumps(rows), flush=True)
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reweight-only", action="store_true",
+                    help="run phases 1, 2 and 22 alone")
     args = ap.parse_args()
     t_start = time.time()
 
@@ -728,8 +894,9 @@ def main() -> None:
         fail(f"pde_tpu_torch not found beside {Path(__file__).name}: run it from the repository")
     sys.path.insert(0, str(HERE))
     from pde_tpu_torch.core.pyramid import pyramid_scales
-    from pde_tpu_torch.kernels import (build, dispatch, interior_cuda, resident_cuda, sor_cuda,
-                                       sweeps, tdma_cuda, tiled, tiled_cuda)
+    from pde_tpu_torch.kernels import (build, dispatch, interior_cuda, resident_cuda,
+                                       reweight_cuda, sor_cuda, sweeps, tdma_cuda, tiled,
+                                       tiled_cuda)
     from pde_tpu_torch.models.disparity import DisparityParams, disparity_nd, disparity_nd_fused
     from pde_tpu_torch.models.disparity_sym import (DisparitySymParams, disparity_sym,
                                                     disparity_sym_fused)
@@ -759,7 +926,7 @@ def main() -> None:
 
     def reset_counts():
         for launches in (sor_cuda.LAUNCHES, interior_cuda.LAUNCHES, tdma_cuda.LAUNCHES,
-                         tiled_cuda.LAUNCHES, resident_cuda.LAUNCHES):
+                         tiled_cuda.LAUNCHES, resident_cuda.LAUNCHES, reweight_cuda.LAUNCHES):
             for k in launches:
                 launches[k] = 0
 
@@ -771,7 +938,7 @@ def main() -> None:
                 "pde4_sor": interior_cuda.LAUNCHES["pde4"],
                 "pde8_sor": interior_cuda.LAUNCHES["pde8"],
                 **{f"tridiag_{k}": n for k, n in tdma_cuda.LAUNCHES.items()},
-                **tiled_cuda.LAUNCHES, **resident_cuda.LAUNCHES}
+                **tiled_cuda.LAUNCHES, **resident_cuda.LAUNCHES, **reweight_cuda.LAUNCHES}
 
     def check_counts(what: str, expected: dict) -> None:
         got = counts()
@@ -788,7 +955,7 @@ def main() -> None:
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
     t0 = time.time()
     sources = (sor_cuda.SOURCE, interior_cuda.SOURCE, tdma_cuda.SOURCE, tiled_cuda.SOURCE,
-               resident_cuda.SOURCE, resident_cuda.SOURCE8)
+               resident_cuda.SOURCE, resident_cuda.SOURCE8, reweight_cuda.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(partial(build.build, verbose=True), sources))
     sor_cuda._lib()
@@ -797,9 +964,18 @@ def main() -> None:
     tiled_lib = tiled_cuda._lib()
     resident_lib = resident_cuda._lib()
     resident8_lib = resident_cuda._lib8()
+    reweight_cuda._lib()
     sms = resident_cuda.sm_count(0)
     print(f"built {', '.join(str(p.relative_to(HERE)) for p in libs)} "
           f"in {time.time() - t0:.1f} s", flush=True)
+    if args.reweight_only:
+        reweight_phase(args.seed)
+        print(f"total {time.time() - t_start:.1f} s", flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}),
+              flush=True)
+        return
 
     phase("3 kernels vs plain")
     rng = np.random.default_rng(args.seed)
@@ -1763,6 +1939,12 @@ def main() -> None:
         levels = pyramid_scales(shape[-2], shape[-1], scl_factor, stop, scales)
         return planned_launches(levels, calls, family, batch, global_key, per_call, iters)
 
+    def model_reweights(shape, prm, stop, robust, weights=1):
+        """``reweight_launches`` of a warping model's frame of ``shape``:
+        firstLoop x secondLoop reweightings at each pyramid level."""
+        n = len(pyramid_scales(shape[-2], shape[-1], prm.scl_factor, stop, prm.scales))
+        return reweight_launches(n, prm.firstLoop * prm.secondLoop, robust, weights)
+
     def planned_launches(levels, calls, family, batch, global_key, per_call, iters=None):
         """The launches of ``calls`` solver calls at each of ``levels``,
         counted apart from the dispatch's own routing: one resident launch a
@@ -1798,8 +1980,10 @@ def main() -> None:
     it0, it1 = (torch.from_numpy(f).to(dev)
                 for f in shifted_frames(rng, MAIN_SHAPE, [(0.0, 0.0), MAIN_SHIFT]))
     n_levels = len(pyramid_scales(MAIN_SHAPE[1], MAIN_SHAPE[2], p.scl_factor, 20, p.scales))
-    expected = sor_launches(MAIN_SHAPE, p.scl_factor, 20, p.scales, p.firstLoop * p.secondLoop,
-                            "llin4", 1, "flow_llin4_sor", 1 + 2 * p.iter, p.iter)
+    nd_reweights = model_reweights(MAIN_SHAPE, p, 20, "robust_flow")
+    expected = {**sor_launches(MAIN_SHAPE, p.scl_factor, 20, p.scales,
+                               p.firstLoop * p.secondLoop, "llin4", 1, "flow_llin4_sor",
+                               1 + 2 * p.iter, p.iter), **nd_reweights}
     frame_s = []
     for _ in range(3):
         reset_counts()
@@ -1851,9 +2035,10 @@ def main() -> None:
     # the others replay it and count nothing. So the clip counts twice one
     # pair's launches, whatever its length
     pair_calls = p.firstLoop * p.secondLoop
-    check_counts("flow_nd_sequence (one capture)", sor_launches(
+    check_counts("flow_nd_sequence (one capture)", {**sor_launches(
         SEQ_SHAPE, p.scl_factor, 20, p.scales, 2 * pair_calls, "llin4", 1,
-        "flow_llin4_sor", 1 + 2 * p.iter, p.iter))
+        "flow_llin4_sor", 1 + 2 * p.iter, p.iter), **{
+            k: 2 * n for k, n in model_reweights(SEQ_SHAPE, p, 20, "robust_flow").items()}})
     if us.shape != (2,) + SEQ_SHAPE[1:]:
         fail(f"sequence flow of shape {tuple(us.shape)}")
     seq_err = 0.0
@@ -1870,9 +2055,10 @@ def main() -> None:
     il, ir = (torch.from_numpy(f).to(dev)
               for f in shifted_frames(rng, MAIN_SHAPE, [(0.0, 0.0), DISP_SHIFT]))
     d_levels = len(pyramid_scales(MAIN_SHAPE[1], MAIN_SHAPE[2], dp.scl_factor, 10, dp.scales))
-    d_expected = sor_launches(MAIN_SHAPE, dp.scl_factor, 10, dp.scales,
-                              dp.firstLoop * dp.secondLoop, "disp", 1, "disp_llin4_sor",
-                              3 * dp.iter, dp.iter)
+    d_reweights = model_reweights(MAIN_SHAPE, dp, 10, "robust_disp")
+    d_expected = {**sor_launches(MAIN_SHAPE, dp.scl_factor, 10, dp.scales,
+                                 dp.firstLoop * dp.secondLoop, "disp", 1, "disp_llin4_sor",
+                                 3 * dp.iter, dp.iter), **d_reweights}
     frame_s = []
     for _ in range(3):
         reset_counts()
@@ -1912,9 +2098,11 @@ def main() -> None:
     sp = DisparitySymParams()
     s_levels = len(pyramid_scales(MAIN_SHAPE[1], MAIN_SHAPE[2], sp.scl_factor, 10, sp.scales))
     # one call with B = 2 per solve of the pair: two calls would count twice
-    s_expected = sor_launches(MAIN_SHAPE, sp.scl_factor, 10, sp.scales,
-                              sp.firstLoop * sp.secondLoop, "disp", 2, "disp_llin4_sor",
-                              3 * sp.iter, sp.iter)
+    # and two weights4 launches a reweighting (the pair forms its own terms)
+    s_expected = {**sor_launches(MAIN_SHAPE, sp.scl_factor, 10, sp.scales,
+                                 sp.firstLoop * sp.secondLoop, "disp", 2, "disp_llin4_sor",
+                                 3 * sp.iter, sp.iter),
+                  **model_reweights(MAIN_SHAPE, sp, 10, None, 2)}
     frame_s = []
     for _ in range(2):
         reset_counts()
@@ -1958,8 +2146,9 @@ def main() -> None:
     noisy = torch.from_numpy(noisy_blocks(rng, MAIN_SHAPE)).to(dev)
     tv_levels = len(tv4_levels_hw)
     # C = 3 channels over shared weights: one resident launch a call
-    tv_expected = planned_launches(tv4_levels_hw, tp.outer_iter + 1, "pde4", MAIN_SHAPE[0],
-                                   "pde4_sor", 3 * tp.inner_iter, tp.inner_iter)
+    tv_expected = {**planned_launches(tv4_levels_hw, tp.outer_iter + 1, "pde4", MAIN_SHAPE[0],
+                                      "pde4_sor", 3 * tp.inner_iter, tp.inner_iter),
+                   **reweight_launches(tv_levels, tp.outer_iter + 1, None)}
     frame_s = []
     for _ in range(2):
         reset_counts()
@@ -2089,7 +2278,8 @@ def main() -> None:
         reset_counts()
         dif, sec = timed(lambda: diffusion4(img))
         frame_s.append(sec)
-        check_counts("diffusion4", {"tridiag_thomas": diff_expected})
+        check_counts("diffusion4", {"tridiag_thomas": diff_expected,
+                                    **reweight_launches(1, fp.outer_iter + 1, None)})
     if dif.shape != MAIN_SHAPE or not torch.isfinite(dif).all():
         fail(f"diffused image of shape {tuple(dif.shape)}, or not finite")
     reset_counts()
@@ -2111,9 +2301,11 @@ def main() -> None:
     ap_ = FlowADParams()
     ad_levels = len(pyramid_scales(MAIN_SHAPE[1], MAIN_SHAPE[2], ap_.scl_factor, 20,
                                    ap_.scales))
-    ad_expected = sor_launches(MAIN_SHAPE, ap_.scl_factor, 20, ap_.scales,
-                               ap_.firstLoop * ap_.secondLoop, "llin8", 1, "flow_llin8_sor",
-                               1 + 2 * ap_.iter, ap_.iter)
+    # the robust terms on the kernel; its weights are the anisotropic tensor's
+    ad_expected = {**sor_launches(MAIN_SHAPE, ap_.scl_factor, 20, ap_.scales,
+                                  ap_.firstLoop * ap_.secondLoop, "llin8", 1, "flow_llin8_sor",
+                                  1 + 2 * ap_.iter, ap_.iter),
+                   **model_reweights(MAIN_SHAPE, ap_, 20, "robust_flow", 0)}
     frame_s = []
     for _ in range(3):
         reset_counts()
@@ -2191,27 +2383,29 @@ def main() -> None:
     # at PLAIN_SHAPE, difference of two results, tolerance)
     cases = [
         ("flow_nd", lambda: flow_nd(it0, it1, "grad", "gradmag", solver=2),
-         pcg_launches(n_levels * p.firstLoop * p.secondLoop, 2, p.iter),
+         {**pcg_launches(n_levels * p.firstLoop * p.secondLoop, 2, p.iter), **nd_reweights},
          lambda f: ((float(f[0][inner].median()), float(f[1][inner].median())),
                     abs(float(f[0][inner].median()) - MAIN_SHIFT[1]) <= SHIFT_TOL
                     and abs(float(f[1][inner].median()) - MAIN_SHIFT[0]) <= SHIFT_TOL),
          lambda: flow_nd(small0, small1, "grad", "gradmag", solver=2, **loops),
          mean_flow_diff, FLOW_TOL),
         ("disparity_nd", lambda: disparity_nd(il, ir, "grad", "gradmag", solver=2),
-         pcg_launches(d_levels * dp.firstLoop * dp.secondLoop, 1, dp.iter),
+         {**pcg_launches(d_levels * dp.firstLoop * dp.secondLoop, 1, dp.iter), **d_reweights},
          lambda u: (float(u[inner].median()),
                     abs(float(u[inner].median()) - DISP_SHIFT[1]) <= DISP_SHIFT_TOL),
          lambda: disparity_nd(small0, small1, "grad", "gradmag", solver=2, **loops),
          lambda a, b: float((a - b).abs().mean()), FLOW_TOL),
         ("disparity_sym", lambda: disparity_sym(il, ir, solver=2),
-         pcg_launches(s_levels * sp.firstLoop * sp.secondLoop, 1, sp.iter),
+         {**pcg_launches(s_levels * sp.firstLoop * sp.secondLoop, 1, sp.iter),
+          **model_reweights(MAIN_SHAPE, sp, 10, None, 2)},
          lambda u: ((float(u[0][inner].median()), float(u[1][inner].median())),
                     abs(float(u[0][inner].median()) - DISP_SHIFT[1]) <= DISP_SHIFT_TOL
                     and abs(float(u[1][inner].median()) + DISP_SHIFT[1]) <= DISP_SHIFT_TOL),
          lambda: disparity_sym(small0, small1, solver=2, **loops),
          lambda a, b: float((a - b).abs().mean()), FLOW_TOL),
         ("tv_denoise4", lambda: tv_denoise4(noisy, solver=2),
-         pcg_launches(tv_levels * (tp.outer_iter + 1), 1, tp.inner_iter),
+         {**pcg_launches(tv_levels * (tp.outer_iter + 1), 1, tp.inner_iter),
+          **reweight_launches(tv_levels, tp.outer_iter + 1, None)},
          lambda u: ((float(noisy[flat].std(dim=(1, 2)).mean()),
                      float(u[flat].std(dim=(1, 2)).mean())),
                     float(u[flat].std(dim=(1, 2)).mean())
@@ -2221,7 +2415,8 @@ def main() -> None:
                                                        - (small0 / 255.0).min()),
          TV_REL_TOL),
         ("flow_ad", lambda: flow_ad(it0, it1, "grad", "gradmag", solver=2),
-         pcg_launches(ad_levels * ap_.firstLoop * ap_.secondLoop, 2, ap_.iter),
+         {**pcg_launches(ad_levels * ap_.firstLoop * ap_.secondLoop, 2, ap_.iter),
+          **model_reweights(MAIN_SHAPE, ap_, 20, "robust_flow", 0)},
          lambda f: ((float(f[0][inner].median()), float(f[1][inner].median())),
                     abs(float(f[0][inner].median()) - MAIN_SHIFT[1]) <= SHIFT_TOL
                     and abs(float(f[1][inner].median()) - MAIN_SHIFT[0]) <= SHIFT_TOL),
@@ -2371,24 +2566,30 @@ def main() -> None:
                   for f in shifted_frames(rng, LARGE_SHAPE, [(0.0, 0.0), MAIN_SHIFT]))
     for name, run, want, key in (
             ("flow_nd", lambda: flow_nd(big0, big1, "grad", "gradmag"),
-             sor_launches(LARGE_SHAPE, p.scl_factor, 20, p.scales, p.firstLoop * p.secondLoop,
-                          "llin4", 1, "flow_llin4_sor", 1 + 2 * p.iter, p.iter), "flow_llin4_sor"),
+             {**sor_launches(LARGE_SHAPE, p.scl_factor, 20, p.scales,
+                             p.firstLoop * p.secondLoop, "llin4", 1, "flow_llin4_sor",
+                             1 + 2 * p.iter, p.iter),
+              **model_reweights(LARGE_SHAPE, p, 20, "robust_flow")}, "flow_llin4_sor"),
             ("disparity_nd", lambda: disparity_nd(big0, big1, "grad", "gradmag"),
-             sor_launches(LARGE_SHAPE, dp.scl_factor, 10, dp.scales,
-                          dp.firstLoop * dp.secondLoop, "disp", 1, "disp_llin4_sor",
-                          3 * dp.iter, dp.iter), "disp_llin4_sor"),
+             {**sor_launches(LARGE_SHAPE, dp.scl_factor, 10, dp.scales,
+                             dp.firstLoop * dp.secondLoop, "disp", 1, "disp_llin4_sor",
+                             3 * dp.iter, dp.iter),
+              **model_reweights(LARGE_SHAPE, dp, 10, "robust_disp")}, "disp_llin4_sor"),
             ("flow_ad", lambda: flow_ad(big0, big1, "grad", "gradmag"),
-             sor_launches(LARGE_SHAPE, ap_.scl_factor, 20, ap_.scales,
-                          ap_.firstLoop * ap_.secondLoop, "llin8", 1, "flow_llin8_sor",
-                          1 + 2 * ap_.iter, ap_.iter), "flow_llin8_sor"),
+             {**sor_launches(LARGE_SHAPE, ap_.scl_factor, 20, ap_.scales,
+                             ap_.firstLoop * ap_.secondLoop, "llin8", 1, "flow_llin8_sor",
+                             1 + 2 * ap_.iter, ap_.iter),
+              **model_reweights(LARGE_SHAPE, ap_, 20, "robust_flow", 0)}, "flow_llin8_sor"),
             ("tv_denoise8", lambda: tv_denoise8(big0 / 255.0),
              planned_launches(partial_pyramid_shapes(LARGE_SHAPE, tp8.scl, tp8.scl_factor),
                               tp8.outer_iter + 1, "pde8", LARGE_SHAPE[0], "pde8_sor",
                               3 * tp8.inner_iter, tp8.inner_iter), "pde8_sor"),
             ("tv_denoise4", lambda: tv_denoise4(big0 / 255.0),
-             planned_launches(partial_pyramid_shapes(LARGE_SHAPE, tp.scl, tp.scl_factor),
-                              tp.outer_iter + 1, "pde4", LARGE_SHAPE[0], "pde4_sor",
-                              3 * tp.inner_iter, tp.inner_iter), "pde4_sor"),
+             {**planned_launches(partial_pyramid_shapes(LARGE_SHAPE, tp.scl, tp.scl_factor),
+                                 tp.outer_iter + 1, "pde4", LARGE_SHAPE[0], "pde4_sor",
+                                 3 * tp.inner_iter, tp.inner_iter),
+              **reweight_launches(partial_pyramid_levels(LARGE_SHAPE, tp.scl, tp.scl_factor),
+                                  tp.outer_iter + 1, None)}, "pde4_sor"),
             ("flow_hs solver=1", lambda: flow_hs(big0, big1, solver=1),
              sor_launches(LARGE_SHAPE, hp.scl_factor, 20, hp.scales, 1, "elin4", 1,
                           "flow_elin4_sor", 1 + 2 * hp.iter, hp.iter), "flow_elin4_sor")):
@@ -2427,9 +2628,10 @@ def main() -> None:
         level has a plan), solver=2 pcg_launches of every solve."""
         levels = fmg_levels(shape, p_.scales)
         calls = fmg_smooth_calls(len(levels), cycle_index)
+        weights = {"weights4": fmg_weights4(len(levels), cycle_index, p_.firstLoop)}
         if solver == 2:
-            return pcg_launches(sum(calls) * p_.firstLoop, 2, p_.iter)
-        want = {}
+            return {**pcg_launches(sum(calls) * p_.firstLoop, 2, p_.iter), **weights}
+        want = dict(weights)
         for (h, w), c in zip(levels, calls):
             for key, n in planned_launches([(h, w)], c * p_.firstLoop, "elin4", 1,
                                            "flow_elin4_sor", 1 + 2 * p_.iter, p_.iter).items():
@@ -2827,8 +3029,9 @@ def main() -> None:
 
     p = FlowNDParams()
     nd_levels = pyramid_scales(MAIN_SHAPE[1], MAIN_SHAPE[2], p.scl_factor, 20, p.scales)
-    expected = mesh_expected(nd_levels, [p.firstLoop * p.secondLoop] * len(nd_levels), "llin4",
-                             "flow_llin4_sor", 1 + 2 * p.iter, p.iter)
+    expected = {**mesh_expected(nd_levels, [p.firstLoop * p.secondLoop] * len(nd_levels),
+                                "llin4", "flow_llin4_sor", 1 + 2 * p.iter, p.iter),
+                **nd_reweights}
     reset_counts()
     (um, vm), sec = timed(lambda: flow_nd(*nd_frames, "grad", "gradmag", mesh=vmesh))
     check_counts("flow_nd on the mesh", expected)
@@ -2850,8 +3053,10 @@ def main() -> None:
             expected = fmg_expected(MAIN_SHAPE, 2, 1, fp_)
         else:
             lv = fmg_levels(MAIN_SHAPE, fp_.scales)
-            expected = mesh_expected(lv, [c * fp_.firstLoop for c in fmg_smooth_calls(len(lv), 1)],
-                                     "elin4", "flow_elin4_sor", 1 + 2 * fp_.iter, fp_.iter)
+            expected = {**mesh_expected(lv, [c * fp_.firstLoop
+                                             for c in fmg_smooth_calls(len(lv), 1)],
+                                        "elin4", "flow_elin4_sor", 1 + 2 * fp_.iter, fp_.iter),
+                        "weights4": fmg_weights4(len(lv), 1, fp_.firstLoop)}
         reset_counts()
         (um, vm), sec = timed(lambda: flow_fmg(*fmg_frames, solver=solver, mesh=vmesh))
         check_counts(f"flow_fmg solver={solver} on the mesh", expected)
@@ -3136,20 +3341,25 @@ def main() -> None:
                   f"its launches are the capture's", flush=True)
         release_graphs()
 
-    nd_pinned = sor_launches(MAIN_SHAPE, p.scl_factor, 20, p.scales, p.firstLoop * p.secondLoop,
-                             "llin4", 1, "flow_llin4_sor", 1 + 2 * p.iter, p.iter)
+    nd_pinned = {**sor_launches(MAIN_SHAPE, p.scl_factor, 20, p.scales,
+                                p.firstLoop * p.secondLoop, "llin4", 1, "flow_llin4_sor",
+                                1 + 2 * p.iter, p.iter), **nd_reweights}
     t21b = time.time()
     fused_check(f"flow_nd_fused {MAIN_SHAPE}", lambda: flow_nd_fused(it0, it1),
                 lambda: flow_nd(it0, it1), nd_pinned)
     fused_check(f"flow_nd_fused {LARGE_SHAPE}", lambda: flow_nd_fused(big0, big1),
                 lambda: flow_nd(big0, big1),
-                sor_launches(LARGE_SHAPE, p.scl_factor, 20, p.scales, p.firstLoop * p.secondLoop,
-                             "llin4", 1, "flow_llin4_sor", 1 + 2 * p.iter, p.iter))
+                {**sor_launches(LARGE_SHAPE, p.scl_factor, 20, p.scales,
+                                p.firstLoop * p.secondLoop, "llin4", 1, "flow_llin4_sor",
+                                1 + 2 * p.iter, p.iter),
+                 **model_reweights(LARGE_SHAPE, p, 20, "robust_flow")})
     fused_check(f"flow_nd_sequence 3 x {SEQ_SHAPE}", lambda: flow_nd_sequence(clip),
                 lambda: tuple(torch.stack(f) for f in zip(
                     *(flow_nd(clip[t], clip[t + 1]) for t in range(clip.shape[0] - 1)))),
-                sor_launches(SEQ_SHAPE, p.scl_factor, 20, p.scales, p.firstLoop * p.secondLoop,
-                             "llin4", 1, "flow_llin4_sor", 1 + 2 * p.iter, p.iter))
+                {**sor_launches(SEQ_SHAPE, p.scl_factor, 20, p.scales,
+                                p.firstLoop * p.secondLoop, "llin4", 1, "flow_llin4_sor",
+                                1 + 2 * p.iter, p.iter),
+                 **model_reweights(SEQ_SHAPE, p, 20, "robust_flow")})
     fused_check(f"disparity_nd_fused {MAIN_SHAPE}", lambda: disparity_nd_fused(il, ir),
                 lambda: disparity_nd(il, ir), d_expected)
     fused_check(f"disparity_sym_fused {MAIN_SHAPE}", lambda: disparity_sym_fused(il, ir),
@@ -3171,6 +3381,8 @@ def main() -> None:
     print(f"  fused frames: {time.time() - t21b:.1f} s; phase 21 {time.time() - t21:.1f} s",
           flush=True)
     print("fused frames " + json.dumps(fused_rows), flush=True)
+
+    rw_rows = reweight_phase(args.seed)
 
     sources = {"flow_llin4_sor": ("pde_tpu_torch/csrc/flow_llin4_sor.cu",
                                   "pde_tpu/kernels/sor_pallas.py:71"),
@@ -3247,6 +3459,22 @@ def main() -> None:
         # tridiagonal solve
         "library_ms": None,
     } for name, (src, replaces) in sources.items()]}
+    # the reweighting kernels: the main path's launches (phases 4 and 6: flow_nd
+    # and disparity_nd at MAIN_SHAPE), phase 22's readings at the cells'
+    # finest levels; the TPU package runs these chains as XLA fusions
+    for name, case, launches, replaces in (
+            ("reweight_flow_kernel", "robust_flow", nd_reweights["robust_flow"],
+             "pde_tpu/models/flow_nd.py:118"),
+            ("reweight_disp_kernel", "robust_disp", d_reweights["robust_disp"],
+             "pde_tpu/models/disparity.py:100"),
+            ("weights4_kernel", "weights4_flow",
+             nd_reweights["weights4"] + d_reweights["weights4"], "pde_tpu/ops/weights.py:63")):
+        row = rw_rows[case]
+        report["kernels"].append({
+            "name": name, "route": "cuda", "source": "pde_tpu_torch/csrc/reweight.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": row["max_abs_err"],
+            "ms": row["device_ms"], "plain_ms": row["plain_device_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": "bytes", "library_ms": None})
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps(report), flush=True)

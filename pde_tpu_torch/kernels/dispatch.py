@@ -22,6 +22,13 @@ as ``pde_tpu`` chooses between its resident and tiled kernels
 - else the global kernels (``sor_cuda``, ``interior_cuda``), one launch a
   colour.
 
+The reweighting step of the warping models takes the same rule: the
+robust data terms (``robust_flow``, ``robust_disp``) and the diffusion
+weights of every caller (``diffusion_weights_4``) run one launch each of
+``csrc/reweight.cu`` for CUDA tensors, the plain ``ops/robust.py`` and
+``ops/weights.py`` for CPU tensors; each call adds 1 to the counter
+``reweight.kernel`` or ``reweight.plain`` (``utils/observe.py``).
+
 ``plain_solvers()`` (``kernels/plain_mode.py``) runs the plain version on
 any device, so that a check can hold the kernel against it on the card;
 the package itself never enters it.
@@ -39,12 +46,15 @@ from __future__ import annotations
 
 import torch
 
-from pde_tpu_torch.kernels import (interior_cuda, resident_cuda, sor_cuda, tdma_cuda, tiled,
-                                   tiled_cuda)
+from pde_tpu_torch.kernels import (interior_cuda, resident_cuda, reweight_cuda, sor_cuda,
+                                   tdma_cuda, tiled, tiled_cuda)
 from pde_tpu_torch.kernels.plain_mode import _FORCE_PLAIN, plain_solvers  # noqa: F401
 from pde_tpu_torch.kernels.plain_mode import is_plain as _plain
+from pde_tpu_torch.ops import robust as _robust
+from pde_tpu_torch.ops import weights as _weights
 from pde_tpu_torch.solvers import sor as _sor
 from pde_tpu_torch.solvers import tdma as _tdma
+from pde_tpu_torch.utils import observe
 
 
 # the tile kernel's family (tiled.LAYOUTS) of each solver family
@@ -242,3 +252,54 @@ def zebra_pass(facs, z, rhs, w_lo, w_hi, parity: int, vertical: bool, z_o=None, 
     if _plain(z):
         return _tdma.zebra_pass(facs, *args, vertical, z_o, m, w_diag)
     return tdma_cuda.zebra_pass(facs[parity], *args, z_o, m, w_diag)
+
+
+def _reweight_plain(x) -> bool:
+    plain = _plain(x)
+    observe.count("reweight.plain" if plain else "reweight.kernel")
+    return plain
+
+
+def robust_flow(t1, t2, u, v, du, dv, us_ap, vs_ap, as_diff, p, snd_is_gradmag: bool):
+    """The (M, Cu, Cv, Du, Dv) of one reweighting of the warping flows
+    (``ops/robust.py::robust_terms_flow``) from the terms' derivative
+    planes."""
+    if _reweight_plain(u):
+        return _robust.robust_terms_flow(t1, t2, u, v, du, dv, us_ap, vs_ap, as_diff, p,
+                                         snd_is_gradmag)
+    return reweight_cuda.robust_flow(t1, t2, u, v, du, dv, us_ap, vs_ap, as_diff, p.alpha,
+                                     p.b1, p.b2, p.gammaS, snd_is_gradmag)
+
+
+def robust_disp(d1, d2, u, du, us_ap, as_diff, p, snd_is_gradmag: bool):
+    """(Cu, Du) of one reweighting of the disparity
+    (``ops/robust.py::robust_terms_disp``)."""
+    if _reweight_plain(u):
+        return _robust.robust_terms_disp(d1, d2, u, du, us_ap, as_diff, p, snd_is_gradmag)
+    return reweight_cuda.robust_disp(d1, d2, u, du, us_ap, as_diff, p.alpha, p.b1, p.b2,
+                                     p.gammaS, snd_is_gradmag)
+
+
+def diffusion_weights_4(fields, eps: float = 1e-5, combine: str = "sum",
+                        zero_borders: bool = False, increments=None):
+    """``ops/weights.py::diffusion_weights_4`` of ``fields`` plus
+    ``increments``: each a (C, H, W) or (H, W) tensor or a sequence of
+    (H, W) planes, ``increments`` None or like ``fields``. On the card the
+    kernel adds the increments as it reads the fields (no sum or stack of
+    planes is made), for up to ``reweight_cuda.MAX_FIELDS`` channels."""
+    single = torch.is_tensor(fields)
+    first = fields if single else fields[0]
+    if _reweight_plain(first):
+        if increments is not None:
+            fields = fields + increments if single else [f + d for f, d in
+                                                         zip(fields, increments)]
+        if not torch.is_tensor(fields):
+            fields = torch.stack(list(fields))
+        return _weights.diffusion_weights_4(fields, eps, combine, zero_borders)
+
+    def planes(x):
+        return [x] if torch.is_tensor(x) and x.ndim == 2 else list(x)
+
+    return reweight_cuda.weights4(planes(fields),
+                                  None if increments is None else planes(increments),
+                                  eps, combine, zero_borders)

@@ -20,9 +20,8 @@ from __future__ import annotations
 import dataclasses
 
 from pde_tpu_torch.config import with_overrides
-from pde_tpu_torch.kernels.dispatch import thomas_solve
+from pde_tpu_torch.kernels.dispatch import diffusion_weights_4, thomas_solve
 from pde_tpu_torch.models._device import as_tensor, input_device
-from pde_tpu_torch.ops.weights import diffusion_weights_4
 
 
 @dataclasses.dataclass(frozen=True)

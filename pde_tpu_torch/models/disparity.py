@@ -10,7 +10,9 @@ diffusion weights come from the disparity field itself with zeroed
 borders.
 
 Runs eagerly on the card unless the caller asks for the CPU
-(``models/_device.py``). The solve is red-black SOR through
+(``models/_device.py``). The robust terms and the diffusion weights of a
+reweighting are one launch each of ``csrc/reweight.cu`` on the card
+(``kernels/dispatch.py``). The solve is red-black SOR through
 ``kernels/dispatch.py`` (``solver=1``, the interior-update CUDA kernel for
 CUDA tensors) or the line-implicit PCG of ``solvers/krylov.py``
 (``solver=2``, its line solves the CUDA tridiagonal kernel).
@@ -27,13 +29,12 @@ from pde_tpu_torch.config import with_overrides
 from pde_tpu_torch.core.median import medfilt2_3x3
 from pde_tpu_torch.core.pyramid import build_pyramid
 from pde_tpu_torch.core.resize import imresize
-from pde_tpu_torch.kernels.dispatch import sor_disp_llin4
+from pde_tpu_torch.kernels.dispatch import diffusion_weights_4, robust_disp, sor_disp_llin4
 from pde_tpu_torch.models._device import as_tensor, input_device
 from pde_tpu_torch.models._graph import replay
 from pde_tpu_torch.models.flow_nd import check_solver
 from pde_tpu_torch.ops.derivatives import fst_derivatives5, snd_derivatives5, rgb2grad
 from pde_tpu_torch.ops.warp import bilinear_warp, identity_grid, warp_x_window
-from pde_tpu_torch.ops.weights import diffusion_weights_4
 from pde_tpu_torch.solvers.krylov import pcg_disp_llin4
 from pde_tpu_torch.utils.observe import span
 
@@ -85,53 +86,28 @@ def _disp_first_iter(u, i1t0, i1t1, i2t0, i2t1, us_ap, as_diff,
                      p: DisparityParams, snd_is_gradmag: bool):
     """One warping (firstLoop) iteration: warp, derivative tensors, the
     robust-weight secondLoop fixed point, median."""
-    has_snd = i2t1 is not None
-    has_us = us_ap is not None
-
     with span("warp"):
         i1t1w = warp_x(i1t1, u, p.warp_window)
         i1dt, i1dx, _ = fst_derivatives5(i1t0, i1t1w)
-        cu1 = i1dt * i1dx
-        du1 = i1dx * i1dx
-        if has_snd:
+        d1 = dict(dt=i1dt, dx=i1dx)
+        d2 = None
+        if i2t1 is not None:
             i2t1w = warp_x(i2t1, u, p.warp_window)
             if snd_is_gradmag:
                 i2dxt, i2dyt, i2dxx, _, i2dxy = snd_derivatives5(i2t0, i2t1w)
-                cu2 = i2dxt * i2dxx + i2dyt * i2dxy
-                du2 = i2dxx * i2dxx + i2dxy * i2dxy
+                d2 = dict(dxt=i2dxt, dyt=i2dyt, dxx=i2dxx, dxy=i2dxy)
             else:
                 i2dt, i2dx, _ = fst_derivatives5(i2t0, i2t1w)
-                cu2 = i2dt * i2dx
-                du2 = i2dx * i2dx
+                d2 = dict(dt=i2dt, dx=i2dx)
 
         du_f = torch.zeros_like(u)
     for _second in range(p.secondLoop):
         with span("robust"):
-            op1 = (i1dt - i1dx * du_f) ** 2
-            gd1 = p.b1 / (p.alpha * torch.sqrt(op1 + 1e-5))
-            cu_parts = [cu1 * gd1]
-            du_parts = [du1 * gd1]
-            if has_snd:
-                if snd_is_gradmag:
-                    op2 = (i2dxt - i2dxx * du_f) ** 2 + (i2dyt - i2dxy * du_f) ** 2
-                else:
-                    op2 = (i2dt - i2dx * du_f) ** 2
-                gd2 = p.b2 / (p.alpha * torch.sqrt(op2 + 1e-5))
-                cu_parts.append(cu2 * gd2)
-                du_parts.append(du2 * gd2)
-            if has_us:
-                ap_norm = (us_ap - u - du_f) ** 2
-                gs = (p.gammaS / p.alpha) * torch.exp(-ap_norm / as_diff**2)
-                cu_parts.append(((us_ap - u) * gs)[None])
-                du_parts.append(gs[None])
-
-            # plain sum over channels: NaN propagates (reference :289-293)
-            cu_gd = sum(torch.sum(x, dim=0) for x in cu_parts)
-            du_gd = sum(torch.sum(x, dim=0) for x in du_parts)
+            cu_gd, du_gd = robust_disp(d1, d2, u, du_f, us_ap, as_diff, p, snd_is_gradmag)
 
         with span("weights"):
-            ww, wn, we, ws = diffusion_weights_4(u + du_f, eps=1e-5, combine="max",
-                                                 zero_borders=True)
+            ww, wn, we, ws = diffusion_weights_4(u, eps=1e-5, combine="max",
+                                                 zero_borders=True, increments=du_f)
         solve = pcg_disp_llin4 if p.solver == 2 else sor_disp_llin4
         with span("solve"):
             du_f = solve(u, du_f, cu_gd, du_gd, ww, wn, we, ws, p.iter, p.omega)

@@ -31,7 +31,7 @@ from pde_tpu_torch.core.conv import separable_filter
 from pde_tpu_torch.core.median import medfilt2_3x3
 from pde_tpu_torch.core.pyramid import build_pyramid
 from pde_tpu_torch.core.resize import imresize
-from pde_tpu_torch.kernels.dispatch import sor_disp_llin_sym4
+from pde_tpu_torch.kernels.dispatch import diffusion_weights_4, sor_disp_llin_sym4
 from pde_tpu_torch.models._device import as_tensor, input_device
 from pde_tpu_torch.models._graph import replay
 from pde_tpu_torch.models.disparity import warp_x
@@ -42,7 +42,6 @@ from pde_tpu_torch.ops.derivatives import (
     fst_derivatives5,
     snd_derivatives5,
 )
-from pde_tpu_torch.ops.weights import diffusion_weights_4
 from pde_tpu_torch.solvers.krylov import pcg_disp_llin4
 
 
@@ -132,8 +131,10 @@ def _sym_level(u0, u1, it0, it1, sr_diff, p: DisparitySymParams):
             cug1 = torch.sum(gd1 * cud1, dim=0) - gsym1 * cus1
             dug1 = torch.sum(gd1 * dud1, dim=0) + gsym1 * dus1
 
-            w0 = diffusion_weights_4(u0 + du0, eps=1e-5, combine="max", zero_borders=True)
-            w1 = diffusion_weights_4(u1 + du1, eps=1e-5, combine="max", zero_borders=True)
+            w0 = diffusion_weights_4(u0, eps=1e-5, combine="max", zero_borders=True,
+                                     increments=du0)
+            w1 = diffusion_weights_4(u1, eps=1e-5, combine="max", zero_borders=True,
+                                     increments=du1)
             if p.solver == 2:
                 pairs = ((u0, u1), (du0, du1), (cug0, cug1), (dug0, dug1), *zip(w0, w1))
                 du0, du1 = pcg_disp_llin4(*(torch.stack(pair) for pair in pairs),

@@ -26,10 +26,10 @@ import torch
 
 from pde_tpu_torch.config import with_overrides
 from pde_tpu_torch.core.median import medfilt2_3x3
-from pde_tpu_torch.kernels.dispatch import sor_flow_llin8
+from pde_tpu_torch.kernels.dispatch import robust_flow, sor_flow_llin8
 from pde_tpu_torch.models._graph import replay
-from pde_tpu_torch.models.flow_nd import (_coarse_to_fine, _fst_tensors, _robust_terms,
-                                          _snd_tensors, check_solver)
+from pde_tpu_torch.models.flow_nd import (_coarse_to_fine, _fst_tensors, _snd_tensors,
+                                          check_solver)
 from pde_tpu_torch.ops.warp import warp_by_flow
 from pde_tpu_torch.ops.weights import tensor_diffusion_weights_8
 from pde_tpu_torch.solvers.krylov import pcg_flow_llin8
@@ -85,7 +85,7 @@ def _ad_level(u, v, it0, i1t0, i1t1, i2t0, i2t1, us_ap, vs_ap, as_diff, p: FlowA
         dv = torch.zeros_like(v)
 
         for _second in range(p.secondLoop):
-            m_gd, cu_gd, cv_gd, du_gd, dv_gd = _robust_terms(
+            m_gd, cu_gd, cv_gd, du_gd, dv_gd = robust_flow(
                 t1, t2, u, v, du, dv, us_ap, vs_ap, as_diff, p, snd_is_gradmag)
             if not image_diff:
                 w8 = tensor_diffusion_weights_8(u + du + v + dv, quantile=p.quantile)

@@ -52,12 +52,11 @@ from pde_tpu_torch.core.conv import (
     separable_filter,
 )
 from pde_tpu_torch.core.resize import imresize
-from pde_tpu_torch.kernels.dispatch import sor_flow_elin4
+from pde_tpu_torch.kernels.dispatch import diffusion_weights_4, sor_flow_elin4
 from pde_tpu_torch.models._device import as_tensor, input_device
 from pde_tpu_torch.models._graph import replay
 from pde_tpu_torch.models.flow_nd import check_solver
 from pde_tpu_torch.ops.derivatives import FST_DERIVATOR5, SMOOTHER5, SND_DERIVATOR5
-from pde_tpu_torch.ops.weights import diffusion_weights_4
 from pde_tpu_torch.parallel.mesh import mesh_device
 from pde_tpu_torch.parallel.model import constrain_level
 from pde_tpu_torch.parallel.tiled import tiled_sor_flow_elin4
@@ -164,7 +163,7 @@ def _smooth(u, v, t, c, cu, cv, p: FlowFMGParams, want_residuals: bool, mesh=Non
         solve = partial(tiled_sor_flow_elin4, mesh)
     for _ in range(p.firstLoop):
         gd = _gd(t, u, v, p, nch)
-        ww, wn, we, ws = diffusion_weights_4(torch.stack([u, v]), eps=1e-5, combine="sum")
+        ww, wn, we, ws = diffusion_weights_4((u, v), eps=1e-5, combine="sum")
         u, v = solve(u, v, _reduce_c(c["m"] * gd), _reduce_c(cu * gd), _reduce_c(cv * gd),
                      _reduce_c(c["du"] * gd), _reduce_c(c["dv"] * gd), ww, wn, we, ws,
                      p.iter, p.omega)
@@ -173,7 +172,7 @@ def _smooth(u, v, t, c, cu, cv, p: FlowFMGParams, want_residuals: bool, mesh=Non
         return u, v
     # the residual pass: gd without the channels factor (:434)
     gd = _gd(t, u, v, p)
-    ww, wn, we, ws = diffusion_weights_4(torch.stack([u, v]), eps=1e-5, combine="sum")
+    ww, wn, we, ws = diffusion_weights_4((u, v), eps=1e-5, combine="sum")
     ru, rv = residuals_elin4(
         u, v, _reduce_c(c["m"] * gd), _reduce_c(cu * gd), _reduce_c(cv * gd),
         _reduce_c(c["du"] * gd), _reduce_c(c["dv"] * gd), ww, wn, we, ws,
@@ -202,8 +201,7 @@ def _fas_cycle(u, v, tensors, consts, cu, cv, lvl: int, n_levels: int, p: FlowFM
         # gd is (C, H, W): so is the coarse RHS, which the coarse level's
         # smoothing multiplies by its own per-channel gd and sums over C
         gd = _gd(tc, u_res, v_res, p)
-        ww, wn, we, ws = diffusion_weights_4(torch.stack([u_res, v_res]), eps=1e-5,
-                                             combine="sum")
+        ww, wn, we, ws = diffusion_weights_4((u_res, v_res), eps=1e-5, combine="sum")
         au, av = lhs_elin4(
             u_res, v_res, _reduce_c(cc["m"] * gd),
             _reduce_c(cc["du"] * gd), _reduce_c(cc["dv"] * gd), ww, wn, we, ws,

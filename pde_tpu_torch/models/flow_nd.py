@@ -15,7 +15,9 @@ Per pyramid level (factor 0.75, stop <= 20 px):
   upscale by 1/0.75 with the 'triangle' kernel, flow values scaled
 
 Runs eagerly on the card unless the caller asks for the CPU
-(``models/_device.py``). The inner solve is red-black SOR through
+(``models/_device.py``). The robust terms and the diffusion weights of a
+reweighting are one launch each of ``csrc/reweight.cu`` on the card
+(``kernels/dispatch.py``). The inner solve is red-black SOR through
 ``kernels/dispatch.py`` (``solver=1``, the CUDA llin4 kernel for CUDA
 tensors) or the line-implicit PCG of ``solvers/krylov.py`` (``solver=2``,
 its line solves the CUDA tridiagonal kernel).
@@ -34,8 +36,7 @@ from pde_tpu_torch.core.pyramid import build_pyramid
 from pde_tpu_torch.core.resize import imresize
 from pde_tpu_torch.ops.derivatives import fst_derivatives5, snd_derivatives5, rgb2grad
 from pde_tpu_torch.ops.warp import warp_by_flow, warp_window
-from pde_tpu_torch.ops.weights import diffusion_weights_4
-from pde_tpu_torch.kernels.dispatch import sor_flow_llin4
+from pde_tpu_torch.kernels.dispatch import diffusion_weights_4, robust_flow, sor_flow_llin4
 from pde_tpu_torch.models._device import as_tensor, input_device
 from pde_tpu_torch.models._graph import replay
 from pde_tpu_torch.parallel.mesh import mesh_device
@@ -76,23 +77,17 @@ def params_from_reference(obj) -> FlowNDParams:
 
 
 def _fst_tensors(i_t0, i_t1w):
+    """The first-order term's derivative planes ``dt, dx, dy``, from which
+    the robust terms form its tensors (``ops/robust.py``)."""
     idt, idx, idy = fst_derivatives5(i_t0, i_t1w)
-    return dict(
-        m=idy * idx, cu=idt * idx, cv=idt * idy, du=idx * idx, dv=idy * idy,
-        dt=idt, dx=idx, dy=idy,
-    )
+    return dict(dt=idt, dx=idx, dy=idy)
 
 
 def _snd_tensors(i_t0, i_t1w):
+    """The gradient-magnitude term's derivative planes ``dxt, dyt, dxx,
+    dyy, dxy``, as ``_fst_tensors``."""
     idxt, idyt, idxx, idyy, idxy = snd_derivatives5(i_t0, i_t1w)
-    return dict(
-        m=idxy * (idxx + idyy),
-        cu=idxt * idxx + idyt * idxy,
-        cv=idxt * idxy + idyt * idyy,
-        du=idxx * idxx + idxy * idxy,
-        dv=idxy * idxy + idyy * idyy,
-        dxt=idxt, dyt=idyt, dxx=idxx, dyy=idyy, dxy=idxy,
-    )
+    return dict(dxt=idxt, dyt=idyt, dxx=idxx, dyy=idyy, dxy=idxy)
 
 
 def check_solver(name: str, solver: int):
@@ -101,49 +96,6 @@ def check_solver(name: str, solver: int):
     if solver not in (1, 2):
         raise ValueError(f"{name} solver={solver}: the solvers are 1 (red-black SOR) "
                          "and 2 (line-implicit PCG)")
-
-
-def _robust_terms(t1, t2, u, v, du, dv, us_ap, vs_ap, as_diff, p, snd_is_gradmag: bool):
-    """The channel-summed (M, Cu, Cv, Du, Dv) of one reweighting of the
-    warping flows (flow_nd, flow_ad): each constancy term's tensors under
-    its robust weight gD = b/(alpha*sqrt(residual^2 + 1e-5)) at the
-    current increments, plus the spatial priors' terms. t2, us_ap and vs_ap
-    may be None."""
-    op1 = (t1["dt"] - t1["dx"] * du - t1["dy"] * dv) ** 2
-    gd1 = p.b1 / (p.alpha * torch.sqrt(op1 + 1e-5))
-    parts_m = [t1["m"] * gd1]
-    parts_cu = [t1["cu"] * gd1]
-    parts_cv = [t1["cv"] * gd1]
-    parts_du = [t1["du"] * gd1]
-    parts_dv = [t1["dv"] * gd1]
-    if t2 is not None:
-        if snd_is_gradmag:
-            op2 = (t2["dxt"] - t2["dxx"] * du - t2["dxy"] * dv) ** 2 + (
-                t2["dyt"] - t2["dxy"] * du - t2["dyy"] * dv
-            ) ** 2
-        else:
-            op2 = (t2["dt"] - t2["dx"] * du - t2["dy"] * dv) ** 2
-        gd2 = p.b2 / (p.alpha * torch.sqrt(op2 + 1e-5))
-        parts_m.append(t2["m"] * gd2)
-        parts_cu.append(t2["cu"] * gd2)
-        parts_cv.append(t2["cv"] * gd2)
-        parts_du.append(t2["du"] * gd2)
-        parts_dv.append(t2["dv"] * gd2)
-    if us_ap is not None:
-        ap_norm = (us_ap - u - du) ** 2
-        gsu = p.gammaS / (p.alpha * (1.0 + ap_norm / as_diff**2))
-        parts_cu.append(((us_ap - u) * gsu)[None])
-        parts_du.append(gsu[None])
-    if vs_ap is not None:
-        ap_norm = (vs_ap - v - dv) ** 2
-        gsv = p.gammaS / (p.alpha * (1.0 + ap_norm / as_diff**2))
-        parts_cv.append(((vs_ap - v) * gsv)[None])
-        parts_dv.append(gsv[None])
-
-    def nsum(parts):
-        return sum(torch.nansum(x, dim=0) for x in parts)
-
-    return tuple(nsum(parts) for parts in (parts_m, parts_cu, parts_cv, parts_du, parts_dv))
 
 
 def _nd_level(u, v, it0, i1t0, i1t1, i2t0, i2t1, us_ap, vs_ap, as_diff, p: FlowNDParams,
@@ -169,12 +121,11 @@ def _nd_level(u, v, it0, i1t0, i1t1, i2t0, i2t1, us_ap, vs_ap, as_diff, p: FlowN
 
         for _second in range(p.secondLoop):
             with span("robust"):
-                m_gd, cu_gd, cv_gd, du_gd, dv_gd = _robust_terms(
+                m_gd, cu_gd, cv_gd, du_gd, dv_gd = robust_flow(
                     t1, t2, u, v, du, dv, us_ap, vs_ap, as_diff, p, snd_is_gradmag)
             with span("weights"):
-                ww, wn, we, ws = diffusion_weights_4(
-                    torch.stack([u + du, v + dv]), eps=1e-5, combine="sum"
-                )
+                ww, wn, we, ws = diffusion_weights_4((u, v), eps=1e-5, combine="sum",
+                                                     increments=(du, dv))
             solve = pcg_flow_llin4 if p.solver == 2 else sor
             with span("solve"):
                 du, dv = solve(u, v, du, dv, m_gd, cu_gd, cv_gd, du_gd, dv_gd,

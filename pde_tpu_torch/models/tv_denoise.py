@@ -32,11 +32,11 @@ import torch
 from pde_tpu_torch.config import with_overrides
 from pde_tpu_torch.core.conv import gaussian_kernel_2d, imfilter_replicate
 from pde_tpu_torch.core.resize import imresize, imresize_scale
-from pde_tpu_torch.kernels.dispatch import sor_pde4, sor_pde8
+from pde_tpu_torch.kernels.dispatch import diffusion_weights_4, sor_pde4, sor_pde8
 from pde_tpu_torch.models._device import as_tensor, input_device
 from pde_tpu_torch.models._graph import replay
 from pde_tpu_torch.models.flow_nd import check_solver
-from pde_tpu_torch.ops.weights import diffusion_weights_4, tensor_diffusion_weights_8
+from pde_tpu_torch.ops.weights import tensor_diffusion_weights_8
 from pde_tpu_torch.solvers.krylov import pcg_pde4, pcg_pde8
 
 _EPS_D = float(np.finfo(np.float64).eps)  # MATLAB `eps`, added to a float32 square

@@ -27,9 +27,12 @@ stages ``pyramid``, ``warp``, ``robust``, ``weights``, ``solve``, ``median``
 ``kernels.build`` and ``kernels.load`` (``kernels/build.py``).
 
 **Counters and the record**, always on: a captured signature's replays,
-captures, node count, inputs and outputs, warm-up and capture seconds and
-label table; ``kernels.built`` (``nvcc`` runs) and ``kernels.loaded``
-(libraries loaded); the host-clock seconds and the calls of each
+captures, node count, inputs and outputs, warm-up and capture seconds,
+label table and the counters its capture added; ``kernels.built``
+(``nvcc`` runs) and ``kernels.loaded`` (libraries loaded);
+``reweight.kernel`` and ``reweight.plain`` (``kernels/dispatch.py``: a
+reweighting's robust terms or diffusion weights run by ``csrc/reweight.cu``
+or by the plain version); the host-clock seconds and the calls of each
 ``timed`` span: ``kernels.build``, ``kernels.load``, ``frame.warmup`` and
 ``frame.capture``, once a library or a signature, and ``frame.load``,
 ``frame.launch`` and ``frame.clone``, once a request. ``record()``
@@ -161,6 +164,7 @@ class GraphRecord:
     warmup_s: float = 0.0  # the eager warm-up runs before each capture
     capture_s: float = 0.0  # the captures, instantiation included
     labels: list | None = None  # label_table of the last capture
+    counters: dict = dataclasses.field(default_factory=dict)  # what the last capture counted
 
 
 def graph(key, describe: Callable[[object], str]) -> GraphRecord:
@@ -209,17 +213,21 @@ def capture(rec: GraphRecord, mark: Callable[[], object],
     """Label the nodes the body enqueues: inside, every span notes
     ``mark()``, where the capture stands; at the end ``resolve(marks)``
     turns the marks into node counts (the last, at the end, the graph's
-    node count) and ``rec`` takes the count and the label table. A mark
-    that resolves to -1 (a graph that is no chain) leaves ``rec`` without
-    either."""
+    node count) and ``rec`` takes the count and the label table, and the
+    counters the body added (``count``: what the captured frame runs). A
+    mark that resolves to -1 (a graph that is no chain) leaves ``rec``
+    without the count and the table."""
     global _capturing
     if _capturing is not None:
         raise RuntimeError("a capture is labelled already")
     table = _capturing = LabelTable(mark)
+    before = dict(_COUNTS)
     try:
         yield
     finally:
         _capturing = None
+    rec.counters = {k: n - before.get(k, 0) for k, n in _COUNTS.items()
+                    if n != before.get(k, 0)}
     marks = [m for _, _, s, e in table.spans for m in (s, e)] + [mark()]
     counts = resolve(marks)
     if min(counts) < 0:
