@@ -175,19 +175,29 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
     replay (the warm-up and the capture) and the memory it leaves reserved
     (the graph's pool). Each graph is released after its check.
 22. The reweighting kernels (``csrc/reweight.cu``) at the benchmark
-    cells' finest levels (flow 436x1024: the robust terms of the
-    grad/gradmag terms, the weights of (U + dU, V + dV); stereo 375x1242:
-    the disparity's robust terms, the zero-bordered max weights of U + dU),
-    with NaN where a warp leaves the image: bit for bit against the plain
-    version on the card; each timed with CUDA events in turns with the
-    plain chain and by ``torch.profiler``, beside its byte bound; then
-    the cells' replayed frames (3x436x1024 flow, 3x375x1242 stereo),
-    whose capture must count 384 and 720 reweighting kernels and no plain
-    reweighting, whose first call must launch 192 robust_flow and 192
-    weights4 (flow), 360 robust_disp and 360 weights4 (stereo) kernels in
-    the warm-up and as many in the capture, and whose replays launch none,
-    with their node counts and busy time. The report's ``kernels`` list
-    takes the three kernels with phase 22's readings.
+    cells' finest levels (flow 436x1024 and 1080x1920: the robust terms of
+    the grad/gradmag terms, the weights of (U + dU, V + dV); stereo
+    375x1242: the disparity's robust terms, the zero-bordered max weights
+    of U + dU), with NaN where a warp leaves the image: bit for bit against
+    the plain version on the card; each timed with CUDA events in turns
+    with the plain chain and by ``torch.profiler``, beside its byte bound;
+    then the cells' replayed frames (3x436x1024 and 3x1080x1920 flow,
+    3x375x1242 stereo), whose capture must count 384, 512 and 720
+    reweighting kernels and no plain reweighting, and its SOR calls by
+    route (``sor.<route>.<family>.<H>x<W>``): 192, 208 and 360 resident,
+    and full HD's 16 tiled calls at each of 1080x1920, 810x1440 and
+    608x1080; whose first call, every kernel count reset just before it,
+    must launch 192 robust_flow, 192 weights4 and 192 resident llin4 (Sintel),
+    256, 256, 208 and 48 tile-kernel launches (full HD), 360 robust_disp,
+    360 weights4 and 360 resident disp (stereo) kernels in the warm-up and
+    as many in the capture, and nothing else; whose replays launch none;
+    with their node counts and busy time. The full-HD frame equals its
+    eager frame bit for bit and keeps the cell's limits
+    (``bench_gpu/configs/flow_nd_fullhd.json``) against the all-plain
+    frame; the tile kernel at its three tiled level shapes, through the
+    frame's route, with and without NaN data, stays within SOR_TOL of the
+    plain solve and equals the global kernel bit for bit. The report's
+    ``kernels`` list takes the three kernels with phase 22's readings.
     ``--reweight-only`` runs phases 1, 2 and 22 alone.
 
 Every phase from 4 on sets every kernel's launch count to 0 just before it
@@ -758,10 +768,16 @@ def timed(fn):
 
 # phase 22: the benchmark cells' frames and finest levels, the terms they
 # run (grad and gradmag: 6 and 3 channels of a 3-channel image), their
-# robust kernel and the frame's reweightings (flow 12 levels x 4 warps x 4,
-# stereo 15 x 4 x 6), each one robust and one weights4 launch
-REWEIGHT_CELLS = {"flow_nd.sintel": ((3, 436, 1024), "robust_flow", 192),
-                  "disparity_nd.kitti": ((3, 375, 1242), "robust_disp", 360)}
+# robust kernel, the frame's reweightings (flow 12 levels x 4 warps x 4, full
+# HD 16 x 4 x 4, stereo 15 x 4 x 6), each one robust and one weights4 launch,
+# and the level shapes whose SOR calls take the tile kernel (full HD's three
+# finest, ``dispatch.sor_route``); every other SOR call is resident
+REWEIGHT_CELLS = {"flow_nd.sintel": ((3, 436, 1024), "robust_flow", 192, ()),
+                  "disparity_nd.kitti": ((3, 375, 1242), "robust_disp", 360, ()),
+                  "flow_nd.fullhd": ((3, 1080, 1920), "robust_flow", 256,
+                                     ((1080, 1920), (810, 1440), (608, 1080)))}
+# SOR calls a level: firstLoop x secondLoop (flow 4 x 4, stereo 4 x 6)
+CELL_LEVEL_CALLS = {"robust_flow": 16, "robust_disp": 24}
 # float32 planes each reweighting kernel reads and writes a pixel at those
 # terms (each read once, each written once): flow's robust terms dt, dx, dy
 # x 6, dxt, dyt, dxx, dyy, dxy x 3, dU, dV in, 5 out; the disparity's dt, dx
@@ -769,34 +785,41 @@ REWEIGHT_CELLS = {"flow_nd.sintel": ((3, 436, 1024), "robust_flow", 192),
 # U, dU (stereo) in, 4 out
 REWEIGHT_PLANES = {"robust_flow": 35 + 5, "robust_disp": 25 + 2, "weights4_flow": 4 + 4,
                    "weights4_disp": 2 + 4}
+# the limits of the comparison that decides a full-HD run's `correct`
+FULLHD_CONFIG = HERE / "bench_gpu" / "configs" / "flow_nd_fullhd.json"
 
 
 def reweight_phase(seed: int) -> dict:
     """Phase 22 (module docstring); returns its readings by case and cell."""
-    from pde_tpu_torch.kernels import dispatch, reweight_cuda
+    from pde_tpu_torch.kernels import (dispatch, interior_cuda, resident_cuda, reweight_cuda,
+                                       sor_cuda, tiled_cuda)
     from pde_tpu_torch.kernels.plain_mode import plain_solvers
     from pde_tpu_torch.models import _graph
     from pde_tpu_torch.models.disparity import DisparityParams, disparity_nd_fused
-    from pde_tpu_torch.models.flow_nd import FlowNDParams, flow_nd_fused
+    from pde_tpu_torch.models.flow_nd import FlowNDParams, flow_nd, flow_nd_fused
     from pde_tpu_torch.utils import observe
 
     phase("22 reweighting kernels: robust terms and diffusion weights at the cells' finest levels")
     rng = np.random.default_rng(seed + 22)
+    # the full-HD cases draw from a generator of their own, so that the
+    # others keep their inputs
+    rng24 = np.random.default_rng(seed + 24)
     dev = card_device()
 
-    def planes(keys, c, hw):
+    def planes(keys, c, hw, gen=rng):
         out = {}
         for k in keys:
-            x = rng.standard_normal((c, *hw)).astype(np.float32)
+            x = gen.standard_normal((c, *hw)).astype(np.float32)
             x[0, : hw[0] // 6, : hw[1] // 8] = np.nan  # where a warp leaves the image
             out[k] = torch.from_numpy(x).to(dev)
         return out
 
-    def field(hw, scale):
-        return torch.from_numpy((rng.standard_normal(hw) * scale).astype(np.float32)).to(dev)
+    def field(hw, scale, gen=rng):
+        return torch.from_numpy((gen.standard_normal(hw) * scale).astype(np.float32)).to(dev)
 
     fh, fw = REWEIGHT_CELLS["flow_nd.sintel"][0][1:]
     dh, dw = REWEIGHT_CELLS["disparity_nd.kitti"][0][1:]
+    hh, hw = REWEIGHT_CELLS["flow_nd.fullhd"][0][1:]
     fp, dp = FlowNDParams(), DisparityParams()
     t1 = planes(("dt", "dx", "dy"), 6, (fh, fw))
     t2 = planes(("dxt", "dyt", "dxx", "dyy", "dxy"), 3, (fh, fw))
@@ -804,6 +827,9 @@ def reweight_phase(seed: int) -> dict:
     d1 = planes(("dt", "dx"), 6, (dh, dw))
     d2 = planes(("dxt", "dyt", "dxx", "dxy"), 3, (dh, dw))
     ud, dud = field((dh, dw), 4.0), field((dh, dw), 0.3)
+    h1 = planes(("dt", "dx", "dy"), 6, (hh, hw), rng24)
+    h2 = planes(("dxt", "dyt", "dxx", "dyy", "dxy"), 3, (hh, hw), rng24)
+    hu, hv, hdu, hdv = (field((hh, hw), s, rng24) for s in (2.0, 2.0, 0.3, 0.3))
     cases = {
         "robust_flow": ((fh, fw), lambda: dispatch.robust_flow(t1, t2, u, v, du, dv, None, None,
                                                                1.0, fp, True)),
@@ -813,6 +839,10 @@ def reweight_phase(seed: int) -> dict:
             (u, v), 1e-5, "sum", increments=(du, dv))),
         "weights4_disp": ((dh, dw), lambda: dispatch.diffusion_weights_4(
             ud, 1e-5, "max", True, increments=dud)),
+        "robust_flow_fullhd": ((hh, hw), lambda: dispatch.robust_flow(
+            h1, h2, hu, hv, hdu, hdv, None, None, 1.0, fp, True)),
+        "weights4_flow_fullhd": ((hh, hw), lambda: dispatch.diffusion_weights_4(
+            (hu, hv), 1e-5, "sum", increments=(hdu, hdv))),
     }
     rows = {}
     for name, ((h, w), run) in cases.items():
@@ -829,7 +859,7 @@ def reweight_phase(seed: int) -> dict:
         k_ms, p_ms, turns = in_turns(run, plain, reps=50, plain_reps=10)
         busy_ms, n_ops, own_ms, _ = device_profile(run, calls=10)
         p_busy, p_ops, _, _ = device_profile(plain, calls=3)
-        bytes_px = 4 * REWEIGHT_PLANES[name]
+        bytes_px = 4 * REWEIGHT_PLANES[name.removesuffix("_fullhd")]
         bound_ms = bytes_px * h * w / HBM_BYTES_PER_S * 1e3
         rows[name] = {"shape": [h, w], "max_abs_err": diff, "events_ms": k_ms,
                       "device_ms": own_ms,
@@ -844,27 +874,50 @@ def reweight_phase(seed: int) -> dict:
               f"device in {p_ops:.0f} ops; bound {bound_ms:.4f} ms ({bytes_px} B/px), {share}",
               flush=True)
 
-    for cell, (shape, robust, calls) in REWEIGHT_CELLS.items():
-        fused = flow_nd_fused if cell.startswith("flow") else disparity_nd_fused
-        a = (rng.random(shape) * 255).astype(np.float32)
+    every_launch = (reweight_cuda.LAUNCHES, tiled_cuda.LAUNCHES, resident_cuda.LAUNCHES,
+                    sor_cuda.LAUNCHES, interior_cuda.LAUNCHES)
+
+    def launches():
+        return {k: n for counts in every_launch for k, n in counts.items() if n}
+
+    for cell, (shape, robust, calls, tiled_shapes) in REWEIGHT_CELLS.items():
+        flow = cell.startswith("flow")
+        fused = flow_nd_fused if flow else disparity_nd_fused
+        family, short = ("flow_llin4", "llin4") if flow else ("disp_llin4", "disp")
+        a = ((rng24 if tiled_shapes else rng).random(shape) * 255).astype(np.float32)
         b = np.roll(a, (1, 2), axis=(-2, -1))
         _graph.release_graphs()
         observe.reset()
-        for k in reweight_cuda.LAUNCHES:
-            reweight_cuda.LAUNCHES[k] = 0
-        _, cold_s = timed(lambda: fused(a, b))
+        for counts in every_launch:
+            for k in counts:
+                counts[k] = 0
+        got, cold_s = timed(lambda: fused(a, b))
         (rec,) = observe.record()["graphs"]
-        if rec["counters"] != {"reweight.kernel": 2 * calls}:
+        reweights = {k: n for k, n in rec["counters"].items() if k.startswith("reweight.")}
+        if reweights != {"reweight.kernel": 2 * calls}:
             fail(f"{cell}: the capture counted {rec['counters']}, expected "
                  f"{{'reweight.kernel': {2 * calls}}}")
+        routes = {k: n for k, n in rec["counters"].items() if k.startswith("sor.")}
+        n_tiled = CELL_LEVEL_CALLS[robust] * len(tiled_shapes)
+        tiled_want = {f"sor.tiled.{short}.{h}x{w}": CELL_LEVEL_CALLS[robust]
+                      for h, w in tiled_shapes}
+        resident = sum(n for k, n in routes.items() if k.startswith(f"sor.resident.{short}."))
+        if ({k: n for k, n in routes.items() if k.startswith("sor.tiled.")} != tiled_want
+                or resident != calls - n_tiled or sum(routes.values()) != calls):
+            fail(f"{cell}: the capture counted the SOR routes {routes}, expected {tiled_want} "
+                 f"and {calls - n_tiled} resident calls")
         # the first call runs the frame eagerly (the warm-up), then captures it
-        launched = {k: n for k, n in reweight_cuda.LAUNCHES.items() if n}
-        if launched != {robust: 2 * calls, "weights4": 2 * calls}:
-            fail(f"{cell}: the first call launched {launched}, expected {calls} {robust} and "
-                 f"{calls} weights4 launches in the warm-up and as many in the capture")
+        launched = launches()
+        want = {robust: 2 * calls, "weights4": 2 * calls,
+                f"resident_{family}": 2 * (calls - n_tiled)}
+        if n_tiled:
+            want[f"tiled_{family}"] = 2 * n_tiled
+        if launched != want:
+            fail(f"{cell}: the first call launched {launched}, expected {want}: the warm-up's "
+                 f"and as many in the capture")
         warm = [timed(lambda: fused(a, b))[1] for _ in range(5)]
-        if any(reweight_cuda.LAUNCHES[k] != n for k, n in launched.items()):
-            fail(f"{cell}: a replay launched {reweight_cuda.LAUNCHES}")
+        if launches() != launched:
+            fail(f"{cell}: a replay launched {launches()}")
         busy_ms, n_ops, own_ms, _ = device_profile(lambda: fused(a, b), calls=3)
         rows[cell] = {"nodes": rec["nodes"], "counters": rec["counters"], "launches": launched,
                       "cold_s": cold_s, "warm_s": warm, "busy_ms": busy_ms, "device_ops": n_ops,
@@ -874,7 +927,53 @@ def reweight_phase(seed: int) -> dict:
               f"nodes; first call {cold_s:.3f} s, warm {min(warm) * 1e3:.2f} ms "
               f"({', '.join(f'{x * 1e3:.2f}' for x in warm)}); device busy {busy_ms:.3f} ms in "
               f"{n_ops:.0f} operations, the port's kernels {own_ms:.3f} ms", flush=True)
+        if not tiled_shapes:
+            _graph.release_graphs()
+            continue
+        # the replayed frame is the eager frame's bits (the same kernels), and
+        # keeps the cell's limits against the all-plain frame: the llin4
+        # kernels leave products and sums to nvcc's fma contraction
+        if not bit_equal(got, flow_nd(a, b)):
+            fail(f"{cell}: the replayed frame is not the eager frame's bits")
+        with plain_solvers():
+            plain = flow_nd(a, b)
+        d = torch.cat([(g - p).abs().reshape(-1).double() for g, p in zip(got, plain)])
+        gaps = {"gap_mean_px": float(d.mean()), "gap_p99_px": float(torch.quantile(d, 0.99)),
+                "gap_max_px": float(d.max())}
+        limits = json.loads(FULLHD_CONFIG.read_text())["checks"]
+        rows[cell]["plain_gaps"] = gaps
+        if any(gaps[k] > limits[k] for k in limits):
+            fail(f"{cell}: the replayed frame against the all-plain frame {gaps}, over the "
+                 f"cell's limits {limits}")
+        print(f"  {cell}: replayed == eager bit for bit; against the all-plain frame {gaps} "
+              f"(the cell's limits {limits})", flush=True)
         _graph.release_graphs()
+
+    # the tile kernel at full HD's tiled level shapes, through the route the
+    # frame takes (one launch of k = 4 sweeps): within SOR_TOL of the plain
+    # solve and bit for bit against the global kernel (the same arithmetic)
+    for h, w in REWEIGHT_CELLS["flow_nd.fullhd"][3]:
+        for nan in (False, True):
+            fields = sor_fields(rng24, h, w, nan, dev)
+            before = tiled_cuda.LAUNCHES["tiled_flow_llin4"]
+            got = dispatch.sor_flow_llin4(*fields, 4, 1.9)
+            torch.cuda.synchronize()
+            if tiled_cuda.LAUNCHES["tiled_flow_llin4"] != before + 1:
+                fail(f"llin4 {h}x{w}: not one launch of the tile kernel")
+            with plain_solvers():
+                want = dispatch.sor_flow_llin4(*fields, 4, 1.9)
+            if not all(torch.equal(torch.isfinite(g), torch.isfinite(p))
+                       for g, p in zip(got, want)):
+                fail(f"tiled llin4 {h}x{w} nan={nan}: non-finite at other pixels than the plain's")
+            err = max(float(torch.where(torch.isfinite(p), g - p, 0.0).abs().max())
+                      for g, p in zip(got, want))
+            if err > SOR_TOL:
+                fail(f"tiled llin4 {h}x{w} nan={nan} disagrees with plain: {err} > {SOR_TOL}")
+            if not bit_equal(got, sor_cuda.flow_llin4_sor(*fields, 4, 1.9)):
+                fail(f"tiled llin4 {h}x{w} nan={nan}: not the global kernel's bits")
+            rows[f"tiled_flow_llin4 {h}x{w} nan={nan}"] = {"max_abs_err": err}
+            print(f"  tile kernel llin4 {h}x{w} nan={nan}: max_abs_err {err:.3g} against the "
+                  f"plain solve; == global kernel bit for bit", flush=True)
     print("reweight " + json.dumps(rows), flush=True)
     return rows
 

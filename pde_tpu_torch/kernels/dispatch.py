@@ -22,6 +22,13 @@ as ``pde_tpu`` chooses between its resident and tiled kernels
 - else the global kernels (``sor_cuda``, ``interior_cuda``), one launch a
   colour.
 
+Each such call adds 1 to the counter ``sor.<route>.<family>.<H>x<W>``
+(``utils/observe.py``): ``route`` is ``resident``, ``tiled`` or
+``global``, ``family`` the solver family (a symmetric pair counts once,
+under ``disp``) and (H, W) the call's. The count is taken in Python where
+the route is decided, so a captured frame's ``counters`` hold each level's
+route and a replay counts nothing; the plain path counts nothing.
+
 The reweighting step of the warping models takes the same rule: the
 robust data terms (``robust_flow``, ``robust_disp``) and the diffusion
 weights of every caller (``diffusion_weights_4``) run one launch each of
@@ -82,10 +89,18 @@ def sor_route(family: str, h: int, w: int, batch: int = 1, iters: int = 4,
     return "global", None
 
 
-def _route(x, family: str, batch: int, iters: int):
-    """``sor_route`` of systems shaped like ``x`` (..., H, W) on its card."""
-    return sor_route(family, *x.shape[-2:], batch, iters,
-                     resident_cuda.sm_count(x.device.index or 0))
+def _route(x, family: str, batch: int | None, iters: int):
+    """``sor_route`` of systems shaped like ``x`` (..., H, W) on its card, or
+    the global kernels' where ``batch`` is None (a layout no other kernel
+    takes); counted as ``sor.<route>.<family>.<H>x<W>``."""
+    h, w = x.shape[-2:]
+    if batch is None:
+        route, plan = "global", None
+    else:
+        route, plan = sor_route(family, h, w, batch, iters,
+                                resident_cuda.sm_count(x.device.index or 0))
+    observe.count(f"sor.{route}.{family}.{h}x{w}")
+    return route, plan
 
 
 def _tiled(family: str, fields, iters: int, omega: float, plan):
@@ -98,7 +113,7 @@ def sor_flow_llin4(u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws,
     args = (u, v, du, dv, m, cu, cv, duc, dvc, ww, wn, we, ws, iters, omega)
     if _plain(u):
         return _sor.sor_flow_llin4(*args)
-    route, plan = _route(u, "llin4", 1, iters) if u.ndim == 2 else ("global", None)
+    route, plan = _route(u, "llin4", 1 if u.ndim == 2 else None, iters)
     if route == "resident":
         return resident_cuda.flow_llin4_sor(*args, plan=plan)
     if route == "tiled":
@@ -111,7 +126,7 @@ def sor_flow_elin4(u, v, m, cu, cv, duc, dvc, ww, wn, we, ws, iters: int, omega:
     args = (u, v, m, cu, cv, duc, dvc, ww, wn, we, ws, iters, omega)
     if _plain(u):
         return _sor.sor_flow_elin4(*args)
-    route, plan = _route(u, "elin4", 1, iters) if u.ndim == 2 else ("global", None)
+    route, plan = _route(u, "elin4", 1 if u.ndim == 2 else None, iters)
     if route == "resident":
         return resident_cuda.flow_elin4_sor(*args, plan=plan)
     if route == "tiled":
@@ -125,7 +140,7 @@ def sor_flow_llin8(u, v, du, dv, m, cu, cv, duc, dvc,
             iters, omega)
     if _plain(u):
         return _sor.sor_flow_llin8(*args)
-    route, plan = _route(u, "llin8", 1, iters) if u.ndim == 2 else ("global", None)
+    route, plan = _route(u, "llin8", 1 if u.ndim == 2 else None, iters)
     if route == "resident":
         return resident_cuda.flow_llin8_sor(*args, plan=plan)
     if route == "tiled":
@@ -138,8 +153,8 @@ def sor_disp_llin4(u, du, cu, duc, ww, wn, we, ws, iters: int, omega: float):
     args = (u, du, cu, duc, ww, wn, we, ws, iters, omega)
     if _plain(u):
         return _sor.sor_disp_llin4(*args)
-    route, plan = (_route(u, "disp", u.shape[0] if u.ndim == 3 else 1, iters)
-                   if u.ndim in (2, 3) else ("global", None))
+    batch = 1 if u.ndim == 2 else u.shape[0] if u.ndim == 3 else None
+    route, plan = _route(u, "disp", batch, iters)
     if route == "resident":
         return resident_cuda.disp_llin4_sor(*args, plan=plan)
     if route == "tiled":
@@ -156,7 +171,7 @@ def sor_disp_llin_sym4(u0, du0, cu0, duc0, ww0, wn0, we0, ws0,
     if _plain(u0):
         return _sor.sor_disp_llin_sym4(u0, du0, cu0, duc0, ww0, wn0, we0, ws0,
                                        u1, du1, cu1, duc1, ww1, wn1, we1, ws1, iters, omega)
-    route, plan = _route(u0, "disp", 2, iters) if u0.ndim == 2 else ("global", None)
+    route, plan = _route(u0, "disp", 2 if u0.ndim == 2 else None, iters)
     if route == "resident":
         return resident_cuda.disp_llin4_pair((u0, du0, cu0, duc0, ww0, wn0, we0, ws0),
                                              (u1, du1, cu1, duc1, ww1, wn1, we1, ws1),
@@ -181,7 +196,7 @@ def sor_pde4(x, trace, b, ww, wn, we, ws, iters: int, omega: float):
     if _plain(x):
         return _sor.sor_pde4(*args)
     channels = resident_cuda.diag_channels("pde4", x, trace, b, (ww, wn, we, ws))
-    route, plan = _route(x, "pde4", channels, iters) if channels else ("global", None)
+    route, plan = _route(x, "pde4", channels or None, iters)
     if route == "resident":
         return resident_cuda.pde4_sor(*args, plan=plan)
     if route == "tiled":
@@ -196,7 +211,7 @@ def sor_pde8(x, trace, b, ww, wnw, wn, wne, we, wse, ws, wsw, iters: int, omega:
         return _sor.sor_pde8(*args)
     channels = resident_cuda.diag_channels("pde8", x, trace, b,
                                            (ww, wnw, wn, wne, we, wse, ws, wsw))
-    route, plan = _route(x, "pde8", channels, iters) if channels else ("global", None)
+    route, plan = _route(x, "pde8", channels or None, iters)
     if route == "resident":
         return resident_cuda.pde8_sor(*args, plan=plan)
     if route == "tiled":

@@ -32,7 +32,9 @@ label table and the counters its capture added; ``kernels.built``
 (``nvcc`` runs) and ``kernels.loaded`` (libraries loaded);
 ``reweight.kernel`` and ``reweight.plain`` (``kernels/dispatch.py``: a
 reweighting's robust terms or diffusion weights run by ``csrc/reweight.cu``
-or by the plain version); the host-clock seconds and the calls of each
+or by the plain version); ``sor.<route>.<family>.<H>x<W>``
+(``kernels/dispatch.py``: an SOR call on the card, the kernel its shape
+was routed to); the host-clock seconds and the calls of each
 ``timed`` span: ``kernels.build``, ``kernels.load``, ``frame.warmup`` and
 ``frame.capture``, once a library or a signature, and ``frame.load``,
 ``frame.launch`` and ``frame.clone``, once a request. ``record()``

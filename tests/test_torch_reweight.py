@@ -449,7 +449,8 @@ def test_the_replayed_cell_frame_is_the_eager_frame(card, gen, monkeypatch, cell
     got = fused(a, b)
     got = got if isinstance(got, tuple) else (got,)
     (rec,) = observe.record()["graphs"]
-    assert rec["counters"] == counted
+    # the SOR calls' route counters are tests/test_torch_routes.py's
+    assert {k: n for k, n in rec["counters"].items() if k.startswith("reweight.")} == counted
     with plain_solvers():
         plain = eager(a, b)
     plain = plain if isinstance(plain, tuple) else (plain,)
